@@ -1,0 +1,108 @@
+"""Build the port's CUDA kernels and load them with ctypes.
+
+`nvcc` compiles every ``frankenz_tpu_torch/csrc/*.cu`` into one shared
+library with a plain C interface,
+``<checkout>/build/frankenz_tpu_torch/libfz_kernels.so``, at first use
+(a few seconds: no PyTorch headers are involved).  The library is
+rebuilt when any source is newer than it.  Nothing here runs at import
+time: the CPU test suite imports every module on machines without
+`nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["nvcc_path", "library_path", "build", "load"]
+
+_PKG = Path(__file__).resolve().parent.parent
+_SRC_DIR = _PKG / "csrc"
+_BUILD_DIR = _PKG.parent / "build" / "frankenz_tpu_torch"
+_LIB_NAME = "libfz_kernels.so"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lib = None
+
+
+def nvcc_path():
+    """Path of `nvcc` (PATH first, then /usr/local/cuda), or None."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    return str(default) if default.exists() else None
+
+
+def library_path():
+    return _BUILD_DIR / _LIB_NAME
+
+
+def _sources():
+    return sorted(_SRC_DIR.glob("*.cu"))
+
+
+def _stale(lib):
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(p.stat().st_mtime > built
+               for p in _sources() + sorted(_SRC_DIR.glob("*.cuh")))
+
+
+def build(force=False):
+    """Compile the kernels if needed; returns the seconds spent (0.0
+    when the library was already current)."""
+    lib = library_path()
+    if not force and not _stale(lib):
+        return 0.0
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels cannot be built")
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # Compile to a temporary name and rename: a concurrent loader never
+    # sees a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc, *_NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(
+                " ".join(cmd), proc.stdout, proc.stderr))
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return time.perf_counter() - t0
+
+
+def _bind(lib):
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fz_chi2_brackets_smem.argtypes = [I]
+    lib.fz_chi2_brackets_smem.restype = I
+    lib.fz_chi2_stack_smem.argtypes = [I]
+    lib.fz_chi2_stack_smem.restype = I
+    lib.fz_chi2_brackets.argtypes = [P, P, P, P, P, P, I, I, I, F, I, P]
+    lib.fz_chi2_brackets.restype = I
+    lib.fz_chi2_stack.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, F, I,
+                                  F, I, I, P]
+    lib.fz_chi2_stack.restype = I
+    return lib
+
+
+def load():
+    """The loaded kernel library (built first if needed)."""
+    global _lib
+    if _lib is None:
+        build()
+        _lib = _bind(ctypes.CDLL(str(library_path())))
+    return _lib

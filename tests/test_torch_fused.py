@@ -1,0 +1,117 @@
+"""Port parity: `frankenz_tpu_torch.ops.fused_fit_pdf` and its kernels.
+
+The port's full-mask route (the two kernels' plain versions on the CPU,
+glued as `_fused_call_fullmask_dimprior` glues the Pallas pair) is held
+against the JAX route it replaces, `fused_fit_pdf(screen=False,
+band_skip=False)` in interpret mode, and against JAX's default screened
+route.  Tolerances are tests/test_fused.py:114-119's: lmap / levid rtol
+2e-5, atol 2e-5 (float32 roundoff of the bracket -> lnl glue, and the
+weight sum taken in another order); PDFs rtol 2e-3, atol 2e-5 (the same
+weights stacked in another order; a weight sitting exactly on the
+threshold may flip).
+"""
+
+import numpy as np
+import pytest
+
+from frankenz_tpu.ops.fused import fused_fit_pdf as jax_fused_fit_pdf
+
+from _torch_port import fullmask_problem, run_both
+from frankenz_tpu_torch.ops import fused as TF
+
+GOF_TOL = dict(rtol=2e-5, atol=2e-5)
+PDF_TOL = dict(rtol=2e-3, atol=2e-5)
+
+
+def _jax(*args, **kw):
+    return jax_fused_fit_pdf(*args, tb=8, tm=128, interpret=True, **kw)
+
+
+def _assert_fused_close(want, got):
+    pdf_w, lmap_w, levid_w = want
+    pdf_g, lmap_g, levid_g = got
+    assert pdf_g.shape == pdf_w.shape and pdf_g.dtype == np.float32
+    np.testing.assert_allclose(lmap_g, lmap_w, **GOF_TOL)
+    np.testing.assert_allclose(levid_g, levid_w, **GOF_TOL)
+    np.testing.assert_allclose(pdf_g, pdf_w, **PDF_TOL)
+
+
+@pytest.mark.parametrize("ignore_model_err", [False, True])
+@pytest.mark.parametrize("wt_thresh", [1e-3, None])
+@pytest.mark.parametrize("nfilt", [2, 5, 8, 20])
+def test_fused_matches_jax_two_pass(nfilt, wt_thresh, ignore_model_err):
+    """F=2 is a1 = 0 (no power), F=5/8 the sqrt chain, F=20 the log form;
+    B=19, M=251, Ngrid=77 are ragged against every tile; row 0 is an
+    all-clamped outlier, whose PDF is the fused route's uniform mixture
+    on both sides."""
+    prob = fullmask_problem(nfilt)
+    kw = dict(wt_thresh=wt_thresh, ignore_model_err=ignore_model_err)
+    want, got = run_both(_jax, TF.fused_fit_pdf, *prob, **kw,
+                         jax_kw=dict(screen=False, band_skip=False))
+    _assert_fused_close(want, got)
+    assert np.isfinite(got[0]).all()
+
+
+@pytest.mark.parametrize("wt_thresh", [1e-3, None])
+def test_fused_matches_jax_screened_default(wt_thresh):
+    """JAX's default full-mask route is the screened trio, within f32
+    reassociation of the two-pass pair; the port matches it too."""
+    prob = fullmask_problem(5, outlier_row=False)
+    want, got = run_both(_jax, TF.fused_fit_pdf, *prob, wt_thresh=wt_thresh)
+    _assert_fused_close(want, got)
+
+
+def test_all_clamped_rows_keep_gof_parity():
+    """tests/test_fused.py::test_fullmask_all_clamped_outliers_keep_gof_
+    parity, through the port: every chi^2 is past the clamp, lmap and
+    levid still match JAX at float32 and the PDF is finite."""
+    rng = np.random.default_rng(1)
+    B, M, F, Ng = 8, 3, 3, 33
+    m = rng.uniform(1, 2, (M, F)).astype(np.float32)
+    d = np.full((B, F), 1e6, np.float32)
+    de = np.full((B, F), 1.0, np.float32)
+    G = np.abs(rng.normal(size=(M, Ng))).astype(np.float32)
+    G /= G.sum(1, keepdims=True)
+    args = (d, de, np.ones_like(d), m, np.zeros_like(m), np.ones_like(m), G)
+    want, got = run_both(_jax, TF.fused_fit_pdf, *args, full_mask=True,
+                         ignore_model_err=True,
+                         jax_kw=dict(screen=False, band_skip=False))
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-7)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-7)
+    np.testing.assert_allclose(got[0], want[0], **PDF_TOL)
+    assert np.isfinite(got[0]).all()
+
+
+def test_route_decisions():
+    """(e) The routing rule, decided without launching anything."""
+    route = TF.fused_route
+    assert route("cuda", full_mask=True) == "kernels"
+    assert route("cuda", full_mask=True, wt_thresh=None) == "kernels"
+    assert route("cpu", full_mask=True) == "kernels"
+    assert route("cpu", full_mask=False) == "plain"
+    assert route("cpu", full_mask=True, free_scale=True) == "plain"
+    cases = [(dict(full_mask=False), "K3"),
+             (dict(full_mask=True, dim_prior=False), "K3"),
+             (dict(full_mask=False, wt_thresh=None), "K4"),
+             (dict(full_mask=True, wt_thresh=None, cdf_thresh=2e-4), "K5"),
+             (dict(full_mask=True, free_scale=True), "K6")]
+    for kw, kernel in cases:
+        with pytest.raises(NotImplementedError, match=kernel):
+            route("cuda", **kw)
+
+
+def test_cpu_masked_and_free_scale_configurations():
+    """Off the full-mask route the CPU runs the plain composition (and
+    free scale, not ported, raises K6)."""
+    from frankenz_tpu_torch.ops import likelihood as TL
+
+    prob = list(fullmask_problem(5, outlier_row=False))
+    prob[2] = prob[2].copy()
+    prob[2][:, 1] = 0.0
+    want, got = run_both(_jax, TF.fused_fit_pdf, *prob,
+                         jax_kw=dict(screen=False, band_skip=False))
+    _assert_fused_close(want, got)
+    with pytest.raises(NotImplementedError, match="K6"):
+        TF.fused_fit_pdf(*prob, free_scale=True)
+    with pytest.raises(NotImplementedError, match="K6"):
+        TL.logprob(*prob[:6], free_scale=True)
