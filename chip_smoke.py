@@ -9,17 +9,30 @@ port, numpy and scipy, and:
 
 1. prints the card (`nvidia-smi` name and power limit) and versions;
 2. builds the CUDA kernels from ``frankenz_tpu_torch/csrc`` (timed);
-3. holds each kernel against its plain PyTorch version on the card, at
-   the config-4 widths (F=5, 100,000 models, a 301-point PDFDict grid,
-   2,048 objects) and three edge shapes (ragged M=99,937 with B=1,000;
-   F=20, the log-form weight; an all-clamped outlier row), with times of
-   both (CUDA events, median of 5);
+3. holds each full-mask kernel against its plain PyTorch version on the
+   card, at the config-4 widths (F=5, 100,000 models, a 301-point
+   PDFDict grid, 2,048 objects) and three edge shapes (ragged M=99,937
+   with B=1,000; F=20, the log-form weight; an all-clamped outlier row),
+   with times of both (CUDA events, median of 5);
 4. drives `BruteForce.fit_predict` over 131,072 objects (two 65,536-object
    batches x 100,000 models x 301 grid points) with the launch counters
    reset just before, checks the output, checks 1,024 rows against the
    plain composition on the card, and checks `fit_summarize` against
    `pdfs_summarize(fit_predict(...))` under the same uniforms;
-5. prints one JSON line of kernel results, the card line again, and last
+5. masked photometry (each data band missing with probability 0.15,
+   from ``default_rng(2)``: about 10 of the 131,072 rows lose every
+   band): holds the four general kernels against their plain versions
+   at B=2,048 on six cases (masked dim prior; model masks too; the
+   Normal likelihood on full masks; ragged M=99,937 with B=1,000; rows
+   with Ndim 0, 1 and 2; duplicate models, whose lnl ties), then drives
+   masked `fit_predict` over the 131,072 objects (the general route:
+   `lnl_reduce` + `lnl_stack`, and not the full-mask pair), `fit_summarize`,
+   the cdf mode over one 65,536-object batch (`lnl_reduce` + `lnl_topk` +
+   `lnl_cut_stack`, no batch rerun), and a flat-posterior batch whose cut
+   is undetermined at cdf_thresh 0.999999 and 0.5 (it must rerun, find
+   the cut by bisection with `lnl_reduce_split`, and agree with the
+   plain composition);
+6. prints one JSON line of kernel results, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Matmul precision: TF32 is switched off and float32 matmul precision set
@@ -56,6 +69,16 @@ TOL_BRACKET = 2e-7
 TOL_SUM = 1e-5
 TOL_PDF_ROW = 1e-5
 FLIP = 1.002
+# General kernels: lmap and the top-T values are lnl values themselves
+# (the kernels and the plain versions round every operation in the same
+# order): bit-equal or 1 ulp.  levid: the same weights summed in another
+# order; levid's absolute error is the weight sum's relative error, so
+# it is held to 1e-5 of max(1, |levid|).  PDFs as above; the flip
+# envelope moves the lnl cut by log(FLIP) (wt_thresh) or by one ulp (the
+# cdf cut), and the end-to-end cdf check moves cdf_thresh by FLIP.
+TOL_ULP = 1.0
+P_MISSING = 0.15
+CDF_THRESH = 2e-4
 
 
 def fail(msg):
@@ -116,6 +139,178 @@ def pdf_rows_close(torch, got, want, lo, hi, tol):
     return float(err.max()), inside
 
 
+def ulp_err(torch, got, want):
+    """(max abs, max distance in float32 ulps of `want`) over entries
+    finite in `want`; infinities must sit in the same places."""
+    max_abs, _ = rel_err(torch, got, want)
+    fin = torch.isfinite(want)
+    w = want[fin].abs()
+    spacing = torch.nextafter(w, torch.full_like(w, torch.inf)) - w
+    if w.numel() == 0:
+        return max_abs, 0.0
+    return max_abs, float(((got[fin] - want[fin]).abs() / spacing).max())
+
+
+def levid_err(torch, got, want):
+    """(max abs, max |got - want| / (1 + |want|)) over finite entries;
+    infinities must sit in the same places."""
+    max_abs, _ = rel_err(torch, got, want)
+    fin = torch.isfinite(want)
+    if not bool(fin.any()):
+        return max_abs, 0.0
+    return max_abs, float(((got[fin] - want[fin]).abs()
+                           / (1.0 + want[fin].abs())).max())
+
+
+def general_cases(np, rng, data, models, dmask):
+    """The six kernel-vs-plain cases of the general kernels: (name, data
+    rows, data mask, models, model mask, flags)."""
+    f32 = np.float32
+    ones_m = np.ones_like(models)
+    mmask = (rng.uniform(size=models.shape) > 0.1).astype(f32)
+    mmask[:, :2] = 1.0  # as tests/test_fused.py:35-41
+    edge = dmask[:64].copy()
+    edge[0] = 0.0                   # Ndim 0: a degenerate row
+    edge[1] = [1, 0, 0, 0, 0]       # Ndim 1
+    edge[2] = [1, 1, 0, 0, 0]       # Ndim 2: a1 = 0
+    dup = models.copy()
+    dup[NMODEL // 2:] = dup[:NMODEL // 2]
+    masked = dict(full_mask=False)
+    return [
+        ("masked_dimprior", data[:N_KERNEL], dmask[:N_KERNEL], models,
+         ones_m, masked),
+        ("masked_model_masks", data[:N_KERNEL], dmask[:N_KERNEL], models,
+         mmask, masked),
+        ("normal_fullmask", data[:N_KERNEL], np.ones_like(dmask[:N_KERNEL]),
+         models, ones_m, dict(full_mask=True, dim_prior=False)),
+        ("ragged_M99937_B1000", data[:1_000], dmask[:1_000],
+         models[:99_937], ones_m[:99_937], masked),
+        ("edge_ndim_rows", data[:64], edge, models, ones_m, masked),
+        ("duplicate_models", data[:N_KERNEL], dmask[:N_KERNEL], dup, ones_m,
+         masked),
+    ]
+
+
+def general_kernel_case(torch, np, GK, TF, tens, card, G, case):
+    """Hold the four general kernels against their plain versions on one
+    case; returns {kernel: result}."""
+    name, d_np, dm_np, m_np, mm_np, flags = case
+    Gc = G[:m_np.shape[0]].contiguous()
+    args = [tens(x) for x in (d_np, np.full(d_np.shape, 0.25, np.float32),
+                              dm_np, m_np.T, (0.05 * m_np).T, mm_np.T)]
+    log_thr = float(np.log(WT_THRESH))
+    out = {}
+
+    def run(kernel, plain):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        return got, want, median_ms(torch, kernel), median_ms(torch, plain)
+
+    got, want, ms, pms = run(lambda: GK.lnl_reduce(*args, **flags),
+                             lambda: GK.lnl_reduce_plain(*args, **flags))
+    a0, u0 = ulp_err(torch, got[0], want[0])
+    a1, r1 = levid_err(torch, got[1], want[1])
+    check(u0 <= TOL_ULP, f"{name}: lnl_reduce lmap {u0} ulp from plain")
+    check(r1 <= TOL_SUM, f"{name}: lnl_reduce levid err {r1}")
+    out["lnl_reduce"] = dict(max_abs_err=max(a0, a1), lmap_ulp=u0,
+                             levid_err=r1, ms=ms, plain_ms=pms)
+    lmap, levid = want
+
+    # The bisection's pass, split at 3 below lmap (a degenerate row's
+    # lmap - 3 rounds back to the floor).
+    split = lmap - 3.0
+    got, want, ms, pms = run(
+        lambda: GK.lnl_reduce_split(*args, split, **flags),
+        lambda: GK.lnl_reduce_split_plain(*args, split, **flags))
+    errs = [levid_err(torch, g, w) for g, w in zip(got[:2], want[:2])]
+    r1 = max(e[1] for e in errs)
+    check(r1 <= TOL_SUM, f"{name}: lnl_reduce_split sides err {r1}")
+    check(torch.equal(got[2], want[2]), f"{name}: lnl_reduce_split counts")
+    out["lnl_reduce_split"] = dict(max_abs_err=max(e[0] for e in errs),
+                                   sides_err=r1, ms=ms, plain_ms=pms)
+
+    got, want, ms, pms = run(
+        lambda: GK.lnl_topk(*args, T=8, **flags),
+        lambda: GK.lnl_topk_plain(*args, T=8, **flags))
+    a0, u0 = ulp_err(torch, got[0], want[0])
+    check(u0 <= TOL_ULP, f"{name}: lnl_topk values {u0} ulp from plain")
+    check(torch.equal(got[1], want[1]), f"{name}: lnl_topk tie counts")
+    out["lnl_topk"] = dict(max_abs_err=a0, vals_ulp=u0,
+                           max_ties=float(want[1][:, 0].max()), ms=ms,
+                           plain_ms=pms)
+    if name == "duplicate_models":
+        check(float(want[1].max()) >= 2.0, "duplicate models did not tie")
+    cut, tie, nkeep, _ = TF.cdf_cut(*want, levid, CDF_THRESH)
+
+    def stack(fn, thr):
+        return fn(*args, Gc, lmap, levid, log_thr=thr, **flags)
+
+    def cut_stack(fn, c):
+        return fn(*args, Gc, c, levid, tie, nkeep, **flags)
+
+    inf = torch.full_like(cut, torch.inf)
+    for kname, kernel, plain, lo, hi in (
+            ("lnl_stack", lambda: stack(GK.lnl_stack, log_thr),
+             lambda: stack(GK.lnl_stack_plain, log_thr),
+             lambda: stack(GK.lnl_stack_plain, log_thr + np.log(FLIP)),
+             lambda: stack(GK.lnl_stack_plain, log_thr - np.log(FLIP))),
+            ("lnl_cut_stack", lambda: cut_stack(GK.lnl_cut_stack, cut),
+             lambda: cut_stack(GK.lnl_cut_stack_plain, cut),
+             lambda: cut_stack(GK.lnl_cut_stack_plain,
+                               torch.nextafter(cut, -inf)),
+             lambda: cut_stack(GK.lnl_cut_stack_plain,
+                               torch.nextafter(cut, inf)))):
+        got, want, ms, pms = run(kernel, plain)
+        p_row, ok = pdf_rows_close(torch, got, want, lo(), hi(), TOL_PDF_ROW)
+        check(ok, f"{name}: {kname} PDFs differ beyond the threshold-flip "
+                  f"envelope (row-normwise {p_row})")
+        out[kname] = dict(max_abs_err=float((got - want).abs().max()),
+                          max_rel_err=p_row, ms=ms, plain_ms=pms)
+    print(f"kernel_vs_plain {name}: B={d_np.shape[0]} M={m_np.shape[0]} "
+          f"F={d_np.shape[1]} {flags} | " + " | ".join(
+              f"{k} abs {v['max_abs_err']:.3g} {v['ms']:.3f} ms (plain "
+              f"{v['plain_ms']:.3f} ms)" for k, v in out.items())
+          + f" | lmap {out['lnl_reduce']['lmap_ulp']:.3g} ulp, levid err "
+          f"{out['lnl_reduce']['levid_err']:.3g}, top-T "
+          f"{out['lnl_topk']['vals_ulp']:.3g} ulp | card {card}", flush=True)
+    del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_vs_plain(np, bf, got, sub, fp_kw, what, cdf=False):
+    """`got` = (pdfs, (lmap, levid)) on the rows of `sub` against the
+    plain composition on the card: GOF within 2e-5, PDFs within rtol
+    2e-3 / atol 2e-5 or inside the flip envelope (the threshold moved by
+    FLIP either way).  Returns the count of PDF cells outside rtol."""
+    plain = bf.fit_predict(*sub, use_fused=False, **fp_kw)
+    for k, nm in ((0, "lmap"), (1, "levid")):
+        a, b = got[1][k], plain[1][k]
+        check(np.array_equal(np.isfinite(a), np.isfinite(b))
+              and np.array_equal(a[~np.isfinite(b)], b[~np.isfinite(b)]),
+              f"{what}: non-finite {nm} differ from the plain composition")
+        fin = np.isfinite(b)
+        err = float(np.max(np.abs(a[fin] - b[fin])
+                           / (2e-5 + 2e-5 * np.abs(b[fin]))))
+        check(err <= 1.0, f"{what}: {nm} differs from the plain "
+                          f"composition ({err} x tol)")
+    close = np.isclose(got[0], plain[0], rtol=2e-3, atol=2e-5)
+    if not close.all():
+        key = "cdf_thresh" if cdf else "wt_thresh"
+        thr = fp_kw.get(key, WT_THRESH)
+        kw = {k: v for k, v in fp_kw.items() if k != key}
+        lo = bf.fit_predict(*sub, use_fused=False, **{key: thr * FLIP},
+                            **kw)[0]
+        hi = bf.fit_predict(*sub, use_fused=False, **{key: thr / FLIP},
+                            **kw)[0]
+        tol = 2e-5 + 2e-3 * np.abs(plain[0])
+        inside = ((got[0] >= np.minimum(lo, hi) - tol)
+                  & (got[0] <= np.maximum(lo, hi) + tol))
+        check(inside.all(), f"{what}: PDFs differ from the plain "
+                            "composition beyond the threshold-flip envelope")
+    return int((~close).sum())
+
+
 def main():
     import numpy as np
     import torch
@@ -130,8 +325,10 @@ def main():
         fail(f"frankenz_tpu_torch is not beside this script: {exc}")
     check(Path(ft.__file__).resolve().parent.parent == HERE,
           "frankenz_tpu_torch was imported from outside this checkout")
+    from frankenz_tpu_torch import kernels as KS
     from frankenz_tpu_torch.kernels import build as kbuild
     from frankenz_tpu_torch.kernels import fullmask as FM
+    from frankenz_tpu_torch.kernels import general as GK
     from frankenz_tpu_torch.models import BruteForce
     from frankenz_tpu_torch.ops import fused as TF
     from frankenz_tpu_torch.ops import kde as TK
@@ -251,14 +448,14 @@ def main():
     bf.fit_predict(data[:4_096], data_err[:4_096], ones_d[:4_096], zlabels,
                    zerrs, **fp_kw)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
-    FM.reset_launch_counts()
+    KS.reset_launch_counts()
     t0 = time.perf_counter()
     pdfs, (lmap, levid) = bf.fit_predict(data, data_err, ones_d, zlabels,
                                          zerrs, **fp_kw)
     wall = time.perf_counter() - t0
-    launches = FM.launch_counts()
-    for kname, n in launches.items():
-        check(n > 0, f"{kname} was not launched by fit_predict")
+    launches = KS.launch_counts()
+    for kname in ("chi2_brackets", "chi2_stack"):
+        check(launches[kname] > 0, f"{kname} was not launched by fit_predict")
     check(pdfs.shape == (N_E2E, NGRID), f"pdf shape {pdfs.shape}")
     check(np.isfinite(pdfs).all() and np.isfinite(lmap).all()
           and np.isfinite(levid).all(), "non-finite fit_predict output")
@@ -331,21 +528,191 @@ def main():
         reps=3)
     print(f"kernel_at_batch {BATCH}x{NMODEL}: chi2_brackets {ms_a:.3f} ms, "
           f"chi2_stack {ms_b:.3f} ms | card {card}", flush=True)
-
-    # 5. results
-    replaces = {"chi2_brackets": "frankenz_tpu/ops/fused.py:918",
-                "chi2_stack": "frankenz_tpu/ops/fused.py:980"}
     ms_batch = {"chi2_brackets": ms_a, "chi2_stack": ms_b}
+
+    del d_b, de_b, mT, meT, below, above, shift_b
+    torch.cuda.empty_cache()
+
+    # 5. masked photometry: the general kernels
+    dmask = (np.random.default_rng(2).uniform(size=(N_E2E, NFILT))
+             >= P_MISSING).astype(f32)
+    n_dead = int((dmask.sum(axis=1) == 0).sum())
+    for kname in ("lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_topk",
+                  "lnl_cut_stack"):
+        results[kname] = {}
+    for case in general_cases(np, np.random.default_rng(3), data, models,
+                              dmask):
+        per = general_kernel_case(torch, np, GK, TF, tens, card, G, case)
+        for kname, r in per.items():
+            results[kname][case[0]] = r
+
+    sub = (data[:N_SUBSET], data_err[:N_SUBSET], dmask[:N_SUBSET], zlabels,
+           zerrs)
+    bf.fit_predict(data[:4_096], data_err[:4_096], dmask[:4_096], zlabels,
+                   zerrs, **fp_kw)  # warm-up of the general route
+    torch.cuda.synchronize()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    pdfs_m, gof_m = bf.fit_predict(data, data_err, dmask, zlabels, zerrs,
+                                   **fp_kw)
+    wall_m = time.perf_counter() - t0
+    launches_m = KS.launch_counts()
+    check(launches_m["lnl_reduce"] > 0 and launches_m["lnl_stack"] > 0,
+          f"masked fit_predict did not launch the general kernels "
+          f"({launches_m})")
+    check(launches_m["chi2_brackets"] == launches_m["chi2_stack"] == 0,
+          f"masked fit_predict launched the full-mask pair ({launches_m})")
+    dead = ~np.isfinite(gof_m[0])
+    check(int(dead.sum()) == n_dead and n_dead > 0
+          and np.all(pdfs_m[dead] == 0.0)
+          and np.all(gof_m[1][dead] == -np.inf),
+          f"degenerate rows: {int(dead.sum())} with -inf lmap, "
+          f"{n_dead} all-masked")
+    check(np.isfinite(pdfs_m).all() and np.isfinite(gof_m[1][~dead]).all(),
+          "non-finite masked fit_predict output")
+    rows = pdfs_m[~dead].sum(axis=1)
+    check(np.all(np.abs(rows - 1.0) <= 1e-4), "PDF rows do not sum to 1")
+    off_m = check_vs_plain(np, bf, (pdfs_m[:N_SUBSET],
+                                    (gof_m[0][:N_SUBSET],
+                                     gof_m[1][:N_SUBSET])),
+                           sub, fp_kw, "masked fit_predict")
+    print(f"end_to_end masked fit_predict: {N_E2E} objects x {NMODEL} "
+          f"models x {NGRID} grid, batch {BATCH}, {n_dead} all-masked rows: "
+          f"wall {wall_m:.4f} s, {N_E2E * NMODEL / wall_m:.6g} pair-evals/s, "
+          f"launches {launches_m}, subset {N_SUBSET} vs plain: {off_m} PDF "
+          f"cells outside rtol 2e-3 | card {card}", flush=True)
+
+    t0 = time.perf_counter()
+    summ_m, gof_sm = bf.fit_summarize(data, data_err, dmask, zlabels, zerrs,
+                                      label_dict=pdict, verbose=False)
+    wall_sm = time.perf_counter() - t0
+    cols = np.stack([np.asarray(c) for est in summ_m[:4] for c in est]
+                    + [np.asarray(c) for c in summ_m[4:]], axis=1)
+    want = TS.pdfs_summarize(torch.tensor(pdfs_m, device=dev), grid, u=u)
+    want_cols = TS._pack_summary(want).cpu().numpy()
+    check(np.isclose(cols, want_cols, rtol=2e-5, atol=2e-6,
+                     equal_nan=True).all(),
+          "masked fit_summarize differs from pdfs_summarize(fit_predict)")
+    check(np.array_equal(gof_sm[0], gof_m[0]), "fit_summarize lmap differs")
+    print(f"end_to_end masked fit_summarize: wall {wall_sm:.4f} s, "
+          f"{N_E2E * NMODEL / wall_sm:.6g} pair-evals/s, 21 columns match "
+          f"pdfs_summarize(fit_predict) | card {card}", flush=True)
+    del pdfs_m, summ_m, cols, want, want_cols
+
+    cdf_kw = dict(fp_kw, wt_thresh=None, cdf_thresh=CDF_THRESH)
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    pdfs_c, gof_c = bf.fit_predict(data[:BATCH], data_err[:BATCH],
+                                   dmask[:BATCH], zlabels, zerrs, **cdf_kw)
+    wall_c = time.perf_counter() - t0
+    launches_c = KS.launch_counts()
+    for kname in ("lnl_reduce", "lnl_topk", "lnl_cut_stack"):
+        check(launches_c[kname] > 0, f"cdf fit_predict did not launch "
+                                     f"{kname} ({launches_c})")
+    check(launches_c["lnl_stack"] == launches_c["lnl_reduce_split"] == 0,
+          f"cdf fit_predict launched lnl_stack or the bisection "
+          f"({launches_c})")
+    check(bf.cdf_reruns == 0, f"{bf.cdf_reruns} cdf batches reran")
+    off_c = check_vs_plain(np, bf, (pdfs_c[:N_SUBSET],
+                                    (gof_c[0][:N_SUBSET],
+                                     gof_c[1][:N_SUBSET])),
+                           sub, cdf_kw, "cdf fit_predict", cdf=True)
+    print(f"end_to_end cdf fit_predict: {BATCH} objects x {NMODEL} models, "
+          f"cdf_thresh {CDF_THRESH}: wall {wall_c:.4f} s, launches "
+          f"{launches_c}, reruns {bf.cdf_reruns}, subset {N_SUBSET} vs "
+          f"plain: {off_c} PDF cells outside rtol 2e-3 | card {card}",
+          flush=True)
+    del pdfs_c
+
+    # The rerun path: a flat posterior (data errors 1e3, 0.37 off model 0
+    # in every band, so no chi^2 is exactly 0) leaves the cut undetermined;
+    # the kernel flags it, and BruteForce reruns the batch with the cut
+    # found by bisection (34 `lnl_reduce_split` passes).
+    flat = (np.tile(models[:1] + f32(0.37), (256, 1)),
+            np.full((256, NFILT), 1e3, f32), np.ones((256, NFILT), f32))
+    flag = TF.fused_fit_pdf(
+        *(tens(x) for x in flat), bf.models, bf.models_err, bf.models_mask,
+        G, wt_thresh=None, cdf_thresh=0.999999, cdf_topk=2,
+        defer_cdf_check=True)[3]
+    check(not bool(flag), "flat posterior (cdf_topk=2) was not flagged")
+    launches_r = {}
+    for thr in (0.999999, 0.5):
+        flat_kw = dict(fp_kw, wt_thresh=None, cdf_thresh=thr)
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        got_f = bf.fit_predict(*flat, zlabels, zerrs, **flat_kw)
+        wall_f = time.perf_counter() - t0
+        launches_r = KS.launch_counts()
+        check(bf.cdf_reruns == 1, f"flat posterior, cdf_thresh {thr}: "
+                                  f"{bf.cdf_reruns} reruns")
+        for kname in ("lnl_reduce", "lnl_topk", "lnl_reduce_split",
+                      "lnl_cut_stack"):
+            check(launches_r[kname] > 0, f"flat posterior rerun did not "
+                                         f"launch {kname} ({launches_r})")
+        off_f = check_vs_plain(np, bf, got_f, (*flat, zlabels, zerrs),
+                               flat_kw, f"flat-posterior rerun {thr}",
+                               cdf=True)
+        kept = int((got_f[0].sum(axis=1) > 0).sum())
+        print(f"rerun: flat posterior, cdf_thresh {thr}: flagged, 1 batch "
+              f"rerun, wall {wall_f:.4f} s, launches {launches_r}, "
+              f"{kept} of 256 rows keep weight, {off_f} PDF cells outside "
+              f"rtol 2e-3 of the plain composition | card {card}",
+              flush=True)
+
+    # general kernel times at the main path's batch (masked)
+    args_b = [tens(x) for x in (data[:BATCH], data_err[:BATCH],
+                                dmask[:BATCH], models.T, models_err.T,
+                                np.ones_like(models).T)]
+    lm_b, lv_b = GK.lnl_reduce(*args_b)
+    split_b = lm_b - 3.0
+    vals_b, cnts_b = GK.lnl_topk(*args_b, T=8)
+    cut_b, tie_b, nkeep_b, _ = TF.cdf_cut(vals_b, cnts_b, lv_b, CDF_THRESH)
+    log_thr = float(np.log(WT_THRESH))
+    for kname, fn in (
+            ("lnl_reduce", lambda: GK.lnl_reduce(*args_b)),
+            ("lnl_reduce_split", lambda: GK.lnl_reduce_split(*args_b,
+                                                             split_b)),
+            ("lnl_stack", lambda: GK.lnl_stack(*args_b, G, lm_b, lv_b,
+                                               log_thr=log_thr)),
+            ("lnl_topk", lambda: GK.lnl_topk(*args_b, T=8)),
+            ("lnl_cut_stack", lambda: GK.lnl_cut_stack(
+                *args_b, G, cut_b, lv_b, tie_b, nkeep_b))):
+        ms_batch[kname] = median_ms(torch, fn, reps=3)
+    print(f"kernel_at_batch {BATCH}x{NMODEL} masked: " + ", ".join(
+        f"{k} {ms_batch[k]:.3f} ms" for k in (
+            "lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_topk",
+            "lnl_cut_stack"))
+        + f" | card {card}", flush=True)
+
+    # 6. results
+    replaces = {"chi2_brackets": "frankenz_tpu/ops/fused.py:918",
+                "chi2_stack": "frankenz_tpu/ops/fused.py:980",
+                "lnl_reduce": "frankenz_tpu/ops/fused.py:599",
+                # No Pallas kernel: the JAX fitter's XLA-sort rerun.
+                "lnl_reduce_split": "frankenz_tpu/models/bruteforce.py:852",
+                "lnl_stack": "frankenz_tpu/ops/fused.py:634",
+                "lnl_topk": "frankenz_tpu/ops/fused.py:721",
+                "lnl_cut_stack": "frankenz_tpu/ops/fused.py:779"}
+    main_launches = {"chi2_brackets": launches["chi2_brackets"],
+                     "chi2_stack": launches["chi2_stack"],
+                     "lnl_reduce": launches_m["lnl_reduce"],
+                     "lnl_reduce_split": launches_r["lnl_reduce_split"],
+                     "lnl_stack": launches_m["lnl_stack"],
+                     "lnl_topk": launches_c["lnl_topk"],
+                     "lnl_cut_stack": launches_c["lnl_cut_stack"]}
     kernels = []
-    for kname in ("chi2_brackets", "chi2_stack"):
+    for kname in replaces:
         per = results[kname]
+        ref = per["config4" if kname.startswith("chi2") else
+                  "masked_dimprior"]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": "frankenz_tpu_torch/csrc/chi2_fullmask.cu",
-            "replaces": replaces[kname], "launches": launches[kname],
+            "source": ("frankenz_tpu_torch/csrc/chi2_fullmask.cu"
+                       if kname.startswith("chi2") else
+                       "frankenz_tpu_torch/csrc/lnl_general.cu"),
+            "replaces": replaces[kname], "launches": main_launches[kname],
             "max_abs_err": max(r["max_abs_err"] for r in per.values()),
-            "ms": per["config4"]["ms"],
-            "plain_ms": per["config4"]["plain_ms"],
+            "ms": ref["ms"], "plain_ms": ref["plain_ms"],
             "ms_batch_65536": ms_batch[kname],
             "cases": per})
     print(json.dumps({"kernels": kernels}), flush=True)

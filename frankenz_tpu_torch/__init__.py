@@ -21,3 +21,4 @@ from . import models  # noqa: F401
 from . import fitting  # noqa: F401
 from . import utils  # noqa: F401
 from .models import BruteForce  # noqa: F401
+from .ops.fused import FusedCdfFallback  # noqa: F401

@@ -69,7 +69,8 @@ def build(force=False):
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     # Compile to a temporary name and rename: a concurrent loader never
-    # sees a half-written library.
+    # sees a half-written library.  lnl_general.cu, with its many template
+    # instantiations, takes most of the time.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     try:
@@ -96,6 +97,23 @@ def _bind(lib):
     lib.fz_chi2_stack.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, F, I,
                                   F, I, I, P]
     lib.fz_chi2_stack.restype = I
+    for name, nargs in (("fz_lnl_reduce_smem", 1), ("fz_lnl_topk_smem", 2),
+                        ("fz_lnl_stack_smem", 1)):
+        getattr(lib, name).argtypes = [I] * nargs
+        getattr(lib, name).restype = I
+    # Pointers (7 inputs, then outputs / extra inputs), sizes, flags,
+    # nd_full, stream: see csrc/lnl_general.cu's extern "C" block.
+    lib.fz_lnl_reduce.argtypes = [P] * 9 + [I] * 6 + [F, P]
+    lib.fz_lnl_reduce.restype = I
+    lib.fz_lnl_reduce_split.argtypes = [P] * 11 + [I] * 6 + [F, P]
+    lib.fz_lnl_reduce_split.restype = I
+    lib.fz_lnl_topk.argtypes = [P] * 9 + [I] * 7 + [F, P]
+    lib.fz_lnl_topk.restype = I
+    lib.fz_lnl_stack.argtypes = ([P] * 11 + [I] * 4 + [F] + [I] * 3
+                                 + [F, I, P])
+    lib.fz_lnl_stack.restype = I
+    lib.fz_lnl_cut_stack.argtypes = [P] * 13 + [I] * 7 + [F, I, P]
+    lib.fz_lnl_cut_stack.restype = I
     return lib
 
 

@@ -7,8 +7,10 @@ Port of `frankenz_tpu.models.bruteforce` (reference
   lprob_func -> (B, M) log-posteriors -> lmap, levid (max, logsumexp)
              -> thresholded weights -> weights @ G -> (B, Ngrid) PDFs
 
-and, on the default configuration, through the two full-mask CUDA
-kernels (`ops.fused.fused_fit_pdf`), so the (B, M) grid is never built.
+and, on the default configuration, through the fused route's CUDA
+kernels (`ops.fused.fused_fit_pdf`: the full-mask pair, or the general
+lnl kernels on masked photometry, the Normal likelihood and the cdf
+mode), so the (B, M) grid is never built.
 `BruteForce` is a plain class holding the model set on one device; it
 has nothing to train, so it is not an `nn.Module`.
 
@@ -91,6 +93,9 @@ class BruteForce:
         self.fit_lnprob = None
         self.fit_Ndim = None
         self.fit_chi2 = None
+        # Batches of the last fused cdf-mode fit_predict whose cut was
+        # undetermined and ran again with the bisection cut.
+        self.cdf_reruns = 0
 
     # ------------------------------------------------------------------
     # internals
@@ -255,9 +260,13 @@ class BruteForce:
         (reference `bruteforce.py:374-631`), returning host NumPy arrays.
 
         ``use_fused=None`` (default) or True runs `ops.fused_fit_pdf` on
-        eligible configurations: on CUDA the full-mask kernels (other
-        configurations raise `NotImplementedError`), on the CPU their
-        plain versions.  ``use_fused=False`` runs the plain composition
+        eligible configurations: on CUDA its kernels (free scale, and
+        both thresholds None on masked data, raise
+        `NotImplementedError`), on the CPU their plain versions.  In the
+        cdf mode a batch whose cut is undetermined runs again, its cut
+        found by bisection on the same kernels (counted in
+        ``self.cdf_reruns``).
+        ``use_fused=False`` runs the plain composition
         (logprob, logsumexp, threshold, kde_stack) on the fitter's
         device.  `_post_setup` (internal, see `fit_summarize`) maps each
         normalized PDF batch on device before it is copied back.
@@ -304,50 +313,76 @@ class BruteForce:
             return pdfs, (lmap, levid)
         return pdfs
 
-    def _stream(self, ndata, batch_size, post_setup, step, verbose):
+    def _stream(self, ndata, batch_size, post, step, verbose):
         """Run `step(i0, n) -> (pdf, lmap, levid)` per batch, apply the
         post transform, and gather host arrays."""
-        post = (None if post_setup is None
-                else post_setup(ndata, batch_size)[0])
         parts = []
         for i0, n in progress_iter(_batch_slices(ndata, batch_size),
                                    total=ndata, label="Fitting object",
                                    sizes=True, verbose=verbose):
-            pdf_b, lmap_b, levid_b = step(i0, n)
-            pdf_b = _kde.norm_rows(pdf_b)
-            if post is not None:
-                pdf_b = post(pdf_b, i0)
-            parts.append(tuple(t.cpu().numpy()
-                               for t in (pdf_b, lmap_b, levid_b)))
+            parts.append(self._finish_batch(step(i0, n), post, i0))
         return tuple(np.concatenate([p[k] for p in parts]).astype(
             np.float32, copy=False) for k in range(3))
+
+    @staticmethod
+    def _finish_batch(out, post, i0):
+        """Normalize a batch's PDFs, apply `post`, copy to the host."""
+        pdf_b, lmap_b, levid_b = out
+        pdf_b = _kde.norm_rows(pdf_b)
+        if post is not None:
+            pdf_b = post(pdf_b, i0)
+        return tuple(t.cpu().numpy() for t in (pdf_b, lmap_b, levid_b))
 
     def _fit_predict_fused(self, data, data_err, data_mask, G, lprob_kwargs,
                            wt_thresh, cdf_thresh, batch_size, verbose,
                            post_setup=None):
         """Stream object batches through `ops.fused_fit_pdf`; the catalog
-        is uploaded once and sliced on the device."""
+        is uploaded once and sliced on the device.  In the cdf mode each
+        batch's validity flag is read with its results, and flagged
+        batches run again afterwards with ``cdf_exact=True``: their
+        undetermined cuts are found by bisection on the same kernels
+        (where the JAX fitter reruns them through the XLA sort,
+        frankenz_tpu/models/bruteforce.py:852-880)."""
+        ndata = data.shape[0]
         full_mask = self._full_mask and bool(np.all(data_mask == 1))
         d_all = self._tensor(data, torch.float32)
         de_all = self._tensor(data_err, torch.float32)
         dm_all = self._tensor(data_mask, torch.float32)
         G = G.to(torch.float32).contiguous()
+        cdf_thresh = cdf_thresh if wt_thresh is None else None
         kw = dict(dim_prior=lprob_kwargs.get("dim_prior", True),
                   ignore_model_err=lprob_kwargs.get("ignore_model_err",
                                                     False),
                   free_scale=lprob_kwargs.get("free_scale", False),
-                  wt_thresh=wt_thresh,
-                  cdf_thresh=cdf_thresh if wt_thresh is None else None,
-                  full_mask=full_mask)
+                  wt_thresh=wt_thresh, cdf_thresh=cdf_thresh,
+                  full_mask=full_mask, defer_cdf_check=True)
+        flagged = []
 
         def step(i0, n):
             sl = slice(i0, i0 + n)
-            return _fused.fused_fit_pdf(
+            pdf, lmap, levid, ok = _fused.fused_fit_pdf(
                 d_all[sl], de_all[sl], dm_all[sl], self.models,
                 self.models_err, self.models_mask, G, **kw)
+            flagged.append((i0, n, ok))
+            return pdf, lmap, levid
 
-        return self._stream(data.shape[0], batch_size, post_setup, step,
-                            verbose)
+        post = (None if post_setup is None
+                else post_setup(ndata, batch_size)[0])
+        pdfs, lmap, levid = self._stream(ndata, batch_size, post, step,
+                                         verbose)
+        self.cdf_reruns = 0
+        kw.update(defer_cdf_check=False, cdf_exact=True)
+        for i0, n, ok in flagged:
+            if bool(ok):
+                continue
+            self.cdf_reruns += 1
+            _metrics.count("cdf_reruns")
+            sl = slice(i0, i0 + n)
+            out = _fused.fused_fit_pdf(
+                d_all[sl], de_all[sl], dm_all[sl], self.models,
+                self.models_err, self.models_mask, G, **kw)
+            pdfs[sl], lmap[sl], levid[sl] = self._finish_batch(out, post, i0)
+        return pdfs, lmap, levid
 
     def _fit_predict_plain(self, data, data_err, data_mask, G, lprob_func,
                            lprob_args, lprob_kwargs, wt_thresh, cdf_thresh,
@@ -373,7 +408,9 @@ class BruteForce:
                                  G.to(lnp.dtype), wt_thresh, cdf_thresh)
             return pdf, lmap, levid
 
-        return self._stream(ndata, batch_size, post_setup, step, verbose)
+        post = (None if post_setup is None
+                else post_setup(ndata, batch_size)[0])
+        return self._stream(ndata, batch_size, post, step, verbose)
 
     def fit_summarize(self, data, data_err, data_mask, model_labels,
                       model_label_errs, label_dict=None, label_grid=None,

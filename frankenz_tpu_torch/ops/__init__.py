@@ -1,6 +1,11 @@
 """Numerical operations: likelihood, KDE, summaries and the fused route."""
 
-from .fused import fused_fit_pdf, fused_route, kernels_available  # noqa: F401
+from .fused import (  # noqa: F401
+    FusedCdfFallback,
+    fused_fit_pdf,
+    fused_route,
+    kernels_available,
+)
 from .kde import (  # noqa: F401
     PDFDict,
     gaussian,

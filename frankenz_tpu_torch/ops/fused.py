@@ -1,32 +1,50 @@
 """
-Fused fit -> PDF for one object batch: chi^2 grid -> lmap / levid ->
+Fused fit -> PDF for one object batch: lnl grid -> lmap / levid ->
 thresholded weights -> KDE label PDFs, without the (B, M) grid in memory.
 
-Port of `frankenz_tpu.ops.fused.fused_fit_pdf` for the route this
-package has kernels for: full masks, dim prior, fixed scale, and
-``wt_thresh`` set (or both thresholds None).  That route is the two-pass
-pair of `frankenz_tpu/ops/fused.py:1688` (`_fused_call_fullmask_dimprior`):
+Port of `frankenz_tpu.ops.fused.fused_fit_pdf` for the fixed-scale
+likelihood.  Two kernel routes serve it:
 
-  pass A (`kernels.fullmask.chi2_brackets`): per object, the chi^2 values
-      bracketing c0 = F - 2, where the unimodal lnl(chi2) peaks;
-  glue (plain torch, as it was XLA): lmap from the brackets, the shift
-      floored at lnl(clamp);
-  pass B (`kernels.fullmask.chi2_stack`): w = exp(lnl - lmap), the
-      unthresholded sum s, pdf += (w > wt_thresh) @ G;
-  glue: levid = log s + lmap, the PDF rescale, the degenerate-row rule.
+* "fullmask", full masks + dim prior (`wt_thresh` set, or both
+  thresholds None): the two-pass pair of `frankenz_tpu/ops/fused.py:1688`
+  (`_fused_call_fullmask_dimprior`):
 
-Routing (`fused_route`): on CUDA the full-mask route launches the two
-kernels and every other configuration raises `NotImplementedError`
-naming the ROADMAP kernel that would serve it; on the CPU the full-mask
-route runs the kernels' plain versions through the same glue and every
-other configuration runs the plain composition (logprob, logsumexp,
-threshold, `kde_stack`).  Nothing catches a failed build or launch.
+    pass A (`kernels.fullmask.chi2_brackets`): per object, the chi^2
+        values bracketing c0 = F - 2, where the unimodal lnl(chi2) peaks;
+    glue (plain torch, as it was XLA): lmap from the brackets, the shift
+        floored at lnl(clamp);
+    pass B (`kernels.fullmask.chi2_stack`): w = exp(lnl - lmap), the
+        unthresholded sum s, pdf += (w > wt_thresh) @ G;
+    glue: levid = log s + lmap, the PDF rescale, the degenerate-row rule.
+
+* "general", every other fixed-scale configuration with a threshold:
+  masked photometry, the Normal likelihood (``dim_prior=False``) and the
+  cdf mode (``wt_thresh=None`` with ``cdf_thresh``).  The counterpart of
+  `_fused_call`'s general body (ops/fused.py:1851-2011), without the
+  Mosaic-only padding, band sort and G split:
+
+    `kernels.general.lnl_reduce`: lmap, levid;
+    wt_thresh: `lnl_stack` keeps lnl > ln(wt_thresh) + lmap;
+    cdf mode: `lnl_topk` (the T heaviest distinct lnl values and tie
+        counts), `cdf_cut` (the exact per-object cut, plain torch) and
+        `lnl_cut_stack` (keeps lnl <= cut, and the reference's share of
+        a tie group that straddles it); with ``cdf_exact=True``, rows
+        whose cut the top-T table leaves undetermined find it by
+        bisection (`cdf_cut_exact`, `lnl_reduce_split` per step).
+
+Routing (`fused_route`): on CUDA those two routes launch their kernels,
+and free scale (K6) or both thresholds None off the full-mask route (K4)
+raise `NotImplementedError` naming the ROADMAP kernel; on the CPU the
+kernel routes run the kernels' plain versions through the same glue and
+the two unported configurations run the plain composition (logprob,
+logsumexp, threshold, `kde_stack`).  Nothing catches a failed build or
+launch.
 
 One documented deviation, inherited from the JAX kernels: on rows whose
 EVERY chi^2 exceeds the clamp (F <= 19, chi^2 > 30000: insane outliers)
-lmap and levid stay float32-exact, but the PDF is a uniform mixture over
-the clamped models instead of the plain path's argmax row
-(`frankenz_tpu/ops/fused.py:2029-2035`).
+the full-mask route keeps lmap and levid float32-exact, but the PDF is a
+uniform mixture over the clamped models instead of the plain path's
+argmax row (`frankenz_tpu/ops/fused.py:2029-2035`).
 """
 
 from __future__ import annotations
@@ -37,10 +55,12 @@ from scipy.special import gammaln as _sp_gammaln
 
 from ..kernels import build as _build
 from ..kernels import fullmask as _fm
+from ..kernels import general as _gen
 from . import kde as _kde
 from . import likelihood as _like
 
-__all__ = ["fused_fit_pdf", "fused_route", "kernels_available"]
+__all__ = ["fused_fit_pdf", "fused_route", "kernels_available", "cdf_cut",
+           "cdf_cut_exact", "FusedCdfFallback"]
 
 _LOG_2 = 0.6931471805599453
 _NEG_INF = float(np.finfo(np.float32).min)
@@ -52,33 +72,39 @@ def kernels_available():
     return torch.cuda.is_available() and _build.nvcc_path() is not None
 
 
+class FusedCdfFallback(RuntimeError):
+    """The cdf_thresh cut is undetermined for some object: its T
+    heaviest distinct weights carry less than cdf_thresh of the mass
+    (an extremely flat posterior).  Rerun with ``cdf_exact=True``, a
+    larger ``cdf_topk`` or the plain composition (ops/fused.py:48)."""
+
+
 def fused_route(device_type, *, full_mask, dim_prior=True, free_scale=False,
                 wt_thresh=1e-3, cdf_thresh=None):
     """Which implementation serves a `fused_fit_pdf` call.
 
-    Returns "kernels" (the full-mask pair; on the CPU their plain
-    versions) or "plain" (the plain composition, CPU only).  On CUDA a
-    configuration whose JAX route is a Pallas kernel not ported yet
-    raises `NotImplementedError` naming its ROADMAP entry.
+    Returns "fullmask" (the K1 pair), "general" (the masked / Normal /
+    cdf-mode kernels) -- on the CPU their plain versions -- or "plain"
+    (the plain composition, CPU only).  On CUDA a configuration whose
+    JAX route is a Pallas kernel not ported yet raises
+    `NotImplementedError` naming its ROADMAP entry.
     """
     cdf_mode = wt_thresh is None and cdf_thresh is not None
     if full_mask and dim_prior and not free_scale and not cdf_mode:
-        return "kernels"
-    if device_type != "cuda":
-        return "plain"
+        return "fullmask"
     if free_scale:
         missing = "K6 (free-scale likelihood tile)"
-    elif cdf_mode:
-        missing = "K5 (cdf_thresh top-T and cut-stack kernels)"
-    elif wt_thresh is None:
+    elif wt_thresh is None and cdf_thresh is None:
         missing = "K4 (one-pass kernel for wt_thresh=None)"
     else:
-        missing = "K3 (masked / Normal-likelihood two-pass kernels)"
+        return "general"
+    if device_type != "cuda":
+        return "plain"
     raise NotImplementedError(
-        "fused_fit_pdf on CUDA runs only the full-mask, dim-prior, "
-        "fixed-scale route; this configuration needs ROADMAP kernel "
-        f"{missing}, not ported yet (use_fused=False runs the plain "
-        "composition on the card)")
+        "fused_fit_pdf on CUDA runs the fixed-scale routes with a weight "
+        "threshold (and the full-mask dim-prior route without one); this "
+        f"configuration needs ROADMAP kernel {missing}, not ported yet "
+        "(use_fused=False runs the plain composition on the card)")
 
 
 def _lnl_of(c, a1, norm):
@@ -133,6 +159,143 @@ def _fullmask_dimprior(d, de, mT, meT, G, *, ignore_model_err, wt_thresh):
     return pdf, lmap, levid
 
 
+def cdf_cut(vals, cnts, levid, cdf_thresh):
+    """Per-object selection from the top-T distinct (value, count) table
+    (`_cdf_cut`, ops/fused.py:812-834, with the tie group repaired).
+
+    The reference keeps weights whose ascending-sorted inclusive CDF is
+    <= 1 - cdf_thresh (pdf.py:512-516): it drops the minimal descending
+    prefix whose exclusive-prefix mass reaches cdf_thresh (the largest
+    weight always drops).  The cut is the heaviest tracked value whose
+    descending exclusive prefix mass reaches cdf_thresh; every lnl <= cut
+    is kept.  The group just above the cut (value `tie`) may straddle the
+    boundary: its members carry equal weights, and the reference's
+    stable sort drops only as many as the mass needs, keeping the
+    `nkeep` of lowest model index.  (JAX drops the whole group, on the
+    premise that ties come only from duplicate models; float32 lnl
+    values also tie at the dim prior's flat peak.)
+
+    Returns (cut, tie, nkeep, ok): `ok` is False where the tracked mass
+    never reaches cdf_thresh (cut undetermined: +inf, keep everything).
+    """
+    w = torch.exp(vals - levid[:, None]) * cnts
+    excl = torch.cumsum(w, dim=1) - w
+    crossed = excl >= cdf_thresh
+    ok = crossed.any(dim=1)
+    # The first crossed slot holds the heaviest KEPT value.
+    idx = crossed.to(torch.int8).argmax(dim=1)
+    cut = torch.gather(vals, 1, idx[:, None])[:, 0]
+    # Slot idx - 1: the lightest dropped group.  Its j-th member (j = 0,
+    # 1, ...) in the reference's descending order sits at exclusive mass
+    # excl + j * g and drops while that is below cdf_thresh.
+    prev = (idx - 1).clamp_min(0)[:, None]
+    tie = torch.gather(vals, 1, prev)[:, 0]
+    g = torch.exp(tie - levid)
+    ndrop = torch.ceil((cdf_thresh - torch.gather(excl, 1, prev)[:, 0]) / g)
+    nkeep = torch.gather(cnts, 1, prev)[:, 0] - ndrop
+    split = ok & (idx > 0) & (nkeep > 0)
+    return (torch.where(ok, cut, torch.inf),
+            torch.where(split, tie, torch.inf),
+            torch.where(split, nkeep, 0.0), ok)
+
+
+def _f32_key(x):
+    """Order-preserving int64 key of float32 values (-0.0 just below
+    +0.0); `_key_f32` inverts it."""
+    u = x.view(torch.int32)
+    return torch.where(u < 0, u ^ 0x7FFFFFFF, u).to(torch.int64)
+
+
+def _key_f32(k):
+    u = k.to(torch.int32)
+    return torch.where(u < 0, u ^ 0x7FFFFFFF, u).view(torch.float32)
+
+
+# Keys of -inf and +inf are fewer than 2**32 apart: 32 halvings leave
+# adjacent keys.
+_BISECT_STEPS = 32
+
+
+def cdf_cut_exact(d, de, dm, mT, meT, mmT, levid, cdf_thresh, **flags):
+    """`cdf_cut`'s (cut, tie, nkeep) without the top-T table, for rows
+    whose table left the cut undetermined.
+
+    The reference keeps a weight while its ascending inclusive CDF is <=
+    1 - cdf_thresh of the total.  With above(v) and below(v) the masses
+    of the pairs with lnl > v and lnl <= v (`lnl_reduce_split`, one pass
+    over the models, each side summed from its own terms), every pair
+    with lnl <= v is kept iff (1 - cdf_thresh) above(v) >= cdf_thresh
+    below(v), compared in logs.  Bisection over the float32 line keeps
+    that true at lo and false at hi (lo = -inf, hi = +inf at first) and
+    ends with lo, hi adjacent: no lnl lies between them, cut = lo, and
+    the group at hi is the one that straddles the boundary.  Its members
+    (weight g each) enter the CDF in model order, so the first nkeep =
+    floor(((1 - cdf_thresh) above(lo) - cdf_thresh below(lo)) / g) are
+    kept.  34 passes in all.
+    """
+    B = d.shape[0]
+    thr = float(cdf_thresh)
+    logit = float(np.log(thr) - np.log1p(-thr))
+    lo = torch.full((B,), int(_f32_key(torch.tensor(-np.inf))),
+                    dtype=torch.int64, device=d.device)
+    hi = torch.full_like(lo, int(_f32_key(torch.tensor(np.inf))))
+
+    def split(k):
+        return _gen.lnl_reduce_split(d, de, dm, mT, meT, mmT,
+                                     _key_f32(k).contiguous(), **flags)
+
+    for _ in range(_BISECT_STEPS):
+        mid = lo + (hi - lo) // 2
+        gt, le, _ = split(mid)
+        keep = gt - le >= logit
+        lo = torch.where(keep, mid, lo)
+        hi = torch.where(keep, hi, mid)
+    gt, le, n_lo = split(lo)
+    n_hi = split(hi)[2]
+    tie = _key_f32(hi)
+    room = ((1.0 - thr) * torch.exp(gt - levid)
+            - thr * torch.exp(le - levid))
+    nkeep = torch.minimum(torch.floor(room / torch.exp(tie - levid)),
+                          n_lo - n_hi)
+    split_group = nkeep > 0
+    return (_key_f32(lo), torch.where(split_group, tie, torch.inf),
+            torch.where(split_group, nkeep, 0.0))
+
+
+def _general(d, de, dm, mT, meT, mmT, G, *, flags, wt_thresh, cdf_thresh,
+             cdf_topk, cdf_exact=False):
+    """Glue of `_fused_call`'s general body around the general kernels;
+    returns (pdf, lmap, levid, ok), pdf in the exp(lnl - levid) scale and
+    `ok` the per-row cdf flag (None off the cdf mode)."""
+    lmap, levid = _gen.lnl_reduce(d, de, dm, mT, meT, mmT, **flags)
+    if wt_thresh is not None:
+        pdf = _gen.lnl_stack(d, de, dm, mT, meT, mmT, G, lmap, levid,
+                             log_thr=float(np.log(wt_thresh)), **flags)
+        return pdf, lmap, levid, None
+    vals, cnts = _gen.lnl_topk(d, de, dm, mT, meT, mmT, T=cdf_topk, **flags)
+    cut, tie, nkeep, ok = cdf_cut(vals, cnts, levid, float(cdf_thresh))
+    # A degenerate row (every model at the floor) tracks no mass, so its
+    # cut is undetermined; its PDF is zeroed below whatever the cut, so
+    # it counts as determined and keeps nothing.
+    degenerate = ~(lmap > _NEG_INF / 2)
+    cut = torch.where(degenerate, -torch.inf, cut)
+    ok = ok | degenerate
+    if cdf_exact:
+        # `nonzero` synchronizes with the device: one read per call.
+        rows = torch.nonzero(~ok).flatten()
+        if rows.numel():
+            sub = [t.index_select(0, rows) for t in (d, de, dm, levid)]
+            exact = cdf_cut_exact(*sub[:3], mT, meT, mmT, sub[3],
+                                  float(cdf_thresh), **flags)
+            for t, v in zip((cut, tie, nkeep), exact):
+                t[rows] = v
+            ok = torch.ones_like(ok)
+    cut = cut.contiguous()
+    pdf = _gen.lnl_cut_stack(d, de, dm, mT, meT, mmT, G, cut, levid,
+                             tie.contiguous(), nkeep.contiguous(), **flags)
+    return pdf, lmap, levid, ok
+
+
 def _plain_composition(d, de, dm, m, me, mm, G, *, dim_prior,
                        ignore_model_err, free_scale, wt_thresh, cdf_thresh):
     """logprob -> lmap / logsumexp -> exp -> threshold -> kde_stack."""
@@ -153,7 +316,8 @@ def _is_full(mask):
 def fused_fit_pdf(data, data_err, data_mask, models, models_err,
                   models_mask, G, *, dim_prior=True, ignore_model_err=False,
                   free_scale=False, wt_thresh=1e-3, cdf_thresh=None,
-                  full_mask=None):
+                  full_mask=None, cdf_topk=8, defer_cdf_check=False,
+                  cdf_exact=False):
     """Fused fit -> PDF for one object batch.
 
     Takes the `ops.logprob` inputs plus a row-normalized kernel matrix
@@ -162,6 +326,19 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
     float32 PDFs (Nobj, Ngrid) in the exp(lnl - levid) scale and the GOF
     metrics; the caller normalizes PDFs.  `full_mask=None` reads both
     masks to decide.  Routing: see `fused_route`.
+
+    With ``wt_thresh=None`` and ``cdf_thresh`` set, the reference's
+    sorted-CDF weight selection (drop-the-largest quirk included) runs
+    on the device from the `cdf_topk` heaviest distinct weights per
+    object; where they carry less than cdf_thresh of the mass the cut is
+    undetermined and `FusedCdfFallback` is raised -- or, with
+    ``defer_cdf_check=True``, a validity flag (a bool tensor on the
+    device, True off the cdf mode) comes back as a fourth output, so a
+    streaming caller reads it with its results and reruns flagged
+    batches.  ``cdf_exact=True`` finds those rows' cuts by bisection on
+    the general kernels instead (`cdf_cut_exact`: 34 more passes over
+    the models for those rows, and one read of the device); the flag is
+    then always True.
     """
     m = torch.as_tensor(models)
     dev = m.device
@@ -176,20 +353,46 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
     m = m.to(torch.float32)
     me = torch.as_tensor(models_err, **f32)
     G = torch.as_tensor(G, **f32)
+    ok = None
     if route == "plain":
         dm = torch.as_tensor(data_mask, **f32)
         mm = torch.as_tensor(models_mask, **f32)
-        return _plain_composition(
+        pdf, lmap, levid = _plain_composition(
             d, de, dm, m, me, mm, G, dim_prior=dim_prior,
             ignore_model_err=ignore_model_err, free_scale=free_scale,
             wt_thresh=wt_thresh, cdf_thresh=cdf_thresh)
-    pdf, lmap, levid = _fullmask_dimprior(
-        d.contiguous(), de.contiguous(), m.T.contiguous(),
-        me.T.contiguous(), G.contiguous(),
-        ignore_model_err=ignore_model_err, wt_thresh=wt_thresh)
+        if defer_cdf_check:
+            return pdf, lmap, levid, torch.ones((), dtype=torch.bool,
+                                                device=dev)
+        return pdf, lmap, levid
+    if route == "fullmask":
+        pdf, lmap, levid = _fullmask_dimprior(
+            d.contiguous(), de.contiguous(), m.T.contiguous(),
+            me.T.contiguous(), G.contiguous(),
+            ignore_model_err=ignore_model_err, wt_thresh=wt_thresh)
+    else:
+        dm = torch.as_tensor(data_mask, **f32).contiguous()
+        mm = torch.as_tensor(models_mask, **f32)
+        pdf, lmap, levid, ok = _general(
+            d.contiguous(), de.contiguous(), dm, m.T.contiguous(),
+            me.T.contiguous(), mm.T.contiguous(), G.contiguous(),
+            flags=dict(full_mask=full_mask, dim_prior=dim_prior,
+                       ignore_model_err=ignore_model_err),
+            wt_thresh=wt_thresh, cdf_thresh=cdf_thresh,
+            cdf_topk=int(cdf_topk), cdf_exact=cdf_exact)
     # Degenerate rows (every model at the -inf floor): zero PDF, -inf GOF.
-    ok = lmap > _NEG_INF / 2
-    pdf = torch.where(ok[:, None], pdf, 0.0)
-    lmap = torch.where(ok, lmap, -torch.inf)
-    levid = torch.where(ok, levid, -torch.inf)
+    good = lmap > _NEG_INF / 2
+    pdf = torch.where(good[:, None], pdf, 0.0)
+    lmap = torch.where(good, lmap, -torch.inf)
+    levid = torch.where(good, levid, -torch.inf)
+    if defer_cdf_check:
+        return pdf, lmap, levid, (
+            torch.ones((), dtype=torch.bool, device=dev) if ok is None
+            else ok.all())
+    # `bool()` synchronizes with the device; streaming callers defer.
+    if ok is not None and not bool(ok.all()):
+        raise FusedCdfFallback(
+            f"cdf_thresh cut undetermined for some objects (top-{cdf_topk} "
+            "weights carry < cdf_thresh of the mass); pass cdf_exact=True, "
+            "raise cdf_topk or use the plain composition")
     return pdf, lmap, levid

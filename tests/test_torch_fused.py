@@ -85,32 +85,49 @@ def test_all_clamped_rows_keep_gof_parity():
 def test_route_decisions():
     """(e) The routing rule, decided without launching anything."""
     route = TF.fused_route
-    assert route("cuda", full_mask=True) == "kernels"
-    assert route("cuda", full_mask=True, wt_thresh=None) == "kernels"
-    assert route("cpu", full_mask=True) == "kernels"
-    assert route("cpu", full_mask=False) == "plain"
+    assert route("cuda", full_mask=True) == "fullmask"
+    assert route("cuda", full_mask=True, wt_thresh=None) == "fullmask"
+    assert route("cpu", full_mask=True) == "fullmask"
+    assert route("cpu", full_mask=False) == "general"
     assert route("cpu", full_mask=True, free_scale=True) == "plain"
-    cases = [(dict(full_mask=False), "K3"),
-             (dict(full_mask=True, dim_prior=False), "K3"),
-             (dict(full_mask=False, wt_thresh=None), "K4"),
-             (dict(full_mask=True, wt_thresh=None, cdf_thresh=2e-4), "K5"),
-             (dict(full_mask=True, free_scale=True), "K6")]
+    assert route("cpu", full_mask=False, wt_thresh=None) == "plain"
+    # K3 and K5 configurations run the general kernels on the card.
+    for kw in (dict(full_mask=False), dict(full_mask=True, dim_prior=False),
+               dict(full_mask=False, wt_thresh=None, cdf_thresh=2e-4),
+               dict(full_mask=True, wt_thresh=None, cdf_thresh=2e-4)):
+        assert route("cuda", **kw) == "general"
+    cases = [(dict(full_mask=False, wt_thresh=None), "K4"),
+             (dict(full_mask=True, dim_prior=False, wt_thresh=None), "K4"),
+             (dict(full_mask=True, free_scale=True), "K6"),
+             (dict(full_mask=False, free_scale=True, wt_thresh=None,
+                   cdf_thresh=2e-4), "K6")]
     for kw, kernel in cases:
         with pytest.raises(NotImplementedError, match=kernel):
             route("cuda", **kw)
 
 
-def test_cpu_masked_and_free_scale_configurations():
-    """Off the full-mask route the CPU runs the plain composition (and
-    free scale, not ported, raises K6)."""
+def test_cpu_masked_and_free_scale_configurations(monkeypatch):
+    """Masked data takes the general route, whose kernels' plain versions
+    run on the CPU (free scale, not ported, raises K6)."""
+    from frankenz_tpu_torch.kernels import general as GK
     from frankenz_tpu_torch.ops import likelihood as TL
 
+    calls = []
+    for name in ("lnl_reduce_plain", "lnl_stack_plain"):
+        orig = getattr(GK, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            calls.append(_name)
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(GK, name, spy)
     prob = list(fullmask_problem(5, outlier_row=False))
     prob[2] = prob[2].copy()
     prob[2][:, 1] = 0.0
     want, got = run_both(_jax, TF.fused_fit_pdf, *prob,
                          jax_kw=dict(screen=False, band_skip=False))
     _assert_fused_close(want, got)
+    assert calls == ["lnl_reduce_plain", "lnl_stack_plain"]
     with pytest.raises(NotImplementedError, match="K6"):
         TF.fused_fit_pdf(*prob, free_scale=True)
     with pytest.raises(NotImplementedError, match="K6"):

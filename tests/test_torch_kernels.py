@@ -1,4 +1,6 @@
-"""The full-mask CUDA kernels' wrappers, plain versions and counters.
+"""The CUDA kernels' wrappers, plain versions and counters: the
+full-mask chi^2 pair (`kernels.fullmask`) and the general lnl kernels
+(`kernels.general`).
 
 This file imports neither JAX nor `frankenz_tpu`, so it also runs on a
 machine with a card and no JAX:
@@ -8,16 +10,21 @@ machine with a card and no JAX:
 
 Tests marked `gpu` hold each CUDA kernel against its plain version on
 the card and skip without one.  Tolerances there: chi^2 brackets 2e-7
-relative (the kernel and the plain version round every operation in the
-same order: expected bit-equal); weight sums and PDFs 1e-5 relative
-(the same weights, summed in another order).
+relative; lmap and the top-T values 1 ulp (the kernel and the plain
+version round every operation in the same order: expected bit-equal,
+up to the last ulp of `log`); tie and pair counts exact; weight sums
+and PDFs 1e-5 relative, levid 1e-5 of max(1, |levid|) (the same
+weights, summed in another order: levid's absolute error is the sum's
+relative error).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from frankenz_tpu_torch import kernels as K
 from frankenz_tpu_torch.kernels import fullmask as FM
+from frankenz_tpu_torch.kernels import general as GK
 from frankenz_tpu_torch.ops import fused as TF
 from frankenz_tpu_torch.ops import kde as TK
 
@@ -90,9 +97,156 @@ def test_brackets_and_weights_follow_the_pallas_definitions():
                                    rtol=1e-5, atol=1e-300)
 
 
+GENERAL = ["lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_topk",
+           "lnl_cut_stack"]
+
+
+def _general_problem(F=5, B=19, M=251, Ngrid=77, seed=29, masked=True):
+    """(d, de, dm, mT, meT, mmT, G): 15% of data bands and 10% of model
+    bands masked, rows 1-3 with at most 0, 1 and 2 observed bands (Ndim
+    0: a degenerate row; Ndim 2: a1 = 0), models 40-59 duplicating 0-19
+    (ties for `lnl_topk`)."""
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(1, 10, (M, F)).astype(np.float32)
+    if M >= 60:
+        m[40:60] = m[:20]
+    me = (0.05 * m).astype(np.float32)
+    d = (m[rng.integers(0, M, B)]
+         + rng.normal(0, 0.3, (B, F))).astype(np.float32)
+    de = np.full((B, F), 0.3, np.float32)
+    dm = np.ones((B, F), np.float32)
+    mm = np.ones((M, F), np.float32)
+    if masked:
+        dm = (rng.uniform(size=(B, F)) > 0.15).astype(np.float32)
+        mm = (rng.uniform(size=(M, F)) > 0.1).astype(np.float32)
+        if M >= 60:
+            mm[40:60] = mm[:20]
+        dm[1:4] = 0.0
+        dm[2, 0] = dm[3, :2] = 1.0
+    G = TK.kernel_matrix(rng.uniform(0, 3, M), np.full(M, 0.1),
+                         np.linspace(0, 3, Ngrid)).to(torch.float32)
+    return [torch.from_numpy(np.ascontiguousarray(x))
+            for x in (d, de, dm, m.T, me.T, mm.T)] + [G.contiguous()]
+
+
+def _general_call(name, t, plain=False, bad=None, **flags):
+    """Call a general wrapper (or its plain version) on problem `t`; the
+    per-object rows it reads come from the plain versions.  `bad`
+    replaces the kernel inputs (d .. mmT) for the call itself."""
+    args = t[:6]
+    fn = getattr(GK, name + "_plain" if plain else name)
+    call = bad if bad is not None else args
+    if name == "lnl_reduce":
+        return fn(*call, **flags)
+    if name == "lnl_topk":
+        return fn(*call, T=8, **flags)
+    lmap, levid = GK.lnl_reduce_plain(*args, **flags)
+    if name == "lnl_reduce_split":
+        # Rows 0-3 put every pair at or below the split, the rest split
+        # at 3 below lmap.
+        split = torch.where(torch.arange(len(lmap), device=lmap.device) < 4,
+                            torch.inf, lmap - 3.0)
+        return fn(*call, split, **flags)
+    if name == "lnl_stack":
+        return (fn(*call, t[6], lmap, levid, log_thr=float(np.log(1e-3)),
+                   **flags),)
+    vals, cnts = GK.lnl_topk_plain(*args, T=8, **flags)
+    cut, tie, nkeep, _ = TF.cdf_cut(vals, cnts, levid, 2e-4)
+    return (fn(*call, t[6], cut, levid, tie, nkeep, **flags),)
+
+
+@pytest.mark.parametrize("name", GENERAL)
+def test_cpu_general_wrappers_run_plain_versions_without_launching(name):
+    t = _general_problem()
+    K.reset_launch_counts()
+    got = _general_call(name, t)
+    want = _general_call(name, t, plain=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert all(n == 0 for n in K.launch_counts().values())
+    assert set(K.launch_counts()) == {"chi2_brackets", "chi2_stack", *GENERAL}
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity"])
+@pytest.mark.parametrize("name", GENERAL)
+def test_general_wrappers_check_their_inputs(name, bad):
+    t = _general_problem()
+    call = list(t[:6])
+    if bad == "dtype":
+        call[2], err = call[2].double(), TypeError
+    elif bad == "shape":
+        call[2], err = call[2][:-1], ValueError
+    else:
+        call[5], err = call[5].T.contiguous().T, ValueError
+    with pytest.raises(err):
+        _general_call(name, t, bad=call)
+
+
+def test_lnl_reduce_split_plain_follows_its_definition():
+    """log-sum-exp over the pairs with lnl > split[b], over those with
+    lnl <= split[b], and the count of the first; -inf for an empty side;
+    the two sides add up to `lnl_reduce`'s levid."""
+    from scipy.special import logsumexp
+
+    t = _general_problem()
+    lnl = GK.lnl_tile_plain(*t[:6]).double().numpy()
+    lmap, levid = GK.lnl_reduce_plain(*t[:6])
+    split = (lmap - 2.0).numpy()
+    split[5] = np.inf
+    gt, le, n = (x.numpy() for x in GK.lnl_reduce_split_plain(
+        *t[:6], torch.from_numpy(split)))
+    above = lnl > split[:, None]
+    np.testing.assert_array_equal(n, above.sum(1))
+    assert n[5] == 0 and gt[5] == -np.inf
+    with np.errstate(divide="ignore"):
+        want_gt = logsumexp(np.where(above, lnl, -np.inf), axis=1)
+        want_le = logsumexp(np.where(above, -np.inf, lnl), axis=1)
+    np.testing.assert_allclose(gt, want_gt, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(le, want_le, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.logaddexp(gt, le), levid.numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_lnl_tile_plain_follows_the_likelihood_definitions():
+    """Dim prior: (Ndim/2 - 1) log chi2 - chi2/2 - gammaln(Ndim/2) -
+    (Ndim/2) ln 2, no log term at Ndim 2 and the float32-min floor at
+    Ndim 0; Normal: -chi2/2 - (Ndim log 2 pi + sum_all log var)/2."""
+    from scipy.special import gammaln
+
+    t = _general_problem()
+    d, de, dm, mT, meT, mmT = (x.double().numpy() for x in t[:6])
+    var = de[:, None, :] ** 2 + meT.T[None] ** 2
+    mask = dm[:, None, :] * mmT.T[None]
+    chi2 = (mask * (d[:, None, :] - mT.T[None]) ** 2 / var).sum(-1)
+    nd = mask.sum(-1)
+    a = 0.5 * nd
+    with np.errstate(divide="ignore", invalid="ignore"):
+        want = np.where(nd == 2, 0.0, (a - 1) * np.log(chi2)) \
+            - 0.5 * chi2 - gammaln(a) - a * np.log(2.0)
+    want = np.where(nd > 0, want, GK.NEG_INF)
+    got = GK.lnl_tile_plain(*t[:6]).double().numpy()
+    assert (nd[1] == 0).all() and (nd[2] <= 1).all() and (nd[3] == 2).any()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    want_n = (-0.5 * chi2 - 0.5 * (nd * np.log(2 * np.pi)
+                                   + np.log(var).sum(-1)))
+    got_n = GK.lnl_tile_plain(*t[:6], dim_prior=False).double().numpy()
+    np.testing.assert_allclose(got_n, want_n, rtol=1e-5, atol=1e-4)
+
+
 # ---------------------------------------------------------------------
 # On the card.
 # ---------------------------------------------------------------------
+
+
+def _assert_within_ulp(got, want):
+    """Infinities in the same places, finite entries within one float32
+    ulp of `want`."""
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert torch.equal(got[~fin], want[~fin])
+    w = want[fin]
+    ulp = torch.nextafter(w.abs(), torch.full_like(w, torch.inf)) - w.abs()
+    assert bool(((got[fin] - w).abs() <= ulp).all())
 
 
 @pytest.fixture
@@ -164,6 +318,54 @@ def test_bruteforce_on_card_matches_cpu_and_counts_launches(cuda_device):
     np.testing.assert_allclose(gpu[1][1], cpu[1][1], rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(gpu[0], cpu[0], rtol=2e-3, atol=2e-5)
     masked = args[2].copy()
-    masked[:, 0] = 0.0
-    with pytest.raises(NotImplementedError, match="K3"):
-        gpu_bf.fit_predict(args[0], args[1], masked, *args[3:], **kw)
+    masked[::3, 0] = 0.0
+    margs = (args[0], args[1], masked, *args[3:])
+    cpu = BruteForce(*models, device="cpu").fit_predict(*margs, **kw)
+    K.reset_launch_counts()
+    gpu = gpu_bf.fit_predict(*margs, **kw)
+    counts = K.launch_counts()
+    assert counts["lnl_reduce"] > 0 and counts["lnl_stack"] > 0
+    assert counts["chi2_brackets"] == counts["chi2_stack"] == 0
+    np.testing.assert_allclose(gpu[1][0], cpu[1][0], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(gpu[1][1], cpu[1][1], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=2e-3, atol=2e-5)
+    with pytest.raises(NotImplementedError, match="K6"):
+        gpu_bf.fit_predict(*margs, lprob_kwargs=dict(free_scale=True), **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags,F,B,M,Ngrid", [
+    (dict(), 5, 19, 251, 77),
+    (dict(ignore_model_err=True), 5, 40, 1000, 513),
+    (dict(dim_prior=False), 5, 70, 3000, 4001),
+    (dict(full_mask=True, dim_prior=False), 5, 33, 700, 301),
+    (dict(full_mask=True), 8, 33, 700, 301),
+    (dict(), 20, 33, 700, 301),
+])
+def test_general_kernels_match_plain_on_card(cuda_device, flags, F, B, M,
+                                             Ngrid):
+    t = [x.to(cuda_device) for x in _general_problem(
+        F, B=B, M=M, Ngrid=Ngrid, masked=not flags.get("full_mask"))]
+    K.reset_launch_counts()
+    for name in GENERAL:
+        got = _general_call(name, t, **flags)
+        want = _general_call(name, t, plain=True, **flags)
+        torch.cuda.synchronize()
+        if name == "lnl_reduce":
+            _assert_within_ulp(got[0], want[0])
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5,
+                                       atol=1e-5)
+        elif name == "lnl_reduce_split":
+            for g, w in zip(got[:2], want[:2]):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+            assert torch.equal(got[2], want[2])
+        elif name == "lnl_topk":
+            _assert_within_ulp(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        else:
+            scale = want[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+            torch.testing.assert_close(got[0] / scale, want[0] / scale,
+                                       rtol=0, atol=1e-5)
+    counts = K.launch_counts()
+    assert all(counts[name] == 1 for name in GENERAL)
+    assert counts["chi2_brackets"] == counts["chi2_stack"] == 0
