@@ -31,8 +31,24 @@ port, numpy and scipy, and:
    `lnl_cut_stack`, no batch rerun), and a flat-posterior batch whose cut
    is undetermined at cdf_thresh 0.999999 and 0.5 (it must rerun, find
    the cut by bisection with `lnl_reduce_split`, and agree with the
-   plain composition);
-6. prints one JSON line of kernel results, the card line again, and last
+   plain composition); one-pass (`lnl_onepass`) joins each of the six
+   cases, and at the batch it is timed beside `lnl_reduce` + `lnl_stack`
+   keeping every weight;
+6. free scale (K6) and no weight threshold (K4): every free-scale
+   instantiation (model errors or not x full or masked x dim prior or
+   Normal) against its plain version at B=2,048 on config-8 data
+   (bench.py:628-649: scaled noisy model copies), the sweep tables equal;
+   config 8 end to end (16,384 objects, free scale with model errors,
+   wt_thresh 1e-3, ltol 1e-4: `scale_sweeps` + `lnl_reduce` +
+   `lnl_stack`), every row against the plain composition in 2,048-row
+   batches, and `fit_summarize`; free scale without model errors over
+   one masked 65,536 batch under wt_thresh, the cdf mode and no
+   threshold (one-pass), and a flat-posterior batch that reruns through
+   the bisection; fixed scale with no threshold over one masked batch
+   (`lnl_onepass` alone); the free-scale kernel times at config 8's batch;
+7. prints one JSON line of kernel results (fixed-scale entry points by
+   their wrapper's name, free-scale ones with the suffix ``_fs``, and
+   `scale_sweeps`), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Matmul precision: TF32 is switched off and float32 matmul precision set
@@ -79,6 +95,17 @@ FLIP = 1.002
 TOL_ULP = 1.0
 P_MISSING = 0.15
 CDF_THRESH = 2e-4
+GENERAL = ("lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_topk",
+           "lnl_cut_stack")
+# Free scale end to end against the plain composition: JAX's own GOF
+# tolerances, tests/test_fused.py:145-150 (datum-only variance, 1e-4)
+# and :182-187 (model errors kept, 1e-3: the kernels converge the scale
+# per (object, 512-model group), the plain likelihood per object over
+# every model).  Config 8 (bench.py:612-699): objects per batch.
+TOL_GOF_FS_IME = 1e-4
+TOL_GOF_FS_ME = 1e-3
+N8 = 16_384
+PLAIN_BATCH_FS = 2_048
 
 
 def fail(msg):
@@ -126,13 +153,16 @@ def rel_err(torch, got, want):
     return float(diff.max()), float(rel.max())
 
 
-def pdf_rows_close(torch, got, want, lo, hi, tol):
+def pdf_rows_close(torch, got, want, lo_fn, hi_fn, tol):
     """Row-normwise closeness, or inside the threshold-flip envelope
-    [min(lo, hi), max(lo, hi)] (+- tol of the row maximum)."""
+    [min(lo, hi), max(lo, hi)] (+- tol of the row maximum), lo and hi
+    computed by `lo_fn` / `hi_fn` only when needed (None: no envelope,
+    no weight threshold to flip)."""
     scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
     err = (got - want).abs() / scale
-    if float(err.max()) <= tol:
-        return float(err.max()), True
+    if float(err.max()) <= tol or lo_fn is None:
+        return float(err.max()), float(err.max()) <= tol
+    lo, hi = lo_fn(), hi_fn()
     env_lo = torch.minimum(lo, hi) - tol * scale
     env_hi = torch.maximum(lo, hi) + tol * scale
     inside = bool(((got >= env_lo) & (got <= env_hi)).all())
@@ -191,9 +221,13 @@ def general_cases(np, rng, data, models, dmask):
     ]
 
 
-def general_kernel_case(torch, np, GK, TF, tens, card, G, case):
-    """Hold the four general kernels against their plain versions on one
-    case; returns {kernel: result}."""
+def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
+                        plain_reps=5):
+    """Hold the general kernels (with `lnl_onepass`, and `scale_sweeps`
+    under free scale with model errors) against their plain versions on
+    one case; returns {kernel: result}.  `plain_reps` = 1 times the
+    plain version by the call that is compared (free scale with model
+    errors: seconds per call)."""
     name, d_np, dm_np, m_np, mm_np, flags = case
     Gc = G[:m_np.shape[0]].contiguous()
     args = [tens(x) for x in (d_np, np.full(d_np.shape, 0.25, np.float32),
@@ -202,9 +236,28 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case):
     out = {}
 
     def run(kernel, plain):
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        return got, want, median_ms(torch, kernel), median_ms(torch, plain)
+        got = kernel()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        want = plain()
+        t1.record()
+        t1.synchronize()
+        pms = (t0.elapsed_time(t1) if plain_reps <= 1
+               else median_ms(torch, plain, reps=plain_reps))
+        return got, want, median_ms(torch, kernel,
+                                    reps=5 if plain_reps > 1 else 3), pms
+
+    if flags.get("free_scale") and not flags.get("ignore_model_err"):
+        kw = dict(tm=TF.group_width(m_np.shape[0], 512),
+                  full_mask=flags.get("full_mask", False))
+        got, want, ms, pms = run(lambda: GK.scale_sweeps(*args, **kw),
+                                 lambda: GK.scale_sweeps_plain(*args, **kw))
+        check(torch.equal(got, want), f"{name}: scale_sweeps tables differ")
+        out["scale_sweeps"] = dict(
+            max_abs_err=0.0, mean_sweeps=float(want.float().mean()),
+            max_sweeps=int(want.max()), ms=ms, plain_ms=pms)
+        flags = dict(flags, sweeps=got, tm=kw["tm"])
 
     got, want, ms, pms = run(lambda: GK.lnl_reduce(*args, **flags),
                              lambda: GK.lnl_reduce_plain(*args, **flags))
@@ -261,29 +314,54 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case):
              lambda: cut_stack(GK.lnl_cut_stack_plain,
                                torch.nextafter(cut, inf)))):
         got, want, ms, pms = run(kernel, plain)
-        p_row, ok = pdf_rows_close(torch, got, want, lo(), hi(), TOL_PDF_ROW)
+        p_row, ok = pdf_rows_close(torch, got, want, lo, hi, TOL_PDF_ROW)
         check(ok, f"{name}: {kname} PDFs differ beyond the threshold-flip "
                   f"envelope (row-normwise {p_row})")
         out[kname] = dict(max_abs_err=float((got - want).abs().max()),
                           max_rel_err=p_row, ms=ms, plain_ms=pms)
+
+    # No weight threshold: lmap and levid as lnl_reduce's, the PDF (in
+    # the exp(lnl - lmap) scale) row-normwise, with no envelope.
+    got, want, ms, pms = run(lambda: GK.lnl_onepass(*args, Gc, **flags),
+                             lambda: GK.lnl_onepass_plain(*args, Gc, **flags))
+    a0, u0 = ulp_err(torch, got[1], want[1])
+    a1, r1 = levid_err(torch, got[2], want[2])
+    p_row, ok = pdf_rows_close(torch, got[0], want[0], None, None,
+                               TOL_PDF_ROW)
+    check(u0 <= TOL_ULP, f"{name}: lnl_onepass lmap {u0} ulp from plain")
+    check(r1 <= TOL_SUM, f"{name}: lnl_onepass levid err {r1}")
+    check(ok, f"{name}: lnl_onepass PDFs differ (row-normwise {p_row})")
+    out["lnl_onepass"] = dict(
+        max_abs_err=max(a0, a1, float((got[0] - want[0]).abs().max())),
+        lmap_ulp=u0, levid_err=r1, max_rel_err=p_row, ms=ms, plain_ms=pms)
+    shown = {k: v for k, v in flags.items() if k != "sweeps"}
+    sw = out.get("scale_sweeps")
     print(f"kernel_vs_plain {name}: B={d_np.shape[0]} M={m_np.shape[0]} "
-          f"F={d_np.shape[1]} {flags} | " + " | ".join(
+          f"F={d_np.shape[1]} {shown} | " + " | ".join(
               f"{k} abs {v['max_abs_err']:.3g} {v['ms']:.3f} ms (plain "
               f"{v['plain_ms']:.3f} ms)" for k, v in out.items())
           + f" | lmap {out['lnl_reduce']['lmap_ulp']:.3g} ulp, levid err "
           f"{out['lnl_reduce']['levid_err']:.3g}, top-T "
-          f"{out['lnl_topk']['vals_ulp']:.3g} ulp | card {card}", flush=True)
+          f"{out['lnl_topk']['vals_ulp']:.3g} ulp"
+          + (f", sweeps mean {sw['mean_sweeps']:.4g} max {sw['max_sweeps']}"
+             " (tables equal)" if sw else "")
+          + f" | card {card}", flush=True)
     del args
     torch.cuda.empty_cache()
     return out
 
 
-def check_vs_plain(np, bf, got, sub, fp_kw, what, cdf=False):
+def check_vs_plain(np, bf, got, sub, fp_kw, what, cdf=False,
+                   key="wt_thresh", gof_tol=2e-5, plain_kw=None):
     """`got` = (pdfs, (lmap, levid)) on the rows of `sub` against the
-    plain composition on the card: GOF within 2e-5, PDFs within rtol
-    2e-3 / atol 2e-5 or inside the flip envelope (the threshold moved by
-    FLIP either way).  Returns the count of PDF cells outside rtol."""
-    plain = bf.fit_predict(*sub, use_fused=False, **fp_kw)
+    plain composition on the card (`plain_kw`: extra keywords of the
+    plain calls only): GOF within gof_tol (relative and absolute), PDFs
+    within rtol 2e-3 / atol 2e-5 or, on the rows where they are not,
+    inside the flip envelope (the threshold `key`, cdf_thresh with
+    ``cdf``, moved by FLIP either way; ``key=None``: no threshold, no
+    envelope).  Returns the count of PDF cells outside rtol."""
+    plain_kw = dict(fp_kw, use_fused=False, **(plain_kw or {}))
+    plain = bf.fit_predict(*sub, **plain_kw)
     for k, nm in ((0, "lmap"), (1, "levid")):
         a, b = got[1][k], plain[1][k]
         check(np.array_equal(np.isfinite(a), np.isfinite(b))
@@ -291,21 +369,23 @@ def check_vs_plain(np, bf, got, sub, fp_kw, what, cdf=False):
               f"{what}: non-finite {nm} differ from the plain composition")
         fin = np.isfinite(b)
         err = float(np.max(np.abs(a[fin] - b[fin])
-                           / (2e-5 + 2e-5 * np.abs(b[fin]))))
+                           / (gof_tol + gof_tol * np.abs(b[fin]))))
         check(err <= 1.0, f"{what}: {nm} differs from the plain "
                           f"composition ({err} x tol)")
     close = np.isclose(got[0], plain[0], rtol=2e-3, atol=2e-5)
     if not close.all():
-        key = "cdf_thresh" if cdf else "wt_thresh"
+        key = "cdf_thresh" if cdf else key
+        check(key is not None, f"{what}: PDFs differ from the plain "
+                               "composition beyond rtol 2e-3 / atol 2e-5")
+        rows = np.nonzero(~close.all(axis=1))[0]
+        sub_r = tuple(x[rows] for x in sub[:3]) + tuple(sub[3:])
         thr = fp_kw.get(key, WT_THRESH)
-        kw = {k: v for k, v in fp_kw.items() if k != key}
-        lo = bf.fit_predict(*sub, use_fused=False, **{key: thr * FLIP},
-                            **kw)[0]
-        hi = bf.fit_predict(*sub, use_fused=False, **{key: thr / FLIP},
-                            **kw)[0]
-        tol = 2e-5 + 2e-3 * np.abs(plain[0])
-        inside = ((got[0] >= np.minimum(lo, hi) - tol)
-                  & (got[0] <= np.maximum(lo, hi) + tol))
+        kw = {k: v for k, v in plain_kw.items() if k != key}
+        lo = bf.fit_predict(*sub_r, **{key: thr * FLIP}, **kw)[0]
+        hi = bf.fit_predict(*sub_r, **{key: thr / FLIP}, **kw)[0]
+        tol = 2e-5 + 2e-3 * np.abs(plain[0][rows])
+        inside = ((got[0][rows] >= np.minimum(lo, hi) - tol)
+                  & (got[0][rows] <= np.maximum(lo, hi) + tol))
         check(inside.all(), f"{what}: PDFs differ from the plain "
                             "composition beyond the threshold-flip envelope")
     return int((~close).sum())
@@ -417,8 +497,10 @@ def main():
         s_abs, s_rel = rel_err(torch, sk, sp)
         check(s_rel <= TOL_SUM,
               f"{name}: chi2_stack weight sums differ (rel {s_rel})")
-        p_row, ok = pdf_rows_close(torch, pk, pp, stack_p(wthr * FLIP)[0],
-                                   stack_p(wthr / FLIP)[0], TOL_PDF_ROW)
+        p_row, ok = pdf_rows_close(torch, pk, pp,
+                                   lambda: stack_p(wthr * FLIP)[0],
+                                   lambda: stack_p(wthr / FLIP)[0],
+                                   TOL_PDF_ROW)
         check(ok, f"{name}: chi2_stack PDFs differ beyond the "
                   f"threshold-flip envelope (row-normwise {p_row})")
         p_abs = float((pk - pp).abs().max())
@@ -537,8 +619,7 @@ def main():
     dmask = (np.random.default_rng(2).uniform(size=(N_E2E, NFILT))
              >= P_MISSING).astype(f32)
     n_dead = int((dmask.sum(axis=1) == 0).sum())
-    for kname in ("lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_topk",
-                  "lnl_cut_stack"):
+    for kname in GENERAL + ("lnl_onepass",):
         results[kname] = {}
     for case in general_cases(np, np.random.default_rng(3), data, models,
                               dmask):
@@ -683,8 +764,239 @@ def main():
             "lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_topk",
             "lnl_cut_stack"))
         + f" | card {card}", flush=True)
+    # K4: one walk against lnl_reduce + lnl_stack keeping every weight.
+    ms_batch["lnl_onepass"] = median_ms(
+        torch, lambda: GK.lnl_onepass(*args_b, G), reps=3)
 
-    # 6. results
+    def reduce_and_stack_all():
+        lm, lv = GK.lnl_reduce(*args_b)
+        return GK.lnl_stack(*args_b, G, lm, lv, log_thr=-np.inf)
+
+    ms_two = median_ms(torch, reduce_and_stack_all, reps=3)
+    print(f"kernel_at_batch {BATCH}x{NMODEL} masked, no weight threshold: "
+          f"lnl_onepass {ms_batch['lnl_onepass']:.3f} ms, lnl_reduce + "
+          f"lnl_stack keeping every weight {ms_two:.3f} ms | card {card}",
+          flush=True)
+    del args_b, lm_b, lv_b, split_b, vals_b, cnts_b, cut_b, tie_b, nkeep_b
+    torch.cuda.empty_cache()
+
+    # 6. free scale (K6) and the one-pass kernel (K4): every free-scale
+    # instantiation against its plain version on config-8 data
+    # (bench.py:628-649: noisy copies of the models scaled by U(0.5, 2),
+    # so the scale iterates; data errors 0.25, model errors 5%)
+    rng8 = np.random.default_rng(0)
+    rng8.uniform(1, 10, (NMODEL, NFILT))  # config 8's models: `models`
+    scales = rng8.uniform(0.5, 2.0, (N8, 1))
+    data8 = (scales * models[rng8.integers(0, NMODEL, N8)]
+             + rng8.normal(0, 0.3, (N8, NFILT))).astype(f32)
+    zl8 = rng8.uniform(0, 3.5, NMODEL)
+    de8 = np.full((N8, NFILT), 0.25, f32)
+    ones8 = np.ones((N8, NFILT), f32)
+    G8 = TK.kernel_matrix_dict(pdict, *pdict.fit(zl8, zerrs),
+                               device=dev).to(torch.float32).contiguous()
+    results["scale_sweeps"] = {}
+    for kname in GENERAL + ("lnl_onepass",):
+        results[kname + "_fs"] = {}
+    ones_m = np.ones_like(models)
+    for ime in (False, True):
+        for fm in (True, False):
+            for dp in (True, False):
+                cname = (f"fs_{'ime' if ime else 'me'}_"
+                         f"{'full' if fm else 'masked'}_"
+                         f"{'dimprior' if dp else 'normal'}")
+                case = (cname, data8[:N_KERNEL],
+                        ones8[:N_KERNEL] if fm else dmask[:N_KERNEL], models,
+                        ones_m, dict(full_mask=fm, dim_prior=dp,
+                                     ignore_model_err=ime, free_scale=True))
+                per = general_kernel_case(torch, np, GK, TF, tens, card, G8,
+                                          case, plain_reps=1)
+                for kname, r in per.items():
+                    key = kname if kname == "scale_sweeps" else kname + "_fs"
+                    results[key][cname] = r
+
+    def drive(call, kw, expect, what, absent=()):
+        """One `fit_predict` with the launch counts set to 0 just
+        before and read just after; returns (out, wall, launches)."""
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = bf.fit_predict(*call, **kw)
+        wall = time.perf_counter() - t0
+        got = KS.launch_counts()
+        for kname in expect:
+            check(got[kname] > 0, f"{what} did not launch {kname} ({got})")
+        for kname in ("chi2_brackets", "chi2_stack", *absent):
+            check(got[kname] == 0, f"{what} launched {kname} ({got})")
+        return out, wall, got
+
+    def check_rows(pdfs, gof, what, n_dead=0):
+        """Finite outputs, -inf GOF and zero PDFs on exactly `n_dead`
+        degenerate rows, the others summing to 1 with lmap <= levid."""
+        dead = ~np.isfinite(gof[0])
+        check(int(dead.sum()) == n_dead and np.all(pdfs[dead] == 0.0)
+              and np.all(gof[1][dead] == -np.inf),
+              f"{what}: {int(dead.sum())} degenerate rows, {n_dead} expected")
+        check(np.isfinite(pdfs).all() and np.isfinite(gof[1][~dead]).all(),
+              f"non-finite {what} output")
+        rows = pdfs[~dead].sum(axis=1)
+        check(np.all(np.abs(rows - 1.0) <= 1e-4), f"{what}: PDF rows do not "
+                                                  "sum to 1")
+        lm, lv = gof[0][~dead], gof[1][~dead]
+        check(np.all(lm <= lv + 1e-6 * (1.0 + np.abs(lm))), f"{what}: lmap "
+                                                           "> levid")
+
+    def head(out, n=N_SUBSET):
+        return out[0][:n], (out[1][0][:n], out[1][1][:n])
+
+    # Config 8 end to end (bench.py:612-699): 16,384 objects x 100,000
+    # models x 301, free scale with model errors, wt_thresh 1e-3, ltol
+    # 1e-4, full masks; every row against the plain composition on the
+    # card in 2,048-row batches
+    call8 = (data8, de8, ones8, zl8, zerrs)
+    kw8 = dict(fp_kw, lprob_kwargs=dict(free_scale=True, ltol=1e-4))
+    bf.fit_predict(data8[:2_048], de8[:2_048], ones8[:2_048], zl8, zerrs,
+                   **kw8)  # warm-up of the free-scale instantiations
+    torch.cuda.synchronize()
+    out8, wall8, launches8 = drive(
+        call8, kw8, ("scale_sweeps", "lnl_reduce", "lnl_stack"),
+        "config 8 fit_predict", absent=("lnl_onepass",))
+    check_rows(out8[0], out8[1], "config 8 fit_predict")
+    mT8 = bf.models.T.contiguous()
+    sw8 = GK.scale_sweeps(tens(data8), tens(de8), tens(ones8), mT8,
+                          bf.models_err.T.contiguous(),
+                          bf.models_mask.T.contiguous(),
+                          tm=TF.group_width(NMODEL, 512), full_mask=True)
+    t0 = time.perf_counter()
+    off8 = check_vs_plain(np, bf, out8, call8, kw8, "config 8 fit_predict",
+                          gof_tol=TOL_GOF_FS_ME,
+                          plain_kw=dict(batch_size=PLAIN_BATCH_FS))
+    wall8_plain = time.perf_counter() - t0
+    print(f"end_to_end config 8 fit_predict: {N8} objects x {NMODEL} models "
+          f"x {NGRID} grid, free scale, model errors, wt_thresh "
+          f"{WT_THRESH}, ltol 1e-4: wall {wall8:.4f} s, "
+          f"{N8 * NMODEL / wall8:.6g} pair-evals/s, sweeps per (object, "
+          f"512-model group) mean {float(sw8.float().mean()):.4f} max "
+          f"{int(sw8.max())}, launches {launches8}; all {N8} rows vs the "
+          f"plain composition ({PLAIN_BATCH_FS}-row batches, {wall8_plain:.1f}"
+          f" s): {off8} PDF cells outside rtol 2e-3 | card {card}",
+          flush=True)
+    t0 = time.perf_counter()
+    summ8, gof8s = bf.fit_summarize(*call8, label_dict=pdict, verbose=False,
+                                    lprob_kwargs=kw8["lprob_kwargs"])
+    wall8_s = time.perf_counter() - t0
+    cols = np.stack([np.asarray(c) for est in summ8[:4] for c in est]
+                    + [np.asarray(c) for c in summ8[4:]], axis=1)
+    want = TS.pdfs_summarize(torch.tensor(out8[0], device=dev), grid,
+                             u=np.random.default_rng(0).random(N8))
+    check(np.isclose(cols, TS._pack_summary(want).cpu().numpy(), rtol=2e-5,
+                     atol=2e-6, equal_nan=True).all(),
+          "config 8 fit_summarize differs from pdfs_summarize(fit_predict)")
+    check(np.array_equal(gof8s[0], out8[1][0]), "config 8 fit_summarize "
+                                                "lmap differs")
+    print(f"end_to_end config 8 fit_summarize: wall {wall8_s:.4f} s, "
+          f"{N8 * NMODEL / wall8_s:.6g} pair-evals/s, 21 columns match "
+          f"pdfs_summarize(fit_predict) | card {card}", flush=True)
+    del out8, summ8, cols, want
+    launches_fs = dict(launches8)
+
+    # Free scale without model errors over one masked 65,536 batch
+    # of the config-4 catalog, under each weight selection; rows with
+    # fewer than 2 bands have no dof and floor
+    call9 = (data[:BATCH], data_err[:BATCH], dmask[:BATCH], zlabels, zerrs)
+    n_dead9 = int((dmask[:BATCH].sum(axis=1) < 2).sum())
+    lkw9 = dict(free_scale=True, ignore_model_err=True)
+    walls9 = {}
+    for label, extra, expect in (
+            ("wt_thresh", {}, ("lnl_reduce", "lnl_stack")),
+            ("cdf", dict(wt_thresh=None, cdf_thresh=CDF_THRESH),
+             ("lnl_reduce", "lnl_topk", "lnl_cut_stack")),
+            ("none", dict(wt_thresh=None, cdf_thresh=None),
+             ("lnl_onepass",))):
+        kw9 = dict(fp_kw, lprob_kwargs=lkw9, **extra)
+        what = f"free-scale masked fit_predict ({label})"
+        bf.fit_predict(*(x[:4_096] for x in call9[:3]), zlabels, zerrs,
+                       **kw9)  # warm-up
+        torch.cuda.synchronize()
+        out9, walls9[label], l9 = drive(
+            call9, kw9, expect, what, absent=("scale_sweeps",) + tuple(
+                k for k in GENERAL + ("lnl_onepass",) if k not in expect))
+        check(bf.cdf_reruns == 0, f"{what}: {bf.cdf_reruns} batches reran")
+        check_rows(out9[0], out9[1], what, n_dead9)
+        off9 = check_vs_plain(np, bf, head(out9), sub, kw9, what,
+                              cdf=label == "cdf",
+                              key=None if label == "none" else "wt_thresh",
+                              gof_tol=TOL_GOF_FS_IME)
+        for kname, n in l9.items():
+            launches_fs[kname] += n
+        print(f"end_to_end {what}: {BATCH} objects x {NMODEL} models, "
+              f"{n_dead9} rows with < 2 bands: wall {walls9[label]:.4f} s, "
+              f"{BATCH * NMODEL / walls9[label]:.6g} pair-evals/s, launches "
+              f"{l9}, subset {N_SUBSET} vs plain: {off9} PDF cells outside "
+              f"rtol 2e-3 | card {card}", flush=True)
+        del out9
+
+    # The bisection under free scale: the flat posterior of phase 5
+    # under the Normal likelihood (chi^2 ~ 1e-5 for every model) at
+    # cdf_thresh 0.5 must rerun through `lnl_reduce_split`.
+    flat_kw = dict(fp_kw, wt_thresh=None, cdf_thresh=0.5,
+                   lprob_kwargs=dict(lkw9, dim_prior=False))
+    got_f, wall_f, l_f = drive(
+        (*flat, zlabels, zerrs), flat_kw,
+        ("lnl_reduce", "lnl_topk", "lnl_reduce_split", "lnl_cut_stack"),
+        "free-scale flat-posterior rerun", absent=("scale_sweeps",))
+    check(bf.cdf_reruns == 1, f"free-scale flat posterior: {bf.cdf_reruns} "
+                              "reruns")
+    off_f = check_vs_plain(np, bf, got_f, (*flat, zlabels, zerrs), flat_kw,
+                           "free-scale flat-posterior rerun", cdf=True,
+                           gof_tol=TOL_GOF_FS_IME)
+    for kname, n in l_f.items():
+        launches_fs[kname] += n
+    print(f"rerun: free-scale flat posterior (Normal), cdf_thresh 0.5: "
+          f"flagged, 1 batch rerun, wall {wall_f:.4f} s, launches {l_f}, "
+          f"{off_f} PDF cells outside rtol 2e-3 of the plain composition | "
+          f"card {card}", flush=True)
+
+    # Fixed scale with no weight threshold over one masked 65,536
+    # batch: the one-pass kernel alone
+    kw10 = dict(fp_kw, wt_thresh=None, cdf_thresh=None)
+    call10 = (data[:BATCH], data_err[:BATCH], dmask[:BATCH], zlabels, zerrs)
+    bf.fit_predict(*(x[:4_096] for x in call10[:3]), zlabels, zerrs,
+                   **kw10)  # warm-up
+    torch.cuda.synchronize()
+    out10, wall10, launches10 = drive(
+        call10, kw10, ("lnl_onepass",), "one-pass masked fit_predict",
+        absent=("scale_sweeps",) + GENERAL)
+    check_rows(out10[0], out10[1], "one-pass masked fit_predict",
+               int((dmask[:BATCH].sum(axis=1) == 0).sum()))
+    off10 = check_vs_plain(np, bf, head(out10), sub, kw10,
+                           "one-pass masked fit_predict", key=None)
+    print(f"end_to_end one-pass masked fit_predict: {BATCH} objects x "
+          f"{NMODEL} models x {NGRID} grid, no weight threshold: wall "
+          f"{wall10:.4f} s, {BATCH * NMODEL / wall10:.6g} pair-evals/s, "
+          f"launches {launches10}, subset {N_SUBSET} vs plain: {off10} PDF "
+          f"cells outside rtol 2e-3 | card {card}", flush=True)
+    del out10
+
+    # free-scale kernel times at config 8's batch
+    args8 = [tens(data8), tens(de8), tens(ones8), mT8,
+             bf.models_err.T.contiguous(), bf.models_mask.T.contiguous()]
+    fl8 = dict(full_mask=True, free_scale=True, sweeps=sw8,
+               tm=TF.group_width(NMODEL, 512))
+    lm8, lv8 = GK.lnl_reduce(*args8, **fl8)
+    for kname, fn in (
+            ("scale_sweeps", lambda: GK.scale_sweeps(
+                *args8, tm=fl8["tm"], full_mask=True)),
+            ("lnl_reduce_fs", lambda: GK.lnl_reduce(*args8, **fl8)),
+            ("lnl_stack_fs", lambda: GK.lnl_stack(
+                *args8, G8, lm8, lv8, log_thr=log_thr, **fl8)),
+            ("lnl_onepass_fs", lambda: GK.lnl_onepass(*args8, G8, **fl8))):
+        ms_batch[kname] = median_ms(torch, fn, reps=3)
+    print(f"kernel_at_batch {N8}x{NMODEL} config 8: " + ", ".join(
+        f"{k} {ms_batch[k]:.3f} ms" for k in (
+            "scale_sweeps", "lnl_reduce_fs", "lnl_stack_fs",
+            "lnl_onepass_fs")) + f" | card {card}", flush=True)
+    del args8, lm8, lv8, sw8
+
+    # 7. results
     replaces = {"chi2_brackets": "frankenz_tpu/ops/fused.py:918",
                 "chi2_stack": "frankenz_tpu/ops/fused.py:980",
                 "lnl_reduce": "frankenz_tpu/ops/fused.py:599",
@@ -692,29 +1004,47 @@ def main():
                 "lnl_reduce_split": "frankenz_tpu/models/bruteforce.py:852",
                 "lnl_stack": "frankenz_tpu/ops/fused.py:634",
                 "lnl_topk": "frankenz_tpu/ops/fused.py:721",
-                "lnl_cut_stack": "frankenz_tpu/ops/fused.py:779"}
+                "lnl_cut_stack": "frankenz_tpu/ops/fused.py:779",
+                "lnl_onepass": "frankenz_tpu/ops/fused.py:670"}
     main_launches = {"chi2_brackets": launches["chi2_brackets"],
                      "chi2_stack": launches["chi2_stack"],
                      "lnl_reduce": launches_m["lnl_reduce"],
                      "lnl_reduce_split": launches_r["lnl_reduce_split"],
                      "lnl_stack": launches_m["lnl_stack"],
                      "lnl_topk": launches_c["lnl_topk"],
-                     "lnl_cut_stack": launches_c["lnl_cut_stack"]}
+                     "lnl_cut_stack": launches_c["lnl_cut_stack"],
+                     "lnl_onepass": launches10["lnl_onepass"]}
+    # The free-scale instantiations (csrc/lnl_freescale.cu: the `_fs`
+    # entry points and the sweep counts) replace the same Pallas kernels
+    # with `_lnl_tile`'s free-scale branch (ops/fused.py:316-596); their
+    # launches are those of the free-scale runs (config 8, the masked
+    # batch under three weight selections, the flat-posterior rerun).
+    replaces["scale_sweeps"] = "frankenz_tpu/ops/fused.py:452"
+    main_launches["scale_sweeps"] = launches_fs["scale_sweeps"]
+    for kname in GENERAL + ("lnl_onepass",):
+        replaces[kname + "_fs"] = replaces[kname]
+        main_launches[kname + "_fs"] = launches_fs[kname]
     kernels = []
     for kname in replaces:
         per = results[kname]
+        free = kname == "scale_sweeps" or kname.endswith("_fs")
         ref = per["config4" if kname.startswith("chi2") else
-                  "masked_dimprior"]
-        kernels.append({
+                  "fs_me_full_dimprior" if free else "masked_dimprior"]
+        check(main_launches[kname] > 0,
+              f"{kname} was launched no time by the end-to-end runs")
+        entry = {
             "name": kname, "route": "cuda",
             "source": ("frankenz_tpu_torch/csrc/chi2_fullmask.cu"
                        if kname.startswith("chi2") else
-                       "frankenz_tpu_torch/csrc/lnl_general.cu"),
+                       "frankenz_tpu_torch/csrc/lnl_freescale.cu" if free
+                       else "frankenz_tpu_torch/csrc/lnl_general.cu"),
             "replaces": replaces[kname], "launches": main_launches[kname],
             "max_abs_err": max(r["max_abs_err"] for r in per.values()),
             "ms": ref["ms"], "plain_ms": ref["plain_ms"],
-            "ms_batch_65536": ms_batch[kname],
-            "cases": per})
+            "cases": per}
+        if kname in ms_batch:
+            entry[f"ms_batch_{N8 if free else BATCH}"] = ms_batch[kname]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

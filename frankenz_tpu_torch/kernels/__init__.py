@@ -2,8 +2,10 @@
 wrappers, plain PyTorch versions and launch counters.
 
 ``fullmask``: the full-mask chi^2 pair (`chi2_brackets`, `chi2_stack`);
-``general``: the masked / Normal / cdf-mode lnl kernels (`lnl_reduce`,
-`lnl_reduce_split`, `lnl_stack`, `lnl_topk`, `lnl_cut_stack`).
+``general``: the lnl kernels of every other configuration (`lnl_reduce`,
+`lnl_reduce_split`, `lnl_stack`, `lnl_topk`, `lnl_cut_stack`,
+`lnl_onepass`), in fixed and free scale, and the free-scale sweep counts
+(`scale_sweeps`).
 `reset_launch_counts` and `launch_counts` here cover both modules, so a
 phase can show which kernels one call launched.
 """
@@ -18,6 +20,8 @@ from .fullmask import (  # noqa: F401
 from .general import (  # noqa: F401
     lnl_cut_stack,
     lnl_cut_stack_plain,
+    lnl_onepass,
+    lnl_onepass_plain,
     lnl_reduce,
     lnl_reduce_split,
     lnl_reduce_split_plain,
@@ -27,6 +31,8 @@ from .general import (  # noqa: F401
     lnl_tile_plain,
     lnl_topk,
     lnl_topk_plain,
+    scale_sweeps,
+    scale_sweeps_plain,
 )
 
 

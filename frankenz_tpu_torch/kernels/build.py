@@ -3,7 +3,7 @@
 `nvcc` compiles every ``frankenz_tpu_torch/csrc/*.cu`` into one shared
 library with a plain C interface,
 ``<checkout>/build/frankenz_tpu_torch/libfz_kernels.so``, at first use
-(a few seconds: no PyTorch headers are involved).  The library is
+(the sources in parallel; no PyTorch headers are involved).  The library is
 rebuilt when any source is newer than it.  Nothing here runs at import
 time: the CPU test suite imports every module on machines without
 `nvcc`.
@@ -26,7 +26,7 @@ _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG.parent / "build" / "frankenz_tpu_torch"
 _LIB_NAME = "libfz_kernels.so"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC")
+               "-O3", "-Xcompiler", "-fPIC")
 
 _lib = None
 
@@ -68,21 +68,30 @@ def build(force=False):
                            "the CUDA kernels cannot be built")
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # Compile to a temporary name and rename: a concurrent loader never
-    # sees a half-written library.  lnl_general.cu, with its many template
-    # instantiations, takes most of the time.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *_NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(
-                " ".join(cmd), proc.stdout, proc.stderr))
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # One nvcc per source, all started together (lnl_general.cu and
+    # lnl_freescale.cu, with their many template instantiations, take
+    # tens of seconds each), then one link.  The library is written to a
+    # temporary name and renamed: a concurrent loader never sees a
+    # half-written one.
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in _sources()]
+        cmds = [[nvcc, *_NVCC_FLAGS, "-c", "-o", o, str(p)]
+                for p, o in zip(_sources(), objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        so = os.path.join(tmp, _LIB_NAME)
+        cmds.append([nvcc, "-shared", "-o", so, *objs])
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run(cmds[-1], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            procs.append(link)
+            outs.append(link.stdout)
+        for cmd, p, out in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+        os.replace(so, lib)
     return time.perf_counter() - t0
 
 
@@ -97,23 +106,30 @@ def _bind(lib):
     lib.fz_chi2_stack.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, F, I,
                                   F, I, I, P]
     lib.fz_chi2_stack.restype = I
-    for name, nargs in (("fz_lnl_reduce_smem", 1), ("fz_lnl_topk_smem", 2),
-                        ("fz_lnl_stack_smem", 1)):
+    for name, nargs in (("fz_lnl_reduce_smem", 2), ("fz_lnl_topk_smem", 3),
+                        ("fz_lnl_stack_smem", 1), ("fz_scale_sweeps_smem", 2)):
         getattr(lib, name).argtypes = [I] * nargs
         getattr(lib, name).restype = I
     # Pointers (7 inputs, then outputs / extra inputs), sizes, flags,
-    # nd_full, stream: see csrc/lnl_general.cu's extern "C" block.
-    lib.fz_lnl_reduce.argtypes = [P] * 9 + [I] * 6 + [F, P]
-    lib.fz_lnl_reduce.restype = I
-    lib.fz_lnl_reduce_split.argtypes = [P] * 11 + [I] * 6 + [F, P]
-    lib.fz_lnl_reduce_split.restype = I
-    lib.fz_lnl_topk.argtypes = [P] * 9 + [I] * 7 + [F, P]
-    lib.fz_lnl_topk.restype = I
-    lib.fz_lnl_stack.argtypes = ([P] * 11 + [I] * 4 + [F] + [I] * 3
-                                 + [F, I, P])
-    lib.fz_lnl_stack.restype = I
-    lib.fz_lnl_cut_stack.argtypes = [P] * 13 + [I] * 7 + [F, I, P]
-    lib.fz_lnl_cut_stack.restype = I
+    # nd_full, the sweep table with its width and group width, (threads,)
+    # stream: see the FZ_ENTRY_POINTS macro of csrc/lnl_common.cuh.  The
+    # fixed-scale entry points (csrc/lnl_general.cu) and the free-scale
+    # ones (csrc/lnl_freescale.cu, suffix _fs) share each signature.
+    tail = [F, P, I, I]
+    general = {
+        "fz_lnl_reduce": [P] * 9 + [I] * 6 + tail + [P],
+        "fz_lnl_reduce_split": [P] * 11 + [I] * 6 + tail + [P],
+        "fz_lnl_topk": [P] * 9 + [I] * 7 + tail + [P],
+        "fz_lnl_stack": [P] * 11 + [I] * 4 + [F] + [I] * 3 + tail + [I, P],
+        "fz_lnl_cut_stack": [P] * 13 + [I] * 7 + tail + [I, P],
+        "fz_lnl_onepass": [P] * 11 + [I] * 7 + tail + [I, P],
+    }
+    for name, argtypes in general.items():
+        for fn in (getattr(lib, name), getattr(lib, name + "_fs")):
+            fn.argtypes = argtypes
+            fn.restype = I
+    lib.fz_scale_sweeps.argtypes = [P] * 7 + [I] * 6 + [F, I, F, P]
+    lib.fz_scale_sweeps.restype = I
     return lib
 
 

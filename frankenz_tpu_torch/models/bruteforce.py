@@ -7,14 +7,16 @@ Port of `frankenz_tpu.models.bruteforce` (reference
   lprob_func -> (B, M) log-posteriors -> lmap, levid (max, logsumexp)
              -> thresholded weights -> weights @ G -> (B, Ngrid) PDFs
 
-and, on the default configuration, through the fused route's CUDA
+and, on the default lprob pipeline, through the fused route's CUDA
 kernels (`ops.fused.fused_fit_pdf`: the full-mask pair, or the general
-lnl kernels on masked photometry, the Normal likelihood and the cdf
-mode), so the (B, M) grid is never built.
+lnl kernels for masked photometry, the Normal likelihood, free scale,
+the cdf mode and no weight threshold at all), so the (B, M) grid is
+never built.  ``track_scale`` and ``save_fits`` take the plain
+composition, which stores the grids.
 `BruteForce` is a plain class holding the model set on one device; it
 has nothing to train, so it is not an `nn.Module`.
 
-Not ported yet: ``mesh=`` sharding, ``checkpoint_every`` / ``resume``
+Not ported yet: ``mesh=`` sharding and ``checkpoint_every`` / ``resume``
 (they raise `NotImplementedError`), the gathered-KDE paths, and the
 TPU-specific dispatch crossovers of the JAX fitter.
 """
@@ -93,6 +95,8 @@ class BruteForce:
         self.fit_lnprob = None
         self.fit_Ndim = None
         self.fit_chi2 = None
+        self.fit_scale = None
+        self.fit_scale_err = None
         # Batches of the last fused cdf-mode fit_predict whose cut was
         # undetermined and ran again with the bisection cut.
         self.cdf_reruns = 0
@@ -163,21 +167,21 @@ class BruteForce:
             verbose=True, batch_size=None, checkpoint_every=None,
             checkpoint_file=None, resume=False, fit_dtype=np.float32):
         """Fit all models to all data; store the (Ndata, Nmodel) grids as
-        host NumPy arrays (reference `bruteforce.py:66-125`)."""
+        host NumPy arrays (reference `bruteforce.py:66-125`).  With
+        `track_scale`, `fit_scale` / `fit_scale_err` start at ones /
+        zeros and hold the lprob's scales where it returns them
+        (``lprob_kwargs={"free_scale": True, "return_scale": True}``)."""
         if checkpoint_every or resume:
             raise NotImplementedError(
                 "checkpoint_every / resume are not ported yet "
                 "(utils/checkpoint, ROADMAP queue 1)")
-        if track_scale:
-            raise NotImplementedError(
-                "track_scale needs the free-scale likelihood (ROADMAP K6)")
         data = np.atleast_2d(np.asarray(data))
         data_err = np.atleast_2d(np.asarray(data_err))
         data_mask = np.atleast_2d(np.asarray(data_mask))
         ndata = data.shape[0]
         if batch_size is None:
             batch_size = default_batch_size(self.NMODEL)
-        self._alloc_fits(ndata, fit_dtype)
+        self._alloc_fits(ndata, track_scale, fit_dtype)
         with _metrics.timer("bruteforce.fit", items=ndata * self.NMODEL,
                             item_counter="chi2_pair_evals",
                             cuda=self.device.type == "cuda"):
@@ -192,7 +196,7 @@ class BruteForce:
                 self._store_fits(sl, res)
         return self
 
-    def _alloc_fits(self, ndata, fit_dtype=np.float32):
+    def _alloc_fits(self, ndata, track_scale=False, fit_dtype=np.float32):
         m, dt = self.NMODEL, np.dtype(fit_dtype)
         self.NDATA = ndata
         self.fit_lnprior = np.zeros((ndata, m), dt)
@@ -200,6 +204,9 @@ class BruteForce:
         self.fit_lnprob = np.zeros((ndata, m), dt)
         self.fit_Ndim = np.zeros((ndata, m), np.int32)
         self.fit_chi2 = np.zeros((ndata, m), dt)
+        self.fit_scale = np.ones((ndata, m), dt) if track_scale else None
+        self.fit_scale_err = (np.zeros((ndata, m), dt) if track_scale
+                              else None)
 
     def _store_fits(self, sl, res):
         lnprior, lnlike, lnprob, ndim, chi2 = res[:5]
@@ -209,6 +216,10 @@ class BruteForce:
         self.fit_lnprob[sl] = lnprob.cpu().numpy().astype(dt)
         self.fit_Ndim[sl] = ndim.cpu().numpy().astype(np.int32)
         self.fit_chi2[sl] = chi2.cpu().numpy().astype(dt)
+        # (frankenz_tpu/models/bruteforce.py:344-347)
+        for name, t in zip(("fit_scale", "fit_scale_err"), res[5:7]):
+            if t is not None and getattr(self, name) is not None:
+                getattr(self, name)[sl] = t.cpu().numpy().astype(dt)
 
     def predict(self, model_labels, model_label_errs, label_dict=None,
                 label_grid=None, logwt=None, kde_args=None, kde_kwargs=None,
@@ -260,16 +271,19 @@ class BruteForce:
         (reference `bruteforce.py:374-631`), returning host NumPy arrays.
 
         ``use_fused=None`` (default) or True runs `ops.fused_fit_pdf` on
-        eligible configurations: on CUDA its kernels (free scale, and
-        both thresholds None on masked data, raise
-        `NotImplementedError`), on the CPU their plain versions.  In the
-        cdf mode a batch whose cut is undetermined runs again, its cut
-        found by bisection on the same kernels (counted in
-        ``self.cdf_reruns``).
-        ``use_fused=False`` runs the plain composition
-        (logprob, logsumexp, threshold, kde_stack) on the fitter's
-        device.  `_post_setup` (internal, see `fit_summarize`) maps each
-        normalized PDF batch on device before it is copied back.
+        eligible configurations (the default lprob with any of its
+        `free_scale`, `ignore_model_err`, `dim_prior`, `ltol` and
+        `max_iter` keywords; no `track_scale`, `save_fits` or
+        `return_scale`): on CUDA its kernels, on the CPU their plain
+        versions.  `ltol` and `max_iter` reach the kernels as the free
+        scale's `scale_ltol` and `scale_max_iter`.  In the cdf mode a
+        batch whose cut is undetermined runs again, its cut found by
+        bisection on the same kernels (counted in ``self.cdf_reruns``).
+        ``use_fused=False``, and ``use_fused=None`` on an ineligible
+        configuration, run the plain composition (logprob, logsumexp,
+        threshold, kde_stack) on the fitter's device.  `_post_setup`
+        (internal, see `fit_summarize`) maps each normalized PDF batch
+        on device before it is copied back.
         """
         if mesh is not None:
             raise NotImplementedError("mesh= sharding is not ported yet "
@@ -291,9 +305,6 @@ class BruteForce:
             raise ValueError("use_fused=True requires the default lprob "
                              "pipeline (no custom lprob_func/args, no "
                              "save_fits/track_scale/return_scale)")
-        if track_scale:
-            raise NotImplementedError(
-                "track_scale needs the free-scale likelihood (ROADMAP K6)")
         with self._fp_metrics(ndata):
             if use_fused:
                 if batch_size is None:
@@ -307,7 +318,7 @@ class BruteForce:
                 out = self._fit_predict_plain(
                     data, data_err, data_mask, G, lprob_func, lprob_args,
                     lprob_kwargs, wt_thresh, cdf_thresh, batch_size,
-                    save_fits, verbose, _post_setup)
+                    save_fits, track_scale, verbose, _post_setup)
         pdfs, lmap, levid = out
         if return_gof:
             return pdfs, (lmap, levid)
@@ -355,7 +366,11 @@ class BruteForce:
                                                     False),
                   free_scale=lprob_kwargs.get("free_scale", False),
                   wt_thresh=wt_thresh, cdf_thresh=cdf_thresh,
-                  full_mask=full_mask, defer_cdf_check=True)
+                  full_mask=full_mask, defer_cdf_check=True,
+                  # As the JAX fitter (frankenz_tpu/models/bruteforce.py:
+                  # 837-838): the lprob's own keywords, its defaults.
+                  scale_ltol=float(lprob_kwargs.get("ltol", 1e-4)),
+                  scale_max_iter=int(lprob_kwargs.get("max_iter", 100)))
         flagged = []
 
         def step(i0, n):
@@ -386,12 +401,13 @@ class BruteForce:
 
     def _fit_predict_plain(self, data, data_err, data_mask, G, lprob_func,
                            lprob_args, lprob_kwargs, wt_thresh, cdf_thresh,
-                           batch_size, save_fits, verbose, post_setup=None):
+                           batch_size, save_fits, track_scale, verbose,
+                           post_setup=None):
         """The plain composition, batch by batch, on the fitter's device
         (the counterpart of the JAX XLA path)."""
         ndata = data.shape[0]
         if save_fits:
-            self._alloc_fits(ndata)
+            self._alloc_fits(ndata, track_scale)
 
         def step(i0, n):
             sl = slice(i0, i0 + n)

@@ -22,6 +22,7 @@ from .likelihood import (  # noqa: F401
     clean_data,
     loglike,
     loglike_fixed,
+    loglike_free,
     logprob,
 )
 from .summarize import (  # noqa: F401

@@ -2,12 +2,12 @@
 Fused fit -> PDF for one object batch: lnl grid -> lmap / levid ->
 thresholded weights -> KDE label PDFs, without the (B, M) grid in memory.
 
-Port of `frankenz_tpu.ops.fused.fused_fit_pdf` for the fixed-scale
-likelihood.  Two kernel routes serve it:
+Port of `frankenz_tpu.ops.fused.fused_fit_pdf`.  Three kernel routes
+serve every configuration of it:
 
-* "fullmask", full masks + dim prior (`wt_thresh` set, or both
-  thresholds None): the two-pass pair of `frankenz_tpu/ops/fused.py:1688`
-  (`_fused_call_fullmask_dimprior`):
+* "fullmask", full masks + dim prior + fixed scale (`wt_thresh` set, or
+  both thresholds None): the two-pass pair of
+  `frankenz_tpu/ops/fused.py:1688` (`_fused_call_fullmask_dimprior`):
 
     pass A (`kernels.fullmask.chi2_brackets`): per object, the chi^2
         values bracketing c0 = F - 2, where the unimodal lnl(chi2) peaks;
@@ -17,12 +17,15 @@ likelihood.  Two kernel routes serve it:
         unthresholded sum s, pdf += (w > wt_thresh) @ G;
     glue: levid = log s + lmap, the PDF rescale, the degenerate-row rule.
 
-* "general", every other fixed-scale configuration with a threshold:
-  masked photometry, the Normal likelihood (``dim_prior=False``) and the
-  cdf mode (``wt_thresh=None`` with ``cdf_thresh``).  The counterpart of
-  `_fused_call`'s general body (ops/fused.py:1851-2011), without the
-  Mosaic-only padding, band sort and G split:
+* "general", every other configuration with a threshold: masked
+  photometry, the Normal likelihood (``dim_prior=False``), free scale
+  and the cdf mode (``wt_thresh=None`` with ``cdf_thresh``).  The
+  counterpart of `_fused_call`'s general body (ops/fused.py:1851-2011),
+  without the Mosaic-only padding, band sort and G split:
 
+    free scale with model errors: `kernels.general.scale_sweeps` first,
+        the per-(object, model group) sweep counts of the scale fixed
+        point, which every kernel below then reads;
     `kernels.general.lnl_reduce`: lmap, levid;
     wt_thresh: `lnl_stack` keeps lnl > ln(wt_thresh) + lmap;
     cdf mode: `lnl_topk` (the T heaviest distinct lnl values and tie
@@ -32,13 +35,23 @@ likelihood.  Two kernel routes serve it:
         whose cut the top-T table leaves undetermined find it by
         bisection (`cdf_cut_exact`, `lnl_reduce_split` per step).
 
-Routing (`fused_route`): on CUDA those two routes launch their kernels,
-and free scale (K6) or both thresholds None off the full-mask route (K4)
-raise `NotImplementedError` naming the ROADMAP kernel; on the CPU the
-kernel routes run the kernels' plain versions through the same glue and
-the two unported configurations run the plain composition (logprob,
-logsumexp, threshold, `kde_stack`).  Nothing catches a failed build or
-launch.
+* "onepass", both thresholds None off the full-mask route: the
+  single-pass kernel of ops/fused.py:1952-1975 (`lnl_onepass`, after
+  `scale_sweeps` under free scale with model errors), and the glue's
+  rescale pdf * exp(lmap - levid).
+
+On CUDA tensors the routes launch their kernels; on CPU tensors the same
+glue runs the kernels' plain versions.  Nothing catches a failed build
+or launch.
+
+The free-scale fixed point with model errors converges per (object,
+group of ``tm`` models), as the JAX tile does (ops/fused.py:529-539): the
+group's max |delta lnl| decides, and the models of a ragged last group
+are joined by the JAX glue's padding sentinels.  The groups are the
+models in the caller's order.  (JAX band-sorts the models by their
+kernel-matrix support when the padded grid exceeds 128 columns,
+ops/fused.py:1863-1872, which regroups them: its free-scale results then
+depend on G.  ROADMAP section 3.)
 
 One documented deviation, inherited from the JAX kernels: on rows whose
 EVERY chi^2 exceeds the clamp (F <= 19, chi^2 > 30000: insane outliers)
@@ -56,11 +69,10 @@ from scipy.special import gammaln as _sp_gammaln
 from ..kernels import build as _build
 from ..kernels import fullmask as _fm
 from ..kernels import general as _gen
-from . import kde as _kde
-from . import likelihood as _like
 
-__all__ = ["fused_fit_pdf", "fused_route", "kernels_available", "cdf_cut",
-           "cdf_cut_exact", "FusedCdfFallback"]
+__all__ = ["fused_fit_pdf", "fused_route", "group_width",
+           "kernels_available", "cdf_cut", "cdf_cut_exact",
+           "FusedCdfFallback"]
 
 _LOG_2 = 0.6931471805599453
 _NEG_INF = float(np.finfo(np.float32).min)
@@ -79,32 +91,24 @@ class FusedCdfFallback(RuntimeError):
     larger ``cdf_topk`` or the plain composition (ops/fused.py:48)."""
 
 
-def fused_route(device_type, *, full_mask, dim_prior=True, free_scale=False,
+def fused_route(*, full_mask, dim_prior=True, free_scale=False,
                 wt_thresh=1e-3, cdf_thresh=None):
-    """Which implementation serves a `fused_fit_pdf` call.
-
-    Returns "fullmask" (the K1 pair), "general" (the masked / Normal /
-    cdf-mode kernels) -- on the CPU their plain versions -- or "plain"
-    (the plain composition, CPU only).  On CUDA a configuration whose
-    JAX route is a Pallas kernel not ported yet raises
-    `NotImplementedError` naming its ROADMAP entry.
-    """
+    """Which kernel route serves a `fused_fit_pdf` call: "fullmask" (the
+    K1 pair), "general" (the lnl kernels with a weight selection) or
+    "onepass" (both thresholds None off the K1 pair).  The same on every
+    device: CPU tensors run the kernels' plain versions."""
     cdf_mode = wt_thresh is None and cdf_thresh is not None
     if full_mask and dim_prior and not free_scale and not cdf_mode:
         return "fullmask"
-    if free_scale:
-        missing = "K6 (free-scale likelihood tile)"
-    elif wt_thresh is None and cdf_thresh is None:
-        missing = "K4 (one-pass kernel for wt_thresh=None)"
-    else:
-        return "general"
-    if device_type != "cuda":
-        return "plain"
-    raise NotImplementedError(
-        "fused_fit_pdf on CUDA runs the fixed-scale routes with a weight "
-        "threshold (and the full-mask dim-prior route without one); this "
-        f"configuration needs ROADMAP kernel {missing}, not ported yet "
-        "(use_fused=False runs the plain composition on the card)")
+    if wt_thresh is None and cdf_thresh is None:
+        return "onepass"
+    return "general"
+
+
+def group_width(nmodel, tm):
+    """The free-scale convergence group: JAX's model tile, `tm` capped at
+    the model count rounded up to 128 (ops/fused.py:2135)."""
+    return min(int(tm), -(-int(nmodel) // 128) * 128)
 
 
 def _lnl_of(c, a1, norm):
@@ -266,7 +270,9 @@ def _general(d, de, dm, mT, meT, mmT, G, *, flags, wt_thresh, cdf_thresh,
              cdf_topk, cdf_exact=False):
     """Glue of `_fused_call`'s general body around the general kernels;
     returns (pdf, lmap, levid, ok), pdf in the exp(lnl - levid) scale and
-    `ok` the per-row cdf flag (None off the cdf mode)."""
+    `ok` the per-row cdf flag (None off the cdf mode).  `flags` are the
+    kernels' flags, with the sweep table under free scale and model
+    errors."""
     lmap, levid = _gen.lnl_reduce(d, de, dm, mT, meT, mmT, **flags)
     if wt_thresh is not None:
         pdf = _gen.lnl_stack(d, de, dm, mT, meT, mmT, G, lmap, levid,
@@ -285,8 +291,11 @@ def _general(d, de, dm, mT, meT, mmT, G, *, flags, wt_thresh, cdf_thresh,
         rows = torch.nonzero(~ok).flatten()
         if rows.numel():
             sub = [t.index_select(0, rows) for t in (d, de, dm, levid)]
+            sub_flags = dict(flags)
+            if flags["sweeps"] is not None:
+                sub_flags["sweeps"] = flags["sweeps"].index_select(0, rows)
             exact = cdf_cut_exact(*sub[:3], mT, meT, mmT, sub[3],
-                                  float(cdf_thresh), **flags)
+                                  float(cdf_thresh), **sub_flags)
             for t, v in zip((cut, tie, nkeep), exact):
                 t[rows] = v
             ok = torch.ones_like(ok)
@@ -296,17 +305,11 @@ def _general(d, de, dm, mT, meT, mmT, G, *, flags, wt_thresh, cdf_thresh,
     return pdf, lmap, levid, ok
 
 
-def _plain_composition(d, de, dm, m, me, mm, G, *, dim_prior,
-                       ignore_model_err, free_scale, wt_thresh, cdf_thresh):
-    """logprob -> lmap / logsumexp -> exp -> threshold -> kde_stack."""
-    res = _like.logprob(d, de, dm, m, me, mm, free_scale=free_scale,
-                        ignore_model_err=ignore_model_err,
-                        dim_prior=dim_prior)
-    lnp = res.lnprob
-    lmap = lnp.amax(dim=1)
-    levid = torch.logsumexp(lnp, dim=1)
-    wt = torch.exp(lnp - levid[:, None])
-    return _kde.kde_stack(wt, G, wt_thresh, cdf_thresh), lmap, levid
+def _onepass(d, de, dm, mT, meT, mmT, G, *, flags):
+    """Glue of the one-pass kernel (ops/fused.py:1952-1975): its PDF
+    comes in the exp(lnl - lmap) scale."""
+    pdf, lmap, levid = _gen.lnl_onepass(d, de, dm, mT, meT, mmT, G, **flags)
+    return pdf * torch.exp(lmap - levid)[:, None], lmap, levid
 
 
 def _is_full(mask):
@@ -316,7 +319,8 @@ def _is_full(mask):
 def fused_fit_pdf(data, data_err, data_mask, models, models_err,
                   models_mask, G, *, dim_prior=True, ignore_model_err=False,
                   free_scale=False, wt_thresh=1e-3, cdf_thresh=None,
-                  full_mask=None, cdf_topk=8, defer_cdf_check=False,
+                  full_mask=None, tm=512, scale_ltol=1e-4,
+                  scale_max_iter=100, cdf_topk=8, defer_cdf_check=False,
                   cdf_exact=False):
     """Fused fit -> PDF for one object batch.
 
@@ -326,6 +330,12 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
     float32 PDFs (Nobj, Ngrid) in the exp(lnl - levid) scale and the GOF
     metrics; the caller normalizes PDFs.  `full_mask=None` reads both
     masks to decide.  Routing: see `fused_route`.
+
+    ``free_scale=True`` with model errors kept runs the scale fixed
+    point per (object, group of `tm` models, capped as in `group_width`)
+    until the group's max |delta lnl| is at most max(scale_ltol, 4 eps
+    max A), at most `scale_max_iter` sweeps (JAX's criterion and
+    defaults); `tm` does nothing else.
 
     With ``wt_thresh=None`` and ``cdf_thresh`` set, the reference's
     sorted-CDF weight selection (drop-the-largest quirk included) runs
@@ -343,43 +353,40 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
     m = torch.as_tensor(models)
     dev = m.device
     f32 = dict(dtype=torch.float32, device=dev)
-    d = torch.as_tensor(data, **f32)
-    de = torch.as_tensor(data_err, **f32)
+    d = torch.as_tensor(data, **f32).contiguous()
+    de = torch.as_tensor(data_err, **f32).contiguous()
     if full_mask is None:
         full_mask = _is_full(data_mask) and _is_full(models_mask)
-    route = fused_route(dev.type, full_mask=full_mask, dim_prior=dim_prior,
+    route = fused_route(full_mask=full_mask, dim_prior=dim_prior,
                         free_scale=free_scale, wt_thresh=wt_thresh,
                         cdf_thresh=cdf_thresh)
-    m = m.to(torch.float32)
-    me = torch.as_tensor(models_err, **f32)
-    G = torch.as_tensor(G, **f32)
+    mT = m.to(torch.float32).T.contiguous()
+    meT = torch.as_tensor(models_err, **f32).T.contiguous()
+    G = torch.as_tensor(G, **f32).contiguous()
     ok = None
-    if route == "plain":
-        dm = torch.as_tensor(data_mask, **f32)
-        mm = torch.as_tensor(models_mask, **f32)
-        pdf, lmap, levid = _plain_composition(
-            d, de, dm, m, me, mm, G, dim_prior=dim_prior,
-            ignore_model_err=ignore_model_err, free_scale=free_scale,
-            wt_thresh=wt_thresh, cdf_thresh=cdf_thresh)
-        if defer_cdf_check:
-            return pdf, lmap, levid, torch.ones((), dtype=torch.bool,
-                                                device=dev)
-        return pdf, lmap, levid
     if route == "fullmask":
         pdf, lmap, levid = _fullmask_dimprior(
-            d.contiguous(), de.contiguous(), m.T.contiguous(),
-            me.T.contiguous(), G.contiguous(),
-            ignore_model_err=ignore_model_err, wt_thresh=wt_thresh)
+            d, de, mT, meT, G, ignore_model_err=ignore_model_err,
+            wt_thresh=wt_thresh)
     else:
         dm = torch.as_tensor(data_mask, **f32).contiguous()
-        mm = torch.as_tensor(models_mask, **f32)
-        pdf, lmap, levid, ok = _general(
-            d.contiguous(), de.contiguous(), dm, m.T.contiguous(),
-            me.T.contiguous(), mm.T.contiguous(), G.contiguous(),
-            flags=dict(full_mask=full_mask, dim_prior=dim_prior,
-                       ignore_model_err=ignore_model_err),
-            wt_thresh=wt_thresh, cdf_thresh=cdf_thresh,
-            cdf_topk=int(cdf_topk), cdf_exact=cdf_exact)
+        mmT = torch.as_tensor(models_mask, **f32).T.contiguous()
+        flags = dict(full_mask=full_mask, dim_prior=dim_prior,
+                     ignore_model_err=ignore_model_err,
+                     free_scale=free_scale, sweeps=None, tm=None)
+        if free_scale and not ignore_model_err:
+            tm = group_width(mT.shape[1], tm)
+            flags.update(tm=tm, sweeps=_gen.scale_sweeps(
+                d, de, dm, mT, meT, mmT, tm=tm, full_mask=full_mask,
+                ltol=scale_ltol, max_iter=scale_max_iter))
+        if route == "onepass":
+            pdf, lmap, levid = _onepass(d, de, dm, mT, meT, mmT, G,
+                                        flags=flags)
+        else:
+            pdf, lmap, levid, ok = _general(
+                d, de, dm, mT, meT, mmT, G, flags=flags,
+                wt_thresh=wt_thresh, cdf_thresh=cdf_thresh,
+                cdf_topk=int(cdf_topk), cdf_exact=cdf_exact)
     # Degenerate rows (every model at the -inf floor): zero PDF, -inf GOF.
     good = lmap > _NEG_INF / 2
     pdf = torch.where(good[:, None], pdf, 0.0)

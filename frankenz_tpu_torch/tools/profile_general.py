@@ -6,13 +6,17 @@ Run from the root of a checkout on a machine with a CUDA card and
 `nvcc`.  At config-4 widths (5 filters, 100,000 models, the 301-point
 `PDFDict` grid, chip_smoke.py's generator and its masked data: each band
 missing with probability 0.15) it times `BruteForce.fit_predict` over
-131,072 masked objects (wt_thresh 1e-3: `lnl_reduce` + `lnl_stack`) and
+131,072 masked objects (wt_thresh 1e-3: `lnl_reduce` + `lnl_stack`),
 over 65,536 in the cdf mode (cdf_thresh 2e-4: `lnl_reduce` + `lnl_topk`
-+ `lnl_cut_stack`): one warm-up, `--reps` timed walls, then one run
-under the profiler.  It prints the walls, their median, the device busy
-time (kernels and copies) and its share of the profiled run's wall, and
-the heaviest device operations, and writes ``profile_general.json`` and
-one Chrome trace per run to `--out` (default ``build/profile``).
++ `lnl_cut_stack`) and over 65,536 with no weight threshold (one pass:
+`lnl_onepass`), and config 8 (bench.py:612-699: 16,384 noisy scaled
+model copies on full masks, free scale with model errors, wt_thresh
+1e-3, ltol 1e-4: `scale_sweeps` + free-scale `lnl_reduce` +
+`lnl_stack`): one warm-up, `--reps` timed walls, then one run under the
+profiler.  It prints the walls, their median, the device busy time
+(kernels and copies) and its share of the profiled run's wall, and the
+heaviest device operations, and writes ``profile_general.json`` and one
+Chrome trace per run to `--out` (default ``build/profile``).
 """
 
 import argparse
@@ -23,6 +27,7 @@ import time
 from pathlib import Path
 
 NMODEL, NFILT, NGRID, BATCH = 100_000, 5, 301, 65_536
+N8 = 16_384
 
 
 def _device_ms(event):
@@ -68,16 +73,32 @@ def main(argv=None):
     data_err = np.full((n, NFILT), 0.25, f32)
     dmask = (np.random.default_rng(2).uniform(size=(n, NFILT))
              >= 0.15).astype(f32)
+    # Config 8's data: the same models, then its own draws.
+    rng8 = np.random.default_rng(0)
+    rng8.uniform(1, 10, (NMODEL, NFILT))
+    scales = rng8.uniform(0.5, 2.0, (N8, 1))
+    data8 = (scales * models[rng8.integers(0, NMODEL, N8)]
+             + rng8.normal(0, 0.3, (N8, NFILT))).astype(f32)
+    zl8 = rng8.uniform(0, 3.5, NMODEL)
     bf = BruteForce(models, (0.05 * models).astype(f32),
                     np.ones_like(models), device="cuda")
     kw = dict(label_dict=pdict, verbose=False, return_gof=True)
 
+    def masked(rows):
+        return (data[:rows], data_err[:rows], dmask[:rows], zlabels, zerrs)
+
     report = {"card": card}
-    for name, rows, extra in (
-            ("masked_fit_predict", n, {}),
-            ("cdf_fit_predict", BATCH, dict(wt_thresh=None,
-                                            cdf_thresh=2e-4))):
-        call = (data[:rows], data_err[:rows], dmask[:rows], zlabels, zerrs)
+    for name, call, extra in (
+            ("masked_fit_predict", masked(n), {}),
+            ("cdf_fit_predict", masked(BATCH), dict(wt_thresh=None,
+                                                    cdf_thresh=2e-4)),
+            ("onepass_fit_predict", masked(BATCH), dict(wt_thresh=None,
+                                                        cdf_thresh=None)),
+            ("config8_free_scale_fit_predict",
+             (data8, np.full((N8, NFILT), 0.25, f32),
+              np.ones((N8, NFILT), f32), zl8, zerrs),
+             dict(lprob_kwargs=dict(free_scale=True, ltol=1e-4)))):
+        rows = call[0].shape[0]
         bf.fit_predict(*call, **kw, **extra)
         torch.cuda.synchronize()
         walls = []

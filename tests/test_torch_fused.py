@@ -83,32 +83,31 @@ def test_all_clamped_rows_keep_gof_parity():
 
 
 def test_route_decisions():
-    """(e) The routing rule, decided without launching anything."""
+    """(e) The routing rule, decided without launching anything: every
+    configuration has a kernel route, the same on every device."""
     route = TF.fused_route
-    assert route("cuda", full_mask=True) == "fullmask"
-    assert route("cuda", full_mask=True, wt_thresh=None) == "fullmask"
-    assert route("cpu", full_mask=True) == "fullmask"
-    assert route("cpu", full_mask=False) == "general"
-    assert route("cpu", full_mask=True, free_scale=True) == "plain"
-    assert route("cpu", full_mask=False, wt_thresh=None) == "plain"
-    # K3 and K5 configurations run the general kernels on the card.
+    assert route(full_mask=True) == "fullmask"
+    assert route(full_mask=True, wt_thresh=None) == "fullmask"
+    # K3 and K5 configurations run the general kernels, free scale (K6)
+    # too.
     for kw in (dict(full_mask=False), dict(full_mask=True, dim_prior=False),
                dict(full_mask=False, wt_thresh=None, cdf_thresh=2e-4),
-               dict(full_mask=True, wt_thresh=None, cdf_thresh=2e-4)):
-        assert route("cuda", **kw) == "general"
-    cases = [(dict(full_mask=False, wt_thresh=None), "K4"),
-             (dict(full_mask=True, dim_prior=False, wt_thresh=None), "K4"),
-             (dict(full_mask=True, free_scale=True), "K6"),
-             (dict(full_mask=False, free_scale=True, wt_thresh=None,
-                   cdf_thresh=2e-4), "K6")]
-    for kw, kernel in cases:
-        with pytest.raises(NotImplementedError, match=kernel):
-            route("cuda", **kw)
+               dict(full_mask=True, wt_thresh=None, cdf_thresh=2e-4),
+               dict(full_mask=True, free_scale=True),
+               dict(full_mask=False, free_scale=True, wt_thresh=None,
+                    cdf_thresh=2e-4)):
+        assert route(**kw) == "general"
+    # Both thresholds None off the K1 pair: the one-pass kernel (K4).
+    for kw in (dict(full_mask=False, wt_thresh=None),
+               dict(full_mask=True, dim_prior=False, wt_thresh=None),
+               dict(full_mask=True, free_scale=True, wt_thresh=None)):
+        assert route(**kw) == "onepass"
 
 
 def test_cpu_masked_and_free_scale_configurations(monkeypatch):
     """Masked data takes the general route, whose kernels' plain versions
-    run on the CPU (free scale, not ported, raises K6)."""
+    run on the CPU; free scale takes it too, through the same glue, and
+    the plain likelihood computes it as well."""
     from frankenz_tpu_torch.kernels import general as GK
     from frankenz_tpu_torch.ops import likelihood as TL
 
@@ -117,7 +116,7 @@ def test_cpu_masked_and_free_scale_configurations(monkeypatch):
         orig = getattr(GK, name)
 
         def spy(*a, _orig=orig, _name=name, **k):
-            calls.append(_name)
+            calls.append((_name, k["free_scale"]))
             return _orig(*a, **k)
 
         monkeypatch.setattr(GK, name, spy)
@@ -127,8 +126,9 @@ def test_cpu_masked_and_free_scale_configurations(monkeypatch):
     want, got = run_both(_jax, TF.fused_fit_pdf, *prob,
                          jax_kw=dict(screen=False, band_skip=False))
     _assert_fused_close(want, got)
-    assert calls == ["lnl_reduce_plain", "lnl_stack_plain"]
-    with pytest.raises(NotImplementedError, match="K6"):
-        TF.fused_fit_pdf(*prob, free_scale=True)
-    with pytest.raises(NotImplementedError, match="K6"):
-        TL.logprob(*prob[:6], free_scale=True)
+    assert calls == [("lnl_reduce_plain", False), ("lnl_stack_plain", False)]
+    out = TF.fused_fit_pdf(*prob, free_scale=True)
+    assert calls[2:] == [("lnl_reduce_plain", True),
+                         ("lnl_stack_plain", True)]
+    assert all(np.isfinite(x.numpy()[1:]).all() for x in out)
+    assert TL.logprob(*prob[:6], free_scale=True).lnprob.shape == (19, 251)

@@ -96,8 +96,7 @@ def _tensors(prob):
 @pytest.mark.parametrize("dim_prior", [True, False])
 def test_general_route_matches_jax(problem, dim_prior, ignore_model_err):
     kw = dict(dim_prior=dim_prior, ignore_model_err=ignore_model_err)
-    assert TF.fused_route("cuda", full_mask=False,
-                          dim_prior=dim_prior) == "general"
+    assert TF.fused_route(full_mask=False, dim_prior=dim_prior) == "general"
     _assert_close(_port(*problem, **kw), _jax(*problem, **kw))
 
 
@@ -107,7 +106,7 @@ def test_general_route_matches_jax(problem, dim_prior, ignore_model_err):
 def test_general_route_on_full_masks_matches_jax(problem, kw):
     """Full masks off the K1 route: the FULL_MASK instantiation."""
     prob = _full(problem)
-    assert TF.fused_route("cuda", full_mask=True, **kw) == "general"
+    assert TF.fused_route(full_mask=True, **kw) == "general"
     _assert_close(_port(*prob, **kw), _jax(*prob, **kw))
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels' wrappers, plain versions and counters: the
 full-mask chi^2 pair (`kernels.fullmask`) and the general lnl kernels
-(`kernels.general`).
+(`kernels.general`), in fixed and free scale, with the one-pass kernel
+and the free-scale sweep counts.
 
 This file imports neither JAX nor `frankenz_tpu`, so it also runs on a
 machine with a card and no JAX:
@@ -12,10 +13,10 @@ Tests marked `gpu` hold each CUDA kernel against its plain version on
 the card and skip without one.  Tolerances there: chi^2 brackets 2e-7
 relative; lmap and the top-T values 1 ulp (the kernel and the plain
 version round every operation in the same order: expected bit-equal,
-up to the last ulp of `log`); tie and pair counts exact; weight sums
-and PDFs 1e-5 relative, levid 1e-5 of max(1, |levid|) (the same
-weights, summed in another order: levid's absolute error is the sum's
-relative error).
+up to the last ulp of `log`); tie and pair counts and the free-scale
+sweep tables exact; weight sums and PDFs 1e-5 relative, levid 1e-5 of
+max(1, |levid|) (the same weights, summed in another order: levid's
+absolute error is the sum's relative error).
 """
 
 import numpy as np
@@ -138,6 +139,8 @@ def _general_call(name, t, plain=False, bad=None, **flags):
     call = bad if bad is not None else args
     if name == "lnl_reduce":
         return fn(*call, **flags)
+    if name == "lnl_onepass":
+        return fn(*call, t[6], **flags)
     if name == "lnl_topk":
         return fn(*call, T=8, **flags)
     lmap, levid = GK.lnl_reduce_plain(*args, **flags)
@@ -164,7 +167,100 @@ def test_cpu_general_wrappers_run_plain_versions_without_launching(name):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert all(n == 0 for n in K.launch_counts().values())
-    assert set(K.launch_counts()) == {"chi2_brackets", "chi2_stack", *GENERAL}
+    assert set(K.launch_counts()) == {"chi2_brackets", "chi2_stack", *GENERAL,
+                                      "lnl_onepass", "scale_sweeps"}
+
+
+def _free_flags(t, ignore_model_err, tm=96, **flags):
+    """Free-scale flags for problem `t`: with model errors, the plain
+    sweep table at group width `tm` (ragged against M)."""
+    flags = dict(flags, free_scale=True, ignore_model_err=ignore_model_err)
+    if not ignore_model_err:
+        flags.update(tm=tm, sweeps=GK.scale_sweeps_plain(
+            *t[:6], tm=tm, full_mask=flags.get("full_mask", False)))
+    return flags
+
+
+@pytest.mark.parametrize("ignore_model_err", [True, False])
+@pytest.mark.parametrize("name", GENERAL + ["lnl_onepass"])
+def test_cpu_free_scale_wrappers_run_plain_versions_without_launching(
+        name, ignore_model_err):
+    t = _general_problem()
+    flags = _free_flags(t, ignore_model_err)
+    K.reset_launch_counts()
+    got = _general_call(name, t, **flags)
+    want = _general_call(name, t, plain=True, **flags)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert all(n == 0 for n in K.launch_counts().values())
+
+
+def test_sweep_tables_are_checked():
+    """The table is int16 (B, ceil(M / tm)), given exactly under free
+    scale with model errors."""
+    t = _general_problem()
+    flags = _free_flags(t, False)
+    sw = flags.pop("sweeps")
+    for bad, err in ((sw.int(), TypeError), (sw[:, :-1], ValueError),
+                     (None, ValueError)):
+        with pytest.raises(err):
+            GK.lnl_reduce(*t[:6], sweeps=bad, **flags)
+    with pytest.raises(ValueError, match="only under free scale"):
+        GK.lnl_reduce(*t[:6], sweeps=sw)
+    assert sw.dtype == torch.int16 and sw.shape == (19, 3)
+
+
+def test_lnl_tile_plain_free_scale_follows_the_definitions():
+    """Free scale, datum-only variance: s = (sum mask m d / de^2) / (sum
+    mask m^2 / de^2), chi2 = sum mask (d - s m)^2 / de^2 floored at
+    16 eps A, the dim prior with dof = Ndim - 1 (float32 min below 2
+    bands).  With model errors and k sweeps per pair: s_0 from var =
+    de^2 + me^2, s_i from var = de^2 + (s_{i-1} me)^2, chi2 with
+    var(s_{k-1}) and s_k."""
+    from scipy.special import gammaln
+
+    t = _general_problem()
+    d, de, dm, mT, meT, mmT = (x.double().numpy()[:, :, None] if i < 3
+                               else x.double().numpy().T[None]
+                               for i, x in enumerate(t[:6]))
+    d, de, dm = (x.transpose(0, 2, 1) for x in (d, de, dm))
+    mask = dm * mmT
+    nd = mask.sum(-1)
+
+    def scale(var):
+        return ((mask * mT * d / var).sum(-1)
+                / np.maximum((mask * mT ** 2 / var).sum(-1), 1e-30))
+
+    def lnl_of(chi2, A):
+        chi2 = np.maximum(chi2, GK.CHI2_NOISE * A)
+        a = 0.5 * (nd - 1.0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            out = (np.where(a == 1.0, 0.0, (a - 1) * np.log(chi2))
+                   - 0.5 * chi2 - gammaln(a) - a * np.log(2.0))
+        return np.where(nd >= 2, out, GK.NEG_INF)
+
+    var = de ** 2
+    s = scale(var)
+    chi2 = (mask * (d - s[..., None] * mT) ** 2 / var).sum(-1)
+    want = lnl_of(chi2, (mask * d ** 2 / var).sum(-1))
+    got = GK.lnl_tile_plain(*t[:6], free_scale=True,
+                            ignore_model_err=True).double().numpy()
+    assert (nd[1] == 0).all() and (nd[2] <= 1).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+    flags = _free_flags(t, False)
+    k = flags["sweeps"].numpy()[:, np.arange(mT.shape[-2]) // flags["tm"]]
+    s = scale(de ** 2 + meT ** 2)
+    prev = s
+    for i in range(1, int(k.max()) + 1):
+        s_n = scale(de ** 2 + (s[..., None] * meT) ** 2)
+        prev, s = np.where(k >= i, s, prev), np.where(k >= i, s_n, s)
+    var = de ** 2 + (prev[..., None] * meT) ** 2
+    chi2 = (mask * (d - s[..., None] * mT) ** 2 / var).sum(-1)
+    want = lnl_of(chi2, (mask * d ** 2 / var).sum(-1))
+    got = GK.lnl_tile_plain(*t[:6], **flags).double().numpy()
+    assert k.min() >= 1
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity"])
@@ -329,8 +425,22 @@ def test_bruteforce_on_card_matches_cpu_and_counts_launches(cuda_device):
     np.testing.assert_allclose(gpu[1][0], cpu[1][0], rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(gpu[1][1], cpu[1][1], rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(gpu[0], cpu[0], rtol=2e-3, atol=2e-5)
-    with pytest.raises(NotImplementedError, match="K6"):
-        gpu_bf.fit_predict(*margs, lprob_kwargs=dict(free_scale=True), **kw)
+    # Free scale with model errors, and no weight threshold: the sweep
+    # counts, then the free-scale and one-pass kernels.
+    for lkw, extra, names in (
+            (dict(free_scale=True), {}, ("scale_sweeps", "lnl_reduce",
+                                         "lnl_stack")),
+            ({}, dict(wt_thresh=None, cdf_thresh=None), ("lnl_onepass",))):
+        fkw = dict(kw, lprob_kwargs=lkw, **extra)
+        cpu = BruteForce(*models, device="cpu").fit_predict(*margs, **fkw)
+        K.reset_launch_counts()
+        gpu = gpu_bf.fit_predict(*margs, **fkw)
+        counts = K.launch_counts()
+        assert all(counts[n] > 0 for n in names), counts
+        for k in (0, 1):
+            np.testing.assert_allclose(gpu[1][k], cpu[1][k], rtol=2e-5,
+                                       atol=2e-5)
+        np.testing.assert_allclose(gpu[0], cpu[0], rtol=2e-3, atol=2e-5)
 
 
 @pytest.mark.gpu
@@ -369,3 +479,76 @@ def test_general_kernels_match_plain_on_card(cuda_device, flags, F, B, M,
     counts = K.launch_counts()
     assert all(counts[name] == 1 for name in GENERAL)
     assert counts["chi2_brackets"] == counts["chi2_stack"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ignore_model_err", [True, False])
+@pytest.mark.parametrize("flags,F,B,M,Ngrid", [
+    (dict(), 5, 19, 251, 77),
+    (dict(dim_prior=False), 5, 70, 3000, 513),
+    (dict(full_mask=True), 5, 33, 700, 301),
+    (dict(full_mask=True, dim_prior=False), 8, 33, 700, 301),
+    (dict(), 20, 33, 700, 301),
+])
+def test_free_scale_kernels_match_plain_on_card(cuda_device, flags, F, B, M,
+                                                Ngrid, ignore_model_err):
+    """Every free-scale entry point, the one-pass kernel and the sweep
+    counts against their plain versions; the consumers read the plain
+    table, which the kernel's equals."""
+    t = [x.to(cuda_device) for x in _general_problem(
+        F, B=B, M=M, Ngrid=Ngrid, masked=not flags.get("full_mask"))]
+    flags = _free_flags(t, ignore_model_err, **flags)
+    K.reset_launch_counts()
+    if not ignore_model_err:
+        got = GK.scale_sweeps(*t[:6], tm=flags["tm"],
+                              full_mask=flags.get("full_mask", False))
+        assert torch.equal(got, flags["sweeps"])
+    for name in GENERAL + ["lnl_onepass"]:
+        got = _general_call(name, t, **flags)
+        want = _general_call(name, t, plain=True, **flags)
+        torch.cuda.synchronize()
+        if name in ("lnl_reduce", "lnl_onepass"):
+            k = 1 if name == "lnl_onepass" else 0
+            _assert_within_ulp(got[k], want[k])
+            torch.testing.assert_close(got[k + 1], want[k + 1], rtol=1e-5,
+                                       atol=1e-5)
+            if name == "lnl_reduce":
+                continue
+        if name == "lnl_reduce_split":
+            for g, w in zip(got[:2], want[:2]):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+            assert torch.equal(got[2], want[2])
+        elif name == "lnl_topk":
+            _assert_within_ulp(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        else:
+            scale = want[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+            torch.testing.assert_close(got[0] / scale, want[0] / scale,
+                                       rtol=0, atol=1e-5)
+    counts = K.launch_counts()
+    assert all(counts[name] == 1 for name in GENERAL + ["lnl_onepass"])
+    assert counts["scale_sweeps"] == (0 if ignore_model_err else 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags,F,B,M,Ngrid", [
+    (dict(), 5, 19, 251, 77),
+    (dict(dim_prior=False), 5, 70, 3000, 4001),
+    (dict(full_mask=True, dim_prior=False), 5, 33, 700, 301),
+    (dict(full_mask=True), 20, 33, 700, 301),
+])
+def test_onepass_matches_plain_on_card(cuda_device, flags, F, B, M, Ngrid):
+    """Fixed-scale `lnl_onepass`: lmap within 1 ulp, levid 1e-5, PDFs
+    row-normwise 1e-5 (Ngrid 4001: several column chunks per row)."""
+    t = [x.to(cuda_device) for x in _general_problem(
+        F, B=B, M=M, Ngrid=Ngrid, masked=not flags.get("full_mask"))]
+    GK.reset_launch_counts()
+    got = _general_call("lnl_onepass", t, **flags)
+    want = _general_call("lnl_onepass", t, plain=True, **flags)
+    torch.cuda.synchronize()
+    _assert_within_ulp(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
+    scale = want[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    torch.testing.assert_close(got[0] / scale, want[0] / scale, rtol=0,
+                               atol=1e-5)
+    assert GK.launch_counts()["lnl_onepass"] == 1
