@@ -45,11 +45,25 @@ port, numpy and scipy, and:
    one masked 65,536 batch under wt_thresh, the cdf mode and no
    threshold (one-pass), and a flat-posterior batch that reruns through
    the bisection; fixed scale with no threshold over one masked batch
-   (`lnl_onepass` alone); the free-scale kernel times at config 8's batch;
-7. prints one JSON line of kernel results (fixed-scale entry points by
-   their wrapper's name, free-scale ones with the suffix ``_fs``, and
-   `scale_sweeps`), the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+   (`lnl_onepass` alone);
+7. the free-scale kernel times at config 8's batch;
+8. SOM (config 3 without GNG, bench.py:164-215: 100,000 models over 5
+   filters, a 50 x 50 lattice, 100,000 training steps, seed 1):
+   `SelfOrganizingMap.train_network` on the `som_train` kernel with the
+   launch counters reset just before; the kernel against its plain
+   version over a 10,000-step run (niter 200: the same best node at
+   every step, nodes within 1e-6 relative) and over the whole
+   100,000-step run, whose two maps must give mean best-node lmaps
+   (from `populate_network`) within 1%; `populate_network` timed;
+   nodes-only `fit_predict` over 10,000 objects in 2,048-object batches
+   (warm repeats, against fit + predict); the exact-union `fit_predict`
+   over 2,048 objects against fit + predict; `fit_summarize`;
+9. prints one JSON line of kernel results (fixed-scale entry points by
+   their wrapper's name, free-scale ones with the suffix ``_fs``,
+   `scale_sweeps` and `som_train`), each with its bound (the larger of
+   its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, counted
+   from this run's shapes and data, see `bound`), the card line again,
+   and last ``{"ok": true, "device": {...}}``.
 
 Matmul precision: TF32 is switched off and float32 matmul precision set
 to "highest", so every plain product and summary dot is full float32.
@@ -106,6 +120,17 @@ TOL_GOF_FS_IME = 1e-4
 TOL_GOF_FS_ME = 1e-3
 N8 = 16_384
 PLAIN_BATCH_FS = 2_048
+# Config 3's SOM half (bench.py:164-215): models, lattice side, steps,
+# fit objects and their batch, label grid points.
+N3, NSIDE3, NITER3, NBATCH3 = 100_000, 50, 2_000, 50
+N3_FIT, BATCH3, NGRID3 = 10_000, 2_048, 321
+N3_UNION = 2_048
+NITER3_CHECK = 200
+TOL_SOM_NODES = 1e-6
+TOL_SOM_LMAP = 0.01
+# The card's peaks for the bounds (H100 SXM datasheet: dense float32
+# outside the tensor cores, HBM3).
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def fail(msg):
@@ -192,6 +217,78 @@ def levid_err(torch, got, want):
                            / (1.0 + want[fin].abs())).max())
 
 
+def bound(ops, nbytes):
+    """(ms, what bounds it): the least time for `ops` float32 operations
+    and `nbytes` bytes (each input read once, each output written once)
+    at the card's peaks."""
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def lnl_pair_ops(F, flags, sweeps_mean=0.0):
+    """Operations of one (object, model) lnl, a divide, log or exp
+    counted as one: fixed scale 7 per filter on full masks (variance 2,
+    1/var, residual, square, times 1/var, sum), 9 masked (mask product,
+    Ndim count), +1 per filter for the Normal's log variance, and ~6 for
+    the dim-prior or Normal tail; free scale without model errors 12 per
+    filter + 8 (the sums, the ML scale, the residual pass); with model
+    errors each scale sweep adds 8 per filter + 2."""
+    full = flags.get("full_mask", False)
+    if flags.get("free_scale"):
+        ops = 12 * F + 8
+        if not flags.get("ignore_model_err"):
+            ops += sweeps_mean * (8 * F + 2)
+        return ops
+    ops = (7 if full else 9) * F + 6
+    if not flags.get("dim_prior", True):
+        ops += F
+    return ops
+
+
+def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
+                   tie, nkeep, sweeps_mean):
+    """{kernel: (bound ms, bound by)} of one general case: lnl per pair
+    plus each kernel's own work, the stacks' 2 Ngrid operations for each
+    pair whose weight they keep (counted from the plain lnl grid)."""
+    d, mT = args[0], args[3]
+    B, F = d.shape
+    M = mT.shape[1]
+    ngrid = G.shape[1]
+    lnl = GK.lnl_tile_plain(*args, **flags)
+    lmap, levid = want
+    kept_stack = float((lnl > (lmap + float(np.float32(log_thr)))[:, None])
+                       .sum())
+    is_tie = lnl == tie[:, None]
+    rank = torch.cumsum(is_tie.to(torch.int32), dim=1) - 1
+    kept_cut = float(((lnl <= cut[:, None])
+                      | (is_tie & (rank < nkeep[:, None]))).sum())
+    kept_all = float((torch.exp(lnl - lmap[:, None]) > 0).sum())
+    del lnl, is_tie, rank
+    pairs = float(B) * M
+    base = lnl_pair_ops(F, flags, sweeps_mean)
+    io = 4.0 * (3 * B * F + 3 * F * M)
+    if flags.get("sweeps") is not None:
+        io += 2.0 * flags["sweeps"].numel()
+    g_bytes = 4.0 * (M * ngrid + B * ngrid)
+    out = {
+        "lnl_reduce": bound(pairs * (base + 4), io + 8.0 * B),
+        "lnl_reduce_split": bound(pairs * (base + 6), io + 16.0 * B),
+        "lnl_topk": bound(pairs * (base + 8), io + 64.0 * B),
+        "lnl_stack": bound(pairs * (base + 3) + 2.0 * ngrid * kept_stack,
+                           io + g_bytes + 8.0 * B),
+        "lnl_cut_stack": bound(pairs * (base + 4) + 2.0 * ngrid * kept_cut,
+                               io + g_bytes + 16.0 * B),
+        "lnl_onepass": bound(pairs * (base + 6) + 2.0 * ngrid * kept_all,
+                             io + g_bytes + 8.0 * B),
+    }
+    if sweeps_mean:
+        # The counting sweeps also take each pair's F logs.
+        out["scale_sweeps"] = bound(pairs * sweeps_mean * (9 * F + 4),
+                                    io + 2.0 * flags["sweeps"].numel())
+    return out
+
+
 def general_cases(np, rng, data, models, dmask):
     """The six kernel-vs-plain cases of the general kernels: (name, data
     rows, data mask, models, model mask, flags)."""
@@ -222,12 +319,13 @@ def general_cases(np, rng, data, models, dmask):
 
 
 def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
-                        plain_reps=5):
+                        plain_reps=5, bounds=False):
     """Hold the general kernels (with `lnl_onepass`, and `scale_sweeps`
     under free scale with model errors) against their plain versions on
     one case; returns {kernel: result}.  `plain_reps` = 1 times the
     plain version by the call that is compared (free scale with model
-    errors: seconds per call)."""
+    errors: seconds per call).  With `bounds`, each result also holds
+    its bound (`general_bounds`)."""
     name, d_np, dm_np, m_np, mm_np, flags = case
     Gc = G[:m_np.shape[0]].contiguous()
     args = [tens(x) for x in (d_np, np.full(d_np.shape, 0.25, np.float32),
@@ -334,6 +432,13 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
     out["lnl_onepass"] = dict(
         max_abs_err=max(a0, a1, float((got[0] - want[0]).abs().max())),
         lmap_ulp=u0, levid_err=r1, max_rel_err=p_row, ms=ms, plain_ms=pms)
+    if bounds:
+        sw_mean = (float(flags["sweeps"].float().mean())
+                   if flags.get("sweeps") is not None else 0.0)
+        for kname, (bms, by) in general_bounds(
+                torch, np, GK, TF, args, Gc, flags, (lmap, levid), log_thr,
+                cut, tie, nkeep, sw_mean).items():
+            out[kname].update(bound_ms=bms, bound_by=by)
     shown = {k: v for k, v in flags.items() if k != "sweeps"}
     sw = out.get("scale_sweeps")
     print(f"kernel_vs_plain {name}: B={d_np.shape[0]} M={m_np.shape[0]} "
@@ -389,6 +494,220 @@ def check_vs_plain(np, bf, got, sub, fp_kw, what, cdf=False,
         check(inside.all(), f"{what}: PDFs differ from the plain "
                             "composition beyond the threshold-flip envelope")
     return int((~close).sum())
+
+
+def som_phase(torch, np, KS, tens, card):
+    """Config 3's SOM half (bench.py:164-215, without the GNG) on the
+    card; returns the `som_train` entry of the kernels line."""
+    from frankenz_tpu_torch.kernels import som as SK
+    from frankenz_tpu_torch.models import SelfOrganizingMap
+    from frankenz_tpu_torch.models import networks as TN
+    from frankenz_tpu_torch.ops import summarize as TS
+
+    f32 = np.float32
+    rng3 = np.random.default_rng(0)
+    m3 = rng3.uniform(1, 10, (N3, NFILT)).astype(f32)
+    me3 = (0.05 * m3).astype(f32)
+    z3 = rng3.uniform(0, 3, N3)
+    zerr3 = np.full(N3, 0.05)
+    grid3 = np.linspace(0, 3.2, NGRID3)
+    ones3 = np.ones_like(m3)
+    train_kw = dict(nside=NSIDE3, nproj=2, nbatch=NBATCH3, seed=1,
+                    verbose=False)
+    som = SelfOrganizingMap(m3, me3, ones3, device="cuda")
+    som.train_network(niter=2, **train_kw)  # warm-up: allocator, library
+    torch.cuda.synchronize()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    som.train_network(niter=NITER3, **train_kw)
+    train_s = time.perf_counter() - t0
+    launches = KS.launch_counts()
+    check(launches["som_train"] == 1,
+          f"config 3 train_network did not launch som_train once ({launches})")
+    check(som.nodes.shape == (NSIDE3 ** 2, NFILT)
+          and np.isfinite(som.nodes).all(), "config 3 SOM nodes")
+
+    # The kernel's inputs as train_network makes them (the same draws).
+    kw = dict(nside=NSIDE3, wt_thresh=1e-3,
+              lr=SK.schedule("harmonic", 0.5, 0.1),
+              nb=SK.schedule("harmonic", 0.7, 0.02))
+
+    def inputs(niter):
+        rng = np.random.default_rng(1)
+        init = m3[rng.choice(N3, size=NSIDE3 ** 2, replace=False)]
+        draws = rng.integers(0, N3, size=niter * NBATCH3)
+        return [tens(a) for a in (init, som.nodes_pos.astype(f32))
+                + TN.som_kernel_draws(m3, me3, ones3, draws)]
+
+    # 10,000 steps at full width (niter 200): kernel against plain.
+    t_chk = inputs(NITER3_CHECK)
+    got, bmu_k = SK.som_train(*t_chk, return_bmu=True, **kw)
+    want, bmu_p = SK.som_train_plain(*t_chk, return_bmu=True, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(bmu_k, bmu_p), "som_train best nodes differ from the "
+          "plain version over the 10,000-step run")
+    err10 = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    check(err10 <= TOL_SOM_NODES, f"som_train nodes differ from the plain "
+          f"version over 10,000 steps (rel {err10})")
+    abs10 = float((got - want).abs().max())
+    del t_chk, got, want
+
+    # The whole 100,000-step run: kernel (timed) and plain version.
+    t_full = inputs(NITER3)
+    kmap, _ = SK.som_train(*t_full, **kw)
+    torch.cuda.synchronize()
+    check(np.array_equal(kmap.cpu().numpy().astype(float), som.nodes),
+          "som_train on train_network's inputs differs from its map")
+    ms = median_ms(torch, lambda: SK.som_train(*t_full, **kw), reps=3)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    pmap, bmu_pf = SK.som_train_plain(*t_full, return_bmu=True, **kw)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    _, bmu_kf = SK.som_train(*t_full, return_bmu=True, **kw)
+    same_steps = int((bmu_kf == bmu_pf).sum())
+    abs100 = float((kmap - pmap).abs().max())
+    T, N = NITER3 * NBATCH3, NSIDE3 ** 2
+    # Operations per (step, node): the score 5F + 4 (inter, shape, the
+    # divide, the log and its tail), the neighbourhood 3P + 3, the
+    # update 3F; bytes: the nodes and positions once, the three (T, F)
+    # draw arrays, the trained nodes.
+    b_ms, b_by = bound(float(T) * N * (8 * NFILT + 3 * 2 + 11),
+                       4.0 * (2 * N * NFILT + 2 * N + 3 * T * NFILT))
+    print(f"som_train: config 3, {N} nodes x {NFILT} filters, {T} steps: "
+          f"kernel {ms:.3f} ms ({1e3 * ms / T:.4f} us/step), plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); 10,000-step "
+          f"run: best nodes equal, nodes max rel {err10:.3g}; 100,000-step "
+          f"run: {same_steps} of {T} best nodes equal, nodes max abs "
+          f"{abs100:.3g} | card {card}", flush=True)
+
+    # Both maps populated: the mean best-node lmap of the 100,000 models.
+    t0 = time.perf_counter()
+    som.populate_network(verbose=False)
+    pop_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    som.populate_network(verbose=False)
+    pop_s = time.perf_counter() - t0
+    plain_som = SelfOrganizingMap(m3, me3, ones3, device="cuda")
+    plain_som.nodes = pmap.cpu().numpy().astype(float)
+    plain_som.nodes_pos = som.nodes_pos
+    plain_som.populate_network(verbose=False)
+    del t_full, kmap, pmap
+    lm_k, lm_p = (float(np.mean(x.models_lmap)) for x in (som, plain_som))
+    check(np.isfinite(lm_k) and np.isfinite(lm_p)
+          and abs(lm_k - lm_p) <= TOL_SOM_LMAP * abs(lm_p),
+          f"mean best-node lmap: kernel map {lm_k}, plain map {lm_p}")
+    check(int(som.nodes_Nbmu.sum()) == N3, "populate: BMU counts")
+    print(f"config 3 populate_network: {N3} models x {N} nodes: cold "
+          f"{pop_cold:.4f} s, warm {pop_s:.4f} s; occupied nodes "
+          f"{int((som.nodes_Nmatch > 0).sum())}, largest membership "
+          f"{int(som.nodes_Nmatch.max())}; mean best-node lmap: kernel map "
+          f"{lm_k:.6f}, plain map {lm_p:.6f} | card {card}", flush=True)
+
+    # Nodes-only fit_predict over 10,000 objects, 2,048 per batch.
+    d3 = (m3[rng3.integers(0, N3, N3_FIT)]
+          + rng3.normal(0, 0.3, (N3_FIT, NFILT))).astype(f32)
+    fit = (d3, np.full_like(d3, 0.3), np.ones_like(d3), z3, zerr3)
+    fkw = dict(label_grid=grid3, nodes_only=True, verbose=False,
+               batch_size=BATCH3, save_fits=False, return_gof=True)
+    t0 = time.perf_counter()
+    pdfs, gof = som.fit_predict(*fit, **fkw)
+    cold = time.perf_counter() - t0
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pdfs, gof = som.fit_predict(*fit, **fkw)
+        walls.append(time.perf_counter() - t0)
+    fit_s = statistics.median(walls)
+    check(pdfs.shape == (N3_FIT, NGRID3) and np.isfinite(pdfs).all()
+          and np.isfinite(gof[0]).all() and np.isfinite(gof[1]).all(),
+          "config 3 nodes-only fit_predict output")
+    check(np.all(np.abs(pdfs.sum(axis=1) - 1.0) <= 1e-4),
+          "config 3 nodes-only PDF rows do not sum to 1")
+    check(np.all(gof[0] <= gof[1] + 1e-6 * (1.0 + np.abs(gof[0]))),
+          "config 3 nodes-only lmap > levid")
+    sub = tuple(x[:BATCH3] for x in fit[:3]) + fit[3:]
+    ref = som.fit_predict(*sub, **dict(fkw, save_fits=True))
+    check(np.allclose(pdfs[:BATCH3], ref[0], rtol=1e-5, atol=1e-7)
+          and np.allclose(gof[0][:BATCH3], ref[1][0], rtol=1e-5)
+          and np.allclose(gof[1][:BATCH3], ref[1][1], rtol=1e-5),
+          "config 3 nodes-only fit_predict differs from fit + predict")
+    print(f"config 3 nodes-only fit_predict: {N3_FIT} objects x "
+          f"{int((som.nodes_Nmatch > 0).sum())} nodes x {NGRID3} grid, batch "
+          f"{BATCH3}: cold {cold:.4f} s, warm median {fit_s:.4f} s "
+          f"({N3_FIT / fit_s:.6g} objects/s, repeats "
+          f"{', '.join(f'{w:.4f}' for w in walls)}); {BATCH3} rows equal "
+          f"fit + predict | card {card}", flush=True)
+
+    # The exact-union route over 2,048 objects: the streamed batches
+    # against fit + predict, with max_neighbors the widest union.
+    occ = np.flatnonzero(som.nodes_Nmatch > 0)
+    nodes_occ = tens(som.nodes[occ].astype(f32))
+    members = torch.tensor(som.nodes_idxs[occ].astype(np.int64),
+                           device="cuda")
+    width = 24 * som.nodes_idxs.shape[1]
+    nu_max = 0
+    for i0 in range(0, N3_UNION, 256):
+        x = [tens(a[i0:i0 + 256]) for a in fit[:3]]
+        _, nuniq = TN._gather_union(*x, nodes_occ, members,
+                                    lpnet_spec=som._lpnet_spec(),
+                                    wt_thresh=1e-3, cdf_thresh=2e-4,
+                                    cap_sel=24, max_neighbors=width)
+        nu_max = max(nu_max, int(nuniq.max()))
+    del members, nodes_occ
+    ukw = dict(label_grid=grid3, nodes_only=False, verbose=False,
+               batch_size=256, return_gof=True,
+               max_neighbors=-(-nu_max // 128) * 128)
+    usub = tuple(x[:N3_UNION] for x in fit[:3]) + fit[3:]
+    t0 = time.perf_counter()
+    got = som.fit_predict(*usub, save_fits=False, **ukw)
+    union_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = som.fit_predict(*usub, save_fits=True, **ukw)
+    union_ref_s = time.perf_counter() - t0
+    check(np.isfinite(got[0]).all() and np.isfinite(got[1][1]).all(),
+          "config 3 exact-union fit_predict output")
+    check(np.allclose(got[0], ref[0], rtol=2e-3, atol=2e-5)
+          and np.allclose(got[1][0], ref[1][0], rtol=1e-5)
+          and np.allclose(got[1][1], ref[1][1], rtol=1e-5),
+          "config 3 exact-union fit_predict differs from fit + predict")
+    print(f"config 3 exact-union fit_predict: {N3_UNION} objects, widest "
+          f"union {nu_max} models (max_neighbors {ukw['max_neighbors']}), "
+          f"batch 256: streamed {union_s:.4f} s, fit + predict "
+          f"{union_ref_s:.4f} s, equal within rtol 2e-3 | card {card}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    summ, gof_s = som.fit_summarize(*fit, label_grid=grid3, nodes_only=True,
+                                    batch_size=BATCH3, verbose=False)
+    summ_s = time.perf_counter() - t0
+    cols = np.stack([np.asarray(c) for est in summ[:4] for c in est]
+                    + [np.asarray(c) for c in summ[4:]], axis=1)
+    want = TS.pdfs_summarize(torch.tensor(pdfs, device="cuda"), grid3,
+                             u=np.random.default_rng(0).random(N3_FIT))
+    check(np.isclose(cols, TS._pack_summary(want).cpu().numpy(), rtol=2e-5,
+                     atol=2e-6, equal_nan=True).all(),
+          "config 3 fit_summarize differs from pdfs_summarize(fit_predict)")
+    check(np.array_equal(gof_s[0], gof[0]), "config 3 fit_summarize lmap")
+    print(f"config 3 nodes-only fit_summarize: wall {summ_s:.4f} s "
+          f"({N3_FIT / summ_s:.6g} objects/s), 21 columns match "
+          f"pdfs_summarize(fit_predict) | card {card}", flush=True)
+    print(f"config 3 SOM summary: train {train_s:.4f} s, populate "
+          f"{pop_s:.4f} s, nodes-only fit_predict {N3_FIT / fit_s:.6g} "
+          f"objects/s | card {card}", flush=True)
+    torch.cuda.empty_cache()
+    return {"name": "som_train", "route": "cuda",
+            "source": "frankenz_tpu_torch/csrc/som_train.cu",
+            "replaces": "frankenz_tpu/models/networks.py:1280",
+            "launches": launches["som_train"],
+            "max_abs_err": max(abs10, abs100), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            # No PyTorch call trains a SOM.
+            "library_ms": None, "train_s": train_s, "populate_s": pop_s,
+            "fit_objects_per_s": N3_FIT / fit_s,
+            "steps_equal_100k": same_steps}
 
 
 def main():
@@ -514,6 +833,25 @@ def main():
                                     max(p_row, s_rel), "stack")):
             results[kname][name] = dict(max_abs_err=ab, max_rel_err=rl,
                                         ms=t[key][0], plain_ms=t[key][1])
+        if name == "config4":
+            # Operations per pair: chi^2 6 per filter (variance 2,
+            # residual, square, divide, sum) + 2 compares (pass A) or
+            # + ~10 for the weight chain (pass B), and pass B's 2 Ngrid
+            # for every kept weight.
+            B, M = d_np.shape[0], m_np.shape[0]
+            io = 4.0 * (2 * B * F + 2 * F * M)
+            w = FM._weights_plain(FM._chi2_plain(d, de, mT, meT, False),
+                                  shift[:, None], a1)
+            kept = float((w > wthr).sum())
+            del w
+            results["chi2_brackets"][name].update(zip(
+                ("bound_ms", "bound_by"),
+                bound(float(B) * M * (6 * F + 2), io + 8.0 * B)))
+            results["chi2_stack"][name].update(zip(
+                ("bound_ms", "bound_by"),
+                bound(float(B) * M * (6 * F + 10) + 2.0 * Gc.shape[1] * kept,
+                      io + 4.0 * (M * Gc.shape[1] + B * Gc.shape[1]
+                                  + 2 * B))))
         print(f"kernel_vs_plain {name}: B={d_np.shape[0]} "
               f"M={m_np.shape[0]} F={F} Ngrid={Gc.shape[1]} | "
               f"chi2_brackets abs {b_abs:.3g} rel {b_rel:.3g} "
@@ -623,7 +961,8 @@ def main():
         results[kname] = {}
     for case in general_cases(np, np.random.default_rng(3), data, models,
                               dmask):
-        per = general_kernel_case(torch, np, GK, TF, tens, card, G, case)
+        per = general_kernel_case(torch, np, GK, TF, tens, card, G, case,
+                                  bounds=case[0] == "masked_dimprior")
         for kname, r in per.items():
             results[kname][case[0]] = r
 
@@ -808,8 +1147,9 @@ def main():
                         ones8[:N_KERNEL] if fm else dmask[:N_KERNEL], models,
                         ones_m, dict(full_mask=fm, dim_prior=dp,
                                      ignore_model_err=ime, free_scale=True))
-                per = general_kernel_case(torch, np, GK, TF, tens, card, G8,
-                                          case, plain_reps=1)
+                per = general_kernel_case(
+                    torch, np, GK, TF, tens, card, G8, case, plain_reps=1,
+                    bounds=cname == "fs_me_full_dimprior")
                 for kname, r in per.items():
                     key = kname if kname == "scale_sweeps" else kname + "_fs"
                     results[key][cname] = r
@@ -976,7 +1316,7 @@ def main():
           f"cells outside rtol 2e-3 | card {card}", flush=True)
     del out10
 
-    # free-scale kernel times at config 8's batch
+    # 7. free-scale kernel times at config 8's batch
     args8 = [tens(data8), tens(de8), tens(ones8), mT8,
              bf.models_err.T.contiguous(), bf.models_mask.T.contiguous()]
     fl8 = dict(full_mask=True, free_scale=True, sweeps=sw8,
@@ -996,7 +1336,10 @@ def main():
             "lnl_onepass_fs")) + f" | card {card}", flush=True)
     del args8, lm8, lv8, sw8
 
-    # 7. results
+    # 8. SOM (config 3 without GNG)
+    som_entry = som_phase(torch, np, KS, tens, card)
+
+    # 9. results
     replaces = {"chi2_brackets": "frankenz_tpu/ops/fused.py:918",
                 "chi2_stack": "frankenz_tpu/ops/fused.py:980",
                 "lnl_reduce": "frankenz_tpu/ops/fused.py:599",
@@ -1041,10 +1384,14 @@ def main():
             "replaces": replaces[kname], "launches": main_launches[kname],
             "max_abs_err": max(r["max_abs_err"] for r in per.values()),
             "ms": ref["ms"], "plain_ms": ref["plain_ms"],
-            "cases": per}
+            "bound_ms": ref["bound_ms"], "bound_by": ref["bound_by"],
+            # No one PyTorch call computes a likelihood grid reduced,
+            # thresholded and stacked: timed yardstick none.
+            "library_ms": None, "cases": per}
         if kname in ms_batch:
             entry[f"ms_batch_{N8 if free else BATCH}"] = ms_batch[kname]
         kernels.append(entry)
+    kernels.append(som_entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Fitter facade (reference `frankenz/fitting.py`).  Ported so far:
-BruteForce."""
+BruteForce, SelfOrganizingMap."""
 
-from .models import BruteForce  # noqa: F401
+from .models import BruteForce, SelfOrganizingMap  # noqa: F401
 
-__all__ = ["BruteForce"]
+__all__ = ["BruteForce", "SelfOrganizingMap"]

@@ -70,9 +70,9 @@ def build(force=False):
     t0 = time.perf_counter()
     # One nvcc per source, all started together (lnl_general.cu and
     # lnl_freescale.cu, with their many template instantiations, take
-    # tens of seconds each), then one link.  The library is written to a
-    # temporary name and renamed: a concurrent loader never sees a
-    # half-written one.
+    # tens of seconds each; chi2_fullmask.cu and som_train.cu seconds),
+    # then one link.  The library is written to a temporary name and
+    # renamed: a concurrent loader never sees a half-written one.
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, p.stem + ".o") for p in _sources()]
         cmds = [[nvcc, *_NVCC_FLAGS, "-c", "-o", o, str(p)]
@@ -130,6 +130,13 @@ def _bind(lib):
             fn.restype = I
     lib.fz_scale_sweeps.argtypes = [P] * 7 + [I] * 6 + [F, I, F, P]
     lib.fz_scale_sweeps.restype = I
+    # csrc/som_train.cu: pointers, sizes, off, nsteps_total, nside,
+    # wt_thresh, flags, the two schedules, threads, resident, stream.
+    lib.fz_som_train_smem.argtypes = [I] * 4
+    lib.fz_som_train_smem.restype = I
+    lib.fz_som_train.argtypes = ([P] * 7 + [I] * 4 + [F, I, F, F, I, I]
+                                 + [I, F, F, F, F] * 2 + [I, I, P])
+    lib.fz_som_train.restype = I
     return lib
 
 

@@ -1,3 +1,13 @@
-"""Fitters.  Ported so far: BruteForce."""
+"""Fitters.  Ported so far: BruteForce, SelfOrganizingMap (with the
+shared `_Network` machinery and the learning / neighbourhood schedules).
+"""
 
 from .bruteforce import BruteForce  # noqa: F401
+from .networks import (  # noqa: F401
+    SelfOrganizingMap,
+    learn_geometric,
+    learn_harmonic,
+    learn_linear,
+    neighbor_gauss,
+    neighbor_lorentz,
+)

@@ -8,11 +8,17 @@ from .fused import (  # noqa: F401
 )
 from .kde import (  # noqa: F401
     PDFDict,
+    gauss_kde,
+    gauss_kde_dict,
     gaussian,
+    gaussian_bin,
     kde_stack,
+    kde_stack_gathered,
+    kde_stack_gathered_dict,
     kernel_matrix,
     kernel_matrix_dict,
     norm_rows,
+    pack_label_spec,
     resolve_kde_opts,
     threshold_weights,
 )

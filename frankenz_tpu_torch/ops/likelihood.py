@@ -19,6 +19,12 @@ float64):
 * the Normal logpdf's ``sum(log tot_var)`` runs over *all* filters
 * `loglike` treats non-finite / non-positive-error bands as masked
 
+The model triplet may also be gathered per object, (Nobj, J, Nfilt):
+object b is then fitted against its own J models, as the JAX package's
+vmapped single-object call does (`_gathered_lprob_jit`, frankenz_tpu/
+models/knn.py:76), with the single-object arithmetic (free scale never
+takes the matmul branch).
+
 Inputs are promoted to at least float32 and keep float64 when given it,
 as the JAX package does.
 """
@@ -94,24 +100,37 @@ def _chi2_dim_logpdf(a, chi2, max_ndim):
     return torch.xlogy(a - 1.0, chi2) - 0.5 * chi2 - norm
 
 
+def _mcol(t, k):
+    """Filter k of a model array: (1, Nmodel) of a shared (Nmodel,
+    Nfilt) set, (Nobj, J) of a gathered (Nobj, J, Nfilt) one."""
+    return t[..., k] if t.ndim == 3 else t[None, :, k]
+
+
+def _ndim(dm, mm):
+    """Common bands per pair (exact: 0/1 entries)."""
+    if mm.ndim == 3:
+        return (dm[:, None, :] * mm).sum(dim=-1)
+    return dm @ mm.T
+
+
 def _filter_reduce(d, de, dm, m, me, mm, *, ignore_model_err, need_logvar):
     """chi^2 (and optionally sum-log-variance) over the filter axis, one
     (Nobj, Nmodel) accumulator updated per filter: the (Nobj, Nmodel,
     Nfilt) cube is never built."""
-    nobj, nmodel = d.shape[0], m.shape[0]
+    nobj, nmodel = d.shape[0], m.shape[-2]
     dt = torch.promote_types(d.dtype, m.dtype)
     chi2 = torch.zeros((nobj, nmodel), dtype=dt, device=d.device)
     logvar = torch.zeros_like(chi2) if need_logvar else None
     for k in range(d.shape[1]):
         dek = de[:, k:k + 1]
-        mek = me[None, :, k]
-        mask = dm[:, k:k + 1] * mm[None, :, k]
+        mek = _mcol(me, k)
+        mask = dm[:, k:k + 1] * _mcol(mm, k)
         if ignore_model_err:
             var = dek * dek + torch.zeros((1, nmodel), dtype=dt,
                                           device=d.device)
         else:
             var = dek * dek + mek * mek
-        resid = d[:, k:k + 1] - m[None, :, k]
+        resid = d[:, k:k + 1] - _mcol(m, k)
         chi2 = chi2 + mask * resid * resid / var
         if need_logvar:
             logvar = logvar + torch.log(var)
@@ -135,7 +154,7 @@ def _loglike_fixed(data, data_err, data_mask, models, models_err,
                             _f(data_mask, m.device))
     if clean:
         d, de, dm = clean_data(d, de, dm)
-    ndim = dm @ mm.T  # exact: 0/1 entries
+    ndim = _ndim(dm, mm)
     chi2, logvar = _filter_reduce(d, de, dm, m, me, mm,
                                   ignore_model_err=ignore_model_err,
                                   need_logvar=not dim_prior)
@@ -170,7 +189,7 @@ def _free_sweep(d, de, dm, m, me, mm, ndim, scale_prev, *,
     same variance.  ``scale_prev=None`` is the initial variance
     ``sigma_d^2 + sigma_m^2``.  Returns (scale, shape, chi2, lnl, A)."""
     nobj, nfilt = d.shape
-    nmodel = m.shape[0]
+    nmodel = m.shape[-2]
     dt = torch.promote_types(d.dtype, m.dtype)
     zeros = torch.zeros((nobj, nmodel), dtype=dt, device=d.device)
 
@@ -178,7 +197,7 @@ def _free_sweep(d, de, dm, m, me, mm, ndim, scale_prev, *,
         dek2 = (de[:, k] * de[:, k])[:, None]
         if ignore_model_err:
             return dek2 + torch.zeros((1, nmodel), dtype=dt, device=d.device)
-        mek = me[None, :, k]
+        mek = _mcol(me, k)
         if scale_prev is None:
             return dek2 + mek * mek
         smek = scale_prev * mek
@@ -188,8 +207,8 @@ def _free_sweep(d, de, dm, m, me, mm, ndim, scale_prev, *,
     for k in range(nfilt):
         var = var_k(k)
         iv = 1.0 / var
-        mask = dm[:, k:k + 1] * mm[None, :, k]
-        mk = m[None, :, k]
+        mask = dm[:, k:k + 1] * _mcol(mm, k)
+        mk = _mcol(m, k)
         dk = d[:, k:k + 1]
         miv = mask * iv
         inter = inter + miv * mk * dk
@@ -201,8 +220,8 @@ def _free_sweep(d, de, dm, m, me, mm, ndim, scale_prev, *,
     chi2 = zeros
     for k in range(nfilt):
         iv = 1.0 / var_k(k)
-        mask = dm[:, k:k + 1] * mm[None, :, k]
-        rk = d[:, k:k + 1] - scale * m[None, :, k]
+        mask = dm[:, k:k + 1] * _mcol(mm, k)
+        rk = d[:, k:k + 1] - scale * _mcol(m, k)
         chi2 = chi2 + (mask * iv) * rk * rk
     chi2 = torch.maximum(chi2, _CHI2_NOISE_MULT * finfo.eps * A)
     lnl = -0.5 * chi2 - 0.5 * (ndim * _LOG_2PI + logvar)
@@ -224,9 +243,9 @@ def _loglike_free(data, data_err, data_mask, models, models_err, models_mask,
     d, de, dm, m, me, mm = (t.to(dt) for t in (d, de, dm, m, me, mm))
     nobj, nfilt = d.shape
     finfo = torch.finfo(dt)
-    ndim = dm @ mm.T
+    ndim = _ndim(dm, mm)
 
-    if ignore_model_err and nobj >= 8:
+    if ignore_model_err and nobj >= 8 and m.ndim == 2:
         # Datum-only variance: the filter sums factor into products (full
         # float32 on the card: `fp32_matmul` refuses TF32).
         inv_var = dm / (de * de)

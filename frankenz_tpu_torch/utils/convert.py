@@ -3,7 +3,9 @@
 The state of a `BruteForce` is its model set (photometry, errors, mask),
 the full-mask flag and the saved fits of its last `fit` (the
 (Ndata, Nmodel) grids, with the free-scale `fit_scale` / `fit_scale_err`
-under ``track_scale``); the label side is a `PDFDict` (or a plain grid).
+under ``track_scale``); that of a trained `SelfOrganizingMap` its model
+set, nodes and lattice and, once populated, its member tables; the
+label side is a `PDFDict` (or a plain grid).
 Everything here goes through NumPy: a JAX array exposes ``__array__``,
 so `np.asarray` reads it without importing JAX.
 """
@@ -12,7 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["bruteforce_from_arrays", "from_jax_bruteforce", "pdfdict_from"]
+__all__ = ["bruteforce_from_arrays", "from_jax_bruteforce",
+           "network_from_jax", "pdfdict_from"]
 
 
 def bruteforce_from_arrays(models, models_err, models_mask, full_mask=None,
@@ -46,6 +49,45 @@ def from_jax_bruteforce(obj, device):
         if value is not None:
             setattr(bf, name, np.array(value))
     return bf
+
+
+_NETWORK_STATE = ("NSIDE", "NNODE", "NPROJ", "NITER", "NBATCH")
+_MEMBER_TABLES = ("nodes_idxs", "nodes_logwts", "nodes_scales",
+                  "nodes_scales_err", "nodes_bmus", "nodes_Nmatch",
+                  "nodes_Nbmu", "models_lmap", "models_levid")
+
+
+def network_from_jax(obj, device):
+    """Port `SelfOrganizingMap` holding the state of a trained
+    `frankenz_tpu` one: its model set, `nodes`, `nodes_pos`, the lattice
+    sizes and, once it has been populated, the member tables,
+    `models_lmap` / `models_levid` and the `lpnet_*` settings.  The JAX
+    default `lpnet_func` maps to the port's default; another function
+    cannot be carried across and raises ValueError."""
+    from ..models.networks import SelfOrganizingMap
+
+    net = SelfOrganizingMap(np.asarray(obj._models_np),
+                            np.asarray(obj._models_err_np),
+                            np.asarray(obj._models_mask_np), device=device)
+    net.nodes = np.array(obj.nodes, dtype=float)
+    net.nodes_pos = np.array(obj.nodes_pos, dtype=float)
+    for name in _NETWORK_STATE:
+        if hasattr(obj, name):
+            setattr(net, name, getattr(obj, name))
+    for name in _MEMBER_TABLES:
+        value = getattr(obj, name, None)
+        if value is not None:
+            setattr(net, name, np.array(value))
+    func = getattr(obj, "lpnet_func", None)
+    if func is not None and (getattr(func, "__name__", "") != "logprob" or
+                             not getattr(func, "__module__", "").endswith(
+                                 "ops.likelihood")):
+        raise ValueError("only the default lpnet_func (logprob) can be "
+                         "carried across, got {!r}".format(func))
+    net.lpnet_args = tuple(getattr(obj, "lpnet_args", ()) or ())
+    kw = getattr(obj, "lpnet_kwargs", None)
+    net.lpnet_kwargs = dict(kw) if kw is not None else None
+    return net
 
 
 def pdfdict_from(obj):

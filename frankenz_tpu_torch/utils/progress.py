@@ -10,7 +10,7 @@ from __future__ import annotations
 import sys
 import time
 
-__all__ = ["progress_iter"]
+__all__ = ["progress_iter", "train_note"]
 
 
 def progress_iter(iterable, total=None, label="", verbose=True, sizes=False):
@@ -33,4 +33,15 @@ def progress_iter(iterable, total=None, label="", verbose=True, sizes=False):
             sys.stderr.flush()
     if verbose:
         sys.stderr.write("\n")
+        sys.stderr.flush()
+
+
+def train_note(verbose, label, nsteps, t0):
+    """One-line summary of a training run that executes as one call (the
+    SOM kernel, or a step loop): '<label>: <n> steps in <s>s (<rate>/s)'
+    on stderr, in place of per-step progress."""
+    if verbose:
+        dt = max(time.time() - t0, 1e-9)
+        sys.stderr.write("\r{}: {} steps in {:.2f}s ({:.0f}/s)\n".format(
+            label, nsteps, dt, nsteps / dt))
         sys.stderr.flush()

@@ -1,7 +1,8 @@
 """The CUDA kernels' wrappers, plain versions and counters: the
-full-mask chi^2 pair (`kernels.fullmask`) and the general lnl kernels
+full-mask chi^2 pair (`kernels.fullmask`), the general lnl kernels
 (`kernels.general`), in fixed and free scale, with the one-pass kernel
-and the free-scale sweep counts.
+and the free-scale sweep counts, and the SOM training run
+(`kernels.som`).
 
 This file imports neither JAX nor `frankenz_tpu`, so it also runs on a
 machine with a card and no JAX:
@@ -16,7 +17,9 @@ version round every operation in the same order: expected bit-equal,
 up to the last ulp of `log`); tie and pair counts and the free-scale
 sweep tables exact; weight sums and PDFs 1e-5 relative, levid 1e-5 of
 max(1, |levid|) (the same weights, summed in another order: levid's
-absolute error is the sum's relative error).
+absolute error is the sum's relative error); `som_train` the same best
+node at every step and nodes within 1e-6 relative (expected bit-equal:
+the same operations in the same order).
 """
 
 import numpy as np
@@ -26,6 +29,7 @@ import torch
 from frankenz_tpu_torch import kernels as K
 from frankenz_tpu_torch.kernels import fullmask as FM
 from frankenz_tpu_torch.kernels import general as GK
+from frankenz_tpu_torch.kernels import som as SK
 from frankenz_tpu_torch.ops import fused as TF
 from frankenz_tpu_torch.ops import kde as TK
 
@@ -168,7 +172,8 @@ def test_cpu_general_wrappers_run_plain_versions_without_launching(name):
         assert torch.equal(g, w)
     assert all(n == 0 for n in K.launch_counts().values())
     assert set(K.launch_counts()) == {"chi2_brackets", "chi2_stack", *GENERAL,
-                                      "lnl_onepass", "scale_sweeps"}
+                                      "lnl_onepass", "scale_sweeps",
+                                      "som_train"}
 
 
 def _free_flags(t, ignore_model_err, tm=96, **flags):
@@ -552,3 +557,199 @@ def test_onepass_matches_plain_on_card(cuda_device, flags, F, B, M, Ngrid):
     torch.testing.assert_close(got[0] / scale, want[0] / scale, rtol=0,
                                atol=1e-5)
     assert GK.launch_counts()["lnl_onepass"] == 1
+
+
+# ---------------------------------------------------------------------
+# som_train (K8): the whole SOM training run
+# ---------------------------------------------------------------------
+
+def _som_problem(nside, F=5, T=400, nproj=2, seed=31, bad_bands=False):
+    """A lattice, its initial nodes and T cleaned draws, made as the
+    kernel route of `SelfOrganizingMap.train_network` makes them."""
+    rng = np.random.default_rng(seed)
+    M = max(4 * nside ** nproj, 64)
+    m = rng.uniform(1, 10, (M, F))
+    me = 0.05 * m
+    mm = np.ones_like(m)
+    if bad_bands:
+        me[::7, 0] = 0.0
+        mm[1::5, F - 1] = 0.0
+    N = nside ** nproj
+    idx = np.arange(N)
+    pos = np.stack([(idx // nside ** (nproj - 1 - i)) % nside
+                    for i in range(nproj)], axis=1).astype(np.float32)
+    nodes = m[rng.choice(M, size=N, replace=False)].astype(np.float32)
+    draws = rng.integers(0, M, T)
+    x = m[draws].astype(np.float32)
+    xe = me[draws].astype(np.float32)
+    ok = np.isfinite(x) & np.isfinite(xe) & (xe > 0) & (mm[draws] == 1)
+    iv = np.where(ok, 1.0 / np.where(ok, xe, 1.0) ** 2, 0.0).astype(
+        np.float32)
+    xc = np.where(ok, x, 0.0).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (nodes, pos, xc, iv, x)]
+
+
+_SOM_KW = dict(nside=4, wt_thresh=1e-3, lr=SK.schedule("harmonic", 0.5, 0.1),
+               nb=SK.schedule("harmonic", 0.7, 0.02))
+
+
+def test_som_train_cpu_runs_plain_without_launching():
+    t = _som_problem(4)
+    SK.reset_launch_counts()
+    got, bmu = SK.som_train(*t, return_bmu=True, **_SOM_KW)
+    want, bmu_p = SK.som_train_plain(*t, return_bmu=True, **_SOM_KW)
+    assert torch.equal(got, want) and torch.equal(bmu, bmu_p)
+    assert bmu.dtype == torch.int32 and bmu.shape == (400,)
+    assert SK.launch_counts() == {"som_train": 0}
+    assert SK.som_train(*t, **_SOM_KW)[1] is None
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "nodes",
+                                 "proj"])
+def test_som_train_checks_its_inputs(bad):
+    t = _som_problem(3, T=8)
+    if bad == "dtype":
+        t[2] = t[2].double()
+    elif bad == "shape":
+        t[3] = t[3][:, :4].contiguous()
+    elif bad == "contiguity":
+        t[0] = t[0].t().contiguous().t()
+    elif bad == "nodes":
+        t[0] = torch.zeros((SK.MAX_NODES + 1, 5))
+        t[1] = torch.zeros((SK.MAX_NODES + 1, 2))
+    else:
+        t[1] = torch.zeros((9, 9))
+    with pytest.raises((TypeError, ValueError)):
+        SK.som_train(*t, **_SOM_KW)
+
+
+def _som_steps_numpy(nodes, pos, xc, iv, xr, nside, wt_thresh, nsteps):
+    """The Pallas body's step (networks.py:1335-1395), harmonic rate and
+    Gaussian neighbourhood, in float64 NumPy."""
+    nodes = nodes.astype(np.float64).copy()
+    bmus = []
+    for s in range(nsteps):
+        xiv = xc[s] * iv[s]
+        A = np.sum(xc[s] * xiv)
+        inter = nodes @ xiv
+        shape = (nodes ** 2) @ iv[s]
+        chi2 = A - inter * (inter / np.maximum(shape, 1e-30))
+        a1 = 0.5 * (np.sum(iv[s] > 0) - 1.0) - 1.0
+        score = a1 * np.log(np.maximum(chi2, 1e-30)) - 0.5 * chi2
+        b = int(np.argmax(score))
+        bmus.append(b)
+        t = s / max(nsteps - 1, 1)
+        sigma = 1.0 / ((1 - t) / 0.7 + t / 0.02) * nside
+        rate = 1.0 / ((1 - t) / 0.5 + t / 0.1)
+        wt = np.exp(-0.5 * ((pos - pos[b]) ** 2).sum(1) / sigma ** 2)
+        keep = wt > wt_thresh * wt.max()
+        nodes += np.where(keep, rate * wt, 0.0)[:, None] * (xr[s] - nodes)
+    return nodes, np.array(bmus)
+
+
+def test_som_train_plain_follows_the_pallas_step():
+    t = _som_problem(4, T=30)
+    got, bmu = SK.som_train_plain(*t, return_bmu=True, **_SOM_KW)
+    want, want_bmu = _som_steps_numpy(*(x.numpy() for x in t), 4, 1e-3, 30)
+    np.testing.assert_array_equal(bmu.numpy(), want_bmu)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_som_train_segments_compose_with_off_and_total():
+    """A run cut in two at step 150, each segment told its global offset
+    and the run's length, equals the run in one piece bit for bit."""
+    t = _som_problem(4, T=400)
+    whole, bmu = SK.som_train(*t, return_bmu=True, **_SOM_KW)
+    first, b1 = SK.som_train(t[0], t[1], *(x[:150] for x in t[2:]),
+                             nsteps_total=400, return_bmu=True, **_SOM_KW)
+    second, b2 = SK.som_train(first, t[1], *(x[150:] for x in t[2:]),
+                              off=150.0, nsteps_total=400, return_bmu=True,
+                              **_SOM_KW)
+    assert torch.equal(second, whole)
+    assert torch.equal(torch.cat([b1, b2]), bmu)
+
+
+def test_som_train_breaks_ties_to_the_lowest_index():
+    """One valid band: chi^2 of every node cancels to the 1e-30 floor or
+    near it, and the plain version (like the Pallas body) takes the
+    lowest index among the maximal scores."""
+    t = _som_problem(4, T=6)
+    t[3][:, 1:] = 0.0  # Ndim 1
+    t[2][:, 1:] = 0.0
+    nodes, pos, xc, iv, xr = t
+    it = nodes * (xc[0] * iv[0])
+    sh = (nodes * nodes) * iv[0]
+    chi2 = (xc[0, 0] * (xc[0, 0] * iv[0, 0])) - it[:, 0] * (
+        it[:, 0] / torch.maximum(sh[:, 0], torch.tensor(1e-30)))
+    score = -1.5 * torch.log(torch.maximum(chi2, torch.tensor(1e-30))) \
+        - 0.5 * chi2
+    top = torch.nonzero(score == score.max()).flatten()
+    _, bmu = SK.som_train_plain(*t, return_bmu=True, **_SOM_KW)
+    assert int(bmu[0]) == int(top[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nside,F,T,kw", [
+    (4, 3, 400, {}),
+    (7, 20, 600, dict(bad_bands=True)),
+    (5, 5, 500, dict(lorentz=True, dim_prior=False,
+                     lr=SK.schedule("geometric", 0.6, 0.05),
+                     nb=SK.schedule("linear", 0.8, 0.1))),
+    (50, 5, 2000, {}),
+    (150, 5, 300, {}),
+])
+def test_som_train_matches_plain_on_card(cuda_device, nside, F, T, kw):
+    """Kernel against plain version on the card: the same best node at
+    every step and the same node table, bit for bit (at nside 150 the
+    table lies past shared memory, in device memory)."""
+    kw = dict(kw)
+    t = [x.to(cuda_device) for x in _som_problem(
+        nside, F=F, T=T, bad_bands=kw.pop("bad_bands", False))]
+    args = dict(_SOM_KW, nside=nside, **kw)
+    SK.reset_launch_counts()
+    got, bmu = SK.som_train(*t, return_bmu=True, **args)
+    want, bmu_p = SK.som_train_plain(*t, return_bmu=True, **args)
+    torch.cuda.synchronize()
+    assert SK.launch_counts() == {"som_train": 1}
+    assert torch.equal(bmu, bmu_p)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+def test_som_on_card_matches_cpu_and_counts_launches(cuda_device):
+    """The SelfOrganizingMap path on the card: training launches
+    `som_train` once and lands within 2e-4 of the CPU route (its plain
+    version: the CPU's log and exp round differently); populate's member
+    tables are equal on the same nodes, and nodes-only and exact-union
+    fit_predict agree with the CPU at rtol 2e-3 / atol 2e-5."""
+    from frankenz_tpu_torch.models import SelfOrganizingMap
+
+    rng = np.random.default_rng(42)
+    centers = rng.uniform(2, 9, (4, 5))
+    m = np.vstack([c + rng.normal(0, 0.3, (150, 5)) for c in centers])
+    args = (m, np.full_like(m, 0.05), np.ones_like(m))
+    kw = dict(nside=6, nproj=2, niter=40, nbatch=25, seed=4, verbose=False)
+    cpu = SelfOrganizingMap(*args, device="cpu").train_network(**kw)
+    K.reset_launch_counts()
+    gpu = SelfOrganizingMap(*args, device="cuda").train_network(**kw)
+    assert K.launch_counts()["som_train"] == 1
+    np.testing.assert_allclose(gpu.nodes, cpu.nodes, rtol=2e-4, atol=2e-4)
+    gpu.nodes = cpu.nodes.copy()
+    cpu.populate_network(verbose=False)
+    gpu.populate_network(verbose=False)
+    for name in ("nodes_idxs", "nodes_Nmatch", "nodes_bmus", "nodes_Nbmu"):
+        np.testing.assert_array_equal(getattr(gpu, name), getattr(cpu, name))
+    d = m[rng.integers(0, len(m), 300)] + rng.normal(0, 0.1, (300, 5))
+    z = rng.uniform(0, 3, len(m))
+    fit = (d, np.full_like(d, 0.1), np.ones_like(d), z, np.full_like(z, 0.05))
+    for nodes_only in (True, False):
+        fkw = dict(label_grid=np.linspace(0, 3, 121), nodes_only=nodes_only,
+                   save_fits=False, return_gof=True, verbose=False,
+                   batch_size=128)
+        want = cpu.fit_predict(*fit, **fkw)
+        got = gpu.fit_predict(*fit, **fkw)
+        np.testing.assert_allclose(got[0], want[0], rtol=2e-3, atol=2e-5)
+        for g, w in zip(got[1], want[1]):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
