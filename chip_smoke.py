@@ -58,12 +58,23 @@ port, numpy and scipy, and:
    nodes-only `fit_predict` over 10,000 objects in 2,048-object batches
    (warm repeats, against fit + predict); the exact-union `fit_predict`
    over 2,048 objects against fit + predict; `fit_summarize`;
-9. prints one JSON line of kernel results (fixed-scale entry points by
+9. GNG (config 3's other half, bench.py:164-172, :201-209: phase 8's
+   model set, 5,000 x 50 steps up to 2,500 nodes, seed 2):
+   `GrowingNeuralGas.train_network` cold and then warm on the `gng_train`
+   kernel, with the launch counters reset just before the warm run; the
+   kernel timed over the whole run and held bit for bit against its
+   plain version on every state array over the first 20,000 steps, over
+   2,000 steps from the kernel's own state at step 200,000 and on a hub
+   whose full slots drop edges; the run cut at step 200,000, and in 8
+   segments, equal to one launch; `populate_network` and nodes-only
+   `fit_predict` over phase 8's 10,000 objects (warm repeats, against
+   fit + predict);
+10. prints one JSON line of kernel results (fixed-scale entry points by
    their wrapper's name, free-scale ones with the suffix ``_fs``,
-   `scale_sweeps` and `som_train`), each with its bound (the larger of
-   its bytes over 3.35 TB/s and its operations over 67 TFLOP/s, counted
-   from this run's shapes and data, see `bound`), the card line again,
-   and last ``{"ok": true, "device": {...}}``.
+   `scale_sweeps`, `som_train` and `gng_train`), each with its bound
+   (the larger of its bytes over 3.35 TB/s and its operations over 67
+   TFLOP/s, counted from this run's shapes and data, see `bound`), the
+   card line again, and last ``{"ok": true, "device": {...}}``.
 
 Matmul precision: TF32 is switched off and float32 matmul precision set
 to "highest", so every plain product and summary dot is full float32.
@@ -128,6 +139,12 @@ N3_UNION = 2_048
 NITER3_CHECK = 200
 TOL_SOM_NODES = 1e-6
 TOL_SOM_LMAP = 0.01
+# Config 3's GNG half (bench.py:164-172, :201-209): 5,000 x 50 steps up
+# to 2,500 nodes, seed 2.  The plain version takes ~1 ms per step on the
+# card, so it runs the first PREFIX_G steps and TAIL_G steps from the
+# kernel's state at step MID_G, not the whole run.
+NITER_G, NMAX_G, SEED_G = 5_000, 2_500, 2
+PREFIX_G, MID_G, TAIL_G, SEGS_G = 20_000, 200_000, 2_000, 8
 # The card's peaks for the bounds (H100 SXM datasheet: dense float32
 # outside the tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -498,7 +515,8 @@ def check_vs_plain(np, bf, got, sub, fp_kw, what, cdf=False,
 
 def som_phase(torch, np, KS, tens, card):
     """Config 3's SOM half (bench.py:164-215, without the GNG) on the
-    card; returns the `som_train` entry of the kernels line."""
+    card; returns the `som_train` entry of the kernels line and the
+    model set and fit objects, which phase 9 reuses."""
     from frankenz_tpu_torch.kernels import som as SK
     from frankenz_tpu_torch.models import SelfOrganizingMap
     from frankenz_tpu_torch.models import networks as TN
@@ -707,7 +725,198 @@ def som_phase(torch, np, KS, tens, card):
             # No PyTorch call trains a SOM.
             "library_ms": None, "train_s": train_s, "populate_s": pop_s,
             "fit_objects_per_s": N3_FIT / fit_s,
-            "steps_equal_100k": same_steps}
+            "steps_equal_100k": same_steps}, (m3, me3, ones3, fit, grid3)
+
+
+def gng_phase(torch, np, KS, tens, card, m3, me3, ones3, fit, grid3):
+    """Config 3's GNG half (bench.py:164-172, :201-209) on the card, over
+    phase 8's model set and objects; returns the `gng_train` entry of the
+    kernels line."""
+    from frankenz_tpu_torch.kernels import gng as GG
+    from frankenz_tpu_torch.models import GrowingNeuralGas
+    from frankenz_tpu_torch.models import networks as TN
+
+    T, N = NITER_G * NBATCH3, NMAX_G
+    train_kw = dict(niter=NITER_G, nbatch=NBATCH3, max_nodes=N, seed=SEED_G,
+                    verbose=False)
+    gng = GrowingNeuralGas(m3, me3, ones3, device="cuda")
+    t0 = time.perf_counter()
+    gng.train_network(**train_kw)
+    cold_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    gng.train_network(**train_kw)
+    train_s = time.perf_counter() - t0
+    launches = KS.launch_counts()
+    check(launches["gng_train"] == 1 and sum(launches.values()) == 1,
+          f"config 3 GNG train_network did not launch gng_train once "
+          f"({launches})")
+    nedge = len(gng.edges())
+    check(1 < gng.NNODE <= N and np.isfinite(gng.nodes).all()
+          and np.isfinite(gng.nodes_err).all() and nedge > 0,
+          "config 3 GNG nodes")
+
+    # The kernel's inputs as train_network makes them (the same draws).
+    rng = np.random.default_rng(SEED_G)
+    draws = rng.integers(0, N3, size=T)
+    i1, i2 = rng.choice(N3, size=2, replace=False)
+    pos0 = np.zeros((N, NFILT), np.float32)
+    pos0[0], pos0[1] = m3[i1], m3[i2]
+    alive0 = np.zeros(N, bool)
+    alive0[:2] = True
+    ids0 = np.full((N, GG.K), -1, np.int32)
+    ids0[0, 0], ids0[1, 0] = 1, 0
+    start = [tens(a) for a in (pos0, np.zeros(N, np.float32), alive0, ids0,
+                               np.zeros((N, GG.K), np.int32),
+                               np.zeros(N, np.int32))] + [0]
+    xc, iv, xr = (tens(a) for a in TN.som_kernel_draws(m3, me3, ones3,
+                                                        draws))
+    kw = dict(nbatch=NBATCH3)
+
+    def run(fn, state, s0, s1):
+        return fn(*state, xc[s0:s1], iv[s0:s1], xr[s0:s1], **kw)
+
+    def equal(a, b):
+        return (all(torch.equal(x, y) for x, y in zip(a[:6], b[:6]))
+                and a[6] == b[6])
+
+    full = run(GG.gng_train, start, 0, T)
+    torch.cuda.synchronize()
+    alive = full[2].cpu().numpy()
+    check(np.array_equal(full[0].cpu().numpy()[alive].astype(float),
+                         gng.nodes), "gng_train on train_network's inputs "
+          "differs from its graph")
+    ms = median_ms(torch, lambda: run(GG.gng_train, start, 0, T), reps=3)
+
+    # Kernel against plain, bit for bit on every state array: the first
+    # PREFIX_G steps (the graph grows, the prune fires), TAIL_G steps from
+    # the kernel's own state at step MID_G (a full graph), a hub whose
+    # full slots drop edges (the column search).
+    k_pre = run(GG.gng_train, start, 0, PREFIX_G)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    p_pre = run(GG.gng_train_plain, start, 0, PREFIX_G)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    check(equal(k_pre, p_pre), f"gng_train differs from its plain version "
+          f"over the first {PREFIX_G} steps")
+    mid = run(GG.gng_train, start, 0, MID_G)
+    k_tail = run(GG.gng_train, mid, MID_G, MID_G + TAIL_G)
+    p_tail = run(GG.gng_train_plain, mid, MID_G, MID_G + TAIL_G)
+    check(equal(k_tail, p_tail), f"gng_train differs from its plain version "
+          f"over {TAIL_G} steps from step {MID_G}")
+    hub_k, hub_p = gng_hub_case(torch, np, GG, TN, tens)
+    check(hub_k[6] > 0 and equal(hub_k, hub_p), "gng_train differs from its "
+          "plain version on the overflow hub")
+    # Segments compose: MID_G steps, then the rest from that state.
+    check(equal(run(GG.gng_train, mid, MID_G, T), full),
+          "a run cut at step MID_G differs from the run in one launch")
+    # Alive nodes along the run (SEGS_G equal segments, which must compose
+    # too), for the bound: the work is the score of every alive node.
+    state, counts = start, [2]
+    for k in range(SEGS_G):
+        state = run(GG.gng_train, state, k * T // SEGS_G,
+                    (k + 1) * T // SEGS_G)
+        counts.append(int(state[2].sum()))
+    check(equal(state, full), f"{SEGS_G} segments differ from one launch")
+    mean_alive = float(np.mean([(a + b) / 2 for a, b in zip(counts,
+                                                            counts[1:])]))
+    # Operations per (step, alive node): the score 5F + 4 and its top-2
+    # compare; bytes: the three (T, F) draw arrays, the state in and out.
+    b_ms, b_by = bound(float(T) * mean_alive * (5 * NFILT + 5),
+                       4.0 * (3 * T * NFILT + 2 * N * (NFILT + 3 + 2 * GG.K)))
+    deg = 2.0 * nedge / gng.NNODE
+    print(f"gng_train: config 3, {N} nodes x {NFILT} filters, {T} steps: "
+          f"kernel {ms:.3f} ms ({1e3 * ms / T:.4f} us/step), plain "
+          f"{plain_ms:.3f} ms for the first {PREFIX_G} steps "
+          f"({plain_ms / PREFIX_G * 1e3:.4f} us/step), bound {b_ms:.4f} ms "
+          f"({b_by}; mean alive nodes {mean_alive:.1f}, alive at the "
+          f"segment ends {counts}); bit-equal to plain over the first "
+          f"{PREFIX_G} steps, {TAIL_G} steps from step {MID_G} and the hub "
+          f"(overflow {hub_k[6]}); segments compose | card {card}",
+          flush=True)
+    print(f"config 3 GNG train_network: cold {cold_s:.4f} s, warm "
+          f"{train_s:.4f} s; {gng.NNODE} nodes, {nedge} edges, mean degree "
+          f"{deg:.4f}, edge_overflow {gng.edge_overflow} | card {card}",
+          flush=True)
+    del full, k_pre, p_pre, mid, k_tail, p_tail, state, xc, iv, xr
+
+    # The network fitter on the trained GNG.
+    t0 = time.perf_counter()
+    gng.populate_network(verbose=False)
+    pop_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gng.populate_network(verbose=False)
+    pop_s = time.perf_counter() - t0
+    check(int(gng.nodes_Nbmu.sum()) == N3, "GNG populate: BMU counts")
+    fkw = dict(label_grid=grid3, nodes_only=True, verbose=False,
+               batch_size=BATCH3, save_fits=False, return_gof=True)
+    t0 = time.perf_counter()
+    pdfs, gof = gng.fit_predict(*fit, **fkw)
+    cold = time.perf_counter() - t0
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pdfs, gof = gng.fit_predict(*fit, **fkw)
+        walls.append(time.perf_counter() - t0)
+    fit_s = statistics.median(walls)
+    check(pdfs.shape == (N3_FIT, NGRID3) and np.isfinite(pdfs).all()
+          and np.isfinite(gof[0]).all() and np.isfinite(gof[1]).all()
+          and np.all(np.abs(pdfs.sum(axis=1) - 1.0) <= 1e-4),
+          "config 3 GNG nodes-only fit_predict output")
+    sub = tuple(x[:BATCH3] for x in fit[:3]) + fit[3:]
+    ref = gng.fit_predict(*sub, **dict(fkw, save_fits=True))
+    check(np.allclose(pdfs[:BATCH3], ref[0], rtol=1e-5, atol=1e-7)
+          and np.allclose(gof[0][:BATCH3], ref[1][0], rtol=1e-5)
+          and np.allclose(gof[1][:BATCH3], ref[1][1], rtol=1e-5),
+          "config 3 GNG nodes-only fit_predict differs from fit + predict")
+    print(f"config 3 GNG populate_network: {N3} models x {gng.NNODE} nodes: "
+          f"cold {pop_cold:.4f} s, warm {pop_s:.4f} s; occupied nodes "
+          f"{int((gng.nodes_Nmatch > 0).sum())}, largest membership "
+          f"{int(gng.nodes_Nmatch.max())} | card {card}", flush=True)
+    print(f"config 3 GNG nodes-only fit_predict: {N3_FIT} objects, batch "
+          f"{BATCH3}: cold {cold:.4f} s, warm median {fit_s:.4f} s "
+          f"({N3_FIT / fit_s:.6g} objects/s, repeats "
+          f"{', '.join(f'{w:.4f}' for w in walls)}); {BATCH3} rows equal "
+          f"fit + predict | card {card}", flush=True)
+    torch.cuda.empty_cache()
+    return {"name": "gng_train", "route": "cuda",
+            "source": "frankenz_tpu_torch/csrc/gng_train.cu",
+            "replaces": "frankenz_tpu/models/networks.py:2017",
+            "launches": launches["gng_train"],
+            # Every comparison above is bit for bit.
+            "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "plain_steps": PREFIX_G,
+            "bound_ms": b_ms, "bound_by": b_by,
+            # No PyTorch call trains a GNG.
+            "library_ms": None, "train_s": train_s, "populate_s": pop_s,
+            "fit_objects_per_s": N3_FIT / fit_s, "nodes": gng.NNODE,
+            "edges": nedge, "edge_overflow": gng.edge_overflow}
+
+
+def gng_hub_case(torch, np, GG, TN, tens):
+    """A node holding 32 edges beside a twin it is not joined to, on four
+    5-band blobs, 100 steps with max_age 1000: the upserts to the hub
+    drop, the adjacency turns one-sided and the kernel takes the column
+    search.  Returns the kernel's and the plain version's states."""
+    rng = np.random.default_rng(5)
+    centers = rng.uniform(2, 9, (4, NFILT))
+    m = np.vstack([c + rng.normal(0, 0.3, (60, NFILT)) for c in centers])
+    leaves = centers[1:][rng.integers(0, 3, 32)] + rng.normal(
+        0, 0.5, (32, NFILT))
+    graph = {"pos": np.vstack([centers[0], centers[0] * 1.001, leaves,
+                               centers[3] + 0.1]),
+             "edges": [(0, 2 + k, 0) for k in range(32)] + [(1, 34, 0)]}
+    state = [tens(a) for a in TN._gng_seed_state(graph, 40, NFILT)] + [0]
+    draws = [tens(a) for a in TN.som_kernel_draws(
+        m, np.full_like(m, 0.05), np.ones_like(m),
+        rng.integers(0, len(m), 100))]
+    kw = dict(nbatch=25, max_age=1000)
+    return (GG.gng_train(*state, *draws, **kw),
+            GG.gng_train_plain(*state, *draws, **kw))
 
 
 def main():
@@ -1337,9 +1546,12 @@ def main():
     del args8, lm8, lv8, sw8
 
     # 8. SOM (config 3 without GNG)
-    som_entry = som_phase(torch, np, KS, tens, card)
+    som_entry, data3 = som_phase(torch, np, KS, tens, card)
 
-    # 9. results
+    # 9. GNG (config 3's other half)
+    gng_entry = gng_phase(torch, np, KS, tens, card, *data3)
+
+    # 10. results
     replaces = {"chi2_brackets": "frankenz_tpu/ops/fused.py:918",
                 "chi2_stack": "frankenz_tpu/ops/fused.py:980",
                 "lnl_reduce": "frankenz_tpu/ops/fused.py:599",
@@ -1392,6 +1604,7 @@ def main():
             entry[f"ms_batch_{N8 if free else BATCH}"] = ms_batch[kname]
         kernels.append(entry)
     kernels.append(som_entry)
+    kernels.append(gng_entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

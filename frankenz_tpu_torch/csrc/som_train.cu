@@ -21,7 +21,9 @@
 //               sigma = learn(nb, t) * nside,  rate = learn(lr, t)
 //               wt    = exp(-sqd / 2 / sigma^2)  or  sigma^2 / (sqd + sigma^2)
 //                       over the lattice distance sqd to the bmu
-//               node += (wt > wt_thresh ? rate wt : 0) * (xr - node)
+//               node += rate wt (xr - node)  where wt > wt_thresh; every
+//                       other node keeps its value (a selection, so a NaN
+//                       in a masked band of xr reaches only moved nodes)
 //   Bound on the H100: latency.  The steps form a strict chain (step s+1
 //   scores the nodes step s moved), so the run is one thread block; the
 //   roofline bound of the whole run (its bytes and flops) is microseconds,
@@ -293,7 +295,10 @@ __global__ void __launch_bounds__(kMaxThreads)
       const float wt = a.lorentz
                            ? __fdiv_rn(s2, __fadd_rn(sqd, s2))
                            : expf(__fdiv_rn(__fmul_rn(-0.5f, sqd), s2));
-      const float u = wt > a.wt_thresh ? __fmul_rn(rate, wt) : 0.0f;
+      // A node outside the neighbourhood keeps its value by selection (a
+      // zero multiple of xr - node would carry a NaN of a masked band).
+      if (!(wt > a.wt_thresh)) continue;
+      const float u = __fmul_rn(rate, wt);
 #pragma unroll
       for (int f = 0; f < F; ++f) {
         const float nf = nd[f * N + n];

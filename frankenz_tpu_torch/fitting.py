@@ -1,6 +1,7 @@
 """Fitter facade (reference `frankenz/fitting.py`).  Ported so far:
-BruteForce, SelfOrganizingMap."""
+BruteForce, SelfOrganizingMap, GrowingNeuralGas."""
 
-from .models import BruteForce, SelfOrganizingMap  # noqa: F401
+from .models import (BruteForce, GrowingNeuralGas,  # noqa: F401
+                     SelfOrganizingMap)
 
-__all__ = ["BruteForce", "SelfOrganizingMap"]
+__all__ = ["BruteForce", "SelfOrganizingMap", "GrowingNeuralGas"]

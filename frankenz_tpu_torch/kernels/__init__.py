@@ -5,12 +5,13 @@ wrappers, plain PyTorch versions and launch counters.
 ``general``: the lnl kernels of every other configuration (`lnl_reduce`,
 `lnl_reduce_split`, `lnl_stack`, `lnl_topk`, `lnl_cut_stack`,
 `lnl_onepass`), in fixed and free scale, and the free-scale sweep counts
-(`scale_sweeps`); ``som``: the whole SOM training run (`som_train`).
+(`scale_sweeps`); ``som``: the whole SOM training run (`som_train`);
+``gng``: the whole GrowingNeuralGas training run (`gng_train`).
 `reset_launch_counts` and `launch_counts` here cover every module, so a
 phase can show which kernels one call launched.
 """
 
-from . import fullmask, general, som  # noqa: F401
+from . import fullmask, general, gng, som  # noqa: F401
 from .fullmask import (  # noqa: F401
     chi2_brackets,
     chi2_brackets_plain,
@@ -34,6 +35,7 @@ from .general import (  # noqa: F401
     scale_sweeps,
     scale_sweeps_plain,
 )
+from .gng import gng_train, gng_train_plain  # noqa: F401
 from .som import som_train, som_train_plain  # noqa: F401
 
 
@@ -42,9 +44,10 @@ def reset_launch_counts():
     fullmask.reset_launch_counts()
     general.reset_launch_counts()
     som.reset_launch_counts()
+    gng.reset_launch_counts()
 
 
 def launch_counts():
     """{wrapper name: launches since the last reset}, every kernel."""
     return {**fullmask.launch_counts(), **general.launch_counts(),
-            **som.launch_counts()}
+            **som.launch_counts(), **gng.launch_counts()}

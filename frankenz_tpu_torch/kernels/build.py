@@ -70,7 +70,8 @@ def build(force=False):
     t0 = time.perf_counter()
     # One nvcc per source, all started together (lnl_general.cu and
     # lnl_freescale.cu, with their many template instantiations, take
-    # tens of seconds each; chi2_fullmask.cu and som_train.cu seconds),
+    # tens of seconds each; chi2_fullmask.cu, som_train.cu and
+    # gng_train.cu seconds),
     # then one link.  The library is written to a temporary name and
     # renamed: a concurrent loader never sees a half-written one.
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
@@ -137,6 +138,12 @@ def _bind(lib):
     lib.fz_som_train.argtypes = ([P] * 7 + [I] * 4 + [F, I, F, F, I, I]
                                  + [I, F, F, F, F] * 2 + [I, I, P])
     lib.fz_som_train.restype = I
+    # csrc/gng_train.cu: 11 pointers, sizes, nbatch, max_age, the four
+    # constants, dim_prior, threads, resident, stream.
+    lib.fz_gng_train_smem.argtypes = [I] * 3
+    lib.fz_gng_train_smem.restype = I
+    lib.fz_gng_train.argtypes = [P] * 11 + [I] * 5 + [F] * 4 + [I] * 3 + [P]
+    lib.fz_gng_train.restype = I
     return lib
 
 

@@ -121,8 +121,11 @@ def som_train_plain(nodes, pos, xc, iv, xr, *, nside, wt_thresh,
             wt = s2[s] / (sqd + s2[s])
         else:
             wt = torch.exp((-half * sqd) / s2[s])
-        u = torch.where(wt > thr * wt.amax(), rate[s] * wt, zero)
-        nd = nd + u[:, None] * (xr[s] - nd)
+        # A node the step leaves alone keeps its value by selection: a
+        # zero multiple of (xr - node) would carry a NaN of a masked band.
+        keep = wt > thr * wt.amax()
+        u = torch.where(keep, rate[s] * wt, zero)
+        nd = torch.where(keep[:, None], nd + u[:, None] * (xr[s] - nd), nd)
     return nd, (bmus.to(torch.int32) if return_bmu else None)
 
 
@@ -169,7 +172,9 @@ def som_train(nodes, pos, xc, iv, xr, *, nside, wt_thresh, lr, nb,
               nsteps_total=nsteps_total, return_bmu=return_bmu)
     if nodes.device.type == "cpu":
         return som_train_plain(nodes, pos, xc, iv, xr, **kw)
-    nodesT = nodes.t().contiguous()
+    # A copy even where the transpose is already contiguous (F = 1): the
+    # kernel trains it in place.
+    nodesT = nodes.t().clone(memory_format=torch.contiguous_format)
     posT = pos.t().contiguous()
     sched = torch.empty((T, 4), dtype=torch.float32, device=nodes.device)
     bmu = (torch.empty(T, dtype=torch.int32, device=nodes.device)

@@ -1,9 +1,11 @@
-"""Fitters.  Ported so far: BruteForce, SelfOrganizingMap (with the
-shared `_Network` machinery and the learning / neighbourhood schedules).
+"""Fitters.  Ported so far: BruteForce, SelfOrganizingMap and
+GrowingNeuralGas (with the shared `_Network` machinery and the learning /
+neighbourhood schedules).
 """
 
 from .bruteforce import BruteForce  # noqa: F401
 from .networks import (  # noqa: F401
+    GrowingNeuralGas,
     SelfOrganizingMap,
     learn_geometric,
     learn_harmonic,

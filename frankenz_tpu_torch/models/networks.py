@@ -1,10 +1,11 @@
 """
-Manifold fitters: the shared `_Network` machinery and SelfOrganizingMap.
+Manifold fitters: the shared `_Network` machinery, SelfOrganizingMap and
+GrowingNeuralGas.
 
 Port of `frankenz_tpu.models.networks` (reference `frankenz/networks.py`:
 `_Network` :121, learning / neighbourhood functions :38-118,
-`SelfOrganizingMap` :1490).  A network compresses a large model set onto
-Nnode << Nmodel nodes: models are soft-assigned to nodes
+`SelfOrganizingMap` :1490, `GrowingNeuralGas` :1870).  A network
+compresses a large model set onto Nnode << Nmodel nodes: models are soft-assigned to nodes
 (`populate_network`), each node carries a label PDF of its members, and
 new data are fit against the nodes first, either stopping there
 (``nodes_only=True``, the cell-conditioned photo-z mode) or refining with
@@ -17,7 +18,9 @@ with the JAX module's padding (index -99, log-weight -inf).  Training
 runs, on eligible configurations, as one launch of the hand-written
 kernel `kernels.som.som_train` (K8; its plain version on CPU tensors),
 else as a plain step loop over the port's `logprob` (the counterpart of
-`_som_train_jit`).  `GrowingNeuralGas` is not ported yet.
+`_som_train_jit`).  GrowingNeuralGas training likewise runs as one
+launch of `kernels.gng.gng_train` (K9) or as a step loop, the
+counterpart of `_gng_train_jit`.
 
 Not ported: ``mesh=`` sharding and ``checkpoint_every`` / ``resume``
 (they raise `NotImplementedError`).  The JAX argument ``use_pallas`` is
@@ -32,6 +35,7 @@ import time
 import numpy as np
 import torch
 
+from ..kernels import gng as _gng
 from ..kernels import som as _som
 from ..ops import kde as _kde
 from ..ops import likelihood as _like
@@ -40,7 +44,7 @@ from ..utils.progress import progress_iter, train_note
 from . import knn as _knn
 from .bruteforce import _batch_slices
 
-__all__ = ["SelfOrganizingMap", "_Network", "learn_linear",
+__all__ = ["SelfOrganizingMap", "GrowingNeuralGas", "_Network", "learn_linear",
            "learn_geometric", "learn_harmonic", "neighbor_gauss",
            "neighbor_lorentz", "som_kernel_draws"]
 
@@ -1118,3 +1122,375 @@ class SelfOrganizingMap(_Network):
         self.nodes = nodes.cpu().numpy().astype(float)
         train_note(verbose, "SOM training", nsteps, t0)
         return self
+
+
+# ----------------------------------------------------------------------
+# GrowingNeuralGas
+# ----------------------------------------------------------------------
+
+def _gng_seed_state(graph_init, max_nodes, nfilt, K=32):
+    """The dense GNG state arrays of an initial graph (the port's copy of
+    frankenz_tpu/models/networks.py:1917-2014).
+
+    Accepted forms: a trained `GrowingNeuralGas` (``nodes`` /
+    ``nodes_err`` / ``edge_ages``); a dict with ``pos`` (n, Nfilt),
+    optional ``err`` (n,) and either ``edge_ages`` (n, n; -1 = no edge)
+    or ``edges`` [(i, j, age), ...]; a networkx-like graph with node
+    attribute ``pos`` (required), ``error`` (default 0) and edge
+    attribute ``age`` (default 0), relabelled to dense slots in iteration
+    order.  Ages are relative in the adjacency table (age = c - sref), so
+    ``c = 0, sref = -age`` reproduces them.  Returns (pos0, err0, alive0,
+    ids0, sref0, c0) over `max_nodes` slots.
+    """
+    if hasattr(graph_init, "edge_ages") and hasattr(graph_init, "nodes"):
+        pos = np.asarray(graph_init.nodes, np.float32)
+        err = np.asarray(getattr(graph_init, "nodes_err",
+                                 np.zeros(len(pos))), np.float32)
+        edges = _edges_of_ages(graph_init.edge_ages)
+    elif isinstance(graph_init, dict):
+        pos = np.asarray(graph_init["pos"], np.float32)
+        err = np.asarray(graph_init.get("err", np.zeros(len(pos))),
+                         np.float32)
+        if "edge_ages" in graph_init:
+            edges = _edges_of_ages(graph_init["edge_ages"])
+        else:
+            edges = [tuple(e) if len(e) == 3 else (e[0], e[1], 0)
+                     for e in graph_init.get("edges", [])]
+    elif hasattr(graph_init, "nodes") and hasattr(graph_init, "edges"):
+        slot = {node: i for i, node in enumerate(graph_init.nodes())}
+        pos_l, err_l = [], []
+        for node in graph_init.nodes():
+            attrs = graph_init.nodes[node]
+            if "pos" not in attrs:
+                raise ValueError(
+                    f"graph_init node {node!r} lacks the 'pos' attribute")
+            pos_l.append(np.asarray(attrs["pos"], np.float32))
+            err_l.append(float(attrs.get("error", 0.0)))
+        pos = np.stack(pos_l) if pos_l else np.zeros((0, nfilt), np.float32)
+        err = np.asarray(err_l, np.float32)
+        edges = [(slot[u], slot[v],
+                  int(graph_init.edges[u, v].get("age", 0)))
+                 for u, v in graph_init.edges()]
+    else:
+        raise TypeError(
+            "graph_init must be a GrowingNeuralGas, a dict with "
+            "pos/err/edge_ages (or edges), or a networkx.Graph with "
+            "'pos'/'error'/'age' attributes; got "
+            f"{type(graph_init).__name__}")
+
+    n = len(pos)
+    if n < 2:
+        raise ValueError(f"graph_init needs at least 2 nodes, got {n}")
+    if n > max_nodes:
+        raise ValueError(f"graph_init has {n} nodes > max_nodes="
+                         f"{max_nodes}")
+    if pos.ndim != 2 or pos.shape[1] != nfilt:
+        raise ValueError(f"graph_init node positions have shape "
+                         f"{pos.shape}, expected (n, {nfilt})")
+
+    pos0 = np.zeros((max_nodes, nfilt), np.float32)
+    pos0[:n] = pos
+    err0 = np.zeros(max_nodes, np.float32)
+    err0[:n] = err
+    alive0 = np.zeros(max_nodes, bool)
+    alive0[:n] = True
+    ids0 = np.full((max_nodes, K), -1, np.int32)
+    sref0 = np.zeros((max_nodes, K), np.int32)
+    c0 = np.zeros(max_nodes, np.int32)
+    deg = np.zeros(max_nodes, np.int64)
+    for i, j, age in edges:
+        i, j, age = int(i), int(j), int(age)
+        for a, b in ((i, j), (j, i)):
+            if deg[a] >= K:
+                raise ValueError(
+                    f"graph_init node {a} has more than {K} edges; the "
+                    "fixed-degree adjacency cannot hold it")
+            ids0[a, deg[a]] = b
+            sref0[a, deg[a]] = -age
+            deg[a] += 1
+    return pos0, err0, alive0, ids0, sref0, c0
+
+
+def _edges_of_ages(edge_ages):
+    """[(i, j, age)] with i < j of a dense age matrix (-1 = no edge)."""
+    ages = np.asarray(edge_ages)
+    ii, jj = np.nonzero(ages >= 0)
+    keep = ii < jj
+    return list(zip(ii[keep].tolist(), jj[keep].tolist(),
+                    ages[ii[keep], jj[keep]].tolist()))
+
+
+def _gng_remove(ids, i, j):
+    """Clear the first slot holding j in node i's row (networks.py:
+    1796-1802)."""
+    row = ids[i]
+    match = row == j
+    slot = torch.argmax(match.to(torch.int32))
+    ids[i, slot] = torch.where(match.any(), -1, row[slot])
+
+
+def _gng_train_general(pos, err, alive, ids, sref, c, ov, draws, mods, errs,
+                       mask, *, lprob_spec, track_scale, nbatch, max_age,
+                       learn_best, learn_neighbor, new_err_dec, all_err_dec):
+    """The general route: a step loop in torch, the counterpart of the
+    scan `_gng_train_jit` (networks.py:1702-1914), in its order: the step,
+    then the prune / insert at each block's first step, then the error
+    decay.  Every tensor lives on the network's device; the state arrays
+    are updated in place where the scan's `.at[]` updates them."""
+    lprob_func, lprob_args, lp_kw = lprob_spec
+    lprob_kwargs = dict(lp_kw)
+    default_spec = (lprob_func is None and not lprob_args
+                    and lprob_kwargs.get("free_scale") is True
+                    and lprob_kwargs.get("ignore_model_err") is True
+                    and set(lprob_kwargs) <= {"free_scale",
+                                              "ignore_model_err",
+                                              "dim_prior"})
+    dim_prior = lprob_kwargs.get("dim_prior", True)
+    lprob_func = lprob_func or _like.logprob
+    N = pos.shape[0]
+    dev = pos.device
+    nodes = torch.arange(N, device=dev)
+    ov = torch.as_tensor(ov, dtype=torch.int32, device=dev)
+
+    def default_lnp_chi2(x, xe, xm):
+        ok = (torch.isfinite(x) & torch.isfinite(xe) & (xe > 0.0)
+              & (xm > 0.0))
+        iv = torch.where(ok, 1.0 / torch.where(ok, xe, 1.0) ** 2, 0.0)
+        xc = torch.where(ok, x, 0.0)
+        xiv = xc * iv
+        inter = pos @ xiv
+        shape = (pos * pos) @ iv
+        A = (xc * xiv).sum()
+        chi2 = A - inter * (inter / shape.clamp_min(1e-30))
+        if dim_prior:
+            a1 = 0.5 * (ok.to(pos.dtype).sum() - 1.0) - 1.0
+            score = a1 * torch.log(chi2.clamp_min(1e-30)) - 0.5 * chi2
+        else:
+            score = -0.5 * chi2
+        return torch.where(alive, score, -torch.inf), chi2
+
+    def step(idx):
+        nonlocal pos, err, sref, c, ov
+        x, xe, xm = mods[idx], errs[idx], mask[idx]
+        if default_spec and not track_scale:
+            lnp, chi2 = default_lnp_chi2(x, xe, xm)
+        else:
+            res = lprob_func(x[None], xe[None], xm[None], pos,
+                             torch.zeros_like(pos), torch.ones_like(pos),
+                             *lprob_args, **lprob_kwargs)
+            lnp = torch.where(alive, res[2][0], -torch.inf)
+            chi2 = res[4][0]
+            if track_scale:
+                pos = torch.where(alive[:, None],
+                                  pos * res[5][0][:, None], pos)
+        # The scan's compiled top_k orders floats by their bits, and the
+        # NaN of a NaN node's score is negative there: it ranks last.
+        top2 = _top_k(torch.where(torch.isnan(lnp), -torch.inf, lnp), 2)[1]
+        bmu, bmu2 = top2[0], top2[1]
+        pos[bmu] = pos[bmu] + learn_best * (x - pos[bmu])
+        err[bmu] = err[bmu] + chi2[bmu]
+        ov = ov + _gng._upsert(ids, sref, bmu, bmu2, c[bmu])
+        ov = ov + _gng._upsert(ids, sref, bmu2, bmu, c[bmu2])
+        row = ids[bmu]
+        nbr = torch.zeros(N + 1, dtype=torch.bool, device=dev)
+        nbr[torch.where(row >= 0, row, N).long()] = True
+        nbr = nbr[:N]
+        pos = pos + torch.where(nbr[:, None], learn_neighbor * (x - pos),
+                                0.0)
+        c = c + (nodes == bmu).to(c.dtype)
+        sref = torch.where(ids == bmu, sref - 1, sref)
+
+    def batch_update():
+        nonlocal ids, alive, ov
+        age = c[:, None] - sref
+        ids = torch.where((ids >= 0) & (age >= max_age), -1, ids)
+        alive = alive & (ids >= 0).any(dim=1)
+        if int(alive.sum()) >= N:
+            return
+        e1 = int(torch.argmax(torch.where(alive, err, -torch.inf)))
+        row = ids[e1]
+        nbr_err = torch.where(row >= 0, err[row.clamp_min(0).long()],
+                              -torch.inf)
+        e2 = int(row[torch.argmax(nbr_err)])
+        free = int(torch.argmin(alive.to(torch.int32)))
+        err[e1] = err[e1] * (1.0 - new_err_dec)
+        err[e2] = err[e2] * (1.0 - new_err_dec)
+        pos[free] = 0.5 * (pos[e1] + pos[e2])
+        err[free] = err[e1]
+        alive[free] = True
+        _gng_remove(ids, e1, e2)
+        _gng_remove(ids, e2, e1)
+        ids[free] = -1
+        ov = ov + _gng._upsert(ids, sref, free, e1, c[free])
+        ov = ov + _gng._upsert(ids, sref, free, e2, c[free])
+        ov = ov + _gng._upsert(ids, sref, e1, free, c[e1])
+        ov = ov + _gng._upsert(ids, sref, e2, free, c[e2])
+
+    dec = 1.0 - all_err_dec
+    for s, idx in enumerate(draws.tolist()):
+        step(idx)
+        if s % nbatch == 0:
+            batch_update()
+        err = err * dec
+    return pos, err, alive, ids, sref, c, int(ov)
+
+
+class GrowingNeuralGas(_Network):
+    """Growing Neural Gas trained on log-posterior best-node pairs
+    (reference networks.py:1870-2260).  The graph is fixed-capacity dense
+    state: a (max_nodes, Nfilt) node table, accumulated errors, an alive
+    mask and a 32-slot adjacency table with counter-based aging; per step
+    the best node and the runner-up by log-posterior, the edge between
+    them refreshed, the best node moved by learn_best and its neighbours
+    by learn_neighbor, its edges aged; at each block's first step (every
+    `nbatch` steps) overage edges are pruned, isolated nodes die and a
+    node is inserted between the largest-error node and its largest-error
+    neighbour; all errors decay every step.  On eligible configurations
+    the whole run is one launch of the `gng_train` kernel (K9);
+    ``use_kernel`` controls the route.
+    """
+
+    def train_network(self, models=None, models_err=None, models_mask=None,
+                      niter=5000, nbatch=50, max_nodes=2500, max_age=15,
+                      learn_best=0.2, learn_neighbor=0.005,
+                      new_err_dec=0.5, all_err_dec=0.005, graph_init=None,
+                      err_kernel=None, lprob_func=None, rng=None, seed=None,
+                      lprob_args=None, lprob_kwargs=None, track_scale=False,
+                      verbose=True, checkpoint_every=None,
+                      checkpoint_file=None, resume=False, use_kernel=None):
+        """Train the GNG (networks.py:2360-2616).
+
+        The draws are those of the JAX package: ``rng.integers`` picks the
+        niter*nbatch training rows, then ``rng.choice`` the two seed nodes
+        (unless `graph_init`, a trained GNG, an `export_graph` dict or a
+        networkx graph, continues an existing graph), from ``rng`` or
+        ``np.random.default_rng(seed)``.  ``use_kernel=None`` takes the
+        kernel route when the configuration is eligible (the default
+        free-scale error-free likelihood, optionally without the dim
+        prior; no `track_scale`; at most 32,768 nodes and 120 filters):
+        on the card the CUDA kernel, on CPU tensors its plain version;
+        else the general route, a step loop over `lprob_func`.
+        ``use_kernel=True`` raises ValueError on an ineligible
+        configuration; ``use_kernel=False`` takes the general route.
+        """
+        if checkpoint_every or resume:
+            raise NotImplementedError(
+                "checkpoint_every / resume are not ported yet "
+                "(utils/checkpoint, ROADMAP queue 1)")
+        if models is None:
+            models = self._models_np
+            models_err = self._models_err_np
+            models_mask = self._models_mask_np
+        models = np.asarray(models, float)
+        models_err = np.asarray(models_err, float)
+        models_mask = np.asarray(models_mask, float)
+        if err_kernel is not None:
+            models_err = np.sqrt(models_err**2 + np.asarray(err_kernel)**2)
+        nmodel, nfilt = models.shape
+        self.NITER, self.NBATCH = niter, nbatch
+
+        if lprob_func is None:
+            lprob_func = _like.logprob
+        lprob_args = lprob_args or ()
+        if lprob_kwargs is None:
+            lprob_kwargs = {"free_scale": True, "ignore_model_err": True}
+            if track_scale:
+                lprob_kwargs["return_scale"] = True
+
+        rng = rng if rng is not None else np.random.default_rng(seed)
+        nsteps = niter * nbatch
+        t0 = time.time()
+        draws = rng.integers(0, nmodel, size=nsteps)
+        N, K = max_nodes, _gng.K
+        if graph_init is not None:
+            state = _gng_seed_state(graph_init, N, nfilt, K)
+        else:
+            i1, i2 = rng.choice(nmodel, size=2, replace=False)
+            pos0 = np.zeros((N, nfilt), np.float32)
+            pos0[0], pos0[1] = models[i1], models[i2]
+            alive0 = np.zeros(N, bool)
+            alive0[:2] = True
+            ids0 = np.full((N, K), -1, np.int32)
+            ids0[0, 0], ids0[1, 0] = 1, 0
+            state = (pos0, np.zeros(N, np.float32), alive0, ids0,
+                     np.zeros((N, K), np.int32), np.zeros(N, np.int32))
+
+        lprob_spec = _like.static_spec(lprob_func, lprob_args, lprob_kwargs)
+        kw = dict(lprob_spec[2])
+        kernel_ok = (
+            lprob_spec[0] is None and not lprob_spec[1]
+            and kw.get("free_scale") is True
+            and kw.get("ignore_model_err") is True
+            and set(kw) <= {"free_scale", "ignore_model_err", "dim_prior"}
+            and not track_scale
+            and 2 <= N <= _gng.MAX_NODES and nfilt <= _gng.MAX_FILT)
+        if use_kernel is None:
+            use_kernel = kernel_ok
+        elif use_kernel and not kernel_ok:
+            raise ValueError(
+                "use_kernel=True requires the default free-scale error-free "
+                "likelihood, no track_scale, 2 to {} nodes and <= {} "
+                "filters (got {} nodes at {} filters)".format(
+                    _gng.MAX_NODES, _gng.MAX_FILT, N, nfilt))
+        consts = dict(nbatch=int(nbatch), max_age=int(max_age),
+                      learn_best=float(learn_best),
+                      learn_neighbor=float(learn_neighbor),
+                      new_err_dec=float(new_err_dec),
+                      all_err_dec=float(all_err_dec))
+
+        tens = [self._tensor(a) for a in state]
+        if use_kernel:
+            xc, iv, xr = (self._tensor(a) for a in som_kernel_draws(
+                models, models_err, models_mask, draws))
+            out = _gng.gng_train(*tens, 0, xc, iv, xr,
+                                 dim_prior=bool(kw.get("dim_prior", True)),
+                                 **consts)
+            label = "GNG training (kernel)"
+        else:
+            f32 = torch.float32
+            out = _gng_train_general(
+                *tens, 0, draws, *(self._tensor(a, f32) for a in (
+                    models, models_err, models_mask)),
+                lprob_spec=lprob_spec, track_scale=bool(track_scale),
+                **consts)
+            label = "GNG training"
+        self._set_graph(*(o.cpu().numpy() if isinstance(o, torch.Tensor)
+                          else o for o in out))
+        train_note(verbose, label, nsteps, t0)
+        return self
+
+    def _set_graph(self, pos, err, alive, ids, sref, c, overflow):
+        """The public attributes of a trained state (networks.py:
+        2594-2614): alive nodes, their errors, the dense symmetric edge-age
+        matrix over them (-1 = no edge), the overflow count."""
+        N = len(pos)
+        sel = np.flatnonzero(alive)
+        self.nodes = np.asarray(pos)[sel].astype(float)
+        self.nodes_err = np.asarray(err)[sel].astype(float)
+        age = c[:, None] - sref
+        full_ages = np.full((N, N), -1, np.int32)
+        rows = np.repeat(np.arange(N), ids.shape[1])
+        cols = ids.ravel()
+        vmask = cols >= 0
+        full_ages[rows[vmask], cols[vmask]] = age.ravel()[vmask]
+        self.edge_overflow = int(overflow)
+        self.edge_ages = full_ages[np.ix_(sel, sel)]
+        self.NNODE = len(sel)
+        self.NPROJ = self.nodes.shape[1]
+        # No lattice: the first two feature dimensions stand in for
+        # plotting positions.
+        self.nodes_pos = (self.nodes[:, :2] if self.nodes.shape[1] >= 2
+                          else self.nodes)
+
+    def edges(self):
+        """(Nedge, 2) array of alive-node edge index pairs (i < j)."""
+        ii, jj = np.nonzero(self.edge_ages >= 0)
+        keep = ii < jj
+        return np.stack([ii[keep], jj[keep]], axis=1)
+
+    def export_graph(self):
+        """The trained graph as a ``graph_init``-ready dict (absolute
+        ages, so reseeding keeps the pruning schedule)."""
+        return {"pos": np.asarray(self.nodes, np.float32),
+                "err": np.asarray(self.nodes_err, np.float32),
+                "edge_ages": np.asarray(self.edge_ages)}

@@ -1,4 +1,5 @@
-"""Wall times and one `torch.profiler` trace of config 3's SOM half.
+"""Wall times and one `torch.profiler` trace of config 3's SOM and GNG
+halves.
 
     python -m frankenz_tpu_torch.tools.profile_som [--out DIR] [--reps N]
 
@@ -8,8 +9,10 @@ models over 5 filters from ``default_rng(0)``, a 50 x 50 map, 100,000
 training steps with seed 1, 10,000 noisy objects on a 321-point grid in
 2,048-object batches) it times `SelfOrganizingMap.train_network` (the
 `som_train` kernel), `populate_network` and nodes-only `fit_predict`
-(``save_fits=False``): one warm-up, `--reps` timed walls, then one run
-under the profiler.  It prints the walls, their median, the device busy
+(``save_fits=False``), then the same three for a `GrowingNeuralGas`
+over the same models (bench.py:164-172, :201-209: 5,000 x 50 steps up
+to 2,500 nodes, seed 2; `train_network` on the `gng_train` kernel):
+one warm-up, `--reps` timed walls, then one run under the profiler.  It prints the walls, their median, the device busy
 time (kernels and copies; `aten::` rows left out, as they repeat their
 kernels' time) and its share of the profiled wall, and the heaviest
 device operations, and writes ``profile_som.json`` and one Chrome trace
@@ -27,6 +30,7 @@ from .profile_general import _device_ms
 
 NMODEL, NFILT, NSIDE, NITER, NBATCH = 100_000, 5, 50, 2_000, 50
 NFIT, BATCH, NGRID = 10_000, 2_048, 321
+GNG_NITER, GNG_NODES, GNG_SEED = 5_000, 2_500, 2
 
 
 def main(argv=None):
@@ -35,7 +39,7 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from ..kernels import build
-    from ..models import SelfOrganizingMap
+    from ..models import GrowingNeuralGas, SelfOrganizingMap
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile")
@@ -60,6 +64,8 @@ def main(argv=None):
     z = rng.uniform(0, 3, NMODEL)
     som = SelfOrganizingMap(m, (0.05 * m).astype(f32), np.ones_like(m),
                             device="cuda")
+    gng = GrowingNeuralGas(m, (0.05 * m).astype(f32), np.ones_like(m),
+                           device="cuda")
     d = (m[rng.integers(0, NMODEL, NFIT)]
          + rng.normal(0, 0.3, (NFIT, NFILT))).astype(f32)
     fit = (d, np.full_like(d, 0.3), np.ones_like(d), z,
@@ -75,9 +81,16 @@ def main(argv=None):
             ("populate_network",
              lambda: som.populate_network(verbose=False), "models"),
             ("nodes_only_fit_predict", lambda: som.fit_predict(*fit, **fkw),
-             "objects")):
-        count = {"steps": NITER * NBATCH, "models": NMODEL,
-                 "objects": NFIT}[units]
+             "objects"),
+            ("gng_train_network", lambda: gng.train_network(
+                niter=GNG_NITER, nbatch=NBATCH, max_nodes=GNG_NODES,
+                seed=GNG_SEED, verbose=False), "gng_steps"),
+            ("gng_populate_network",
+             lambda: gng.populate_network(verbose=False), "models"),
+            ("gng_nodes_only_fit_predict",
+             lambda: gng.fit_predict(*fit, **fkw), "objects")):
+        count = {"steps": NITER * NBATCH, "gng_steps": GNG_NITER * NBATCH,
+                 "models": NMODEL, "objects": NFIT}[units]
         call()
         torch.cuda.synchronize()
         walls = []

@@ -3,8 +3,10 @@
 The state of a `BruteForce` is its model set (photometry, errors, mask),
 the full-mask flag and the saved fits of its last `fit` (the
 (Ndata, Nmodel) grids, with the free-scale `fit_scale` / `fit_scale_err`
-under ``track_scale``); that of a trained `SelfOrganizingMap` its model
-set, nodes and lattice and, once populated, its member tables; the
+under ``track_scale``); that of a trained `SelfOrganizingMap` or
+`GrowingNeuralGas` its model set, nodes and node positions (the GNG's
+node errors and edge ages too) and, once populated, its member tables;
+the
 label side is a `PDFDict` (or a plain grid).
 Everything here goes through NumPy: a JAX array exposes ``__array__``,
 so `np.asarray` reads it without importing JAX.
@@ -52,25 +54,33 @@ def from_jax_bruteforce(obj, device):
 
 
 _NETWORK_STATE = ("NSIDE", "NNODE", "NPROJ", "NITER", "NBATCH")
+_GNG_STATE = ("nodes_err", "edge_ages", "edge_overflow")
 _MEMBER_TABLES = ("nodes_idxs", "nodes_logwts", "nodes_scales",
                   "nodes_scales_err", "nodes_bmus", "nodes_Nmatch",
                   "nodes_Nbmu", "models_lmap", "models_levid")
 
 
 def network_from_jax(obj, device):
-    """Port `SelfOrganizingMap` holding the state of a trained
-    `frankenz_tpu` one: its model set, `nodes`, `nodes_pos`, the lattice
-    sizes and, once it has been populated, the member tables,
-    `models_lmap` / `models_levid` and the `lpnet_*` settings.  The JAX
-    default `lpnet_func` maps to the port's default; another function
-    cannot be carried across and raises ValueError."""
-    from ..models.networks import SelfOrganizingMap
+    """Port `SelfOrganizingMap` or `GrowingNeuralGas` (whichever class
+    `obj` is, by name) holding the state of a trained `frankenz_tpu` one:
+    its model set, `nodes`, `nodes_pos`, the lattice sizes or, for a GNG,
+    `nodes_err`, `edge_ages` and `edge_overflow`, and, once it has been
+    populated, the member tables, `models_lmap` / `models_levid` and the
+    `lpnet_*` settings.  The JAX default `lpnet_func` maps to the port's
+    default; another function cannot be carried across and raises
+    ValueError."""
+    from ..models.networks import GrowingNeuralGas, SelfOrganizingMap
 
-    net = SelfOrganizingMap(np.asarray(obj._models_np),
-                            np.asarray(obj._models_err_np),
-                            np.asarray(obj._models_mask_np), device=device)
+    gng = type(obj).__name__ == "GrowingNeuralGas"
+    cls = GrowingNeuralGas if gng else SelfOrganizingMap
+    net = cls(np.asarray(obj._models_np), np.asarray(obj._models_err_np),
+              np.asarray(obj._models_mask_np), device=device)
     net.nodes = np.array(obj.nodes, dtype=float)
     net.nodes_pos = np.array(obj.nodes_pos, dtype=float)
+    for name in _GNG_STATE if gng else ():
+        value = getattr(obj, name)
+        setattr(net, name, np.array(value) if name != "edge_overflow"
+                else int(value))
     for name in _NETWORK_STATE:
         if hasattr(obj, name):
             setattr(net, name, getattr(obj, name))

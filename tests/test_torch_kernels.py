@@ -1,8 +1,8 @@
 """The CUDA kernels' wrappers, plain versions and counters: the
 full-mask chi^2 pair (`kernels.fullmask`), the general lnl kernels
 (`kernels.general`), in fixed and free scale, with the one-pass kernel
-and the free-scale sweep counts, and the SOM training run
-(`kernels.som`).
+and the free-scale sweep counts, the SOM training run (`kernels.som`) and
+the GNG training run (`kernels.gng`).
 
 This file imports neither JAX nor `frankenz_tpu`, so it also runs on a
 machine with a card and no JAX:
@@ -19,7 +19,8 @@ sweep tables exact; weight sums and PDFs 1e-5 relative, levid 1e-5 of
 max(1, |levid|) (the same weights, summed in another order: levid's
 absolute error is the sum's relative error); `som_train` the same best
 node at every step and nodes within 1e-6 relative (expected bit-equal:
-the same operations in the same order).
+the same operations in the same order); `gng_train` every state array
+bit for bit (the same operations in the same order).
 """
 
 import numpy as np
@@ -29,6 +30,7 @@ import torch
 from frankenz_tpu_torch import kernels as K
 from frankenz_tpu_torch.kernels import fullmask as FM
 from frankenz_tpu_torch.kernels import general as GK
+from frankenz_tpu_torch.kernels import gng as GG
 from frankenz_tpu_torch.kernels import som as SK
 from frankenz_tpu_torch.ops import fused as TF
 from frankenz_tpu_torch.ops import kde as TK
@@ -173,7 +175,7 @@ def test_cpu_general_wrappers_run_plain_versions_without_launching(name):
     assert all(n == 0 for n in K.launch_counts().values())
     assert set(K.launch_counts()) == {"chi2_brackets", "chi2_stack", *GENERAL,
                                       "lnl_onepass", "scale_sweeps",
-                                      "som_train"}
+                                      "som_train", "gng_train"}
 
 
 def _free_flags(t, ignore_model_err, tm=96, **flags):
@@ -692,6 +694,7 @@ def test_som_train_breaks_ties_to_the_lowest_index():
 @pytest.mark.gpu
 @pytest.mark.parametrize("nside,F,T,kw", [
     (4, 3, 400, {}),
+    (4, 1, 300, {}),
     (7, 20, 600, dict(bad_bands=True)),
     (5, 5, 500, dict(lorentz=True, dim_prior=False,
                      lr=SK.schedule("geometric", 0.6, 0.05),
@@ -702,7 +705,8 @@ def test_som_train_breaks_ties_to_the_lowest_index():
 def test_som_train_matches_plain_on_card(cuda_device, nside, F, T, kw):
     """Kernel against plain version on the card: the same best node at
     every step and the same node table, bit for bit (at nside 150 the
-    table lies past shared memory, in device memory)."""
+    table lies past shared memory, in device memory; at F = 1 the
+    transposed table the kernel trains must be a copy of the input)."""
     kw = dict(kw)
     t = [x.to(cuda_device) for x in _som_problem(
         nside, F=F, T=T, bad_bands=kw.pop("bad_bands", False))]
@@ -753,3 +757,148 @@ def test_som_on_card_matches_cpu_and_counts_launches(cuda_device):
         np.testing.assert_allclose(got[0], want[0], rtol=2e-3, atol=2e-5)
         for g, w in zip(got[1], want[1]):
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------
+# gng_train (K9): the whole GrowingNeuralGas training run
+# ---------------------------------------------------------------------
+
+def _gng_problem(N, F=5, T=400, seed=37, bad_bands=False, hub=False,
+                 dup=False):
+    """A GNG start state (two seed nodes and their edge; with `hub` a
+    node holding 32 edges beside a twin it is not joined to; with `dup` a
+    `graph_init` whose edge list repeats an edge and holds a self-loop,
+    so rows hold one node in two slots) and T cleaned draws, made as the
+    kernel route of `GrowingNeuralGas.train_network` makes them."""
+    from frankenz_tpu_torch.models import networks as TN
+
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(2, 9, (4, F))
+    m = np.vstack([c + rng.normal(0, 0.3, (max(N // 4, 60), F))
+                   for c in centers])
+    me = np.full_like(m, 0.05)
+    mm = np.ones_like(m)
+    if bad_bands:
+        me[::7, 0] = 0.0
+        mm[1::5, F - 1] = 0.0
+    if hub:
+        leaves = centers[1:][rng.integers(0, 3, 32)] + rng.normal(
+            0, 0.5, (32, F))
+        graph = {"pos": np.vstack([centers[0], centers[0] * 1.001, leaves,
+                                   centers[3] + 0.1]),
+                 "edges": [(0, 2 + k, 0) for k in range(32)] + [(1, 34, 0)]}
+        state = TN._gng_seed_state(graph, N, F)
+    elif dup:
+        graph = {"pos": np.vstack([c + 0.1 * k for c in centers
+                                   for k in range(2)]),
+                 "edges": [(0, 1, 0), (0, 1, 0), (1, 2, 0), (2, 2, 0),
+                           (2, 3, 0), (4, 5, 0), (5, 6, 0), (6, 7, 0),
+                           (7, 7, 0), (3, 4, 0)]}
+        state = TN._gng_seed_state(graph, N, F)
+    else:
+        pos = np.zeros((N, F), np.float32)
+        pos[:2] = m[rng.choice(len(m), 2, replace=False)]
+        alive = np.zeros(N, bool)
+        alive[:2] = True
+        ids = np.full((N, 32), -1, np.int32)
+        ids[0, 0], ids[1, 0] = 1, 0
+        state = (pos, np.zeros(N, np.float32), alive, ids,
+                 np.zeros((N, 32), np.int32), np.zeros(N, np.int32))
+    draws = TN.som_kernel_draws(m, me, mm, rng.integers(0, len(m), T))
+    return ([torch.from_numpy(np.ascontiguousarray(a)) for a in state],
+            [torch.from_numpy(np.ascontiguousarray(a)) for a in draws])
+
+
+def _gng_equal(got, want):
+    for g, w in zip(got[:6], want[:6]):
+        assert torch.equal(g, w)
+    assert got[6] == want[6]
+
+
+def test_gng_train_cpu_runs_plain_without_launching():
+    state, draws = _gng_problem(30, T=300)
+    K.reset_launch_counts()
+    got = GG.gng_train(*state, 0, *draws, nbatch=25)
+    want = GG.gng_train_plain(*state, 0, *draws, nbatch=25)
+    _gng_equal(got, want)
+    assert GG.launch_counts() == {"gng_train": 0}
+    assert int(got[2].sum()) > 2 and got[2].dtype == torch.bool
+    assert got[3].dtype == torch.int32 and got[6] == 0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "ids_dtype", "shape", "contiguity",
+                                 "nodes", "filters"])
+def test_gng_train_checks_its_inputs(bad):
+    state, draws = _gng_problem(30, T=8)
+    if bad == "dtype":
+        draws[0] = draws[0].double()
+    elif bad == "ids_dtype":
+        state[3] = state[3].long()
+    elif bad == "shape":
+        state[4] = state[4][:, :16].contiguous()
+    elif bad == "contiguity":
+        state[0] = state[0].t().contiguous().t()
+    elif bad == "nodes":
+        state[0] = torch.zeros((1, 5))
+    else:
+        state[0] = torch.zeros((30, GG.MAX_FILT + 1))
+    with pytest.raises((TypeError, ValueError)):
+        GG.gng_train(*state, 0, *draws, nbatch=25)
+
+
+def test_gng_train_segments_compose():
+    """A run cut at a block boundary (step 150 of nbatch 25), the second
+    segment started from the first one's whole state, equals the run in
+    one piece bit for bit."""
+    state, draws = _gng_problem(30, T=400)
+    whole = GG.gng_train(*state, 0, *draws, nbatch=25)
+    first = GG.gng_train(*state, 0, *(d[:150] for d in draws), nbatch=25)
+    second = GG.gng_train(*first, *(d[150:] for d in draws), nbatch=25)
+    _gng_equal(second, whole)
+
+
+def test_gng_train_hub_overflows_and_moves_column_neighbours():
+    """The hub holds 32 edges, so an edge to its twin lands in the twin's
+    slots only: `overflow` counts the drops, and the twin, whose slots
+    hold the hub, moves as the hub's neighbour (the column search)."""
+    state, draws = _gng_problem(40, F=3, T=100, hub=True)
+    out = GG.gng_train(*state, 0, *draws, nbatch=25, max_age=1000)
+    assert out[6] > 0
+    ids = out[3]
+    one_sided = [(i, int(j)) for i in range(40) for j in ids[i]
+                 if 0 <= j < 40 and not bool((ids[int(j)] == i).any())]
+    assert one_sided
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,F,T,kw", [
+    (2500, 5, 3000, dict(nbatch=1)),
+    (2500, 5, 4000, dict(nbatch=50)),
+    (60, 5, 1500, dict(nbatch=10, bad_bands=True, dim_prior=False)),
+    (40, 3, 300, dict(nbatch=25, hub=True, max_age=1000)),
+    (40, 5, 300, dict(nbatch=25, dup=True, max_age=1000)),
+    (300, 1, 1200, dict(nbatch=5)),
+    (300, 9, 1200, dict(nbatch=5)),
+    (12000, 5, 1500, dict(nbatch=1)),
+])
+def test_gng_train_matches_plain_on_card(cuda_device, N, F, T, kw):
+    """Kernel against plain version on the card, bit for bit on every
+    state array: a graph grown to 2,500 nodes (nbatch 1 inserts every
+    step), the default block length, bad bands without the dim prior,
+    the overflow hub (the column search), rows holding a node twice (it
+    moves once), F = 1 and F = 9 (the run-time filter loop), and 12,000
+    nodes (the state past shared memory)."""
+    kw = dict(kw)
+    state, draws = _gng_problem(N, F=F, T=T, bad_bands=kw.pop(
+        "bad_bands", False), hub=kw.pop("hub", False),
+        dup=kw.pop("dup", False))
+    state = [x.to(cuda_device) for x in state]
+    draws = [x.to(cuda_device) for x in draws]
+    GG.reset_launch_counts()
+    got = GG.gng_train(*state, 0, *draws, **kw)
+    want = GG.gng_train_plain(*state, 0, *draws, **kw)
+    torch.cuda.synchronize()
+    assert GG.launch_counts() == {"gng_train": 1}
+    _gng_equal(got, want)
+    assert bool(torch.isfinite(got[0]).all())
+    assert int(got[2].sum()) > 2
