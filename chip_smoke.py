@@ -69,9 +69,28 @@ port, numpy and scipy, and:
    segments, equal to one launch; `populate_network` and nodes-only
    `fit_predict` over phase 8's 10,000 objects (warm repeats, against
    fit + predict);
-10. prints one JSON line of kernel results (fixed-scale entry points by
+10. the samplers (config 5, bench.py:218-254: 50 bins x 20,000 objects,
+   Gaussian PDFs of width 1.5 around redshifts drawn from a bump at bin
+   18, ``default_rng(0)``): `population_sampler.run_mcmc(100, thin=400,
+   mh_steps=3, seed=0)` cold and then warm on the `pop_chain` kernel
+   (40,000 Gibbs steps, 120,000 proposals, one launch), with the launch
+   counters reset just before the warm run; the kernel timed over the
+   whole chain and held bit for bit against its plain version on
+   samples, lnpost and the carry (the whole chain when the plain version
+   takes under about 150 s, else the first 10,000 steps and 2,000 from
+   the kernel's carry at step 30,000), on four chains in one launch, on
+   a problem with zero overlaps and moves to negative bins, and on the
+   non-resident variant; `sample(block=7)` equal to the stored chain;
+   the chain's lnpost, simplex and posterior mean checked, the carried
+   overlap's drift printed; the general route under a Dirichlet prior,
+   its 2,000 steps in float64 on the card held at 1e-6 against the same
+   loop on CPU tensors (50 steps at a time from the CPU's carry), and
+   under the flat prior beside the kernel route until the two part; `hierarchical_sampler.run_mcmc(200, thin=5, seed=0)` cold and
+   warm, and once with a reference sample;
+11. prints one JSON line of kernel results (fixed-scale entry points by
    their wrapper's name, free-scale ones with the suffix ``_fs``,
-   `scale_sweeps`, `som_train` and `gng_train`), each with its bound
+   `scale_sweeps`, `som_train`, `gng_train` and `pop_chain`), each with
+   its bound
    (the larger of its bytes over 3.35 TB/s and its operations over 67
    TFLOP/s, counted from this run's shapes and data, see `bound`), the
    card line again, and last ``{"ok": true, "device": {...}}``.
@@ -145,6 +164,15 @@ TOL_SOM_LMAP = 0.01
 # kernel's state at step MID_G, not the whole run.
 NITER_G, NMAX_G, SEED_G = 5_000, 2_500, 2
 PREFIX_G, MID_G, TAIL_G, SEGS_G = 20_000, 200_000, 2_000, 8
+# Config 5 (bench.py:218-254): bins, objects, the population run and the
+# hierarchical run.  The plain version runs the whole chain when its first
+# PREFIX_P steps project under PLAIN_BUDGET_P seconds, else those steps and
+# TAIL_P steps from the kernel's carry at step MID_P.
+NBINS5, NOBS5 = 50, 20_000
+NITER_P, THIN_P, MH_P, SEED_P = 100, 400, 3, 0
+PREFIX_P, MID_P, TAIL_P, PLAIN_BUDGET_P = 10_000, 30_000, 2_000, 150.0
+BLOCK_P, NCHAINS_P, NITER_P4, NITER_PG, SEG64_P = 7, 4, 10, 5, 50
+NITER_H, THIN_H = 200, 5
 # The card's peaks for the bounds (H100 SXM datasheet: dense float32
 # outside the tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -919,6 +947,423 @@ def gng_hub_case(torch, np, GG, TN, tens):
             GG.gng_train_plain(*state, *draws, **kw))
 
 
+def smooth_nz(np, nz, sig=2.0):
+    """Gaussian-smooth a binned N(z): the deconvolution is identified only
+    up to the kernel scale (tests/test_samplers.py:68-74)."""
+    grid = np.arange(nz.shape[-1])
+    K = np.exp(-0.5 * ((grid[None, :] - grid[:, None]) / sig) ** 2)
+    K /= K.sum(axis=1, keepdims=True)
+    return nz @ K
+
+
+def check_chain(np, what, samples, lnps, pdfs, nz, check_lnp=True):
+    """Finite, on the simplex, the final lnpost that of the final sample
+    (float64), and the smoothed posterior mean over the second half nearer
+    to the truth than the smoothed stack; returns the two distances."""
+    check(np.isfinite(samples).all() and np.isfinite(lnps).all(),
+          f"{what}: non-finite chain")
+    check(np.all(np.abs(samples.sum(axis=1) - 1.0) <= 1e-3)
+          and (samples >= 0).all(), f"{what}: samples off the simplex")
+    if check_lnp:
+        want = np.sum(np.log(pdfs @ samples[-1]))
+        check(abs(lnps[-1] - want) <= 1e-3 * abs(want),
+              f"{what}: final lnpost {lnps[-1]} against {want} in float64")
+    stack = pdfs.sum(axis=0) / pdfs.sum()
+    post = samples[len(samples) // 2:].mean(axis=0)
+    err_post = float(np.abs(smooth_nz(np, post) - smooth_nz(np, nz)).sum())
+    err_stack = float(np.abs(smooth_nz(np, stack) - smooth_nz(np, nz)).sum())
+    check(err_post < err_stack, f"{what}: posterior mean ({err_post}) no "
+          f"nearer to the true N(z) than the stack ({err_stack})")
+    return err_post, err_stack
+
+
+def first_differing_step(torch, PK, draws, pdfsT, carry, mh):
+    """The first Gibbs step at which kernel and plain version differ on
+    this segment (both rerun with thin 1), or None."""
+    k = PK.pop_chain(draws, pdfsT, *carry, thin=1, mh_steps=mh)
+    p = PK.pop_chain_plain(draws, pdfsT, *carry, thin=1, mh_steps=mh)
+    diff = ((k[0] != p[0]).any(dim=2) | (k[1] != p[1])).any(dim=0)
+    return int(diff.nonzero()[0]) if bool(diff.any()) else None
+
+
+def zero_overlap_case(torch, np, tens):
+    """12 bins x 300 objects, 400 steps: no mass in the last 4 bins (pairs
+    touching them have scale 0 and a NaN gradient), 5 objects with PDFs in
+    those bins only (overlap 0, on the 1e-30 floor), normals of 4 sigma
+    (many moves to a negative bin, scored -3.0e38).  Returns the inputs."""
+    rng = np.random.default_rng(41)
+    nbins, nobs, T, mh = 12, 300, 400, 3
+    c = rng.uniform(0, nbins - 1, (nobs, 1))
+    pdfs = np.exp(-0.5 * ((np.arange(nbins)[None] - c) / 1.5) ** 2) + 0.01
+    pdfs[:5, :nbins - 4] = 0.0
+    pdfs[5:, nbins - 4:] = 0.0
+    pdfs /= pdfs.sum(axis=1, keepdims=True)
+    pos = rng.dirichlet(np.full(nbins, 5.0), 1)
+    pos[:, nbins - 4:] = 0.0
+    pos /= pos.sum(axis=1, keepdims=True)
+    i = rng.integers(0, nbins, (1, T))
+    j = rng.integers(0, nbins - 1, (1, T))
+    j = j + (j >= i)
+    draws = np.concatenate([i[..., None], j[..., None],
+                            4.0 * rng.normal(size=(1, T, mh)),
+                            rng.exponential(size=(1, T, mh))], axis=2)
+    return (tens(draws.astype(np.float32)),
+            tens(pdfs.T.astype(np.float32)), tens(pos.astype(np.float32)))
+
+
+def sampler_phase(torch, np, KS, tens, card):
+    """Config 5 (bench.py:218-254) on the card: the population sampler on
+    the `pop_chain` kernel, its general route, and the hierarchical
+    sampler; returns the `pop_chain` entry of the kernels line."""
+    from frankenz_tpu_torch.kernels import pop as PK
+    from frankenz_tpu_torch.samplers import (hierarchical_sampler,
+                                             population_sampler)
+    from frankenz_tpu_torch.samplers import population as TP
+
+    rng = np.random.default_rng(0)
+    grid = np.arange(NBINS5)
+    nz = np.exp(-0.5 * ((grid - 18) / 5.0) ** 2)
+    nz /= nz.sum()
+    zt = rng.choice(NBINS5, NOBS5, p=nz)
+    c = zt + rng.normal(0, 1.5, NOBS5)
+    pdfs = np.exp(-0.5 * ((grid[None] - c[:, None]) / 1.5) ** 2)
+    pdfs /= pdfs.sum(1, keepdims=True)
+    T = NITER_P * THIN_P
+    run_kw = dict(thin=THIN_P, mh_steps=MH_P, seed=SEED_P, verbose=False)
+
+    # Walls: cold, then warm with the counters reset just before.
+    ps = population_sampler(pdfs, device="cuda")
+    t0 = time.perf_counter()
+    ps.run_mcmc(NITER_P, **run_kw)
+    cold_s = time.perf_counter() - t0
+    ps.reset()
+    torch.cuda.synchronize()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    ps.run_mcmc(NITER_P, **run_kw)
+    pop_s = time.perf_counter() - t0
+    launches = KS.launch_counts()
+    check(launches["pop_chain"] == 1 and sum(launches.values()) == 1,
+          f"config 5 population run_mcmc did not launch pop_chain once "
+          f"({launches})")
+    samples, lnps = ps.results
+    check(samples.shape == (NITER_P, NBINS5) and lnps.shape == (NITER_P,),
+          "config 5 population results' shape")
+    err_post, err_stack = check_chain(np, "config 5 population", samples,
+                                      lnps, pdfs, nz)
+
+    # The kernel's inputs as run_mcmc makes them (the same table).
+    draws = ps._tables(SEED_P, 1, T, NBINS5, MH_P).contiguous()
+    pdfsT = ps._pdfsT()
+    stack0 = np.tile(pdfs.sum(axis=0) / pdfs.sum(), (1, 1))
+    start = ps._start(stack0, TP._zero_prior, True)
+    kw = dict(thin=THIN_P, mh_steps=MH_P)
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def joined(a, b):
+        return (torch.cat([a[0], b[0]], dim=1),
+                torch.cat([a[1], b[1]], dim=1)) + tuple(b[2:5])
+
+    full = PK.pop_chain(draws, pdfsT, *start, **kw)
+    torch.cuda.synchronize()
+    check(np.array_equal(full[0][0].cpu().numpy().astype(float), samples)
+          and np.array_equal(full[1][0].cpu().numpy().astype(float), lnps),
+          "pop_chain on run_mcmc's inputs differs from its chain")
+    # Gibbs steps in which at least one proposal was accepted (the kernel
+    # reports no count of its own): the position or lnpost changed, from a
+    # rerun with thin 1.
+    every = PK.pop_chain(draws, pdfsT, *start, thin=1, mh_steps=MH_P)
+    check(equal(every[2:], full[2:]), "thin 1 changes pop_chain's carry")
+    pos_steps = torch.cat([start[0], every[0][0]])
+    lnp_steps = torch.cat([start[2], every[1][0]])
+    moved = int(((pos_steps[1:] != pos_steps[:-1]).any(dim=1)
+                 | (lnp_steps[1:] != lnp_steps[:-1])).sum())
+    del every, pos_steps, lnp_steps
+    ms = median_ms(torch, lambda: PK.pop_chain(draws, pdfsT, *start, **kw),
+                   reps=3)
+
+    # Kernel against plain, bit for bit on samples, lnpost and the carry.
+    def seg(fn, carry, s0, s1):
+        return fn(draws[:, s0:s1].contiguous(), pdfsT, *carry, **kw)
+
+    def differs(what, carry, s0, s1):
+        step = first_differing_step(
+            torch, PK, draws[:, s0:s1].contiguous(), pdfsT, carry, MH_P)
+        fail(f"pop_chain differs from its plain version over {what}, first "
+             f"at Gibbs step {s0 + (step or 0)}")
+
+    k_pre = seg(PK.pop_chain, start, 0, PREFIX_P)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    p_pre = seg(PK.pop_chain_plain, start, 0, PREFIX_P)
+    e1.record()
+    e1.synchronize()
+    plain_ms, plain_steps = e0.elapsed_time(e1), PREFIX_P
+    if not equal(k_pre, p_pre):
+        differs(f"the first {PREFIX_P} steps", start, 0, PREFIX_P)
+    if plain_ms * T / PREFIX_P <= 1e3 * PLAIN_BUDGET_P:
+        e0.record()
+        p_rest = seg(PK.pop_chain_plain, p_pre[2:], PREFIX_P, T)
+        e1.record()
+        e1.synchronize()
+        plain_ms, plain_steps = plain_ms + e0.elapsed_time(e1), T
+        if not equal(joined(p_pre, p_rest), full):
+            differs("the whole chain", p_pre[2:], PREFIX_P, T)
+        plain_note = f"the whole {T}-step chain"
+    else:
+        mid = seg(PK.pop_chain, start, 0, MID_P)
+        k_tail = seg(PK.pop_chain, mid[2:], MID_P, MID_P + TAIL_P)
+        p_tail = seg(PK.pop_chain_plain, mid[2:], MID_P, MID_P + TAIL_P)
+        if not equal(k_tail, p_tail):
+            differs(f"{TAIL_P} steps from step {MID_P}", mid[2:], MID_P,
+                    MID_P + TAIL_P)
+        plain_note = (f"the first {PREFIX_P} steps and {TAIL_P} steps from "
+                      f"the kernel's carry at step {MID_P}")
+    # Segments compose, resident or not; the non-resident variant, forced
+    # at this shape, equals the resident one over the whole chain.
+    check(equal(joined(k_pre, seg(PK.pop_chain, k_pre[2:], PREFIX_P, T)),
+                full), f"a chain cut at step {PREFIX_P} differs from one "
+          "launch")
+    e0.record()
+    nonres = PK.pop_chain(draws, pdfsT, *start, resident=False, **kw)
+    e1.record()
+    e1.synchronize()
+    nonres_ms = e0.elapsed_time(e1)
+    check(equal(nonres, full), "the non-resident pop_chain differs from the "
+          "resident one")
+    # Zero overlaps and moves to negative bins.
+    zd, zpT, zpos = zero_overlap_case(torch, np, tens)
+    zov = (zpos @ zpT).contiguous()
+    zlnp = PK.tree_sum(torch.log(zov.clamp_min(1e-30)),
+                       PK.chain_threads(zov.shape[1]))
+    zk = PK.pop_chain(zd, zpT, zpos, zov, zlnp, thin=10, mh_steps=3)
+    zp = PK.pop_chain_plain(zd, zpT, zpos, zov, zlnp, thin=10, mh_steps=3)
+    check(equal(zk, zp) and bool(torch.isfinite(zk[1]).all())
+          and bool((zk[3][:, :5] == 0).all())
+          and not torch.equal(zk[2], zpos),
+          "pop_chain differs from its plain version on the zero-overlap "
+          "case")
+
+    # Four chains in one launch: chain c equals a single-chain launch on
+    # chain c's table.
+    ps4 = population_sampler(pdfs, device="cuda")
+    KS.reset_launch_counts()
+    ps4.run_mcmc(NITER_P4, nchains=NCHAINS_P, **run_kw)
+    check(KS.launch_counts()["pop_chain"] == 1,
+          f"{NCHAINS_P} chains took {KS.launch_counts()} launches")
+    s4, l4 = ps4.results_by_chain
+    d4 = ps4._tables(SEED_P, NCHAINS_P, NITER_P4 * THIN_P, NBINS5, MH_P)
+    for ch in range(NCHAINS_P):
+        one = PK.pop_chain(d4[ch:ch + 1].contiguous(), pdfsT, *start, **kw)
+        check(np.array_equal(one[0][0].cpu().numpy().astype(float),
+                             s4[:, ch])
+              and np.array_equal(one[1][0].cpu().numpy().astype(float),
+                                 l4[:, ch]),
+              f"chain {ch} of {NCHAINS_P} differs from its own launch")
+    check(not np.array_equal(s4[:, 0], s4[:, 1]), "chains 0 and 1 are equal")
+
+    # Segments through the entry point: sample(block=7) streams the stored
+    # chain bit for bit, and draws the table once.
+    ndraws = []
+    orig_draws = TP._pop_draws
+
+    def counting_draws(gen, nsteps, nbins, mh_steps):
+        ndraws.append(nsteps)
+        return orig_draws(gen, nsteps, nbins, mh_steps)
+
+    TP._pop_draws = counting_draws
+    try:
+        streamer = population_sampler(pdfs, device="cuda")
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = list(streamer.sample(NITER_P, block=BLOCK_P, **run_kw))
+        stream_s = time.perf_counter() - t0
+    finally:
+        TP._pop_draws = orig_draws
+    nblocks = -(-NITER_P // BLOCK_P)
+    check(ndraws == [T] and KS.launch_counts()["pop_chain"] == nblocks,
+          f"sample(block={BLOCK_P}): tables drawn {ndraws}, launches "
+          f"{KS.launch_counts()}")
+    check(len(got) == NITER_P and all(
+        np.array_equal(p, samples[i]) and lp == lnps[i]
+        for i, (p, lp) in enumerate(got)),
+        f"sample(block={BLOCK_P}) differs from the stored run_mcmc chain")
+
+    # The carried overlap against pdfs . pos in float64.
+    ov64 = pdfs @ full[2][0].cpu().numpy().astype(float)
+    ov_k = full[3][0].cpu().numpy().astype(float)
+    drift = float(np.max(np.abs(ov_k - ov64) / ov64))
+    lnp_off = float(lnps[-1] - np.sum(np.log(ov64)))
+    check(float(ov_k.min()) > 1e-25, "an overlap reached the floor")
+
+    # Bound: per Gibbs step ~16 operations an object in the gradient pass
+    # (dcol, half, the ratio, the series or a log) and 5 per proposal
+    # (the update's multiply and add, the floor, the log, the sum), 2 more
+    # per accepted proposal, of which this run had at least one in every
+    # step that moved; bytes: each input read once (pdfsT, the table, the
+    # carry) and each output written once (the samples, the carry).
+    b_ms, b_by = bound(
+        float(T) * NOBS5 * (16 + 5 * MH_P) + 2.0 * moved * NOBS5,
+        4.0 * (pdfsT.numel() + draws.numel() + 2 * (NOBS5 + NBINS5 + 1)
+               + NITER_P * (NBINS5 + 1)))
+    print(f"pop_chain: config 5, {NBINS5} bins x {NOBS5} objects, {T} Gibbs "
+          f"steps x {MH_P} proposals: kernel {ms:.3f} ms "
+          f"({1e3 * ms / T:.4f} us/step), non-resident {nonres_ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms for {plain_steps} steps "
+          f"({plain_ms / plain_steps * 1e3:.4f} us/step), bound {b_ms:.4f} "
+          f"ms ({b_by}); bit-equal to plain over {plain_note}, on the "
+          f"zero-overlap case, cut at step {PREFIX_P}, non-resident, and "
+          f"{NCHAINS_P} chains in one launch | card {card}", flush=True)
+    print(f"config 5 population run_mcmc: cold {cold_s:.4f} s, warm "
+          f"{pop_s:.4f} s = {T * MH_P / pop_s:.6g} proposals/s; {moved} of {T} "
+          f"Gibbs steps ({moved / T:.4f}) accepted at least one of their "
+          f"{MH_P} proposals; "
+          f"sample(block={BLOCK_P}) {stream_s:.4f} s in {nblocks} launches, "
+          f"equal to run_mcmc; final lnpost {lnps[-1]:.3f}; smoothed "
+          f"posterior-mean error {err_post:.5f} against the stack's "
+          f"{err_stack:.5f}; overlap drift max |ov - pdfs.pos| / ov "
+          f"{drift:.3e} after {T} Gibbs steps, final lnpost "
+          f"{lnp_off:+.4f} from sum log(pdfs.pos) in float64 | card {card}",
+          flush=True)
+
+    # The general route: under a Dirichlet(2) prior, then under the flat
+    # prior on the kernel route's table.  Float32 lnpost has a spacing of
+    # ~0.004 at -5e4, the two routes sum in different orders, and the
+    # chain amplifies rounding differences, so sooner or later the chains
+    # part: they are held together up to that step, and by their lnpost
+    # after it.
+    def dirichlet2(pos):
+        return torch.log(pos).sum()
+
+    pg = population_sampler(pdfs, device="cuda")
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    pg.run_mcmc(NITER_PG, logprior_nz=dirichlet2, **run_kw)
+    gen_s = time.perf_counter() - t0
+    check(sum(KS.launch_counts().values()) == 0,
+          "the general route launched a kernel")
+    gs, gl = pg.results
+    check(np.isfinite(gs).all() and np.isfinite(gl).all()
+          and np.all(np.abs(gs.sum(axis=1) - 1.0) <= 1e-3)
+          and (gs >= 0).all(), "general route under a prior: chain")
+    Tg = NITER_PG * THIN_P
+    dg = ps._tables(SEED_P, 1, T, NBINS5, MH_P)[:, :Tg].contiguous()
+    # The step loop itself on the card, every one of these steps, under the
+    # prior: in float64, SEG64_P steps at a time from the carry of the same
+    # loop on CPU tensors, held to it at 1e-6 on samples, lnpost and the
+    # carry.  (The chain amplifies rounding differences, through the step
+    # scale 1 / |grad| of a cancelling sum, by some 5% a step: from a
+    # common carry SEG64_P steps stay far inside 1e-6, 2,000 would not.)
+    s_cpu, s_card = (population_sampler(pdfs, device=dev, dtype=torch.float64)
+                     for dev in ("cpu", "cuda"))
+    d64 = dg.to("cpu", torch.float64)
+    carry = s_cpu._start(stack0, dirichlet2, False)
+    for a, b in zip(s_card._start(stack0, dirichlet2, False), carry):
+        check(bool(torch.isclose(a.cpu(), b, rtol=1e-12, atol=0).all()),
+              "the float64 start on the card differs from the CPU's")
+    gkw = dict(prior=dirichlet2, thin=1, mh_steps=MH_P)
+    moved64, err64 = 0, 0.0
+    for s0 in range(0, Tg, SEG64_P):
+        seg = d64[:, s0:s0 + SEG64_P].contiguous()
+        want = TP._pop_run(seg, s_cpu._pdfsT(), *carry, **gkw)
+        got = TP._pop_run(seg.cuda(), s_card._pdfsT(),
+                          *(x.cuda() for x in carry), **gkw)
+        for name, g, w in zip(("samples", "lnpost", "pos", "overlap", "lnp"),
+                              got, want):
+            g = g.cpu()
+            check(bool(torch.isfinite(g).all())
+                  and bool(torch.isclose(g, w, rtol=1e-6, atol=1e-12).all()),
+                  f"general route in float64 under a prior, card against "
+                  f"CPU tensors, steps {s0} to {s0 + SEG64_P}: {name} "
+                  f"differ by {float((g - w).abs().max())}")
+        err64 = max(err64, float(((got[1].cpu() - want[1]).abs()
+                                  / want[1].abs()).max()))
+        lnp_steps = torch.cat([carry[2], want[1][0]])
+        moved64 += int((lnp_steps[1:] != lnp_steps[:-1]).sum())
+        carry = want[2:]
+    check(moved64 >= Tg // 4, f"the float64 chain moved in {moved64} of {Tg} "
+          "steps")
+    flat = TP._pop_run(dg, pdfsT, *ps._start(stack0, TP._zero_prior, False),
+                       prior=TP._zero_prior, thin=1, mh_steps=MH_P)
+    kern = PK.pop_chain(dg, pdfsT, *start, thin=1, mh_steps=MH_P)
+    close = (torch.isclose(flat[0][0], kern[0][0], rtol=2e-4,
+                           atol=2e-6).all(dim=1)
+             & torch.isclose(flat[1][0], kern[1][0], rtol=2e-5, atol=2e-4))
+    parted = int((~close).nonzero()[0]) if not bool(close.all()) else Tg
+    lnp_f, lnp_k = float(flat[4][0]), float(kern[4][0])
+    check(parted >= 10, f"the general route parts from the kernel route at "
+          f"Gibbs step {parted}")
+    check(abs(lnp_f - lnp_k) <= 1e-3 * abs(lnp_k)
+          and bool(torch.isfinite(flat[0]).all())
+          and float(flat[3].min()) > 1e-25,
+          f"general route under the flat prior: lnpost {lnp_f} against the "
+          f"kernel route's {lnp_k}")
+    print(f"general route: {NITER_PG} x {THIN_P} steps under a Dirichlet(2) "
+          f"prior {gen_s:.4f} s ({1e3 * gen_s / Tg:.4f} ms/step), final "
+          f"lnpost {gl[-1]:.3f}; under the flat prior on the kernel route's "
+          f"table it matches it (rtol 2e-4) for the first {parted} of {Tg} "
+          f"Gibbs steps, lnpost after {Tg} steps {lnp_f:.3f} against "
+          f"{lnp_k:.3f}; in float64 under the prior the card follows the "
+          f"same loop on CPU tensors over all {Tg} steps ({moved64} moved), "
+          f"{SEG64_P} at a time from the CPU's carry, samples, lnpost and "
+          f"carry within rtol 1e-6 (lnpost max rel {err64:.3e}) | card "
+          f"{card}", flush=True)
+    del full, nonres, k_pre, p_pre, flat, kern
+
+    # The hierarchical sampler.
+    hs = hierarchical_sampler(pdfs, device="cuda")
+    hkw = dict(thin=THIN_H, seed=SEED_P, verbose=False)
+    t0 = time.perf_counter()
+    hs.run_mcmc(NITER_H, **hkw)
+    hcold_s = time.perf_counter() - t0
+    hs.reset()
+    torch.cuda.synchronize()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    hs.run_mcmc(NITER_H, **hkw)
+    hier_s = time.perf_counter() - t0
+    check(sum(KS.launch_counts().values()) == 0,
+          "the hierarchical sampler launched a kernel")
+    hsam, hlnp = hs.results
+    check(hsam.shape == (NITER_H, NBINS5), "config 5 hierarchical results")
+    herr, _ = check_chain(np, "config 5 hierarchical", hsam, hlnp, pdfs, nz,
+                          check_lnp=False)
+    ref = np.random.default_rng(1).multinomial(2_000, nz).astype(float)
+    hr = hierarchical_sampler(pdfs, device="cuda")
+    t0 = time.perf_counter()
+    hr.run_mcmc(20, ref_sample=ref, **hkw)
+    href_s = time.perf_counter() - t0
+    check_chain(np, "config 5 hierarchical with a reference sample",
+                *hr.results, pdfs, nz, check_lnp=False)
+    sweeps = NITER_H * THIN_H
+    print(f"config 5 hierarchical run_mcmc: {NITER_H} x thin {THIN_H}: cold "
+          f"{hcold_s:.4f} s, warm {hier_s:.4f} s = {sweeps / hier_s:.6g} "
+          f"sweeps/s, {sweeps * NOBS5 / hier_s:.6g} object-draws/s; smoothed "
+          f"posterior-mean error {herr:.5f} against the stack's "
+          f"{err_stack:.5f}; 20 x thin {THIN_H} with a 2,000-object "
+          f"reference sample {href_s:.4f} s | card {card}", flush=True)
+    torch.cuda.empty_cache()
+    return {"name": "pop_chain", "route": "cuda",
+            "source": "frankenz_tpu_torch/csrc/pop_chain.cu",
+            "replaces": "frankenz_tpu/samplers/population.py:179",
+            "launches": launches["pop_chain"],
+            # Every comparison above is bit for bit.
+            "max_abs_err": 0.0, "ms": ms, "nonresident_ms": nonres_ms,
+            "plain_ms": plain_ms, "plain_steps": plain_steps,
+            "bound_ms": b_ms, "bound_by": b_by,
+            # No PyTorch call runs an MH chain.
+            "library_ms": None, "population_s": pop_s,
+            "proposals_per_s": T * MH_P / pop_s, "steps_moved": moved,
+            "overlap_drift": drift, "lnpost_off": lnp_off,
+            "general_parted_at_step": parted,
+            "hierarchical_s": hier_s,
+            "hierarchical_sweeps_per_s": sweeps / hier_s,
+            "hierarchical_obj_draws_per_s": sweeps * NOBS5 / hier_s}
+
+
 def main():
     import numpy as np
     import torch
@@ -1551,7 +1996,10 @@ def main():
     # 9. GNG (config 3's other half)
     gng_entry = gng_phase(torch, np, KS, tens, card, *data3)
 
-    # 10. results
+    # 10. the samplers (config 5)
+    pop_entry = sampler_phase(torch, np, KS, tens, card)
+
+    # 11. results
     replaces = {"chi2_brackets": "frankenz_tpu/ops/fused.py:918",
                 "chi2_stack": "frankenz_tpu/ops/fused.py:980",
                 "lnl_reduce": "frankenz_tpu/ops/fused.py:599",
@@ -1605,6 +2053,7 @@ def main():
         kernels.append(entry)
     kernels.append(som_entry)
     kernels.append(gng_entry)
+    kernels.append(pop_entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

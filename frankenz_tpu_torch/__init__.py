@@ -5,6 +5,7 @@ Same layout as the JAX package, so each module's counterpart is easy to
 find:
   ops/      likelihood, KDE, summaries and the fused fit -> PDF route;
   models/   fitters: BruteForce, SelfOrganizingMap, GrowingNeuralGas;
+  samplers/ population and hierarchical N(z) MCMC over the fitters' PDFs;
   kernels/  ctypes wrappers of the hand-written CUDA kernels, their plain
             PyTorch versions and launch counters;
   csrc/     the CUDA C++ sources (built with nvcc at first use);
@@ -19,6 +20,7 @@ __version__ = "0.1.0"
 from . import ops  # noqa: F401
 from . import models  # noqa: F401
 from . import fitting  # noqa: F401
+from . import samplers  # noqa: F401
 from . import utils  # noqa: F401
 from .models import (BruteForce, GrowingNeuralGas,  # noqa: F401
                      SelfOrganizingMap)

@@ -6,12 +6,13 @@ wrappers, plain PyTorch versions and launch counters.
 `lnl_reduce_split`, `lnl_stack`, `lnl_topk`, `lnl_cut_stack`,
 `lnl_onepass`), in fixed and free scale, and the free-scale sweep counts
 (`scale_sweeps`); ``som``: the whole SOM training run (`som_train`);
-``gng``: the whole GrowingNeuralGas training run (`gng_train`).
+``gng``: the whole GrowingNeuralGas training run (`gng_train`); ``pop``:
+whole flat-prior population MH-in-Gibbs chains (`pop_chain`).
 `reset_launch_counts` and `launch_counts` here cover every module, so a
 phase can show which kernels one call launched.
 """
 
-from . import fullmask, general, gng, som  # noqa: F401
+from . import fullmask, general, gng, pop, som  # noqa: F401
 from .fullmask import (  # noqa: F401
     chi2_brackets,
     chi2_brackets_plain,
@@ -36,6 +37,7 @@ from .general import (  # noqa: F401
     scale_sweeps_plain,
 )
 from .gng import gng_train, gng_train_plain  # noqa: F401
+from .pop import pop_chain, pop_chain_plain  # noqa: F401
 from .som import som_train, som_train_plain  # noqa: F401
 
 
@@ -45,9 +47,11 @@ def reset_launch_counts():
     general.reset_launch_counts()
     som.reset_launch_counts()
     gng.reset_launch_counts()
+    pop.reset_launch_counts()
 
 
 def launch_counts():
     """{wrapper name: launches since the last reset}, every kernel."""
     return {**fullmask.launch_counts(), **general.launch_counts(),
-            **som.launch_counts(), **gng.launch_counts()}
+            **som.launch_counts(), **gng.launch_counts(),
+            **pop.launch_counts()}

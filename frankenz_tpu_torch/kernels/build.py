@@ -70,8 +70,8 @@ def build(force=False):
     t0 = time.perf_counter()
     # One nvcc per source, all started together (lnl_general.cu and
     # lnl_freescale.cu, with their many template instantiations, take
-    # tens of seconds each; chi2_fullmask.cu, som_train.cu and
-    # gng_train.cu seconds),
+    # tens of seconds each; chi2_fullmask.cu, som_train.cu, gng_train.cu
+    # and pop_chain.cu seconds),
     # then one link.  The library is written to a temporary name and
     # renamed: a concurrent loader never sees a half-written one.
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
@@ -144,6 +144,12 @@ def _bind(lib):
     lib.fz_gng_train_smem.restype = I
     lib.fz_gng_train.argtypes = [P] * 11 + [I] * 5 + [F] * 4 + [I] * 3 + [P]
     lib.fz_gng_train.restype = I
+    # csrc/pop_chain.cu: 11 pointers (the dcol scratch NULL when resident),
+    # nchains, T, W, nbins, nobs, thin, mh, threads, resident, stream.
+    lib.fz_pop_chain_smem.argtypes = [I] * 4
+    lib.fz_pop_chain_smem.restype = I
+    lib.fz_pop_chain.argtypes = [P] * 11 + [I] * 9 + [P]
+    lib.fz_pop_chain.restype = I
     return lib
 
 

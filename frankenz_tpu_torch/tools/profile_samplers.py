@@ -1,0 +1,151 @@
+"""Wall times and one `torch.profiler` trace of config 5's two samplers.
+
+    python -m frankenz_tpu_torch.tools.profile_samplers [--out DIR]
+        [--reps N] [--traces]
+
+Run from the root of a checkout on a machine with a CUDA card and
+`nvcc`.  At config 5's widths (bench.py:218-254: 50 bins x 20,000 objects,
+Gaussian PDFs of width 1.5 around redshifts drawn from a bump at bin 18,
+``default_rng(0)``) it times `population_sampler.run_mcmc(100, thin=400,
+mh_steps=3, seed=0)` (40,000 Gibbs steps on the `pop_chain` kernel) and
+`hierarchical_sampler.run_mcmc(200, thin=5, seed=0)` (1,000 sweeps in
+plain torch), each from a reset sampler: one warm-up, `--reps` timed
+walls, then one run under the profiler.  It prints the walls, their
+median, the device busy time (kernels and copies; `aten::` rows left out,
+as they repeat their kernels' time) and its share of the profiled wall,
+and the heaviest device operations.  Then it times the `pop_chain` kernel
+alone (CUDA events, median of 3) over 4,000 Gibbs steps at `mh_steps` 1 to
+4, whose slope is the cost of one proposal pass and whose intercept that
+of the gradient pass and the step's fixed work, and over 2,000 steps with
+1 to 264 chains in one launch (one block a chain, 132 SMs).  It writes
+``profile_samplers.json`` to `--out` (default ``build/profile``), and
+with `--traces` one Chrome trace per sampler (the hierarchical one holds
+~30,000 device operations: tens of MB).
+"""
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+from .profile_general import _device_ms
+
+NBINS, NOBS = 50, 20_000
+POP = dict(Niter=100, thin=400, mh_steps=3, seed=0, verbose=False)
+HIER = dict(Niter=200, thin=5, seed=0, verbose=False)
+
+
+def main(argv=None):
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..kernels import build
+    from ..kernels import pop as PK
+    from ..samplers import hierarchical_sampler, population_sampler
+    from ..samplers import population as TP
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--traces", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(card, flush=True)
+    build.load()
+
+    rng = np.random.default_rng(0)
+    grid = np.arange(NBINS)
+    nz = np.exp(-0.5 * ((grid - 18) / 5.0) ** 2)
+    nz /= nz.sum()
+    c = rng.choice(NBINS, NOBS, p=nz) + rng.normal(0, 1.5, NOBS)
+    pdfs = np.exp(-0.5 * ((grid[None] - c[:, None]) / 1.5) ** 2)
+    pdfs /= pdfs.sum(1, keepdims=True)
+    ps = population_sampler(pdfs, device="cuda")
+    hs = hierarchical_sampler(pdfs, device="cuda")
+
+    def run(samp, kw):
+        samp.reset()
+        samp.run_mcmc(**kw)
+
+    report = {"card": card}
+    for name, call, count, units in (
+            ("population_run_mcmc", lambda: run(ps, POP),
+             POP["Niter"] * POP["thin"] * POP["mh_steps"], "proposals"),
+            ("hierarchical_run_mcmc", lambda: run(hs, HIER),
+             HIER["Niter"] * HIER["thin"], "sweeps")):
+        call()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(args.reps):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        ops = sorted(((_device_ms(e), e.key, e.count)
+                      for e in prof.key_averages()
+                      if _device_ms(e) > 0 and not e.key.startswith("aten::")),
+                     reverse=True)
+        busy = sum(op[0] for op in ops)
+        med = statistics.median(walls)
+        print(f"== {name}: walls {walls} s, median {med} s = {count / med} "
+              f"{units}/s; profiled wall {wall_ms} ms, device busy {busy} "
+              f"ms, busy share {busy / wall_ms} | {card}", flush=True)
+        for ms, key, n in ops[:10]:
+            print(f"  {ms:10.3f} ms  {100 * ms / busy:6.2f}%  x{n}  "
+                  f"{key[:90]}", flush=True)
+        report[name] = dict(walls_s=walls, median_s=med,
+                            profiled_wall_ms=wall_ms, device_busy_ms=busy,
+                            ops=ops[:20])
+        if args.traces:
+            prof.export_chrome_trace(str(out_dir / f"trace_{name}.json"))
+
+    # The kernel alone: proposals per step, then chains per launch.
+    def kernel_ms(nchains, nsteps, mh):
+        draws = ps._tables(0, nchains, nsteps, NBINS, mh).contiguous()
+        start = ps._start(ps._resolve_pos0(None, nchains), TP._zero_prior,
+                          True)
+        times = []
+        for _ in range(4):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            PK.pop_chain(draws, ps._pdfsT(), *start, thin=nsteps,
+                         mh_steps=mh)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return statistics.median(times[1:])
+
+    ps.reset()
+    by_mh = {mh: kernel_ms(1, 4_000, mh) for mh in (1, 2, 3, 4)}
+    slope = (by_mh[4] - by_mh[1]) / 3 / 4_000 * 1e3
+    print(f"== pop_chain, 1 chain x 4,000 steps, ms by mh_steps: {by_mh}; "
+          f"{slope} us per proposal pass, {by_mh[1] / 4 - slope} us per "
+          f"step for the gradient pass and the rest | {card}", flush=True)
+    by_chains = {n: kernel_ms(n, 2_000, 3) for n in (1, 4, 32, 132, 264)}
+    print(f"== pop_chain, 2,000 steps x 3 proposals, ms by chains in one "
+          f"launch: {by_chains} | {card}", flush=True)
+    report["pop_chain_ms_by_mh_steps"] = by_mh
+    report["pop_chain_ms_by_chains"] = by_chains
+    (out_dir / "profile_samplers.json").write_text(
+        json.dumps(report, indent=1))
+
+
+if __name__ == "__main__":
+    main()

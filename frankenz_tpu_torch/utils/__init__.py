@@ -5,6 +5,7 @@ from .convert import (  # noqa: F401
     from_jax_bruteforce,
     network_from_jax,
     pdfdict_from,
+    sampler_from_jax,
 )
 from .metrics import Metrics, metrics, timed  # noqa: F401
 from .progress import progress_iter, train_note  # noqa: F401

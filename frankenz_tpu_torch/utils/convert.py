@@ -7,7 +7,8 @@ under ``track_scale``); that of a trained `SelfOrganizingMap` or
 `GrowingNeuralGas` its model set, nodes and node positions (the GNG's
 node errors and edge ages too) and, once populated, its member tables;
 the
-label side is a `PDFDict` (or a plain grid).
+label side is a `PDFDict` (or a plain grid); that of a sampler its PDFs,
+the stored chain and the position it resumes from.
 Everything here goes through NumPy: a JAX array exposes ``__array__``,
 so `np.asarray` reads it without importing JAX.
 """
@@ -17,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["bruteforce_from_arrays", "from_jax_bruteforce",
-           "network_from_jax", "pdfdict_from"]
+           "network_from_jax", "pdfdict_from", "sampler_from_jax"]
 
 
 def bruteforce_from_arrays(models, models_err, models_mask, full_mask=None,
@@ -107,3 +108,24 @@ def pdfdict_from(obj):
 
     return PDFDict(np.asarray(obj.grid), np.asarray(obj.sigma_grid),
                    sigma_trunc=float(obj.sigma_trunc))
+
+
+def sampler_from_jax(obj, device):
+    """Port `population_sampler` or `hierarchical_sampler` (whichever class
+    `obj` is, by name) holding the state of a `frankenz_tpu` one: its
+    `pdfs`, the stored `samples` / `samples_lnp` and the chain state, so
+    that a chain started there resumes here from the same position and
+    `results` holds both parts."""
+    from ..samplers import hierarchical_sampler, population_sampler
+
+    cls = (hierarchical_sampler
+           if type(obj).__name__ == "hierarchical_sampler"
+           else population_sampler)
+    samp = cls(np.asarray(obj.pdfs), device=device)
+    samp.samples = [np.array(s, dtype=float) for s in obj.samples]
+    samp.samples_lnp = [np.array(v, dtype=float) if np.ndim(v) else float(v)
+                        for v in obj.samples_lnp]
+    state = obj._chain_state
+    samp._chain_state = None if state is None else np.array(state,
+                                                            dtype=float)
+    return samp

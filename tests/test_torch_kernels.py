@@ -1,8 +1,8 @@
 """The CUDA kernels' wrappers, plain versions and counters: the
 full-mask chi^2 pair (`kernels.fullmask`), the general lnl kernels
 (`kernels.general`), in fixed and free scale, with the one-pass kernel
-and the free-scale sweep counts, the SOM training run (`kernels.som`) and
-the GNG training run (`kernels.gng`).
+and the free-scale sweep counts, the SOM training run (`kernels.som`), the
+GNG training run (`kernels.gng`) and the population chain (`kernels.pop`).
 
 This file imports neither JAX nor `frankenz_tpu`, so it also runs on a
 machine with a card and no JAX:
@@ -20,7 +20,9 @@ max(1, |levid|) (the same weights, summed in another order: levid's
 absolute error is the sum's relative error); `som_train` the same best
 node at every step and nodes within 1e-6 relative (expected bit-equal:
 the same operations in the same order); `gng_train` every state array
-bit for bit (the same operations in the same order).
+bit for bit (the same operations in the same order); `pop_chain` samples,
+lnpost and the carry bit for bit (one differing ulp in a log-sum could
+flip an accept, after which the chains part for good).
 """
 
 import numpy as np
@@ -31,6 +33,7 @@ from frankenz_tpu_torch import kernels as K
 from frankenz_tpu_torch.kernels import fullmask as FM
 from frankenz_tpu_torch.kernels import general as GK
 from frankenz_tpu_torch.kernels import gng as GG
+from frankenz_tpu_torch.kernels import pop as PK
 from frankenz_tpu_torch.kernels import som as SK
 from frankenz_tpu_torch.ops import fused as TF
 from frankenz_tpu_torch.ops import kde as TK
@@ -175,7 +178,7 @@ def test_cpu_general_wrappers_run_plain_versions_without_launching(name):
     assert all(n == 0 for n in K.launch_counts().values())
     assert set(K.launch_counts()) == {"chi2_brackets", "chi2_stack", *GENERAL,
                                       "lnl_onepass", "scale_sweeps",
-                                      "som_train", "gng_train"}
+                                      "som_train", "gng_train", "pop_chain"}
 
 
 def _free_flags(t, ignore_model_err, tm=96, **flags):
@@ -902,3 +905,248 @@ def test_gng_train_matches_plain_on_card(cuda_device, N, F, T, kw):
     _gng_equal(got, want)
     assert bool(torch.isfinite(got[0]).all())
     assert int(got[2].sum()) > 2
+
+
+# ---------------------------------------------------------------------
+# The population chain (K10).
+# ---------------------------------------------------------------------
+
+
+def _pop_problem(nbins=12, nobs=300, T=40, mh=2, nchains=1, seed=41,
+                 zero_overlap=False, spread=1.0):
+    """(draws, pdfsT, pos, ov, lnp) float32 on the CPU: Gaussian PDFs with
+    a floor, a random start on the simplex and a random draw table whose
+    normals are scaled by `spread`.  With `zero_overlap` the position holds
+    no mass in the last 4 bins (pairs that touch them have scale 0, whose
+    gradient is NaN: every proposal is rejected) and the first 5 objects
+    have PDFs in those bins only, so their overlaps are 0 and sit on the
+    1e-30 floor; `spread` 4 then sends many proposals to a negative bin."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0, nbins - 1, (nobs, 1))
+    pdfs = np.exp(-0.5 * ((np.arange(nbins)[None] - c) / 1.5) ** 2) + 0.01
+    pos = rng.dirichlet(np.full(nbins, 5.0), nchains)
+    if zero_overlap:
+        pdfs[:5, :nbins - 4] = 0.0
+        pdfs[5:, nbins - 4:] = 0.0
+        pos[:, nbins - 4:] = 0.0
+    pdfs /= pdfs.sum(axis=1, keepdims=True)
+    pos /= pos.sum(axis=1, keepdims=True)
+    i = rng.integers(0, nbins, (nchains, T))
+    j = rng.integers(0, nbins - 1, (nchains, T))
+    j = j + (j >= i)
+    draws = np.concatenate(
+        [i[..., None], j[..., None],
+         spread * rng.normal(size=(nchains, T, mh)),
+         rng.exponential(size=(nchains, T, mh))], axis=2).astype(np.float32)
+    pdfsT = torch.from_numpy(np.ascontiguousarray(pdfs.T.astype(np.float32)))
+    pos = torch.from_numpy(pos.astype(np.float32))
+    ov = (pos @ pdfsT).contiguous()
+    lnp = PK.tree_sum(torch.log(ov.clamp_min(1e-30)), PK.chain_threads(nobs))
+    return [torch.from_numpy(draws), pdfsT, pos, ov, lnp]
+
+
+def _pop_equal(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_pop_chain_cpu_runs_plain_without_launching():
+    t = _pop_problem(T=40, mh=2)
+    K.reset_launch_counts()
+    got = PK.pop_chain(*t, thin=10, mh_steps=2)
+    want = PK.pop_chain_plain(*t, thin=10, mh_steps=2)
+    _pop_equal(got, want)
+    assert PK.launch_counts() == {"pop_chain": 0}
+    assert K.launch_counts()["pop_chain"] == 0
+    samples, lnps, pos, ov, lnp = got
+    assert samples.shape == (1, 4, 12) and lnps.shape == (1, 4)
+    assert torch.equal(samples[:, -1], pos) and torch.equal(lnps[:, -1], lnp)
+    # The chain moved, stayed on the simplex, and its carried overlap and
+    # lnpost are those of its position.
+    assert not torch.equal(pos, t[2])
+    assert bool((pos >= 0).all()) and abs(float(pos.sum()) - 1.0) < 1e-5
+    torch.testing.assert_close(ov, pos @ t[1], rtol=1e-4, atol=1e-7)
+    want_lnp = torch.log((pos.double() @ t[1].double())).sum(dim=1)
+    torch.testing.assert_close(lnp.double(), want_lnp, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "width",
+                                 "thin", "bins", "mh"])
+def test_pop_chain_checks_its_inputs(bad):
+    t = _pop_problem(T=8, mh=2)
+    kw = dict(thin=4, mh_steps=2)
+    if bad == "dtype":
+        t[0] = t[0].double()
+    elif bad == "shape":
+        t[3] = t[3][:, :-1].contiguous()
+    elif bad == "contiguity":
+        t[1] = t[1].t().contiguous().t()
+    elif bad == "width":
+        kw["mh_steps"] = 3
+    elif bad == "thin":
+        kw["thin"] = 3
+    elif bad == "bins":
+        t[1] = torch.rand((PK.MAX_BINS + 1, 300))
+        t[2] = torch.rand((1, PK.MAX_BINS + 1))
+    else:
+        t[0] = torch.zeros((1, 8, 2 + 2 * 64))
+        kw["mh_steps"] = 64
+    with pytest.raises((TypeError, ValueError)):
+        PK.pop_chain(*t, **kw)
+
+
+def test_pop_chain_segments_compose_and_chains_are_independent():
+    """A run cut at a thin boundary, the second segment started from the
+    first one's carry, equals the run in one piece bit for bit; chain c of
+    a batch equals a run on chain c's table alone."""
+    t = _pop_problem(T=60, mh=3, nchains=3)
+    kw = dict(thin=5, mh_steps=3)
+    whole = PK.pop_chain(*t, **kw)
+    first = PK.pop_chain(t[0][:, :25].contiguous(), t[1], *t[2:], **kw)
+    second = PK.pop_chain(t[0][:, 25:].contiguous(), t[1], *first[2:], **kw)
+    assert torch.equal(torch.cat([first[0], second[0]], dim=1), whole[0])
+    assert torch.equal(torch.cat([first[1], second[1]], dim=1), whole[1])
+    _pop_equal(second[2:], whole[2:])
+    for c in range(3):
+        one = PK.pop_chain(t[0][c:c + 1].contiguous(), t[1],
+                           *(x[c:c + 1].contiguous() for x in t[2:]), **kw)
+        _pop_equal(one, [x[c:c + 1] for x in whole])
+
+
+@pytest.mark.parametrize("nobs,threads", [(1, 128), (300, 128), (1237, 256),
+                                          (5000, 1024), (20000, 1024)])
+def test_tree_sum_is_a_sum_and_follows_the_thread_count(nobs, threads):
+    assert PK.chain_threads(nobs) == threads
+    rng = np.random.default_rng(nobs)
+    v = torch.from_numpy(rng.normal(-5, 3, (2, nobs)).astype(np.float32))
+    got = PK.tree_sum(v, threads)
+    want = v.double().sum(dim=1)
+    # A pairwise tree: the error grows with log2(nobs), not nobs.
+    assert bool(((got.double() - want).abs()
+                 <= 16 * 6e-8 * v.double().abs().sum(dim=1)).all())
+    # Padding zeros and the order of whole rows change nothing.
+    rows = PK._rows_per_thread(nobs, threads)
+    padded = torch.zeros((2, rows * threads))
+    padded[:, :nobs] = v
+    by_hand = padded.reshape(2, rows, threads)
+    while by_hand.shape[1] > 1:
+        h = by_hand.shape[1] // 2
+        by_hand = by_hand[:, :h] + by_hand[:, h:]
+    lanes = by_hand.reshape(2, threads // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes[..., :o] + lanes[..., o:2 * o]
+    warps = torch.zeros((2, 32))
+    warps[:, :threads // 32] = lanes[..., 0]
+    for o in (16, 8, 4, 2, 1):
+        warps = warps[..., :o] + warps[..., o:2 * o]
+    assert torch.equal(got, warps[:, 0])
+
+
+def test_pop_chain_floors_zero_overlaps_and_scores_negative_bins():
+    """Objects with no overlap sit on the 1e-30 floor (log 1e-30 each in
+    lnpost), a proposal into a negative bin scores -3.0e38 and is
+    rejected, and a pair with an empty bin (scale 0, NaN gradient) moves
+    nothing: the chain stays finite and on the simplex."""
+    t = _pop_problem(T=120, mh=3, zero_overlap=True, spread=4.0)
+    samples, lnps, pos, ov, lnp = PK.pop_chain(*t, thin=10, mh_steps=3)
+    assert bool(torch.isfinite(samples).all()) and bool((samples >= 0).all())
+    assert bool(torch.isfinite(lnps).all())
+    assert bool((pos[:, -4:] == 0).all()) and bool((ov[:, :5] == 0).all())
+    floor = 5 * float(np.log(np.float32(1e-30)))
+    rest = torch.log((pos.double() @ t[1].double())[:, 5:]).sum(dim=1)
+    torch.testing.assert_close(lnp.double(), rest + floor, rtol=1e-5, atol=0)
+    assert not torch.equal(pos, t[2])
+    # With exponentials of 1e30 every finite score is accepted, so only
+    # the -3.0e38 score keeps a move to a negative bin out: the table's
+    # 4-sigma normals propose many.
+    t[0][..., 5:] = 1e30
+    wild = PK.pop_chain(*t, thin=10, mh_steps=3)
+    assert bool((wild[0] >= 0).all()) and bool(torch.isfinite(wild[1]).all())
+    assert not torch.equal(wild[2], pos)
+    assert PK.NEG == -3.0e38
+
+
+POP_CARD_CASES = [
+    (dict(nbins=50, nobs=20000, T=300, mh=3), dict(thin=50)),
+    (dict(nbins=20, nobs=1237, T=400, mh=3), dict(thin=8)),
+    (dict(nbins=12, nobs=300, T=400, mh=1), dict(thin=1)),
+    (dict(nbins=12, nobs=300, T=300, mh=5), dict(thin=3)),
+    (dict(nbins=50, nobs=20000, T=200, mh=3, nchains=3), dict(thin=20)),
+    (dict(nbins=50, nobs=20000, T=200, mh=3), dict(thin=50, resident=False)),
+    (dict(nbins=128, nobs=40000, T=100, mh=2, nchains=2), dict(thin=10)),
+    (dict(nbins=12, nobs=300, T=400, mh=3, zero_overlap=True, spread=4.0),
+     dict(thin=10)),
+    (dict(nbins=2, nobs=5, T=50, mh=63), dict(thin=5)),
+    (dict(nbins=8, nobs=300_000, T=30, mh=2), dict(thin=10)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prob,kw", POP_CARD_CASES)
+def test_pop_chain_matches_plain_on_card(cuda_device, prob, kw):
+    """Kernel against plain version on the card, bit for bit on samples,
+    lnpost and the carry: config 5's shape (50 bins x 20,000 objects), an
+    object count that is no multiple of the block, mh_steps 1 and 5 (the
+    run-time proposal loop), three chains in one launch, the non-resident
+    variant forced and past shared memory (40,000 objects, 128 bins), the
+    zero-overlap case, the widest draw row, and 300,000 objects (293 a
+    thread)."""
+    kw = dict(kw)
+    resident = kw.pop("resident", None)
+    t = [x.to(cuda_device) for x in _pop_problem(**prob)]
+    PK.reset_launch_counts()
+    got = PK.pop_chain(*t, mh_steps=prob["mh"], resident=resident, **kw)
+    want = PK.pop_chain_plain(*t, mh_steps=prob["mh"], **kw)
+    torch.cuda.synchronize()
+    assert PK.launch_counts() == {"pop_chain": 1}
+    _pop_equal(got, want)
+    assert bool(torch.isfinite(got[0]).all())
+    assert not torch.equal(got[2], t[2])
+    if resident is False:
+        _pop_equal(PK.pop_chain(*t, mh_steps=prob["mh"], **kw), got)
+
+
+@pytest.mark.gpu
+def test_samplers_on_card_match_cpu_and_count_launches(cuda_device):
+    """Through the entry points: a seeded population run takes the same
+    table and start on the card (the kernel, every chain in one launch)
+    as on the CPU (its plain version) and agrees at the parity tolerance
+    over a short chain; `sample` in blocks streams the stored chain bit
+    for bit; a prior takes the step loop without a launch; the
+    hierarchical sampler runs on the card."""
+    from frankenz_tpu_torch.samplers import (hierarchical_sampler,
+                                             population_sampler)
+
+    rng = np.random.default_rng(3)
+    c = rng.uniform(2, 17, (400, 1))
+    pdfs = np.exp(-0.5 * ((np.arange(20)[None] - c) / 0.8) ** 2) + 1e-4
+    pdfs /= pdfs.sum(axis=1, keepdims=True)
+    kw = dict(thin=10, mh_steps=3, seed=7, nchains=3, verbose=False)
+    cpu = population_sampler(pdfs, device="cpu")
+    cpu.run_mcmc(4, **kw)
+    card = population_sampler(pdfs, device=cuda_device)
+    K.reset_launch_counts()
+    card.run_mcmc(4, **kw)
+    assert K.launch_counts()["pop_chain"] == 1
+    assert sum(K.launch_counts().values()) == 1
+    np.testing.assert_allclose(card.results[0], cpu.results[0], rtol=2e-4,
+                               atol=2e-6)
+    np.testing.assert_allclose(card.results[1], cpu.results[1], rtol=2e-5,
+                               atol=2e-4)
+    del kw["verbose"]
+    fresh = population_sampler(pdfs, device=cuda_device)
+    want, want_lnp = card.results_by_chain
+    for i, (pos, lnp) in enumerate(fresh.sample(4, block=3, **kw)):
+        np.testing.assert_array_equal(pos, want[i])
+        np.testing.assert_array_equal(lnp, want_lnp[i])
+    K.reset_launch_counts()
+    prior = population_sampler(pdfs, device=cuda_device)
+    prior.run_mcmc(2, logprior_nz=lambda pos: torch.log(pos).sum(), thin=5,
+                   seed=1, verbose=False)
+    assert sum(K.launch_counts().values()) == 0
+    assert np.isfinite(prior.results[1]).all()
+    hier = hierarchical_sampler(pdfs, device=cuda_device)
+    hier.run_mcmc(6, thin=3, seed=2, nchains=2, verbose=False)
+    s, lnp = hier.results_by_chain
+    assert s.shape == (6, 2, 20) and np.isfinite(lnp).all()
+    np.testing.assert_allclose(s.sum(axis=2), 1.0, atol=1e-3)
