@@ -14,11 +14,27 @@ port, numpy and scipy, and:
    PDFDict grid, 2,048 objects) and three edge shapes (ragged M=99,937
    with B=1,000; F=20, the log-form weight; an all-clamped outlier row),
    with times of both (CUDA events, median of 5);
+3b. the screened full-mask trio (K2: `screen_seed`,
+   `chi2_brackets_screened`, `chi2_stack_screened`), the default
+   full-mask route: first where the card's expf flushes to 0 (every
+   float32 in [-110, -100] through the kernels' own expf and torch.exp,
+   which must flush everything at or below the underflow cut); each
+   kernel against its plain version on phase 3's four cases, sorted and
+   bounded by the route's glue (512-model subtiles, 32-object blocks),
+   with times of both, the brackets also equal to the K1 pair's; then
+   `fused_fit_pdf` on one 65,536-object batch and the edge cases, under
+   wt_thresh 1e-3 and None: screened == run-all and absorption on == off
+   bit for bit, lmap == the K1 route's bit for bit, levid (2e-5) and PDFs
+   (rtol 2e-3 / atol 2e-5) against it, the run fractions printed;
 4. drives `BruteForce.fit_predict` over 131,072 objects (two 65,536-object
    batches x 100,000 models x 301 grid points) with the launch counters
-   reset just before, checks the output, checks 1,024 rows against the
-   plain composition on the card, and checks `fit_summarize` against
-   `pdfs_summarize(fit_predict(...))` under the same uniforms;
+   reset just before (the screened trio must launch, the K1 pair not),
+   checks the output, checks 1,024 rows against the plain composition on
+   the card, and checks `fit_summarize` against
+   `pdfs_summarize(fit_predict(...))` under the same uniforms; then one
+   65,536-object batch through `fused_fit_pdf(screen=False)`, the K1
+   pair, beside the screened route on the same batch (both walls), and
+   every full-mask kernel's time at that batch;
 5. masked photometry (each data band missing with probability 0.15,
    from ``default_rng(2)``: about 10 of the 131,072 rows lose every
    band): holds the four general kernels against their plain versions
@@ -77,8 +93,9 @@ port, numpy and scipy, and:
    counters reset just before the warm run; the kernel timed over the
    whole chain and held bit for bit against its plain version on
    samples, lnpost and the carry (the whole chain when the plain version
-   takes under about 150 s, else the first 10,000 steps and 2,000 from
-   the kernel's carry at step 30,000), on four chains in one launch, on
+   takes under about 60 s, else the first 10,000 steps and 2,000 from
+   the kernel's carry at step 30,000: on an H100 host the plain version
+   takes ~3 ms a step, so the split), on four chains in one launch, on
    a problem with zero overlaps and moves to negative bins, and on the
    non-resident variant; `sample(block=7)` equal to the stored chain;
    the chain's lnpost, simplex and posterior mean checked, the carried
@@ -88,7 +105,8 @@ port, numpy and scipy, and:
    under the flat prior beside the kernel route until the two part; `hierarchical_sampler.run_mcmc(200, thin=5, seed=0)` cold and
    warm, and once with a reference sample;
 11. prints one JSON line of kernel results (fixed-scale entry points by
-   their wrapper's name, free-scale ones with the suffix ``_fs``,
+   their wrapper's name, the screened trio with its run fractions,
+   free-scale ones with the suffix ``_fs``,
    `scale_sweeps`, `som_train`, `gng_train` and `pop_chain`), each with
    its bound
    (the larger of its bytes over 3.35 TB/s and its operations over 67
@@ -141,6 +159,8 @@ P_MISSING = 0.15
 CDF_THRESH = 2e-4
 GENERAL = ("lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_topk",
            "lnl_cut_stack")
+K1_PAIR = ("chi2_brackets", "chi2_stack")
+SCREENED = ("screen_seed", "chi2_brackets_screened", "chi2_stack_screened")
 # Free scale end to end against the plain composition: JAX's own GOF
 # tolerances, tests/test_fused.py:145-150 (datum-only variance, 1e-4)
 # and :182-187 (model errors kept, 1e-3: the kernels converge the scale
@@ -170,7 +190,7 @@ PREFIX_G, MID_G, TAIL_G, SEGS_G = 20_000, 200_000, 2_000, 8
 # TAIL_P steps from the kernel's carry at step MID_P.
 NBINS5, NOBS5 = 50, 20_000
 NITER_P, THIN_P, MH_P, SEED_P = 100, 400, 3, 0
-PREFIX_P, MID_P, TAIL_P, PLAIN_BUDGET_P = 10_000, 30_000, 2_000, 150.0
+PREFIX_P, MID_P, TAIL_P, PLAIN_BUDGET_P = 10_000, 30_000, 2_000, 60.0
 BLOCK_P, NCHAINS_P, NITER_P4, NITER_PG, SEG64_P = 7, 4, 10, 5, 50
 NITER_H, THIN_H = 200, 5
 # The card's peaks for the bounds (H100 SXM datasheet: dense float32
@@ -1364,6 +1384,224 @@ def sampler_phase(torch, np, KS, tens, card):
             "hierarchical_obj_draws_per_s": sweeps * NOBS5 / hier_s}
 
 
+def expf_underflow(torch, np, SC, SCK, card):
+    """Where the card's expf flushes to 0: every float32 x in [-110,
+    -100] through the screened kernels' own expf (`expf_probe`, same
+    file and flags), torch.exp on the card (the plain versions there)
+    and on CPU tensors.  Each must be monotone (every zero below every
+    nonzero) and flush everything at or below `LN_W_UNDERFLOW`, the
+    premise of the exact underflow cut.  Returns {label: (largest x
+    giving 0, smallest x giving nonzero)}."""
+    lo = np.float32(-110.0).view(np.int32)
+    hi = np.float32(-100.0).view(np.int32)
+    xs = np.arange(hi, lo + 1, dtype=np.int64).astype(np.int32).view(
+        np.float32)
+    out = {}
+    for label, fn, dev in (("kernel expf", SCK.expf_probe, "cuda"),
+                           ("torch.exp cuda", torch.exp, "cuda"),
+                           ("torch.exp cpu", torch.exp, "cpu")):
+        y = fn(torch.from_numpy(xs.copy()).to(dev)).cpu().numpy()
+        zero = y == 0.0
+        out[label] = (float(xs[zero].max()), float(xs[~zero].min()))
+        check(out[label][0] < out[label][1],
+              f"{label} is not monotone past its underflow")
+        check(out[label][1] > SC.LN_W_UNDERFLOW,
+              f"{label} is nonzero at {out[label][1]} <= the underflow cut "
+              f"{SC.LN_W_UNDERFLOW}: the cut is not exact")
+    print("expf underflow over every float32 in [-110, -100]: " + ", ".join(
+        f"{k}: largest x -> 0.0 {v[0]!r}, smallest x -> nonzero {v[1]!r}"
+        for k, v in out.items())
+        + f"; cut at ln w <= {SC.LN_W_UNDERFLOW} is exact | card {card}",
+        flush=True)
+    return out
+
+
+def screened_phase(torch, np, tens, card, cases, batch_case):
+    """Phase 3b, the screened trio (K2) at config 4's widths: the expf
+    underflow; each kernel against its plain version on phase 3's cases
+    (config 4 at B=2,048, ragged M=99,937 with B=1,000, F=20, an
+    all-clamped row) at the route's own sizes (512-model subtiles and
+    home tiles, 32-object blocks), the brackets also against the K1
+    pair's; then the route: screened == run-all and absorption on == off
+    bit for bit, lmap == the K1 route's bit for bit, levid and PDFs
+    within the end-to-end tolerances, under wt_thresh 1e-3 and None, on
+    one 65,536-object batch and the edge cases.  Returns ({kernel: {case:
+    result}}, expf thresholds, {case: run fractions})."""
+    from frankenz_tpu_torch.kernels import fullmask as FM
+    from frankenz_tpu_torch.kernels import screened as SCK
+    from frankenz_tpu_torch.ops import fused as TF
+    from frankenz_tpu_torch.ops import screen as SC
+
+    expf = expf_underflow(torch, np, SC, SCK, card)
+    f32 = np.float32
+    wthr = float(np.exp(np.log(WT_THRESH)))
+    results = {k: {} for k in ("screen_seed", "chi2_brackets_screened",
+                               "chi2_stack_screened")}
+    for name, d_np, m_np, Gc in cases:
+        B, F = d_np.shape
+        M, ngrid = m_np.shape[0], Gc.shape[1]
+        a1 = 0.5 * F - 1.0
+        c0 = 2.0 * a1
+        tm = TF.group_width(M, 512)
+        sm = 512 if tm % 512 == 0 else tm
+        srt = SC.sort_and_bound(
+            tens(d_np), tens(np.full(d_np.shape, 0.25, f32)), tens(m_np.T),
+            tens((0.05 * m_np).astype(f32).T), Gc, sm=sm, tm=tm, tb=SCK.TB,
+            ignore_model_err=False)
+        args = (srt.d, srt.de, srt.mT, srt.meT)
+
+        def seed_k():
+            return SCK.screen_seed(*args, srt.start, width=tm, c0=c0)
+
+        def seed_p():
+            return SCK.screen_seed_plain(*args, srt.start, width=tm, c0=c0)
+
+        sk, sp = seed_k(), seed_p()
+        torch.cuda.synchronize()
+        sd_abs, sd_rel = rel_err(torch, sk, sp)
+        check(sd_rel <= TOL_BRACKET,
+              f"{name}: screen_seed differs from plain (rel {sd_rel})")
+        seed = torch.minimum(srt.seed, sp)
+
+        def brackets_k():
+            return SCK.chi2_brackets_screened(*args, srt.bounds, seed, c0=c0,
+                                              sm=sm)
+
+        def brackets_p():
+            return SCK.chi2_brackets_screened_plain(*args, srt.bounds, seed,
+                                                    c0=c0, sm=sm)
+
+        bk, bp = brackets_k(), brackets_p()
+        torch.cuda.synchronize()
+        errs = [rel_err(torch, g, w) for g, w in zip(bk, bp)]
+        b_abs, b_rel = max(e[0] for e in errs), max(e[1] for e in errs)
+        check(b_rel <= TOL_BRACKET, f"{name}: chi2_brackets_screened "
+                                    f"differs from plain (rel {b_rel})")
+        pair = FM.chi2_brackets_plain(*args, c0=c0)
+        check(all(torch.equal(g, w) for g, w in zip(bp, pair)),
+              f"{name}: the screened brackets are not the K1 pair's")
+        gates = SC.stack_gates(srt, *bp, wt_thresh=WT_THRESH)
+        stats = [float(x) for x in SC.run_fractions(srt, seed, gates)]
+
+        def stack(fn, thr=wthr):
+            return fn(*args, srt.G, gates.shift, srt.bounds, gates.visit,
+                      gates.cut_uf, gates.cut_dot, gates.ph, gates.cut_abs,
+                      a1=a1, sm=sm, wthr=thr)
+
+        (pk, s_k), (pp, s_p) = (stack(SCK.chi2_stack_screened),
+                                stack(SCK.chi2_stack_screened_plain))
+        torch.cuda.synchronize()
+        s_abs, s_rel = rel_err(torch, s_k, s_p)
+        check(s_rel <= TOL_SUM, f"{name}: chi2_stack_screened weight sums "
+                                f"differ (rel {s_rel})")
+        p_row, ok = pdf_rows_close(
+            torch, pk, pp,
+            lambda: stack(SCK.chi2_stack_screened_plain, wthr * FLIP)[0],
+            lambda: stack(SCK.chi2_stack_screened_plain, wthr / FLIP)[0],
+            TOL_PDF_ROW)
+        check(ok, f"{name}: chi2_stack_screened PDFs differ beyond the "
+                  f"threshold-flip envelope (row-normwise {p_row})")
+        p_abs = float((pk - pp).abs().max())
+        t = {"screen_seed": (median_ms(torch, seed_k),
+                             median_ms(torch, seed_p)),
+             "chi2_brackets_screened": (median_ms(torch, brackets_k),
+                                        median_ms(torch, brackets_p)),
+             "chi2_stack_screened": (
+                 median_ms(torch, lambda: stack(SCK.chi2_stack_screened)),
+                 median_ms(torch,
+                           lambda: stack(SCK.chi2_stack_screened_plain)))}
+        for kname, ab, rl in (("screen_seed", sd_abs, sd_rel),
+                              ("chi2_brackets_screened", b_abs, b_rel),
+                              ("chi2_stack_screened", max(p_abs, s_abs),
+                               max(p_row, s_rel))):
+            results[kname][name] = dict(
+                max_abs_err=ab, max_rel_err=rl, ms=t[kname][0],
+                plain_ms=t[kname][1], run_fractions=stats)
+        if name == "config4":
+            # The work that this run's gates admit: K1's operations per
+            # pair (chi^2 6 per filter + 2 compares, or + ~10 for the
+            # weight chain) over the admitted pairs (the run fractions:
+            # pass A's, pass B's weight work), pass B's 2 Ngrid per kept
+            # weight, the seed's pairs over each block's home tile.
+            # Bytes: every input once (the (S, B) bounds, the visit table
+            # and the per-row cuts included), every output once.
+            S, nb = srt.bmin.shape
+            pairs = float(B) * M
+            w = FM._weights_plain(FM._chi2_plain(*args, False),
+                                  gates.shift[:, None], a1)
+            kept = float((w > wthr).sum())
+            del w
+            io = 4.0 * (2 * B * F + 2 * F * M)
+            results["screen_seed"][name].update(zip(
+                ("bound_ms", "bound_by"),
+                bound(float(B) * tm * (6 * F + 2),
+                      4.0 * (2 * B * F + 2 * F * min(nb * tm, M) + nb
+                             + B))))
+            results["chi2_brackets_screened"][name].update(zip(
+                ("bound_ms", "bound_by"),
+                bound(pairs * stats[0] * (6 * F + 2),
+                      io + 4.0 * (S * B + B + 2 * B))))
+            results["chi2_stack_screened"][name].update(zip(
+                ("bound_ms", "bound_by"),
+                bound(pairs * stats[1] * (6 * F + 10) + 2.0 * ngrid * kept,
+                      io + 4.0 * (M * ngrid + S * B + nb * S + 5 * B
+                                  + B * ngrid + B))))
+        print(f"kernel_vs_plain screened {name}: B={B} M={M} F={F} "
+              f"Ngrid={ngrid} sm={sm} | " + " | ".join(
+                  f"{k} abs {results[k][name]['max_abs_err']:.3g} rel "
+                  f"{results[k][name]['max_rel_err']:.3g} {t[k][0]:.3f} ms "
+                  f"(plain {t[k][1]:.3f} ms)" for k in t)
+              + f" | run fractions A {stats[0]:.4f} B {stats[1]:.4f} dot "
+              f"{stats[2]:.4f} | card {card}", flush=True)
+        del srt, args, bk, bp, pk, pp, sk, sp, gates, pair
+        torch.cuda.empty_cache()
+
+    # The route through `fused_fit_pdf`, against its run-all twin, with
+    # absorption off, and against the K1 route.
+    fractions = {}
+    for name, d_np, m_np, Gc in [batch_case] + list(cases[1:]):
+        ones_d = np.ones_like(d_np)
+        t_in = [tens(d_np), tens(np.full(d_np.shape, 0.25, f32)),
+                tens(ones_d), tens(m_np), tens((0.05 * m_np).astype(f32)),
+                tens(np.ones_like(m_np)), Gc]
+        for wt in (WT_THRESH, None):
+            scr = TF.fused_fit_pdf(*t_in, wt_thresh=wt, screen_stats=True)
+            twins = {"run-all": TF.fused_fit_pdf(*t_in, wt_thresh=wt,
+                                                 screen_run_all=True),
+                     "absorption off": TF.fused_fit_pdf(
+                         *t_in, wt_thresh=wt, screen_absorb=False)}
+            for twin, out in twins.items():
+                for a, b, nm in zip(scr[:3], out, ("pdf", "lmap", "levid")):
+                    check(torch.equal(a, b), f"{name}, wt_thresh {wt}: "
+                                             f"screened {nm} != {twin}")
+            k1 = TF.fused_fit_pdf(*t_in, wt_thresh=wt, screen=False)
+            check(torch.equal(scr[1], k1[1]),
+                  f"{name}, wt_thresh {wt}: screened lmap != the K1 route's")
+            fin = torch.isfinite(k1[2])
+            check(torch.equal(fin, torch.isfinite(scr[2])),
+                  f"{name}: non-finite levid differ from the K1 route's")
+            lv = float(((scr[2][fin] - k1[2][fin]).abs()
+                        / (2e-5 + 2e-5 * k1[2][fin].abs())).max())
+            check(lv <= 1.0, f"{name}, wt_thresh {wt}: levid off the K1 "
+                             f"route's ({lv} x tol)")
+            close = torch.isclose(scr[0], k1[0], rtol=2e-3, atol=2e-5)
+            check(bool(close.all()), f"{name}, wt_thresh {wt}: PDFs off the "
+                                     "K1 route's beyond rtol 2e-3 / atol "
+                                     "2e-5")
+            fractions[f"{name} wt_thresh={wt}"] = [float(x) for x in scr[3]]
+            print(f"screened route {name}, wt_thresh {wt}: B={d_np.shape[0]}"
+                  f" == run-all and == absorption off bit for bit; lmap == "
+                  f"K1's bit for bit, levid {lv:.3g} x tol of K1's; run "
+                  f"fractions A {fractions[f'{name} wt_thresh={wt}'][0]:.4f}"
+                  f" B {fractions[f'{name} wt_thresh={wt}'][1]:.4f} dot "
+                  f"{fractions[f'{name} wt_thresh={wt}'][2]:.4f} | card "
+                  f"{card}", flush=True)
+            del scr, twins, k1
+        del t_in
+        torch.cuda.empty_cache()
+    return results, expf, fractions
+
+
 def main():
     import numpy as np
     import torch
@@ -1382,8 +1620,10 @@ def main():
     from frankenz_tpu_torch.kernels import build as kbuild
     from frankenz_tpu_torch.kernels import fullmask as FM
     from frankenz_tpu_torch.kernels import general as GK
+    from frankenz_tpu_torch.kernels import screened as SCK
     from frankenz_tpu_torch.models import BruteForce
     from frankenz_tpu_torch.ops import fused as TF
+    from frankenz_tpu_torch.ops import screen as SC
     from frankenz_tpu_torch.ops import kde as TK
     from frankenz_tpu_torch.ops import summarize as TS
 
@@ -1516,7 +1756,13 @@ def main():
         del d, de, mT, meT, bk, bp, pk, pp
         torch.cuda.empty_cache()
 
-    # 4. end to end through the user entry points
+    # 3b. the screened trio (K2), kernels and route
+    scr_results, expf, scr_fractions = screened_phase(
+        torch, np, tens, card, cases, ("config4_batch", data[:BATCH], models,
+                                       G))
+    results.update(scr_results)
+
+    # 4. end to end through the user entry points: the screened route
     bf = BruteForce(models, models_err, np.ones_like(models), device="cuda")
     fp_kw = dict(label_dict=pdict, verbose=False, return_gof=True)
     bf.fit_predict(data[:4_096], data_err[:4_096], ones_d[:4_096], zlabels,
@@ -1528,8 +1774,10 @@ def main():
                                          zerrs, **fp_kw)
     wall = time.perf_counter() - t0
     launches = KS.launch_counts()
-    for kname in ("chi2_brackets", "chi2_stack"):
+    for kname in SCREENED:
         check(launches[kname] > 0, f"{kname} was not launched by fit_predict")
+    check(launches["chi2_brackets"] == launches["chi2_stack"] == 0,
+          f"full-mask fit_predict launched the K1 pair ({launches})")
     check(pdfs.shape == (N_E2E, NGRID), f"pdf shape {pdfs.shape}")
     check(np.isfinite(pdfs).all() and np.isfinite(lmap).all()
           and np.isfinite(levid).all(), "non-finite fit_predict output")
@@ -1589,9 +1837,37 @@ def main():
           f"match pdfs_summarize(fit_predict) (worst {s_err:.3g} x tol) | "
           f"card {card}", flush=True)
 
-    # kernel times at the main path's batch (no plain version fits there)
+    # The K1 pair (``screen=False``), which BruteForce does not select:
+    # one 65,536-object batch through `fused_fit_pdf` directly, beside the
+    # screened route on the same batch (each warm, counts reset before).
     d_b = tens(data[:BATCH])
     de_b = tens(data_err[:BATCH])
+    ones_b = tens(ones_d[:BATCH])
+    walls_b = {}
+    for label, kw_b in (("screened", {}), ("K1", dict(screen=False))):
+        TF.fused_fit_pdf(d_b, de_b, ones_b, bf.models, bf.models_err,
+                         bf.models_mask, G, **kw_b)  # warm-up
+        torch.cuda.synchronize()
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        TF.fused_fit_pdf(d_b, de_b, ones_b, bf.models, bf.models_err,
+                         bf.models_mask, G, **kw_b)
+        torch.cuda.synchronize()
+        walls_b[label] = time.perf_counter() - t0
+        launches_b = KS.launch_counts()
+        want_k = SCREENED if label == "screened" else K1_PAIR
+        for kname in SCREENED + K1_PAIR:
+            check((launches_b[kname] > 0) == (kname in want_k),
+                  f"{label} batch launches {launches_b}")
+        if label == "K1":
+            launches_k1 = launches_b
+    print(f"end_to_end one {BATCH}-object full-mask batch through "
+          f"fused_fit_pdf: screened (K2) wall {walls_b['screened']:.4f} s, "
+          f"screen=False (K1) wall {walls_b['K1']:.4f} s, K1 launches "
+          f"{ {k: launches_k1[k] for k in K1_PAIR} } | card {card}",
+          flush=True)
+
+    # kernel times at the main path's batch (no plain version fits there)
     mT, meT = tens(models.T), tens(models_err.T)
     below, above = FM.chi2_brackets(d_b, de_b, mT, meT, c0=NFILT - 2.0)
     _, shift_b = TF.lmap_and_shift(below, above, NFILT)
@@ -1600,11 +1876,31 @@ def main():
     ms_b = median_ms(torch, lambda: FM.chi2_stack(
         d_b, de_b, mT, meT, G, shift_b, a1=0.5 * NFILT - 1.0, wthr=wthr),
         reps=3)
-    print(f"kernel_at_batch {BATCH}x{NMODEL}: chi2_brackets {ms_a:.3f} ms, "
-          f"chi2_stack {ms_b:.3f} ms | card {card}", flush=True)
     ms_batch = {"chi2_brackets": ms_a, "chi2_stack": ms_b}
+    srt = SC.sort_and_bound(d_b, de_b, mT, meT, G, sm=512, tm=512,
+                            tb=SCK.TB, ignore_model_err=False)
+    sargs = (srt.d, srt.de, srt.mT, srt.meT)
+    c0 = NFILT - 2.0
+    seed_b = torch.minimum(srt.seed, SCK.screen_seed(
+        *sargs, srt.start, width=512, c0=c0))
+    gates_b = SC.stack_gates(srt, *SCK.chi2_brackets_screened(
+        *sargs, srt.bounds, seed_b, c0=c0, sm=512), wt_thresh=WT_THRESH)
+    ms_batch["screen_seed"] = median_ms(torch, lambda: SCK.screen_seed(
+        *sargs, srt.start, width=512, c0=c0), reps=3)
+    ms_batch["chi2_brackets_screened"] = median_ms(
+        torch, lambda: SCK.chi2_brackets_screened(
+            *sargs, srt.bounds, seed_b, c0=c0, sm=512), reps=3)
+    ms_batch["chi2_stack_screened"] = median_ms(
+        torch, lambda: SCK.chi2_stack_screened(
+            *sargs, srt.G, gates_b.shift, srt.bounds, gates_b.visit,
+            gates_b.cut_uf, gates_b.cut_dot, gates_b.ph, gates_b.cut_abs,
+            a1=0.5 * NFILT - 1.0, sm=512, wthr=wthr), reps=3)
+    print(f"kernel_at_batch {BATCH}x{NMODEL}: " + ", ".join(
+        f"{k} {ms_batch[k]:.3f} ms" for k in K1_PAIR + SCREENED)
+        + f" | card {card}", flush=True)
 
-    del d_b, de_b, mT, meT, below, above, shift_b
+    del d_b, de_b, ones_b, mT, meT, below, above, shift_b, srt, sargs
+    del seed_b, gates_b
     torch.cuda.empty_cache()
 
     # 5. masked photometry: the general kernels
@@ -1634,8 +1930,8 @@ def main():
     check(launches_m["lnl_reduce"] > 0 and launches_m["lnl_stack"] > 0,
           f"masked fit_predict did not launch the general kernels "
           f"({launches_m})")
-    check(launches_m["chi2_brackets"] == launches_m["chi2_stack"] == 0,
-          f"masked fit_predict launched the full-mask pair ({launches_m})")
+    check(all(launches_m[k] == 0 for k in K1_PAIR + SCREENED),
+          f"masked fit_predict launched a full-mask kernel ({launches_m})")
     dead = ~np.isfinite(gof_m[0])
     check(int(dead.sum()) == n_dead and n_dead > 0
           and np.all(pdfs_m[dead] == 0.0)
@@ -1818,7 +2114,7 @@ def main():
         got = KS.launch_counts()
         for kname in expect:
             check(got[kname] > 0, f"{what} did not launch {kname} ({got})")
-        for kname in ("chi2_brackets", "chi2_stack", *absent):
+        for kname in K1_PAIR + SCREENED + tuple(absent):
             check(got[kname] == 0, f"{what} launched {kname} ({got})")
         return out, wall, got
 
@@ -2009,8 +2305,13 @@ def main():
                 "lnl_topk": "frankenz_tpu/ops/fused.py:721",
                 "lnl_cut_stack": "frankenz_tpu/ops/fused.py:779",
                 "lnl_onepass": "frankenz_tpu/ops/fused.py:670"}
-    main_launches = {"chi2_brackets": launches["chi2_brackets"],
-                     "chi2_stack": launches["chi2_stack"],
+    replaces.update({"screen_seed": "frankenz_tpu/ops/fused.py:1249",
+                     "chi2_brackets_screened": "frankenz_tpu/ops/fused.py:1272",
+                     "chi2_stack_screened": "frankenz_tpu/ops/fused.py:1308"})
+    # The pair's launches: the screen=False batch (BruteForce runs K2).
+    main_launches = {"chi2_brackets": launches_k1["chi2_brackets"],
+                     "chi2_stack": launches_k1["chi2_stack"],
+                     **{k: launches[k] for k in SCREENED},
                      "lnl_reduce": launches_m["lnl_reduce"],
                      "lnl_reduce_split": launches_r["lnl_reduce_split"],
                      "lnl_stack": launches_m["lnl_stack"],
@@ -2031,14 +2332,16 @@ def main():
     for kname in replaces:
         per = results[kname]
         free = kname == "scale_sweeps" or kname.endswith("_fs")
-        ref = per["config4" if kname.startswith("chi2") else
+        ref = per["config4" if kname in K1_PAIR + SCREENED else
                   "fs_me_full_dimprior" if free else "masked_dimprior"]
         check(main_launches[kname] > 0,
               f"{kname} was launched no time by the end-to-end runs")
         entry = {
             "name": kname, "route": "cuda",
             "source": ("frankenz_tpu_torch/csrc/chi2_fullmask.cu"
-                       if kname.startswith("chi2") else
+                       if kname in K1_PAIR else
+                       "frankenz_tpu_torch/csrc/chi2_screened.cu"
+                       if kname in SCREENED else
                        "frankenz_tpu_torch/csrc/lnl_freescale.cu" if free
                        else "frankenz_tpu_torch/csrc/lnl_general.cu"),
             "replaces": replaces[kname], "launches": main_launches[kname],
@@ -2046,8 +2349,13 @@ def main():
             "ms": ref["ms"], "plain_ms": ref["plain_ms"],
             "bound_ms": ref["bound_ms"], "bound_by": ref["bound_by"],
             # No one PyTorch call computes a likelihood grid reduced,
-            # thresholded and stacked: timed yardstick none.
+            # thresholded and stacked (screened or not): timed yardstick
+            # none.
             "library_ms": None, "cases": per}
+        if kname in SCREENED:
+            # bound_ms counts the pairs that this run's gates admit.
+            entry["run_fractions"] = ref["run_fractions"]
+            entry["route_run_fractions"] = scr_fractions
         if kname in ms_batch:
             entry[f"ms_batch_{N8 if free else BATCH}"] = ms_batch[kname]
         kernels.append(entry)

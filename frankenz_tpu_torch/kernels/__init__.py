@@ -2,6 +2,8 @@
 wrappers, plain PyTorch versions and launch counters.
 
 ``fullmask``: the full-mask chi^2 pair (`chi2_brackets`, `chi2_stack`);
+``screened``: the screened full-mask trio (`screen_seed`,
+`chi2_brackets_screened`, `chi2_stack_screened`);
 ``general``: the lnl kernels of every other configuration (`lnl_reduce`,
 `lnl_reduce_split`, `lnl_stack`, `lnl_topk`, `lnl_cut_stack`,
 `lnl_onepass`), in fixed and free scale, and the free-scale sweep counts
@@ -12,7 +14,7 @@ whole flat-prior population MH-in-Gibbs chains (`pop_chain`).
 phase can show which kernels one call launched.
 """
 
-from . import fullmask, general, gng, pop, som  # noqa: F401
+from . import fullmask, general, gng, pop, screened, som  # noqa: F401
 from .fullmask import (  # noqa: F401
     chi2_brackets,
     chi2_brackets_plain,
@@ -38,12 +40,21 @@ from .general import (  # noqa: F401
 )
 from .gng import gng_train, gng_train_plain  # noqa: F401
 from .pop import pop_chain, pop_chain_plain  # noqa: F401
+from .screened import (  # noqa: F401
+    chi2_brackets_screened,
+    chi2_brackets_screened_plain,
+    chi2_stack_screened,
+    chi2_stack_screened_plain,
+    screen_seed,
+    screen_seed_plain,
+)
 from .som import som_train, som_train_plain  # noqa: F401
 
 
 def reset_launch_counts():
     """Set every kernel wrapper's launch count (every module) to 0."""
     fullmask.reset_launch_counts()
+    screened.reset_launch_counts()
     general.reset_launch_counts()
     som.reset_launch_counts()
     gng.reset_launch_counts()
@@ -52,6 +63,7 @@ def reset_launch_counts():
 
 def launch_counts():
     """{wrapper name: launches since the last reset}, every kernel."""
-    return {**fullmask.launch_counts(), **general.launch_counts(),
+    return {**fullmask.launch_counts(), **screened.launch_counts(),
+            **general.launch_counts(),
             **som.launch_counts(), **gng.launch_counts(),
             **pop.launch_counts()}

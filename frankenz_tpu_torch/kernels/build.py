@@ -70,8 +70,8 @@ def build(force=False):
     t0 = time.perf_counter()
     # One nvcc per source, all started together (lnl_general.cu and
     # lnl_freescale.cu, with their many template instantiations, take
-    # tens of seconds each; chi2_fullmask.cu, som_train.cu, gng_train.cu
-    # and pop_chain.cu seconds),
+    # tens of seconds each; chi2_fullmask.cu, chi2_screened.cu,
+    # som_train.cu, gng_train.cu and pop_chain.cu seconds),
     # then one link.  The library is written to a temporary name and
     # renamed: a concurrent loader never sees a half-written one.
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
@@ -107,6 +107,25 @@ def _bind(lib):
     lib.fz_chi2_stack.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, F, I,
                                   F, I, I, P]
     lib.fz_chi2_stack.restype = I
+    # csrc/chi2_screened.cu: the object block, shared-memory sizes, the
+    # screened trio (pointers, sizes, constants, flags, stream) and the
+    # expf probe.
+    for name in ("fz_screen_tb", "fz_chi2_stack_screened_max_threads"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = I
+    for name in ("fz_screen_seed_smem", "fz_chi2_brackets_screened_smem",
+                 "fz_chi2_stack_screened_smem"):
+        getattr(lib, name).argtypes = [I]
+        getattr(lib, name).restype = I
+    lib.fz_screen_seed.argtypes = [P] * 6 + [I] * 4 + [F, I, P]
+    lib.fz_screen_seed.restype = I
+    lib.fz_chi2_brackets_screened.argtypes = [P] * 8 + [I] * 5 + [F, I, P]
+    lib.fz_chi2_brackets_screened.restype = I
+    lib.fz_chi2_stack_screened.argtypes = ([P] * 14 + [I] * 6 + [F, I, F]
+                                           + [I] * 3 + [P])
+    lib.fz_chi2_stack_screened.restype = I
+    lib.fz_expf_probe.argtypes = [P, P, I, P]
+    lib.fz_expf_probe.restype = I
     for name, nargs in (("fz_lnl_reduce_smem", 2), ("fz_lnl_topk_smem", 3),
                         ("fz_lnl_stack_smem", 1), ("fz_scale_sweeps_smem", 2)):
         getattr(lib, name).argtypes = [I] * nargs

@@ -1,0 +1,371 @@
+"""Wrappers and plain versions of the screened full-mask kernels (K2).
+
+`screen_seed`, `chi2_brackets_screened` (pass A) and
+`chi2_stack_screened` (pass B) replace the Pallas kernels
+`_make_seed_kernel` (frankenz_tpu/ops/fused.py:1249),
+`_make_chi2max_screened_kernel` (:1272) and
+`_make_chi2stack_screened_kernel` (:1308); the CUDA sources, with the
+design notes and the two skip proofs, are in ``csrc/chi2_screened.cu``,
+and the glue that sorts, bounds and cuts is ``ops/screen.py``.
+
+Every input is float32 (int32 for the index tables), contiguous, and on
+one device; objects and models are already in the glue's sorted order:
+
+* ``d``, ``de``: (B, F) data and errors; objects come in blocks of ``tb``
+  consecutive rows (`TB` on the card, the kernels' block);
+* ``mT``, ``meT``: (F, M) model photometry and errors, pre-transposed;
+  models come in subtiles of ``sm``, S = ceil(M / sm), the last ragged;
+* ``bounds``: (S, B) lower bounds of each subtile's chi^2 per object;
+* ``start``: (nb,) int32 first model of each block's home tile (seed);
+* ``visit``: (nb, S) int32, each block's subtiles in visit order (pass B);
+* ``cut_uf``, ``cut_dot``, ``cut_abs``: (B,) chi^2 cuts, ``ph``: (B,)
+  int32 visit positions (pass B; ``ph`` / ``cut_abs`` only with
+  absorption).
+
+On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA
+tensor it launches the kernel or raises: there is no fallback.  Each
+wrapper counts its launches in ``<wrapper>.launches``.
+
+The plain versions run the kernels' gates, block grouping and visit order,
+vectorised across blocks (pass B: one step per visit position, each
+block's subtile gathered), and the kernels' per-pair arithmetic order, so
+on the card chi^2, the brackets and the seed agree bit for bit.  Their
+subtile sums and stack products are torch reductions and matmuls, whose
+order differs from the kernels'.  A skipped subtile is one whose
+partials are not added, as in the kernels: so the plain screened call
+equals the plain call with every gate open bit for bit, as the kernels
+do.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.kde import fp32_matmul
+from . import build as _build
+from .fullmask import _check, _check_pair_inputs, _weights_plain
+from .general import _check_rc, _load_checked, _stream
+
+__all__ = ["screen_seed", "screen_seed_plain", "chi2_brackets_screened",
+           "chi2_brackets_screened_plain", "chi2_stack_screened",
+           "chi2_stack_screened_plain", "expf_probe", "TB",
+           "reset_launch_counts", "launch_counts"]
+
+# Objects per object block of the kernels (csrc/chi2_screened.cu kTB).
+TB = 32
+
+
+def nblocks(B, tb):
+    """Object blocks of `tb` rows over B objects (the last ragged)."""
+    return -(-int(B) // int(tb))
+
+
+def block_any(mask, tb):
+    """(..., B) bool -> (..., nb): any over each block's rows."""
+    B = mask.shape[-1]
+    nb = nblocks(B, tb)
+    pad = nb * tb - B
+    if pad:
+        mask = torch.nn.functional.pad(mask, (0, pad), value=False)
+    return mask.reshape(*mask.shape[:-1], nb, tb).any(dim=-1)
+
+
+def _rows(x, tb, fill):
+    """(B, ...) -> (nb, tb, ...), padded with `fill`."""
+    B = x.shape[0]
+    nb = nblocks(B, tb)
+    if nb * tb != B:
+        pad = x.new_full((nb * tb - B, *x.shape[1:]), fill)
+        x = torch.cat([x, pad])
+    return x.reshape(nb, tb, *x.shape[1:])
+
+
+def _chi2_blocks(d3, de3, mg, meg, ignore_model_err):
+    """chi^2 (nb, tb, n) of rows d3 / de3 (nb, tb, F) against each
+    block's models mg / meg (F, nb or 1, n), in the kernels' order:
+    per filter var = de*de (+ me*me), term = (r*r)/var, k = 0..F-1."""
+    de2 = de3 * de3
+    chi2 = torch.zeros((*d3.shape[:2], mg.shape[-1]), dtype=d3.dtype,
+                       device=d3.device)
+    for k in range(d3.shape[-1]):
+        mk = mg[k][:, None, :]
+        if ignore_model_err:
+            var = de2[..., k:k + 1]
+        else:
+            mek = meg[k][:, None, :]
+            var = de2[..., k:k + 1] + mek * mek
+        r = d3[..., k:k + 1] - mk
+        chi2 = chi2 + (r * r) / var
+    return chi2
+
+
+def _gather_models(mT, meT, idx):
+    """Models idx (nb, n) (clamped into range) -> (F, nb, n) each."""
+    safe = idx.clamp_max(mT.shape[1] - 1)
+    return mT[:, safe], meT[:, safe]
+
+
+def screen_seed_plain(d, de, mT, meT, start, *, width, c0, tb=TB,
+                      ignore_model_err=False):
+    """Plain version of `screen_seed`: per object, min{chi2 >= c0} over
+    the `width` models from start[block] (clipped at M), times
+    (1 + 1e-6); (B,)."""
+    B = d.shape[0]
+    M = mT.shape[1]
+    idx = (start.long()[:, None]
+           + torch.arange(int(width), device=d.device)[None, :])
+    mg, meg = _gather_models(mT, meT, idx)
+    chi2 = _chi2_blocks(_rows(d, tb, 0.0), _rows(de, tb, 1.0), mg, meg,
+                        ignore_model_err)
+    keep = (idx < M)[:, None, :] & (chi2 >= c0)
+    hi = torch.where(keep, chi2, torch.inf).amin(dim=2).reshape(-1)[:B]
+    return hi * (1.0 + 1e-6)
+
+
+def chi2_brackets_screened_plain(d, de, mT, meT, bounds, seed, *, c0, sm,
+                                 tb=TB, ignore_model_err=False):
+    """Plain version of `chi2_brackets_screened`: (below, above), (B,)."""
+    B = d.shape[0]
+    M = mT.shape[1]
+    blk = torch.arange(B, device=d.device) // tb
+    run = block_any(bounds <= seed[None, :], tb)[:, blk]     # (S, B)
+    below = torch.full((B,), -1.0, dtype=d.dtype, device=d.device)
+    above = torch.full_like(below, torch.inf)
+    d3, de3 = d[None], de[None]
+    for s in range(bounds.shape[0]):
+        rs = run[s]
+        if not bool(rs.any()):
+            continue
+        sl = slice(s * sm, min(s * sm + sm, M))
+        chi2 = _chi2_blocks(d3, de3, mT[:, None, sl], meT[:, None, sl],
+                            ignore_model_err)[0]
+        lo = torch.where(chi2 < c0, chi2, -1.0).amax(dim=1)
+        hi = torch.where(chi2 >= c0, chi2, torch.inf).amin(dim=1)
+        below = torch.where(rs, torch.maximum(below, lo), below)
+        above = torch.where(rs, torch.minimum(above, hi), above)
+    return below, above
+
+
+def chi2_stack_screened_plain(d, de, mT, meT, G, shift, bounds, visit,
+                              cut_uf, cut_dot, ph=None, cut_abs=None, *, a1,
+                              sm, tb=TB, wthr=None, ignore_model_err=False):
+    """Plain version of `chi2_stack_screened`: (pdf (B, Ngrid), s (B,)).
+    Absorption is on when `ph` and `cut_abs` are given."""
+    B = d.shape[0]
+    M = mT.shape[1]
+    nb, S = visit.shape
+    absorb = ph is not None
+    d3, de3 = _rows(d, tb, 0.0), _rows(de, tb, 1.0)
+    live = _rows(torch.ones(B, dtype=torch.bool, device=d.device), tb,
+                 False)
+    sh3 = _rows(shift, tb, 0.0)[..., None]
+    bnd_rows = _rows(bounds.T.contiguous(), tb, 0.0)         # (nb, tb, S)
+    uf3, dot3 = _rows(cut_uf, tb, 0.0), _rows(cut_dot, tb, 0.0)
+    if absorb:
+        ph3, abs3 = _rows(ph, tb, 0), _rows(cut_abs, tb, 0.0)
+    ar = torch.arange(sm, device=d.device)
+    pdf = torch.zeros((nb, tb, G.shape[1]), dtype=d.dtype, device=d.device)
+    s = torch.zeros((nb, tb), dtype=d.dtype, device=d.device)
+    for p in range(S):
+        st = visit[:, p].long()                              # (nb,)
+        bnd = torch.gather(bnd_rows, 2, st[:, None, None].expand(nb, tb, 1))
+        bnd = bnd[..., 0]
+        if absorb:
+            rcut = torch.maximum(torch.where(p > ph3, abs3, uf3), dot3)
+        else:
+            rcut = uf3
+        run = (live & (bnd <= rcut)).any(dim=1)
+        dot = run & (live & (bnd <= dot3)).any(dim=1)
+        if not bool(run.any()):
+            continue
+        idx = st[:, None] * sm + ar[None, :]                 # (nb, sm)
+        valid = (idx < M)[:, None, :]
+        mg, meg = _gather_models(mT, meT, idx)
+        chi2 = _chi2_blocks(d3, de3, mg, meg, ignore_model_err)
+        w = torch.where(valid, _weights_plain(chi2, sh3, a1), 0.0)
+        s = torch.where(run[:, None], s + w.sum(dim=2), s)
+        if bool(dot.any()):
+            if wthr is not None:
+                w = torch.where(w > wthr, w, 0.0)
+            part = fp32_matmul(w, G[idx.clamp_max(M - 1)])
+            pdf = torch.where(dot[:, None, None], pdf + part, pdf)
+    return pdf.reshape(nb * tb, -1)[:B], s.reshape(-1)[:B]
+
+
+def _check_index(name, t, shape, device):
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+        raise TypeError(f"{name} must be an int32 torch.Tensor")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_blocks(tb, sm, M, device):
+    """Subtiles S of `sm` models; on the card `tb` must be the kernels'."""
+    if int(sm) < 1:
+        raise ValueError(f"sm={sm} must be positive")
+    if int(tb) < 1:
+        raise ValueError(f"tb={tb} must be positive")
+    if device.type == "cuda" and int(tb) != TB:
+        raise ValueError(f"the screened kernels take object blocks of {TB} "
+                         f"rows, got tb={tb}")
+    return -(-int(M) // int(sm))
+
+
+def _lib(name, F):
+    """The kernel library, after checking its object block and the
+    shared memory that `name` needs at F filters."""
+    lib = _load_checked(name, lambda lib: getattr(lib, f"fz_{name}_smem")(F))
+    if lib.fz_screen_tb() != TB:
+        raise RuntimeError(f"the built kernels take blocks of "
+                           f"{lib.fz_screen_tb()} objects, not {TB}")
+    return lib
+
+
+def screen_seed(d, de, mT, meT, start, *, width, c0, tb=TB,
+                ignore_model_err=False):
+    """Seed refinement: per object, min{chi2 >= c0} over the `width`
+    models of its block's home tile (from start[block]), times (1 +
+    1e-6); +inf where no chi^2 there reaches c0.  (B,) float32."""
+    B, F, M = _check_pair_inputs(d, de, mT, meT)
+    _check_blocks(tb, 1, M, d.device)
+    _check_index("start", start, (nblocks(B, tb),), d.device)
+    if int(width) < 1:
+        raise ValueError(f"width={width} must be positive")
+    if d.device.type == "cpu":
+        return screen_seed_plain(d, de, mT, meT, start, width=width, c0=c0,
+                                 tb=tb, ignore_model_err=ignore_model_err)
+    seed = torch.empty(B, dtype=torch.float32, device=d.device)
+    if B == 0 or M == 0:
+        return seed.fill_(torch.inf)
+    lib = _lib("screen_seed", F)
+    with torch.cuda.device(d.device):
+        _check_rc("screen_seed", lib.fz_screen_seed(
+            d.data_ptr(), de.data_ptr(), mT.data_ptr(), meT.data_ptr(),
+            start.data_ptr(), seed.data_ptr(), B, M, F, int(width),
+            float(c0), int(bool(ignore_model_err)), _stream(d.device)))
+    screen_seed.launches += 1
+    return seed
+
+
+def chi2_brackets_screened(d, de, mT, meT, bounds, seed, *, c0, sm, tb=TB,
+                           ignore_model_err=False):
+    """Screened pass A: chi2_brackets over the subtiles whose block gate
+    admits them (some row with bounds <= seed).  Returns (below, above),
+    float32 (B,), equal to chi2_brackets' whenever seed >= the final
+    `above` on every row."""
+    B, F, M = _check_pair_inputs(d, de, mT, meT)
+    S = _check_blocks(tb, sm, M, d.device)
+    _check("bounds", bounds, (S, B), d.device)
+    _check("seed", seed, (B,), d.device)
+    if d.device.type == "cpu":
+        return chi2_brackets_screened_plain(
+            d, de, mT, meT, bounds, seed, c0=c0, sm=sm, tb=tb,
+            ignore_model_err=ignore_model_err)
+    below = torch.full((B,), -1.0, dtype=torch.float32, device=d.device)
+    above = torch.full_like(below, torch.inf)
+    if B == 0 or M == 0:
+        return below, above
+    lib = _lib("chi2_brackets_screened", F)
+    with torch.cuda.device(d.device):
+        _check_rc("chi2_brackets_screened", lib.fz_chi2_brackets_screened(
+            d.data_ptr(), de.data_ptr(), mT.data_ptr(), meT.data_ptr(),
+            bounds.data_ptr(), seed.data_ptr(), below.data_ptr(),
+            above.data_ptr(), B, M, F, S, int(sm), float(c0),
+            int(bool(ignore_model_err)), _stream(d.device)))
+    chi2_brackets_screened.launches += 1
+    return below, above
+
+
+def chi2_stack_screened(d, de, mT, meT, G, shift, bounds, visit, cut_uf,
+                        cut_dot, ph=None, cut_abs=None, *, a1, sm, tb=TB,
+                        wthr=None, ignore_model_err=False):
+    """Screened pass B: chi2_stack over the subtiles the gates admit, each
+    block's in its visit order, s a running sum of per-subtile partials
+    (see csrc/chi2_screened.cu).  `ph` and `cut_abs` switch the
+    absorption cut on; `wthr` is the float32 weight cut or None.  Returns
+    (pdf (B, Ngrid), s (B,)), float32."""
+    B, F, M = _check_pair_inputs(d, de, mT, meT)
+    S = _check_blocks(tb, sm, M, d.device)
+    if G.ndim != 2 or G.shape[1] < 1:
+        raise ValueError("G must be (M, Ngrid) with Ngrid >= 1")
+    ngrid = G.shape[1]
+    dev = d.device
+    _check("G", G, (M, ngrid), dev)
+    for name, t in (("shift", shift), ("cut_uf", cut_uf),
+                    ("cut_dot", cut_dot)):
+        _check(name, t, (B,), dev)
+    _check("bounds", bounds, (S, B), dev)
+    _check_index("visit", visit, (nblocks(B, tb), S), dev)
+    if (ph is None) != (cut_abs is None):
+        raise ValueError("ph and cut_abs go together (absorption)")
+    absorb = ph is not None
+    if absorb:
+        _check_index("ph", ph, (B,), dev)
+        _check("cut_abs", cut_abs, (B,), dev)
+    if 2.0 * a1 != round(2.0 * a1):
+        raise ValueError(f"a1={a1} must be an integer or half-integer")
+    if dev.type == "cpu":
+        return chi2_stack_screened_plain(
+            d, de, mT, meT, G, shift, bounds, visit, cut_uf, cut_dot, ph,
+            cut_abs, a1=a1, sm=sm, tb=tb, wthr=wthr,
+            ignore_model_err=ignore_model_err)
+    pdf = torch.zeros((B, ngrid), dtype=torch.float32, device=dev)
+    s = torch.zeros(B, dtype=torch.float32, device=dev)
+    if B == 0 or M == 0:
+        return pdf, s
+    lib = _lib("chi2_stack_screened", F)
+    threads = min(-(-ngrid // 32) * 32,
+                  lib.fz_chi2_stack_screened_max_threads())
+    thr = 0.0 if wthr is None else float(np.float32(wthr))
+    with torch.cuda.device(dev):
+        _check_rc("chi2_stack_screened", lib.fz_chi2_stack_screened(
+            d.data_ptr(), de.data_ptr(), mT.data_ptr(), meT.data_ptr(),
+            G.data_ptr(), shift.data_ptr(), bounds.data_ptr(),
+            visit.data_ptr(), cut_uf.data_ptr(), cut_dot.data_ptr(),
+            ph.data_ptr() if absorb else None,
+            cut_abs.data_ptr() if absorb else None, pdf.data_ptr(),
+            s.data_ptr(), B, M, F, ngrid, S, int(sm), float(a1),
+            int(wthr is not None), thr, int(bool(ignore_model_err)),
+            int(absorb), threads, _stream(dev)))
+    chi2_stack_screened.launches += 1
+    return pdf, s
+
+
+def expf_probe(x):
+    """expf(x) by a kernel compiled with the screened kernels' flags (a
+    measurement aid: where the card's expf flushes to 0); torch.exp on a
+    CPU tensor.  Not a kernel of any route, and not counted."""
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("x must be contiguous float32")
+    if x.device.type == "cpu":
+        return torch.exp(x)
+    y = torch.empty_like(x)
+    if x.numel():
+        with torch.cuda.device(x.device):
+            _check_rc("expf_probe", _build.load().fz_expf_probe(
+                x.data_ptr(), y.data_ptr(), x.numel(), _stream(x.device)))
+    return y
+
+
+screen_seed.launches = 0
+chi2_brackets_screened.launches = 0
+chi2_stack_screened.launches = 0
+
+_WRAPPERS = (screen_seed, chi2_brackets_screened, chi2_stack_screened)
+
+
+def reset_launch_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in _WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts():
+    """{wrapper name: launches since the last reset}."""
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}

@@ -2,12 +2,21 @@
 Fused fit -> PDF for one object batch: lnl grid -> lmap / levid ->
 thresholded weights -> KDE label PDFs, without the (B, M) grid in memory.
 
-Port of `frankenz_tpu.ops.fused.fused_fit_pdf`.  Three kernel routes
+Port of `frankenz_tpu.ops.fused.fused_fit_pdf`.  Four kernel routes
 serve every configuration of it:
 
-* "fullmask", full masks + dim prior + fixed scale (`wt_thresh` set, or
-  both thresholds None): the two-pass pair of
-  `frankenz_tpu/ops/fused.py:1688` (`_fused_call_fullmask_dimprior`):
+* "screened", full masks + dim prior + fixed scale (`wt_thresh` set, or
+  both thresholds None), the default there as in JAX: the screened trio
+  of `frankenz_tpu/ops/fused.py:1400`
+  (`_fused_call_fullmask_dimprior_screened`), glued in `ops.screen`:
+  objects and models sorted by a photometric key, `screen_seed`,
+  `chi2_brackets_screened` and `chi2_stack_screened` skipping the model
+  subtiles that a chi^2 lower bound proves inert, bit-equal to the same
+  kernels with no skip.
+
+* "fullmask", the same configuration with ``screen=False``: the
+  two-pass pair of `frankenz_tpu/ops/fused.py:1688`
+  (`_fused_call_fullmask_dimprior`):
 
     pass A (`kernels.fullmask.chi2_brackets`): per object, the chi^2
         values bracketing c0 = F - 2, where the unimodal lnl(chi2) peaks;
@@ -35,7 +44,7 @@ serve every configuration of it:
         whose cut the top-T table leaves undetermined find it by
         bisection (`cdf_cut_exact`, `lnl_reduce_split` per step).
 
-* "onepass", both thresholds None off the full-mask route: the
+* "onepass", both thresholds None off the full-mask routes: the
   single-pass kernel of ops/fused.py:1952-1975 (`lnl_onepass`, after
   `scale_sweeps` under free scale with model errors), and the glue's
   rescale pdf * exp(lmap - levid).
@@ -55,7 +64,7 @@ depend on G.  ROADMAP section 3.)
 
 One documented deviation, inherited from the JAX kernels: on rows whose
 EVERY chi^2 exceeds the clamp (F <= 19, chi^2 > 30000: insane outliers)
-the full-mask route keeps lmap and levid float32-exact, but the PDF is a
+the full-mask routes keep lmap and levid float32-exact, but the PDF is a
 uniform mixture over the clamped models instead of the plain path's
 argmax row (`frankenz_tpu/ops/fused.py:2029-2035`).
 """
@@ -64,17 +73,17 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from scipy.special import gammaln as _sp_gammaln
 
 from ..kernels import build as _build
 from ..kernels import fullmask as _fm
 from ..kernels import general as _gen
+from . import screen as _screen
+from .screen import lmap_and_shift
 
 __all__ = ["fused_fit_pdf", "fused_route", "group_width",
            "kernels_available", "cdf_cut", "cdf_cut_exact",
            "FusedCdfFallback"]
 
-_LOG_2 = 0.6931471805599453
 _NEG_INF = float(np.finfo(np.float32).min)
 
 
@@ -92,14 +101,16 @@ class FusedCdfFallback(RuntimeError):
 
 
 def fused_route(*, full_mask, dim_prior=True, free_scale=False,
-                wt_thresh=1e-3, cdf_thresh=None):
-    """Which kernel route serves a `fused_fit_pdf` call: "fullmask" (the
-    K1 pair), "general" (the lnl kernels with a weight selection) or
-    "onepass" (both thresholds None off the K1 pair).  The same on every
-    device: CPU tensors run the kernels' plain versions."""
+                wt_thresh=1e-3, cdf_thresh=None, screen=True):
+    """Which kernel route serves a `fused_fit_pdf` call: "screened" (the
+    K2 trio, the full-mask default), "fullmask" (the K1 pair, the same
+    configuration with ``screen=False``), "general" (the lnl kernels
+    with a weight selection) or "onepass" (both thresholds None off the
+    full-mask routes).  The same on every device: CPU tensors run the
+    kernels' plain versions."""
     cdf_mode = wt_thresh is None and cdf_thresh is not None
     if full_mask and dim_prior and not free_scale and not cdf_mode:
-        return "fullmask"
+        return "screened" if screen is None or screen else "fullmask"
     if wt_thresh is None and cdf_thresh is None:
         return "onepass"
     return "general"
@@ -109,33 +120,6 @@ def group_width(nmodel, tm):
     """The free-scale convergence group: JAX's model tile, `tm` capped at
     the model count rounded up to 128 (ops/fused.py:2135)."""
     return min(int(tm), -(-int(nmodel) // 128) * 128)
-
-
-def _lnl_of(c, a1, norm):
-    """Full-mask dim-prior lnl at chi^2 = c."""
-    safe = torch.where(c < 1e-30, 1e-30, c)
-    return (a1 * torch.log(safe) if a1 != 0.0 else 0.0) - 0.5 * c - norm
-
-
-def lmap_and_shift(below, above, nfilt):
-    """lmap from pass A's chi^2 brackets, and pass B's exponent shift
-    (ops/fused.py:1742-1759)."""
-    a1 = 0.5 * nfilt - 1.0
-    norm = float(_sp_gammaln(0.5 * nfilt) + _LOG_2 * 0.5 * nfilt)
-    lmap = torch.maximum(
-        torch.where(below >= 0.0, _lnl_of(below, a1, norm), -torch.inf),
-        torch.where(torch.isfinite(above), _lnl_of(above, a1, norm),
-                    -torch.inf))
-    if a1 > _fm.A1_NOLOG_MAX:
-        shift = lmap + norm
-    else:
-        # The no-log kernel clamps chi^2, so floor the shift at
-        # lnl(clamp): rows whose every model clamps get w = 1 per pair
-        # instead of exp overflow.
-        lnl_clamp = float((a1 * np.log(_fm.CHI2_CLAMP) if a1 else 0.0)
-                          - 0.5 * _fm.CHI2_CLAMP - norm)
-        shift = torch.clamp_min(lmap, lnl_clamp) + norm
-    return lmap, shift.contiguous()
 
 
 def _fullmask_dimprior(d, de, mT, meT, G, *, ignore_model_err, wt_thresh):
@@ -321,7 +305,9 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
                   free_scale=False, wt_thresh=1e-3, cdf_thresh=None,
                   full_mask=None, tm=512, scale_ltol=1e-4,
                   scale_max_iter=100, cdf_topk=8, defer_cdf_check=False,
-                  cdf_exact=False):
+                  cdf_exact=False, screen=None, screen_sub=512,
+                  screen_run_all=False, screen_stats=False,
+                  screen_absorb=True, screen_home_first=True):
     """Fused fit -> PDF for one object batch.
 
     Takes the `ops.logprob` inputs plus a row-normalized kernel matrix
@@ -335,7 +321,23 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
     point per (object, group of `tm` models, capped as in `group_width`)
     until the group's max |delta lnl| is at most max(scale_ltol, 4 eps
     max A), at most `scale_max_iter` sweeps (JAX's criterion and
-    defaults); `tm` does nothing else.
+    defaults).  On the screened route `tm` (capped the same way) is the
+    seed's home tile and the unit of the visit order.
+
+    ``screen`` (default None, which means True, as in JAX) sends full
+    masks with the dim prior at fixed scale through the screened route
+    (`ops.screen`, the K2 kernels): objects and models sorted by a
+    photometric key, and subtiles of `screen_sub` models (the capped
+    `tm` when `screen_sub` does not divide it) skipped where a chi^2
+    lower bound proves they add nothing.  The results equal the same
+    kernels with every skip disabled (``screen_run_all=True``) bit for
+    bit, and the K1 pair (``screen=False``) to float32 reassociation.
+    ``screen_absorb`` adds pass B's absorption cut and
+    ``screen_home_first`` visits each object block's best-bounded tiles
+    first (the natural order otherwise); neither changes a bit of the
+    output.  ``screen_stats=True`` returns the three run fractions
+    (pass A, pass B's weight work, its stack dot) as a fourth output,
+    unless ``defer_cdf_check`` claims it; it raises on another route.
 
     With ``wt_thresh=None`` and ``cdf_thresh`` set, the reference's
     sorted-CDF weight selection (drop-the-largest quirk included) runs
@@ -359,12 +361,25 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
         full_mask = _is_full(data_mask) and _is_full(models_mask)
     route = fused_route(full_mask=full_mask, dim_prior=dim_prior,
                         free_scale=free_scale, wt_thresh=wt_thresh,
-                        cdf_thresh=cdf_thresh)
+                        cdf_thresh=cdf_thresh, screen=screen)
+    if screen_stats and route != "screened":
+        raise ValueError("screen_stats=True requires the screened route "
+                         "(full masks, dim prior, fixed scale, no cdf)")
     mT = m.to(torch.float32).T.contiguous()
     meT = torch.as_tensor(models_err, **f32).T.contiguous()
     G = torch.as_tensor(G, **f32).contiguous()
-    ok = None
-    if route == "fullmask":
+    ok = stats = None
+    if route == "screened":
+        tm = group_width(mT.shape[1], tm)
+        sm = int(screen_sub) if tm % int(screen_sub) == 0 else tm
+        out = _screen.screened(
+            d, de, mT, meT, G, ignore_model_err=ignore_model_err,
+            wt_thresh=wt_thresh, sm=sm, tm=tm, run_all=screen_run_all,
+            with_stats=screen_stats, absorb=screen_absorb,
+            home_first=screen_home_first)
+        pdf, lmap, levid = out[:3]
+        stats = out[3] if screen_stats else None
+    elif route == "fullmask":
         pdf, lmap, levid = _fullmask_dimprior(
             d, de, mT, meT, G, ignore_model_err=ignore_model_err,
             wt_thresh=wt_thresh)
@@ -402,4 +417,6 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
             f"cdf_thresh cut undetermined for some objects (top-{cdf_topk} "
             "weights carry < cdf_thresh of the mass); pass cdf_exact=True, "
             "raise cdf_topk or use the plain composition")
+    if stats is not None:
+        return pdf, lmap, levid, stats
     return pdf, lmap, levid

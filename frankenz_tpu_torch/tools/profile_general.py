@@ -1,4 +1,4 @@
-"""Wall times and one `torch.profiler` trace of the general route.
+"""Wall times and one `torch.profiler` trace of the fused routes.
 
     python -m frankenz_tpu_torch.tools.profile_general [--out DIR] [--reps N]
 
@@ -6,7 +6,12 @@ Run from the root of a checkout on a machine with a CUDA card and
 `nvcc`.  At config-4 widths (5 filters, 100,000 models, the 301-point
 `PDFDict` grid, chip_smoke.py's generator and its masked data: each band
 missing with probability 0.15) it times `BruteForce.fit_predict` over
-131,072 masked objects (wt_thresh 1e-3: `lnl_reduce` + `lnl_stack`),
+131,072 fully observed objects (the default screened route:
+`screen_seed` + `chi2_brackets_screened` + `chi2_stack_screened`), the
+same two 65,536-object batches through `fused_fit_pdf` on the screened
+route and on the K1 pair (``screen=False``; BruteForce takes no
+`screen`), each batch normalised and read back as `fit_predict` does,
+`fit_predict` over 131,072 masked objects (wt_thresh 1e-3: `lnl_reduce` + `lnl_stack`),
 over 65,536 in the cdf mode (cdf_thresh 2e-4: `lnl_reduce` + `lnl_topk`
 + `lnl_cut_stack`) and over 65,536 with no weight threshold (one pass:
 `lnl_onepass`), and config 8 (bench.py:612-699: 16,384 noisy scaled
@@ -42,7 +47,7 @@ def main(argv=None):
 
     from ..kernels import build
     from ..models import BruteForce
-    from ..ops import kde
+    from ..ops import fused, kde
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile")
@@ -87,8 +92,28 @@ def main(argv=None):
     def masked(rows):
         return (data[:rows], data_err[:rows], dmask[:rows], zlabels, zerrs)
 
+    full = (data, data_err, np.ones_like(dmask), zlabels, zerrs)
+    G = kde.kernel_matrix_dict(pdict, *pdict.fit(zlabels, zerrs),
+                               device="cuda").to(torch.float32).contiguous()
+    dev_full = [torch.tensor(x, device="cuda") for x in full[:3]]
+
+    def fused_batches(screen):
+        """Both batches through `fused_fit_pdf`, normalised and read back
+        as `BruteForce.fit_predict` streams them."""
+        def run(*_, **__):
+            for i0 in range(0, n, BATCH):
+                out = fused.fused_fit_pdf(
+                    *(x[i0:i0 + BATCH] for x in dev_full), bf.models,
+                    bf.models_err, bf.models_mask, G, screen=screen)
+                for x in (kde.norm_rows(out[0]), out[1], out[2]):
+                    x.cpu()
+        return run
+
     report = {"card": card}
     for name, call, extra in (
+            ("fullmask_fit_predict", full, {}),
+            ("fullmask_screened_fused_batches", fused_batches(True), {}),
+            ("fullmask_k1_fused_batches", fused_batches(False), {}),
             ("masked_fit_predict", masked(n), {}),
             ("cdf_fit_predict", masked(BATCH), dict(wt_thresh=None,
                                                     cdf_thresh=2e-4)),
@@ -98,18 +123,21 @@ def main(argv=None):
              (data8, np.full((N8, NFILT), 0.25, f32),
               np.ones((N8, NFILT), f32), zl8, zerrs),
              dict(lprob_kwargs=dict(free_scale=True, ltol=1e-4)))):
-        rows = call[0].shape[0]
-        bf.fit_predict(*call, **kw, **extra)
+        if callable(call):
+            rows, fn, call = n, call, ()
+        else:
+            rows, fn = call[0].shape[0], bf.fit_predict
+        fn(*call, **kw, **extra)
         torch.cuda.synchronize()
         walls = []
         for _ in range(args.reps):
             t0 = time.perf_counter()
-            bf.fit_predict(*call, **kw, **extra)
+            fn(*call, **kw, **extra)
             walls.append(time.perf_counter() - t0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            bf.fit_predict(*call, **kw, **extra)
+            fn(*call, **kw, **extra)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         # `aten::` rows repeat the device time of the kernels and copies

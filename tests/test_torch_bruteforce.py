@@ -2,9 +2,9 @@
 
 The JAX fitter is built from NumPy inputs, carried across with
 `from_jax_bruteforce`, and both fit the same catalog (B=300, M=2000,
-F=5, Ngrid=101).  The port's default route on the CPU is the full-mask
-kernels' plain versions; it is held against JAX's `use_fused=True`
-(the screened Pallas route, interpret mode) and `use_fused=False` (XLA),
+F=5, Ngrid=101).  The port's default route on the CPU is the screened
+full-mask kernels' plain versions; it is held against JAX's
+`use_fused=True` (the screened Pallas route, interpret mode) and `use_fused=False` (XLA),
 at tests/test_fused.py's tolerances: lmap / levid 2e-5, PDFs rtol 2e-3
 atol 2e-5.  Summaries follow tests/test_fit_summarize.py: rtol 2e-3 /
 atol 2e-4 across routes (PDF differences move quantiles), and exact-

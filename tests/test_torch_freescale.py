@@ -377,7 +377,10 @@ def test_fused_route_is_a_kernel_route_for_every_configuration():
             (dict(), dict(wt_thresh=None, cdf_thresh=2e-4),
              dict(wt_thresh=None, cdf_thresh=None))):
         assert TF.fused_route(full_mask=fm, dim_prior=dp, free_scale=fs,
-                              **thr) in ("fullmask", "general", "onepass")
+                              **thr) in ("screened", "general", "onepass")
+        assert TF.fused_route(full_mask=fm, dim_prior=dp, free_scale=fs,
+                              screen=False, **thr) in ("fullmask", "general",
+                                                       "onepass")
 
 
 # ---------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Port parity: `frankenz_tpu_torch.ops.fused_fit_pdf` and its kernels.
 
-The port's full-mask route (the two kernels' plain versions on the CPU,
-glued as `_fused_call_fullmask_dimprior` glues the Pallas pair) is held
-against the JAX route it replaces, `fused_fit_pdf(screen=False,
-band_skip=False)` in interpret mode, and against JAX's default screened
-route.  Tolerances are tests/test_fused.py:114-119's: lmap / levid rtol
+The port's two-pass full-mask route (``screen=False``: the two kernels'
+plain versions on the CPU, glued as `_fused_call_fullmask_dimprior`
+glues the Pallas pair) is held against the JAX route it replaces,
+`fused_fit_pdf(screen=False, band_skip=False)` in interpret mode; the
+port's default, the screened route, against JAX's default screened route
+(and in depth in tests/test_torch_screened.py).  Tolerances are tests/test_fused.py:114-119's: lmap / levid rtol
 2e-5, atol 2e-5 (float32 roundoff of the bracket -> lnl glue, and the
 weight sum taken in another order); PDFs rtol 2e-3, atol 2e-5 (the same
 weights stacked in another order; a weight sitting exactly on the
@@ -47,7 +48,8 @@ def test_fused_matches_jax_two_pass(nfilt, wt_thresh, ignore_model_err):
     prob = fullmask_problem(nfilt)
     kw = dict(wt_thresh=wt_thresh, ignore_model_err=ignore_model_err)
     want, got = run_both(_jax, TF.fused_fit_pdf, *prob, **kw,
-                         jax_kw=dict(screen=False, band_skip=False))
+                         jax_kw=dict(screen=False, band_skip=False),
+                         torch_kw=dict(screen=False))
     _assert_fused_close(want, got)
     assert np.isfinite(got[0]).all()
 
@@ -55,7 +57,8 @@ def test_fused_matches_jax_two_pass(nfilt, wt_thresh, ignore_model_err):
 @pytest.mark.parametrize("wt_thresh", [1e-3, None])
 def test_fused_matches_jax_screened_default(wt_thresh):
     """JAX's default full-mask route is the screened trio, within f32
-    reassociation of the two-pass pair; the port matches it too."""
+    reassociation of the two-pass pair; the port's default is the
+    screened trio too, and matches it."""
     prob = fullmask_problem(5, outlier_row=False)
     want, got = run_both(_jax, TF.fused_fit_pdf, *prob, wt_thresh=wt_thresh)
     _assert_fused_close(want, got)
@@ -75,7 +78,8 @@ def test_all_clamped_rows_keep_gof_parity():
     args = (d, de, np.ones_like(d), m, np.zeros_like(m), np.ones_like(m), G)
     want, got = run_both(_jax, TF.fused_fit_pdf, *args, full_mask=True,
                          ignore_model_err=True,
-                         jax_kw=dict(screen=False, band_skip=False))
+                         jax_kw=dict(screen=False, band_skip=False),
+                         torch_kw=dict(screen=False))
     np.testing.assert_allclose(got[1], want[1], rtol=1e-7)
     np.testing.assert_allclose(got[2], want[2], rtol=1e-7)
     np.testing.assert_allclose(got[0], want[0], **PDF_TOL)
@@ -84,10 +88,14 @@ def test_all_clamped_rows_keep_gof_parity():
 
 def test_route_decisions():
     """(e) The routing rule, decided without launching anything: every
-    configuration has a kernel route, the same on every device."""
+    configuration has a kernel route, the same on every device.  Full
+    masks take the screened trio (K2) by default, as in JAX, and the K1
+    pair with ``screen=False``."""
     route = TF.fused_route
-    assert route(full_mask=True) == "fullmask"
-    assert route(full_mask=True, wt_thresh=None) == "fullmask"
+    assert route(full_mask=True) == "screened"
+    assert route(full_mask=True, wt_thresh=None) == "screened"
+    assert route(full_mask=True, screen=False) == "fullmask"
+    assert route(full_mask=True, wt_thresh=None, screen=False) == "fullmask"
     # K3 and K5 configurations run the general kernels, free scale (K6)
     # too.
     for kw in (dict(full_mask=False), dict(full_mask=True, dim_prior=False),

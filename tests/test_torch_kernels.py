@@ -1,5 +1,6 @@
 """The CUDA kernels' wrappers, plain versions and counters: the
-full-mask chi^2 pair (`kernels.fullmask`), the general lnl kernels
+full-mask chi^2 pair (`kernels.fullmask`), the screened full-mask trio
+(`kernels.screened`), the general lnl kernels
 (`kernels.general`), in fixed and free scale, with the one-pass kernel
 and the free-scale sweep counts, the SOM training run (`kernels.som`), the
 GNG training run (`kernels.gng`) and the population chain (`kernels.pop`).
@@ -17,7 +18,9 @@ version round every operation in the same order: expected bit-equal,
 up to the last ulp of `log`); tie and pair counts and the free-scale
 sweep tables exact; weight sums and PDFs 1e-5 relative, levid 1e-5 of
 max(1, |levid|) (the same weights, summed in another order: levid's
-absolute error is the sum's relative error); `som_train` the same best
+absolute error is the sum's relative error); the screened seed and
+brackets 1 ulp (expected bit-equal), the screened route against its
+run-all twin and the screened lmap against the pair's bit for bit; `som_train` the same best
 node at every step and nodes within 1e-6 relative (expected bit-equal:
 the same operations in the same order); `gng_train` every state array
 bit for bit (the same operations in the same order); `pop_chain` samples,
@@ -34,9 +37,11 @@ from frankenz_tpu_torch.kernels import fullmask as FM
 from frankenz_tpu_torch.kernels import general as GK
 from frankenz_tpu_torch.kernels import gng as GG
 from frankenz_tpu_torch.kernels import pop as PK
+from frankenz_tpu_torch.kernels import screened as SCK
 from frankenz_tpu_torch.kernels import som as SK
 from frankenz_tpu_torch.ops import fused as TF
 from frankenz_tpu_torch.ops import kde as TK
+from frankenz_tpu_torch.ops import screen as SC
 
 torch.set_num_threads(1)
 
@@ -176,7 +181,9 @@ def test_cpu_general_wrappers_run_plain_versions_without_launching(name):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert all(n == 0 for n in K.launch_counts().values())
-    assert set(K.launch_counts()) == {"chi2_brackets", "chi2_stack", *GENERAL,
+    assert set(K.launch_counts()) == {"chi2_brackets", "chi2_stack",
+                                      "screen_seed", "chi2_brackets_screened",
+                                      "chi2_stack_screened", *GENERAL,
                                       "lnl_onepass", "scale_sweeps",
                                       "som_train", "gng_train", "pop_chain"}
 
@@ -417,9 +424,11 @@ def test_bruteforce_on_card_matches_cpu_and_counts_launches(cuda_device):
     models = (m, (0.05 * m).astype(np.float32), np.ones_like(m))
     cpu = BruteForce(*models, device="cpu").fit_predict(*args, **kw)
     gpu_bf = BruteForce(*models, device="cuda")
-    FM.reset_launch_counts()
+    K.reset_launch_counts()
     gpu = gpu_bf.fit_predict(*args, **kw)
-    assert all(n > 0 for n in FM.launch_counts().values())
+    # Full masks take the screened trio (K2), as in JAX; not the pair.
+    assert all(n > 0 for n in SCK.launch_counts().values())
+    assert all(n == 0 for n in FM.launch_counts().values())
     np.testing.assert_allclose(gpu[1][0], cpu[1][0], rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(gpu[1][1], cpu[1][1], rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(gpu[0], cpu[0], rtol=2e-3, atol=2e-5)
@@ -432,6 +441,7 @@ def test_bruteforce_on_card_matches_cpu_and_counts_launches(cuda_device):
     counts = K.launch_counts()
     assert counts["lnl_reduce"] > 0 and counts["lnl_stack"] > 0
     assert counts["chi2_brackets"] == counts["chi2_stack"] == 0
+    assert all(counts[n] == 0 for n in SCK.launch_counts())
     np.testing.assert_allclose(gpu[1][0], cpu[1][0], rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(gpu[1][1], cpu[1][1], rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(gpu[0], cpu[0], rtol=2e-3, atol=2e-5)
@@ -1150,3 +1160,214 @@ def test_samplers_on_card_match_cpu_and_count_launches(cuda_device):
     s, lnp = hier.results_by_chain
     assert s.shape == (6, 2, 20) and np.isfinite(lnp).all()
     np.testing.assert_allclose(s.sum(axis=2), 1.0, atol=1e-3)
+
+
+# ---------------------------------------------------------------------
+# The screened full-mask trio (K2).
+# ---------------------------------------------------------------------
+
+SCREENED = ["screen_seed", "chi2_brackets_screened", "chi2_stack_screened"]
+
+
+def _screened_problem(F=5, B=70, M=700, Ngrid=77, sm=128, tm=256,
+                      ignore_model_err=False, seed=43, device="cpu"):
+    """A batch sorted and bounded by the glue (`ops.screen`), ragged in
+    B, M and Ngrid against the blocks and subtiles; row 0 an all-clamped
+    outlier."""
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(1, 10, (M, F)).astype(np.float32)
+    d = (m[rng.integers(0, M, B)]
+         + rng.normal(0, 0.3, (B, F))).astype(np.float32)
+    d[0] = 1e6
+    G = TK.kernel_matrix(rng.uniform(0, 3, M), np.full(M, 0.1),
+                         np.linspace(0, 3, Ngrid)).to(torch.float32)
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (
+        d, np.full((B, F), 0.3, np.float32), m.T, (0.05 * m).T)]
+    return SC.sort_and_bound(*t, G.contiguous().to(device), sm=sm, tm=tm,
+                             tb=SCK.TB, ignore_model_err=ignore_model_err)
+
+
+def _screened_calls(srt, plain=False, ignore_model_err=False,
+                    wt_thresh=1e-3, absorb=True):
+    """{name: outputs} of the three wrappers (or their plain versions)
+    on one sorted batch, each pass fed the plain versions' outputs."""
+    F = srt.d.shape[1]
+    a1 = 0.5 * F - 1.0
+    args = (srt.d, srt.de, srt.mT, srt.meT)
+    kw = dict(ignore_model_err=ignore_model_err)
+    pick = (lambda fn: getattr(SCK, fn.__name__ + "_plain")) if plain else (
+        lambda fn: fn)
+    out = {"screen_seed": (pick(SCK.screen_seed)(
+        *args, srt.start, width=srt.tm, c0=2 * a1, **kw),)}
+    seed = torch.minimum(srt.seed, SCK.screen_seed_plain(
+        *args, srt.start, width=srt.tm, c0=2 * a1, **kw))
+    out["chi2_brackets_screened"] = pick(SCK.chi2_brackets_screened)(
+        *args, srt.bounds, seed, c0=2 * a1, sm=srt.sm, **kw)
+    below, above = SCK.chi2_brackets_screened_plain(
+        *args, srt.bounds, seed, c0=2 * a1, sm=srt.sm, **kw)
+    g = SC.stack_gates(srt, below, above, wt_thresh=wt_thresh, absorb=absorb)
+    out["chi2_stack_screened"] = pick(SCK.chi2_stack_screened)(
+        *args, srt.G, g.shift, srt.bounds, g.visit, g.cut_uf, g.cut_dot,
+        g.ph, g.cut_abs, a1=a1, sm=srt.sm,
+        wthr=None if wt_thresh is None else float(np.float32(wt_thresh)),
+        **kw)
+    return out
+
+
+def test_cpu_screened_wrappers_run_plain_versions_without_launching():
+    srt = _screened_problem()
+    K.reset_launch_counts()
+    got = _screened_calls(srt)
+    want = _screened_calls(srt, plain=True)
+    for name in SCREENED:
+        for g, w in zip(got[name], want[name]):
+            assert torch.equal(g, w), name
+    assert all(n == 0 for n in K.launch_counts().values())
+    assert set(SCK.launch_counts()) == set(SCREENED)
+
+
+@pytest.mark.parametrize("ignore_model_err", [False, True])
+@pytest.mark.parametrize("nfilt", [2, 5, 20])
+def test_screened_brackets_equal_the_pair_and_seed_bounds_above(
+        nfilt, ignore_model_err):
+    """With the glue's seed (anchors and home tile), screened pass A
+    skips only subtiles that cannot move a bracket: its brackets are the
+    two-pass pair's exactly, and the seed is never below `above`."""
+    srt = _screened_problem(nfilt, ignore_model_err=ignore_model_err)
+    args = (srt.d, srt.de, srt.mT, srt.meT)
+    c0 = nfilt - 2.0
+    seed = torch.minimum(srt.seed, SCK.screen_seed(
+        *args, srt.start, width=srt.tm, c0=c0,
+        ignore_model_err=ignore_model_err))
+    got = SCK.chi2_brackets_screened(*args, srt.bounds, seed, c0=c0,
+                                     sm=srt.sm,
+                                     ignore_model_err=ignore_model_err)
+    want = FM.chi2_brackets(*args, c0=c0, ignore_model_err=ignore_model_err)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((seed >= want[1]).all())
+    # ... and the gate skipped something (at F = 20 two sorted filters
+    # of twenty bound too little to skip here).
+    run = SCK.block_any(srt.bounds <= seed[None, :], SCK.TB)
+    assert nfilt == 20 or float(run.float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity",
+                                 "index_dtype", "absorb_pair", "sm"])
+@pytest.mark.parametrize("name", SCREENED)
+def test_screened_wrappers_check_their_inputs(name, bad):
+    srt = _screened_problem()
+    args = [srt.d, srt.de, srt.mT, srt.meT]
+    B = srt.d.shape[0]
+    S, nb = srt.bmin.shape
+    f = torch.zeros(B)
+    visit = torch.zeros((nb, S), dtype=torch.int32)
+    ph = torch.zeros(B, dtype=torch.int32)
+    kw = dict(sm=srt.sm)
+    if bad == "dtype":
+        args[0], err = args[0].double(), TypeError
+    elif bad == "shape":
+        args[1], err = args[1][:-1], ValueError
+    elif bad == "contiguity":
+        args[2], err = args[2].T.contiguous().T, ValueError
+    elif bad == "index_dtype":
+        visit, ph, err = visit.long(), ph.long(), TypeError
+        srt.start = srt.start.long()
+    elif bad == "absorb_pair":
+        ph, err = None, ValueError
+    else:
+        kw, err = dict(sm=0), ValueError
+    if name == "screen_seed":
+        if bad in ("absorb_pair", "sm"):
+            err, kw = ValueError, dict(width=0)
+        else:
+            kw = dict(width=srt.tm)
+        call = lambda: SCK.screen_seed(*args, srt.start, c0=3.0, **kw)  # noqa: E731
+    elif name == "chi2_brackets_screened":
+        if bad in ("index_dtype", "absorb_pair"):
+            f, err = f.double(), TypeError
+        call = lambda: SCK.chi2_brackets_screened(  # noqa: E731
+            *args, srt.bounds, f, c0=3.0, **kw)
+    else:
+        call = lambda: SCK.chi2_stack_screened(  # noqa: E731
+            *args, srt.G, f, srt.bounds, visit, f, f, ph, f, a1=1.5, **kw)
+    with pytest.raises(err):
+        call()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ignore_model_err", [False, True])
+@pytest.mark.parametrize("F,B,M,Ngrid,sm,tm", [
+    (5, 70, 700, 77, 128, 256),
+    (5, 1000, 9937, 301, 512, 512),
+    (2, 40, 1000, 513, 256, 512),
+    (8, 33, 700, 301, 128, 128),
+    (20, 70, 3000, 301, 512, 512),
+])
+def test_screened_kernels_match_plain_on_card(cuda_device, F, B, M, Ngrid,
+                                              sm, tm, ignore_model_err):
+    srt = _screened_problem(F, B=B, M=M, Ngrid=Ngrid, sm=sm, tm=tm,
+                            ignore_model_err=ignore_model_err,
+                            device=cuda_device)
+    for wt_thresh, absorb in ((1e-3, True), (None, False)):
+        K.reset_launch_counts()
+        kw = dict(ignore_model_err=ignore_model_err, wt_thresh=wt_thresh,
+                  absorb=absorb)
+        got = _screened_calls(srt, **kw)
+        want = _screened_calls(srt, plain=True, **kw)
+        torch.cuda.synchronize()
+        assert SCK.launch_counts() == {n: 1 for n in SCREENED}
+        _assert_within_ulp(got["screen_seed"][0], want["screen_seed"][0])
+        for g, w in zip(got["chi2_brackets_screened"],
+                        want["chi2_brackets_screened"]):
+            _assert_within_ulp(g, w)
+        pdf, s = got["chi2_stack_screened"]
+        pdf_w, s_w = want["chi2_stack_screened"]
+        torch.testing.assert_close(s, s_w, rtol=1e-5, atol=0)
+        scale = pdf_w.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+        torch.testing.assert_close(pdf / scale, pdf_w / scale, rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wt_thresh", [1e-3, None])
+@pytest.mark.parametrize("absorb", [True, False])
+def test_screened_route_equals_run_all_on_card(cuda_device, wt_thresh,
+                                               absorb):
+    """Every skip exact on the card: the screened route equals its
+    run-all twin bit for bit, and its lmap the two-pass pair's."""
+    rng = np.random.default_rng(47)
+    M, B, F = 20_000, 3_000, 5
+    m = rng.uniform(1, 10, (M, F)).astype(np.float32)
+    d = (m[rng.integers(0, M, B)] + rng.normal(0, 0.25, (B, F))).astype(
+        np.float32)
+    d[:5] = 1e6
+    G = TK.kernel_matrix(rng.uniform(0, 3, M), np.full(M, 0.1),
+                         np.linspace(0, 3, 301)).to(torch.float32)
+    t = [torch.from_numpy(x).to(cuda_device) for x in (
+        d, np.full((B, F), 0.25, np.float32), np.ones((B, F), np.float32),
+        m, (0.05 * m).astype(np.float32), np.ones_like(m))]
+    t.append(G.contiguous().to(cuda_device))
+    kw = dict(wt_thresh=wt_thresh, screen_absorb=absorb)
+    K.reset_launch_counts()
+    scr = TF.fused_fit_pdf(*t, screen_stats=True, **kw)
+    assert SCK.launch_counts() == {n: 1 for n in SCREENED}
+    ra = TF.fused_fit_pdf(*t, screen_run_all=True, **kw)
+    for a, b in zip(scr[:3], ra):
+        assert torch.equal(a, b)
+    assert float(scr[3][1]) < 1.0  # pass B skipped something
+    k1 = TF.fused_fit_pdf(*t, screen=False, wt_thresh=wt_thresh)
+    assert torch.equal(scr[1], k1[1])
+    torch.testing.assert_close(scr[2], k1[2], rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(scr[0], k1[0], rtol=2e-3, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_expf_flushes_below_the_underflow_cut_on_card(cuda_device):
+    """The underflow cut's premise on the card: the kernels' expf, and
+    torch.exp there, return exactly 0.0 at and below LN_W_UNDERFLOW."""
+    lo = np.float32(-110.0).view(np.int32)
+    hi = np.float32(SC.LN_W_UNDERFLOW).view(np.int32)
+    x = torch.from_numpy(np.arange(hi, lo + 1, dtype=np.int64).astype(
+        np.int32).view(np.float32)).to(cuda_device)
+    assert bool((SCK.expf_probe(x) == 0).all())
+    assert bool((torch.exp(x) == 0).all())
