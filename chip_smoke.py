@@ -8,7 +8,9 @@ sm_90a card), `nvcc` and PyTorch built for CUDA.  It imports only the
 port, numpy and scipy, and:
 
 1. prints the card (`nvidia-smi` name and power limit) and versions;
-2. builds the CUDA kernels from ``frankenz_tpu_torch/csrc`` (timed);
+2. builds the CUDA kernels from ``frankenz_tpu_torch/csrc`` (timed), and
+   prints `nvcc -Xptxas -v`'s registers, spills and stack for the
+   screened passes A and B, with their dynamic shared memory;
 3. holds each full-mask kernel against its plain PyTorch version on the
    card, at the config-4 widths (F=5, 100,000 models, a 301-point
    PDFDict grid, 2,048 objects) and three edge shapes (ragged M=99,937
@@ -34,7 +36,8 @@ port, numpy and scipy, and:
    `pdfs_summarize(fit_predict(...))` under the same uniforms; then one
    65,536-object batch through `fused_fit_pdf(screen=False)`, the K1
    pair, beside the screened route on the same batch (both walls), and
-   every full-mask kernel's time at that batch;
+   every full-mask kernel's time at that batch, with the screened trio's
+   bounds from that batch's run fractions and kept weights;
 5. masked photometry (each data band missing with probability 0.15,
    from ``default_rng(2)``: about 10 of the 131,072 rows lose every
    band): holds the four general kernels against their plain versions
@@ -1416,6 +1419,48 @@ def expf_underflow(torch, np, SC, SCK, card):
     return out
 
 
+def screened_bounds(torch, FM, srt, gates, stats, tm, wthr):
+    """({kept weights per row, models kept by some row per 32-row
+    block}, {kernel: (bound ms, bound by)}) of the screened trio on one
+    sorted batch, the bounds from the work that this run's gates admit: K1's operations per
+    pair (chi^2 6 per filter + 2 compares, or + ~10 for the weight chain)
+    over the admitted pairs (the run fractions `stats`: pass A's, pass
+    B's weight work), pass B's 2 Ngrid per kept weight (counted from the
+    plain weights, 2,048 rows at a time), the seed's pairs over each
+    block's home tile.  Bytes: every input once (the (S, B) bounds, the
+    visit table and the per-row cuts included), every output once."""
+    B, F = srt.d.shape
+    M, ngrid = srt.mT.shape[1], srt.G.shape[1]
+    a1 = 0.5 * F - 1.0
+    S, nb = srt.bmin.shape
+    pairs = float(B) * M
+    kept = kept_models = 0.0
+    for r0 in range(0, B, N_KERNEL):
+        sl = slice(r0, r0 + N_KERNEL)
+        w = FM._weights_plain(FM._chi2_plain(
+            srt.d[sl], srt.de[sl], srt.mT, srt.meT, False),
+            gates.shift[sl, None], a1) > wthr
+        kept += float(w.sum())
+        # Models that some row of a 32-row block keeps (the blocks are
+        # whole: N_KERNEL is a multiple of 32).
+        n = w.shape[0] // srt.tb * srt.tb
+        kept_models += float(w[:n].reshape(-1, srt.tb, M).any(dim=1).sum())
+        del w
+    io = 4.0 * (2 * B * F + 2 * F * M)
+    kept_stats = {"kept_per_row": kept / B,
+                  "kept_models_per_block": kept_models / (B // srt.tb)}
+    return kept_stats, {
+        "screen_seed": bound(float(B) * tm * (6 * F + 2),
+                             4.0 * (2 * B * F + 2 * F * min(nb * tm, M)
+                                    + nb + B)),
+        "chi2_brackets_screened": bound(pairs * stats[0] * (6 * F + 2),
+                                        io + 4.0 * (S * B + B + 2 * B)),
+        "chi2_stack_screened": bound(
+            pairs * stats[1] * (6 * F + 10) + 2.0 * ngrid * kept,
+            io + 4.0 * (M * ngrid + S * B + nb * S + 5 * B + B * ngrid
+                        + B))}
+
+
 def screened_phase(torch, np, tens, card, cases, batch_case):
     """Phase 3b, the screened trio (K2) at config 4's widths: the expf
     underflow; each kernel against its plain version on phase 3's cases
@@ -1518,34 +1563,15 @@ def screened_phase(torch, np, tens, card, cases, batch_case):
                 max_abs_err=ab, max_rel_err=rl, ms=t[kname][0],
                 plain_ms=t[kname][1], run_fractions=stats)
         if name == "config4":
-            # The work that this run's gates admit: K1's operations per
-            # pair (chi^2 6 per filter + 2 compares, or + ~10 for the
-            # weight chain) over the admitted pairs (the run fractions:
-            # pass A's, pass B's weight work), pass B's 2 Ngrid per kept
-            # weight, the seed's pairs over each block's home tile.
-            # Bytes: every input once (the (S, B) bounds, the visit table
-            # and the per-row cuts included), every output once.
-            S, nb = srt.bmin.shape
-            pairs = float(B) * M
-            w = FM._weights_plain(FM._chi2_plain(*args, False),
-                                  gates.shift[:, None], a1)
-            kept = float((w > wthr).sum())
-            del w
-            io = 4.0 * (2 * B * F + 2 * F * M)
-            results["screen_seed"][name].update(zip(
-                ("bound_ms", "bound_by"),
-                bound(float(B) * tm * (6 * F + 2),
-                      4.0 * (2 * B * F + 2 * F * min(nb * tm, M) + nb
-                             + B))))
-            results["chi2_brackets_screened"][name].update(zip(
-                ("bound_ms", "bound_by"),
-                bound(pairs * stats[0] * (6 * F + 2),
-                      io + 4.0 * (S * B + B + 2 * B))))
-            results["chi2_stack_screened"][name].update(zip(
-                ("bound_ms", "bound_by"),
-                bound(pairs * stats[1] * (6 * F + 10) + 2.0 * ngrid * kept,
-                      io + 4.0 * (M * ngrid + S * B + nb * S + 5 * B
-                                  + B * ngrid + B))))
+            kept_stats, bds = screened_bounds(torch, FM, srt, gates, stats,
+                                              tm, wthr)
+            for kname, bd in bds.items():
+                results[kname][name].update(zip(("bound_ms", "bound_by"),
+                                                bd))
+            results["chi2_stack_screened"][name].update(kept_stats)
+            print(f"kept weights at B={B}: {kept_stats['kept_per_row']:.3f} "
+                  f"per row, {kept_stats['kept_models_per_block']:.1f} "
+                  f"models kept by some row per 32-row block", flush=True)
         print(f"kernel_vs_plain screened {name}: B={B} M={M} F={F} "
               f"Ngrid={ngrid} sm={sm} | " + " | ".join(
                   f"{k} abs {results[k][name]['max_abs_err']:.3g} rel "
@@ -1644,6 +1670,25 @@ def main():
     kbuild.load()
     print(f"build: nvcc {kbuild.nvcc_path()} -> {kbuild.library_path()} "
           f"in {build_s:.2f} s", flush=True)
+    # Registers, spills and shared memory of the two redesigned passes
+    # (nvcc -Xptxas -v on their source alone; dynamic shared memory at
+    # config 4's widths).
+    lib = kbuild.load()
+    ptxas = {k: dict(v, dynamic_smem=smem)
+             for name, v in kbuild.ptxas_report("chi2_screened.cu").items()
+             for k, smem in (
+                 ("chi2_brackets_screened",
+                  lib.fz_chi2_brackets_screened_smem(NFILT)),
+                 ("chi2_stack_screened",
+                  lib.fz_chi2_stack_screened_smem(NFILT, NGRID)))
+             if f"{k}_kernel" in name}
+    check(set(ptxas) == {"chi2_brackets_screened", "chi2_stack_screened"},
+          f"no ptxas report for the screened passes ({sorted(ptxas)})")
+    print("ptxas -v: " + "; ".join(
+        f"{k} {v['registers']} registers, {v['spill_stores']} / "
+        f"{v['spill_loads']} bytes spill stores / loads, stack {v['stack']}"
+        f", {v['dynamic_smem']} bytes dynamic shared memory at F={NFILT} "
+        f"Ngrid={NGRID}" for k, v in ptxas.items()), flush=True)
 
     # 3. kernels vs plain (bench.py:316-332's generator)
     rng = np.random.default_rng(0)
@@ -1895,12 +1940,20 @@ def main():
             *sargs, srt.G, gates_b.shift, srt.bounds, gates_b.visit,
             gates_b.cut_uf, gates_b.cut_dot, gates_b.ph, gates_b.cut_abs,
             a1=0.5 * NFILT - 1.0, sm=512, wthr=wthr), reps=3)
+    stats_b = [float(x) for x in SC.run_fractions(srt, seed_b, gates_b)]
+    kept_batch, bound_batch = screened_bounds(torch, FM, srt, gates_b,
+                                              stats_b, 512, wthr)
     print(f"kernel_at_batch {BATCH}x{NMODEL}: " + ", ".join(
         f"{k} {ms_batch[k]:.3f} ms" for k in K1_PAIR + SCREENED)
-        + f" | card {card}", flush=True)
+        + " | screened bounds " + ", ".join(
+            f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bound_batch.items())
+        + f" at run fractions A {stats_b[0]:.4f} B {stats_b[1]:.4f} dot "
+        f"{stats_b[2]:.4f}; kept weights {kept_batch['kept_per_row']:.3f} "
+        f"per row, {kept_batch['kept_models_per_block']:.1f} models kept by "
+        f"some row per 32-row block | card {card}", flush=True)
 
     del d_b, de_b, ones_b, mT, meT, below, above, shift_b, srt, sargs
-    del seed_b, gates_b
+    del seed_b, gates_b, stats_b
     torch.cuda.empty_cache()
 
     # 5. masked photometry: the general kernels
@@ -2358,6 +2411,14 @@ def main():
             entry["route_run_fractions"] = scr_fractions
         if kname in ms_batch:
             entry[f"ms_batch_{N8 if free else BATCH}"] = ms_batch[kname]
+        if kname in bound_batch:
+            entry[f"bound_ms_batch_{BATCH}"] = bound_batch[kname][0]
+            entry[f"bound_by_batch_{BATCH}"] = bound_batch[kname][1]
+        if kname == "chi2_stack_screened":
+            entry.update({f"{k}_batch_{BATCH}": v
+                          for k, v in kept_batch.items()})
+        if kname in ptxas:
+            entry["ptxas"] = ptxas[kname]
         kernels.append(entry)
     kernels.append(som_entry)
     kernels.append(gng_entry)

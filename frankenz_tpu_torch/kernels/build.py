@@ -13,13 +13,14 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["nvcc_path", "library_path", "build", "load"]
+__all__ = ["nvcc_path", "library_path", "build", "load", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
@@ -96,6 +97,46 @@ def build(force=False):
     return time.perf_counter() - t0
 
 
+def ptxas_report(source):
+    """What `nvcc -Xptxas -v` reports for every kernel of `source` (a
+    file name in ``csrc/`` or a path; ``csrc/`` is on the include path)
+    compiled alone with the library's flags:
+    {mangled name: {"registers", "spill_stores", "spill_loads",
+    "stack", "static_smem"}} (bytes; dynamic shared memory is the
+    launch's, not ptxas's)."""
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: no ptxas report")
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        run = subprocess.run(
+            [nvcc, *_NVCC_FLAGS, "-I", str(_SRC_DIR), "-Xptxas", "-v", "-c",
+             "-o", os.path.join(tmp, "report.o"), str(_SRC_DIR / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if run.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{run.stdout}")
+    out, cur = {}, None
+    for line in run.stdout.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
 def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fz_chi2_brackets_smem.argtypes = [I]
@@ -108,21 +149,21 @@ def _bind(lib):
                                   F, I, I, P]
     lib.fz_chi2_stack.restype = I
     # csrc/chi2_screened.cu: the object block, shared-memory sizes, the
-    # screened trio (pointers, sizes, constants, flags, stream) and the
-    # expf probe.
-    for name in ("fz_screen_tb", "fz_chi2_stack_screened_max_threads"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = I
-    for name in ("fz_screen_seed_smem", "fz_chi2_brackets_screened_smem",
-                 "fz_chi2_stack_screened_smem"):
-        getattr(lib, name).argtypes = [I]
+    # screened trio (pointers, sizes with the model rows' stride after M,
+    # constants, flags, stream) and the expf probe.
+    lib.fz_screen_tb.argtypes = []
+    lib.fz_screen_tb.restype = I
+    for name, nargs in (("fz_screen_seed_smem", 1),
+                        ("fz_chi2_brackets_screened_smem", 1),
+                        ("fz_chi2_stack_screened_smem", 2)):
+        getattr(lib, name).argtypes = [I] * nargs
         getattr(lib, name).restype = I
     lib.fz_screen_seed.argtypes = [P] * 6 + [I] * 4 + [F, I, P]
     lib.fz_screen_seed.restype = I
-    lib.fz_chi2_brackets_screened.argtypes = [P] * 8 + [I] * 5 + [F, I, P]
+    lib.fz_chi2_brackets_screened.argtypes = [P] * 8 + [I] * 6 + [F, I, P]
     lib.fz_chi2_brackets_screened.restype = I
-    lib.fz_chi2_stack_screened.argtypes = ([P] * 14 + [I] * 6 + [F, I, F]
-                                           + [I] * 3 + [P])
+    lib.fz_chi2_stack_screened.argtypes = ([P] * 14 + [I] * 7 + [F, I, F]
+                                           + [I] * 2 + [P])
     lib.fz_chi2_stack_screened.restype = I
     lib.fz_expf_probe.argtypes = [P, P, I, P]
     lib.fz_expf_probe.restype = I

@@ -6,7 +6,11 @@
 `_make_chi2max_screened_kernel` (:1272) and
 `_make_chi2stack_screened_kernel` (:1308); the CUDA sources, with the
 design notes and the two skip proofs, are in ``csrc/chi2_screened.cu``,
-and the glue that sorts, bounds and cuts is ``ops/screen.py``.
+and the glue that sorts, bounds and cuts is ``ops/screen.py``.  Passes A
+and B compact each object block's admitted subtiles first, then stream
+them in chunks of models (pass A 128 to 8 warps, pass B up to 256 to 16)
+through a two-slot shared-memory ring filled by TMA bulk copies, a lane
+per object row; pass B's stack dot walks each row's kept models only.
 
 Every input is float32 (int32 for the index tables), contiguous, and on
 one device; objects and models are already in the glue's sorted order:
@@ -24,7 +28,11 @@ one device; objects and models are already in the glue's sorted order:
 
 On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises: there is no fallback.  Each
-wrapper counts its launches in ``<wrapper>.launches``.
+wrapper counts its launches in ``<wrapper>.launches``.  Passes A and B
+stage model chunks with 16-byte bulk copies (TMA): on the card they take
+`sm` a multiple of 4, and when M is not a multiple of 4 the wrapper
+hands the kernel zero-padded (F, ceil4(M)) copies of ``mT`` and ``meT``
+(`_bulk_rows`; the plain versions never see them).
 
 The plain versions run the kernels' gates, block grouping and visit order,
 vectorised across blocks (pass B: one step per visit position, each
@@ -205,8 +213,10 @@ def _check_index(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_blocks(tb, sm, M, device):
-    """Subtiles S of `sm` models; on the card `tb` must be the kernels'."""
+def _check_blocks(tb, sm, M, device, bulk=False):
+    """Subtiles S of `sm` models; on the card `tb` must be the kernels'
+    and, for the passes that stage models by bulk copy (`bulk`), `sm` a
+    multiple of 4."""
     if int(sm) < 1:
         raise ValueError(f"sm={sm} must be positive")
     if int(tb) < 1:
@@ -214,13 +224,33 @@ def _check_blocks(tb, sm, M, device):
     if device.type == "cuda" and int(tb) != TB:
         raise ValueError(f"the screened kernels take object blocks of {TB} "
                          f"rows, got tb={tb}")
+    if device.type == "cuda" and bulk and int(sm) % 4:
+        raise ValueError(f"the screened passes take subtiles of a multiple "
+                         f"of 4 models on the card, got sm={sm}")
     return -(-int(M) // int(sm))
 
 
-def _lib(name, F):
+def _bulk_rows(mT, meT):
+    """(mT, meT, ld): the model rows at a stride `ld` that is a multiple
+    of 4 floats, on 16-byte boundaries, as the bulk copies of passes A and
+    B need; zero-padded copies when M is not a multiple of 4."""
+    F, M = mT.shape
+    if M % 4 == 0 and mT.data_ptr() % 16 == 0 and meT.data_ptr() % 16 == 0:
+        return mT, meT, M
+    ld = -(-M // 4) * 4
+    padded = []
+    for x in (mT, meT):
+        buf = x.new_zeros((F, ld))
+        buf[:, :M] = x
+        padded.append(buf)
+    return (*padded, ld)
+
+
+def _lib(name, *sizes):
     """The kernel library, after checking its object block and the
-    shared memory that `name` needs at F filters."""
-    lib = _load_checked(name, lambda lib: getattr(lib, f"fz_{name}_smem")(F))
+    shared memory that `name` needs at `sizes` (F, and pass B's Ngrid)."""
+    lib = _load_checked(name,
+                        lambda lib: getattr(lib, f"fz_{name}_smem")(*sizes))
     if lib.fz_screen_tb() != TB:
         raise RuntimeError(f"the built kernels take blocks of "
                            f"{lib.fz_screen_tb()} objects, not {TB}")
@@ -260,7 +290,7 @@ def chi2_brackets_screened(d, de, mT, meT, bounds, seed, *, c0, sm, tb=TB,
     float32 (B,), equal to chi2_brackets' whenever seed >= the final
     `above` on every row."""
     B, F, M = _check_pair_inputs(d, de, mT, meT)
-    S = _check_blocks(tb, sm, M, d.device)
+    S = _check_blocks(tb, sm, M, d.device, bulk=True)
     _check("bounds", bounds, (S, B), d.device)
     _check("seed", seed, (B,), d.device)
     if d.device.type == "cpu":
@@ -272,11 +302,12 @@ def chi2_brackets_screened(d, de, mT, meT, bounds, seed, *, c0, sm, tb=TB,
     if B == 0 or M == 0:
         return below, above
     lib = _lib("chi2_brackets_screened", F)
+    mT, meT, ld = _bulk_rows(mT, meT)
     with torch.cuda.device(d.device):
         _check_rc("chi2_brackets_screened", lib.fz_chi2_brackets_screened(
             d.data_ptr(), de.data_ptr(), mT.data_ptr(), meT.data_ptr(),
             bounds.data_ptr(), seed.data_ptr(), below.data_ptr(),
-            above.data_ptr(), B, M, F, S, int(sm), float(c0),
+            above.data_ptr(), B, M, ld, F, S, int(sm), float(c0),
             int(bool(ignore_model_err)), _stream(d.device)))
     chi2_brackets_screened.launches += 1
     return below, above
@@ -287,11 +318,13 @@ def chi2_stack_screened(d, de, mT, meT, G, shift, bounds, visit, cut_uf,
                         wthr=None, ignore_model_err=False):
     """Screened pass B: chi2_stack over the subtiles the gates admit, each
     block's in its visit order, s a running sum of per-subtile partials
-    (see csrc/chi2_screened.cu).  `ph` and `cut_abs` switch the
+    (each folded from 16 warps' shares in a fixed order) and pdf the same
+    per (row, column) over the models that the row keeps (see
+    csrc/chi2_screened.cu).  `ph` and `cut_abs` switch the
     absorption cut on; `wthr` is the float32 weight cut or None.  Returns
     (pdf (B, Ngrid), s (B,)), float32."""
     B, F, M = _check_pair_inputs(d, de, mT, meT)
-    S = _check_blocks(tb, sm, M, d.device)
+    S = _check_blocks(tb, sm, M, d.device, bulk=True)
     if G.ndim != 2 or G.shape[1] < 1:
         raise ValueError("G must be (M, Ngrid) with Ngrid >= 1")
     ngrid = G.shape[1]
@@ -319,9 +352,8 @@ def chi2_stack_screened(d, de, mT, meT, G, shift, bounds, visit, cut_uf,
     s = torch.zeros(B, dtype=torch.float32, device=dev)
     if B == 0 or M == 0:
         return pdf, s
-    lib = _lib("chi2_stack_screened", F)
-    threads = min(-(-ngrid // 32) * 32,
-                  lib.fz_chi2_stack_screened_max_threads())
+    lib = _lib("chi2_stack_screened", F, ngrid)
+    mT, meT, ld = _bulk_rows(mT, meT)
     thr = 0.0 if wthr is None else float(np.float32(wthr))
     with torch.cuda.device(dev):
         _check_rc("chi2_stack_screened", lib.fz_chi2_stack_screened(
@@ -330,9 +362,9 @@ def chi2_stack_screened(d, de, mT, meT, G, shift, bounds, visit, cut_uf,
             visit.data_ptr(), cut_uf.data_ptr(), cut_dot.data_ptr(),
             ph.data_ptr() if absorb else None,
             cut_abs.data_ptr() if absorb else None, pdf.data_ptr(),
-            s.data_ptr(), B, M, F, ngrid, S, int(sm), float(a1),
+            s.data_ptr(), B, M, ld, F, ngrid, S, int(sm), float(a1),
             int(wthr is not None), thr, int(bool(ignore_model_err)),
-            int(absorb), threads, _stream(dev)))
+            int(absorb), _stream(dev)))
     chi2_stack_screened.launches += 1
     return pdf, s
 

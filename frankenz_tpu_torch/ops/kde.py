@@ -175,15 +175,35 @@ def _kernel_rows(y, y_std, grid, dx, sig_thresh):
     return _renorm(vals)
 
 
+def _input_device(*xs, device=None):
+    """Where an `ops` function puts its inputs: `device` when named, else
+    the first tensor's device, else the card (host arrays alone, as JAX
+    runs on its default device).  Without a card that raises: nothing
+    falls back to the CPU unless asked (``device="cpu"`` or CPU
+    tensors)."""
+    if device is not None:
+        return torch.device(device)
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    if not torch.cuda.is_available():
+        raise RuntimeError("host inputs go to the card ('cuda') unless a "
+                           "device is named, and no CUDA device is "
+                           "available: pass device='cpu' or CPU tensors")
+    return torch.device("cuda")
+
+
 def kernel_matrix(y, y_std, grid, dx=None, sig_thresh=5.0, device=None):
     """Row-normalized truncated-Gaussian kernel matrix G (Ny, Ngrid).
 
     Row j is the kernel `gauss_kde` (pdf.py:444-526) stacks for label j:
     evaluated on the grid, truncated at int()-discretized
     +/- sig_thresh*sigma bounds, renormalized over the retained window
-    (zero row if the window sum vanishes).
+    (zero row if the window sum vanishes).  On `device`, else on the
+    inputs' (`grid` first), else on the card.
     """
-    grid = torch.as_tensor(grid, device=device)
+    grid = torch.as_tensor(grid,
+                           device=_input_device(grid, y, y_std, device=device))
     y = torch.as_tensor(y, device=grid.device)
     y_std = torch.as_tensor(y_std, device=grid.device)
     if dx is None:
@@ -208,8 +228,10 @@ def kernel_matrix_dict(pdfdict, y_idx, y_sig_idx, device=None):
 
     Row j is the edge-renormalized contribution `gauss_kde_dict`
     (pdf.py:529-622) stacks for dictionary element (y_idx[j],
-    y_sig_idx[j]), evaluated arithmetically at each grid offset.
+    y_sig_idx[j]), evaluated arithmetically at each grid offset.  On
+    `device`, else on the indices', else on the card.
     """
+    device = _input_device(y_idx, y_sig_idx, device=device)
     y_idx = _as(y_idx, device, torch.int64)
     y_sig_idx = _as(y_sig_idx, device, torch.int64)
     sigmas = torch.as_tensor(pdfdict.sigma_grid, device=y_idx.device)

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 from scipy.special import gammaln as _sp_gammaln
 
-from .kde import fp32_matmul
+from .kde import _input_device, fp32_matmul
 
 __all__ = ["static_spec", "LoglikeResult", "LogprobResult", "loglike",
            "loglike_fixed", "loglike_free", "logprob", "clean_data"]
@@ -74,11 +74,20 @@ class LogprobResult(NamedTuple):
 
 
 def _f(x, device=None):
-    """Tensor of at least float32 (float64 stays float64)."""
-    t = torch.as_tensor(x, device=device)
+    """Tensor of at least float32 (float64 stays float64), on `device`,
+    else on its own (a tensor), else on the card (`_input_device`)."""
+    t = torch.as_tensor(x, device=_input_device(x, device=device))
     if t.dtype != torch.float64:
         t = t.to(torch.float32)
     return t
+
+
+def _inputs(*xs):
+    """The likelihood's six inputs (model triplet first) on one device,
+    the first tensor's, else the card; the data triplet at least 2-D."""
+    dev = _input_device(*xs)
+    m, me, mm, d, de, dm = (_f(x, dev) for x in xs)
+    return (m, me, mm, *_atleast_2d(d, de, dm))
 
 
 def _atleast_2d(*tensors):
@@ -140,7 +149,8 @@ def _filter_reduce(d, de, dm, m, me, mm, *, ignore_model_err, need_logvar):
 def clean_data(data, data_err, data_mask):
     """Mask out non-finite / non-positive-error bands (pdf.py:310-311):
     bad bands get value 0, error 1, mask 0."""
-    d, de, dm = _f(data), _f(data_err), _f(data_mask)
+    dev = _input_device(data, data_err, data_mask)
+    d, de, dm = _f(data, dev), _f(data_err, dev), _f(data_mask, dev)
     ok = torch.isfinite(d) & torch.isfinite(de) & (de > 0.0)
     zero = torch.zeros((), dtype=d.dtype, device=d.device)
     return (torch.where(ok, d, zero), torch.where(ok, de, zero + 1.0),
@@ -149,9 +159,8 @@ def clean_data(data, data_err, data_mask):
 
 def _loglike_fixed(data, data_err, data_mask, models, models_err,
                    models_mask, *, clean, ignore_model_err, dim_prior):
-    m, me, mm = _f(models), _f(models_err), _f(models_mask)
-    d, de, dm = _atleast_2d(_f(data, m.device), _f(data_err, m.device),
-                            _f(data_mask, m.device))
+    m, me, mm, d, de, dm = _inputs(models, models_err, models_mask, data,
+                                   data_err, data_mask)
     if clean:
         d, de, dm = clean_data(d, de, dm)
     ndim = _ndim(dm, mm)
@@ -174,7 +183,8 @@ def loglike_fixed(data, data_err, data_mask, models, models_err, models_mask,
 
     Data triplet (Nobj, Nfilt) or (Nfilt,), model triplet (Nmodel,
     Nfilt); returns a `LoglikeResult` of (Nobj, Nmodel) tensors on the
-    models' device.
+    first input tensor's device (the models' first), or on the card when
+    every input is a host array.
     """
     return _loglike_fixed(data, data_err, data_mask, models, models_err,
                           models_mask, clean=False,
@@ -234,9 +244,8 @@ def _loglike_free(data, data_err, data_mask, models, models_err, models_mask,
     """`_loglike_free_jit` (frankenz_tpu/ops/likelihood.py:223-422), both
     branches: the matmul one for datum-only variance (8 objects or
     more) and the general fixed-point one."""
-    m, me, mm = _f(models), _f(models_err), _f(models_mask)
-    d, de, dm = _atleast_2d(_f(data, m.device), _f(data_err, m.device),
-                            _f(data_mask, m.device))
+    m, me, mm, d, de, dm = _inputs(models, models_err, models_mask, data,
+                                   data_err, data_mask)
     if clean:
         d, de, dm = clean_data(d, de, dm)
     dt = torch.promote_types(d.dtype, m.dtype)

@@ -14,6 +14,7 @@ threshold may flip).
 
 import numpy as np
 import pytest
+import torch
 
 from frankenz_tpu.ops.fused import fused_fit_pdf as jax_fused_fit_pdf
 
@@ -139,4 +140,5 @@ def test_cpu_masked_and_free_scale_configurations(monkeypatch):
     assert calls[2:] == [("lnl_reduce_plain", True),
                          ("lnl_stack_plain", True)]
     assert all(np.isfinite(x.numpy()[1:]).all() for x in out)
-    assert TL.logprob(*prob[:6], free_scale=True).lnprob.shape == (19, 251)
+    assert TL.logprob(*(torch.from_numpy(x) for x in prob[:6]),
+                      free_scale=True).lnprob.shape == (19, 251)

@@ -55,7 +55,8 @@ def _problem(F, B=19, M=251, Ngrid=77, seed=23):
     d[0] = 1e6  # every chi^2 past the clamp
     de = np.full((B, F), 0.3, np.float32)
     G = TK.kernel_matrix(rng.uniform(0, 3, M), np.full(M, 0.1),
-                         np.linspace(0, 3, Ngrid)).to(torch.float32)
+                         np.linspace(0, 3, Ngrid), device="cpu").to(
+                             torch.float32)
     return [torch.from_numpy(x) for x in (d, de, m.T.copy(), me.T.copy())] \
         + [G.contiguous()]
 
@@ -139,7 +140,8 @@ def _general_problem(F=5, B=19, M=251, Ngrid=77, seed=29, masked=True):
         dm[1:4] = 0.0
         dm[2, 0] = dm[3, :2] = 1.0
     G = TK.kernel_matrix(rng.uniform(0, 3, M), np.full(M, 0.1),
-                         np.linspace(0, 3, Ngrid)).to(torch.float32)
+                         np.linspace(0, 3, Ngrid), device="cpu").to(
+                             torch.float32)
     return [torch.from_numpy(np.ascontiguousarray(x))
             for x in (d, de, dm, m.T, me.T, mm.T)] + [G.contiguous()]
 
@@ -1180,7 +1182,8 @@ def _screened_problem(F=5, B=70, M=700, Ngrid=77, sm=128, tm=256,
          + rng.normal(0, 0.3, (B, F))).astype(np.float32)
     d[0] = 1e6
     G = TK.kernel_matrix(rng.uniform(0, 3, M), np.full(M, 0.1),
-                         np.linspace(0, 3, Ngrid)).to(torch.float32)
+                         np.linspace(0, 3, Ngrid), device="cpu",
+                         dx=None if Ngrid > 1 else 0.1).to(torch.float32)
     t = [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (
         d, np.full((B, F), 0.3, np.float32), m.T, (0.05 * m).T)]
     return SC.sort_and_bound(*t, G.contiguous().to(device), sm=sm, tm=tm,
@@ -1294,6 +1297,54 @@ def test_screened_wrappers_check_their_inputs(name, bad):
         call()
 
 
+def test_screened_passes_pad_model_rows_for_bulk_copies():
+    """Passes A and B stage model rows by 16-byte bulk copies: the
+    wrapper's padded copies hold the rows unchanged (zeros past M), the
+    plain versions give the same results on the padded rows' views, and
+    on the card a subtile must be a multiple of 4 models."""
+    srt = _screened_problem(M=701, sm=128, tm=256)
+    mT, meT, ld = SCK._bulk_rows(srt.mT, srt.meT)
+    assert ld == 704 and mT.shape == (5, 704) and meT.shape == (5, 704)
+    assert torch.equal(mT[:, :701], srt.mT) and not mT[:, 701:].any()
+    assert torch.equal(meT[:, :701], srt.meT) and not meT[:, 701:].any()
+    want = _screened_calls(srt, plain=True)
+    srt.mT, srt.meT = mT[:, :701], meT[:, :701]
+    got = _screened_calls(srt, plain=True)
+    for name in SCREENED:
+        for g, w in zip(got[name], want[name]):
+            assert torch.equal(g, w), name
+    aligned = _screened_problem(M=700)
+    assert SCK._bulk_rows(aligned.mT, aligned.meT) == (aligned.mT,
+                                                       aligned.meT, 700)
+    cuda = torch.device("cuda")
+    assert SCK._check_blocks(SCK.TB, 8, 701, cuda, bulk=True) == 88
+    assert SCK._check_blocks(SCK.TB, 6, 701, cuda) == 117
+    with pytest.raises(ValueError, match="multiple of 4"):
+        SCK._check_blocks(SCK.TB, 6, 701, cuda, bulk=True)
+
+
+def _screened_card_check(srt, **kw):
+    """The three wrappers on the card against their plain versions on
+    the same inputs: seed and brackets within 1 ulp, s 1e-5 relative,
+    PDFs 1e-5 of each row's largest value."""
+    K.reset_launch_counts()
+    got = _screened_calls(srt, **kw)
+    want = _screened_calls(srt, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert SCK.launch_counts() == {n: 1 for n in SCREENED}
+    _assert_within_ulp(got["screen_seed"][0], want["screen_seed"][0])
+    for g, w in zip(got["chi2_brackets_screened"],
+                    want["chi2_brackets_screened"]):
+        _assert_within_ulp(g, w)
+    pdf, s = got["chi2_stack_screened"]
+    pdf_w, s_w = want["chi2_stack_screened"]
+    torch.testing.assert_close(s, s_w, rtol=1e-5, atol=0)
+    scale = pdf_w.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    torch.testing.assert_close(pdf / scale, pdf_w / scale, rtol=0,
+                               atol=1e-5)
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("ignore_model_err", [False, True])
 @pytest.mark.parametrize("F,B,M,Ngrid,sm,tm", [
@@ -1302,6 +1353,12 @@ def test_screened_wrappers_check_their_inputs(name, bad):
     (2, 40, 1000, 513, 256, 512),
     (8, 33, 700, 301, 128, 128),
     (20, 70, 3000, 301, 512, 512),
+    # M % 4 != 0 and M < sm (one ragged subtile), one grid column, F = 1.
+    (1, 45, 99, 1, 128, 128),
+    # Ragged M, B and subtiles; past 320 columns (two CTA columns).
+    (5, 77, 1003, 513, 256, 512),
+    (20, 100, 2001, 1, 512, 512),
+    (2, 31, 4099, 77, 512, 1024),
 ])
 def test_screened_kernels_match_plain_on_card(cuda_device, F, B, M, Ngrid,
                                               sm, tm, ignore_model_err):
@@ -1309,40 +1366,50 @@ def test_screened_kernels_match_plain_on_card(cuda_device, F, B, M, Ngrid,
                             ignore_model_err=ignore_model_err,
                             device=cuda_device)
     for wt_thresh, absorb in ((1e-3, True), (None, False)):
-        K.reset_launch_counts()
-        kw = dict(ignore_model_err=ignore_model_err, wt_thresh=wt_thresh,
-                  absorb=absorb)
-        got = _screened_calls(srt, **kw)
-        want = _screened_calls(srt, plain=True, **kw)
-        torch.cuda.synchronize()
-        assert SCK.launch_counts() == {n: 1 for n in SCREENED}
-        _assert_within_ulp(got["screen_seed"][0], want["screen_seed"][0])
-        for g, w in zip(got["chi2_brackets_screened"],
-                        want["chi2_brackets_screened"]):
-            _assert_within_ulp(g, w)
-        pdf, s = got["chi2_stack_screened"]
-        pdf_w, s_w = want["chi2_stack_screened"]
-        torch.testing.assert_close(s, s_w, rtol=1e-5, atol=0)
-        scale = pdf_w.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
-        torch.testing.assert_close(pdf / scale, pdf_w / scale, rtol=0,
-                                   atol=1e-5)
+        _screened_card_check(srt, ignore_model_err=ignore_model_err,
+                             wt_thresh=wt_thresh, absorb=absorb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gates", ["closed", "open"])
+@pytest.mark.parametrize("F,B,M,Ngrid", [(5, 70, 700, 301), (1, 45, 99, 1),
+                                         (20, 77, 1003, 513)])
+def test_screened_kernels_with_every_gate_closed_or_open_on_card(
+        cuda_device, gates, F, B, M, Ngrid):
+    """NaN bounds close every gate (nothing runs: brackets -1 / +inf, s
+    and pdf 0); -inf bounds open every one (the run-all operand)."""
+    srt = _screened_problem(F, B=B, M=M, Ngrid=Ngrid, sm=128, tm=256,
+                            device=cuda_device)
+    srt.bounds = torch.full_like(srt.bounds,
+                                 torch.nan if gates == "closed"
+                                 else -torch.inf)
+    got = _screened_card_check(srt)
+    if gates == "closed":
+        below, above = got["chi2_brackets_screened"]
+        assert bool((below == -1.0).all()) and bool((above == torch.inf).all())
+        assert not got["chi2_stack_screened"][0].any()
+        assert not got["chi2_stack_screened"][1].any()
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("wt_thresh", [1e-3, None])
 @pytest.mark.parametrize("absorb", [True, False])
+@pytest.mark.parametrize("M,B,F,Ngrid", [(20_000, 3_000, 5, 301),
+                                         (1_003, 77, 1, 1),
+                                         (99, 45, 2, 77),
+                                         (4_099, 500, 20, 513)])
 def test_screened_route_equals_run_all_on_card(cuda_device, wt_thresh,
-                                               absorb):
+                                               absorb, M, B, F, Ngrid):
     """Every skip exact on the card: the screened route equals its
     run-all twin bit for bit, and its lmap the two-pass pair's."""
     rng = np.random.default_rng(47)
-    M, B, F = 20_000, 3_000, 5
     m = rng.uniform(1, 10, (M, F)).astype(np.float32)
     d = (m[rng.integers(0, M, B)] + rng.normal(0, 0.25, (B, F))).astype(
         np.float32)
     d[:5] = 1e6
     G = TK.kernel_matrix(rng.uniform(0, 3, M), np.full(M, 0.1),
-                         np.linspace(0, 3, 301)).to(torch.float32)
+                         np.linspace(0, 3, Ngrid), device="cpu",
+                         dx=None if Ngrid > 1 else 0.1).to(torch.float32)
     t = [torch.from_numpy(x).to(cuda_device) for x in (
         d, np.full((B, F), 0.25, np.float32), np.ones((B, F), np.float32),
         m, (0.05 * m).astype(np.float32), np.ones_like(m))]
@@ -1354,7 +1421,8 @@ def test_screened_route_equals_run_all_on_card(cuda_device, wt_thresh,
     ra = TF.fused_fit_pdf(*t, screen_run_all=True, **kw)
     for a, b in zip(scr[:3], ra):
         assert torch.equal(a, b)
-    assert float(scr[3][1]) < 1.0  # pass B skipped something
+    if M == 20_000:
+        assert float(scr[3][1]) < 1.0  # pass B skipped something
     k1 = TF.fused_fit_pdf(*t, screen=False, wt_thresh=wt_thresh)
     assert torch.equal(scr[1], k1[1])
     torch.testing.assert_close(scr[2], k1[2], rtol=2e-5, atol=2e-5)

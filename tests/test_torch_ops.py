@@ -57,7 +57,7 @@ def test_logprob_cleans_bad_bands_and_floors_zero_overlap(photometry):
     d[0, 3] = np.nan
     de[1, 4] = -1.0
     dm[2] = 0.0  # zero overlap with every model: lnl = -inf, not NaN
-    got = TL.logprob(d, de, dm, m, me, mm)
+    got = TL.logprob(*(torch.from_numpy(x) for x in (d, de, dm, m, me, mm)))
     with np.errstate(invalid="ignore"):  # the oracle's NaN for Ndim == 0
         want = O.loglike(d, de, dm, m, me, mm)
     lnl = got.lnprob.numpy()
@@ -68,12 +68,49 @@ def test_logprob_cleans_bad_bands_and_floors_zero_overlap(photometry):
     assert not np.isnan(lnl).any()
 
 
+@pytest.mark.parametrize("fn", ["kernel_matrix", "kernel_matrix_dict",
+                                "clean_data", "loglike_fixed",
+                                "loglike_free", "loglike", "logprob"])
+def test_host_inputs_go_to_the_card_and_raise_without_one(photometry, fn,
+                                                          monkeypatch):
+    """As JAX runs on its default device, the `ops` functions put host
+    arrays on the card unless told otherwise; with no card that raises
+    rather than falling back.  CPU tensors, or device="cpu", stay on the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    grid = np.linspace(0, 3, 31)
+    pd = TK.PDFDict(grid, np.linspace(0.01, 0.5, 10))
+    y, ys = np.linspace(0.1, 2.9, 7), np.full(7, 0.1)
+    if fn == "kernel_matrix":
+        call = lambda **kw: TK.kernel_matrix(y, ys, grid, **kw)  # noqa: E731
+        on_cpu = lambda: TK.kernel_matrix(  # noqa: E731
+            torch.from_numpy(y), ys, grid)
+    elif fn == "kernel_matrix_dict":
+        idx = pd.fit(y, ys)
+        call = lambda **kw: TK.kernel_matrix_dict(pd, *idx, **kw)  # noqa: E731
+        on_cpu = lambda: TK.kernel_matrix_dict(  # noqa: E731
+            pd, *(torch.from_numpy(np.asarray(i)) for i in idx))
+    else:
+        f = getattr(TL, fn)
+        args = photometry[:3] if fn == "clean_data" else photometry
+        call = lambda: f(*args)  # noqa: E731
+        on_cpu = lambda: f(*(torch.from_numpy(x) for x in args))  # noqa: E731
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    out = on_cpu()
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.device.type == "cpu"
+    if fn.startswith("kernel_matrix"):
+        assert torch.equal(call(device="cpu"), out)
+
+
 def test_kernel_matrices_match_jax():
     rng = np.random.default_rng(3)
     y = rng.uniform(-0.2, 3.2, 40)
     ys = rng.uniform(0.02, 0.4, 40)
     grid = np.linspace(0, 3, 91)
-    want, got = run_both(JK.kernel_matrix, TK.kernel_matrix, y, ys, grid)
+    want, got = run_both(JK.kernel_matrix, TK.kernel_matrix, y, ys, grid,
+                         torch_kw=dict(device="cpu"))
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
 
     jpd = JK.PDFDict(grid, np.linspace(0.01, 0.5, 30))
@@ -84,7 +121,7 @@ def test_kernel_matrices_match_jax():
     np.testing.assert_array_equal(ti, ji)
     np.testing.assert_array_equal(te, je)
     want = np.asarray(JK.kernel_matrix_dict(jpd, ji, je))
-    got = TK.kernel_matrix_dict(tpd, ti, te).numpy()
+    got = TK.kernel_matrix_dict(tpd, ti, te, device="cpu").numpy()
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
 
 
