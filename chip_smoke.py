@@ -10,7 +10,11 @@ port, numpy and scipy, and:
 1. prints the card (`nvidia-smi` name and power limit) and versions;
 2. builds the CUDA kernels from ``frankenz_tpu_torch/csrc`` (timed), and
    prints `nvcc -Xptxas -v`'s registers, spills and stack for the
-   screened passes A and B, with their dynamic shared memory;
+   screened passes A and B, with their dynamic shared memory; then the
+   cluster probe (`kernels.probe`): one cluster barrier round, one DSMEM
+   load and the two in a dependent loop of 40,000 rounds at cluster sizes
+   2, 4, 8 and 16, and the clusters the card holds at once at the launch
+   shapes of phases 9 and 10's cluster routes;
 3. holds each full-mask kernel against its plain PyTorch version on the
    card, at the config-4 widths (F=5, 100,000 models, a 301-point
    PDFDict grid, 2,048 objects) and three edge shapes (ragged M=99,937
@@ -80,8 +84,10 @@ port, numpy and scipy, and:
 9. GNG (config 3's other half, bench.py:164-172, :201-209: phase 8's
    model set, 5,000 x 50 steps up to 2,500 nodes, seed 2):
    `GrowingNeuralGas.train_network` cold and then warm on the `gng_train`
-   kernel, with the launch counters reset just before the warm run; the
-   kernel timed over the whole run and held bit for bit against its
+   kernel's cluster route, with the launch counters reset just before the
+   warm run; the kernel timed over the whole run on the cluster route and
+   on one block (cluster=1), the two bit-equal, and held bit for bit
+   against its
    plain version on every state array over the first 20,000 steps, over
    2,000 steps from the kernel's own state at step 200,000 and on a hub
    whose full slots drop edges; the run cut at step 200,000, and in 8
@@ -91,10 +97,12 @@ port, numpy and scipy, and:
 10. the samplers (config 5, bench.py:218-254: 50 bins x 20,000 objects,
    Gaussian PDFs of width 1.5 around redshifts drawn from a bump at bin
    18, ``default_rng(0)``): `population_sampler.run_mcmc(100, thin=400,
-   mh_steps=3, seed=0)` cold and then warm on the `pop_chain` kernel
-   (40,000 Gibbs steps, 120,000 proposals, one launch), with the launch
-   counters reset just before the warm run; the kernel timed over the
-   whole chain and held bit for bit against its plain version on
+   mh_steps=3, seed=0)` cold and then warm on the `pop_chain` kernel's
+   cluster route (40,000 Gibbs steps, 120,000 proposals, one launch), with
+   the launch counters reset just before the warm run; the kernel timed
+   over the whole chain on the cluster route and on one block
+   (cluster=1), the two bit-equal, and held bit for bit against its plain
+   version on
    samples, lnpost and the carry (the whole chain when the plain version
    takes under about 60 s, else the first 10,000 steps and 2,000 from
    the kernel's carry at step 30,000: on an H100 host the plain version
@@ -110,8 +118,9 @@ port, numpy and scipy, and:
 11. prints one JSON line of kernel results (fixed-scale entry points by
    their wrapper's name, the screened trio with its run fractions,
    free-scale ones with the suffix ``_fs``,
-   `scale_sweeps`, `som_train`, `gng_train` and `pop_chain`), each with
-   its bound
+   `scale_sweeps`, `som_train`, `gng_train` and `pop_chain`, the last two
+   with their cluster size, us a step and the block route's time), each
+   with its bound
    (the larger of its bytes over 3.35 TB/s and its operations over 67
    TFLOP/s, counted from this run's shapes and data, see `bound`), the
    card line again, and last ``{"ok": true, "device": {...}}``.
@@ -800,9 +809,13 @@ def gng_phase(torch, np, KS, tens, card, m3, me3, ones3, fit, grid3):
     gng.train_network(**train_kw)
     train_s = time.perf_counter() - t0
     launches = KS.launch_counts()
-    check(launches["gng_train"] == 1 and sum(launches.values()) == 1,
-          f"config 3 GNG train_network did not launch gng_train once "
-          f"({launches})")
+    idx = torch.cuda.current_device()
+    K_g = GG.choose_cluster({k: GG._active(idx, N, NFILT, k)
+                             for k in GG.CLUSTER_SIZES})
+    route = "gng_train_cluster" if K_g > 1 else "gng_train"
+    check(K_g > 1 and launches[route] == 1 and sum(launches.values()) == 1,
+          f"config 3 GNG train_network did not launch gng_train once on "
+          f"its cluster route (K={K_g}; {launches})")
     nedge = len(gng.edges())
     check(1 < gng.NNODE <= N and np.isfinite(gng.nodes).all()
           and np.isfinite(gng.nodes_err).all() and nedge > 0,
@@ -825,8 +838,8 @@ def gng_phase(torch, np, KS, tens, card, m3, me3, ones3, fit, grid3):
                                                         draws))
     kw = dict(nbatch=NBATCH3)
 
-    def run(fn, state, s0, s1):
-        return fn(*state, xc[s0:s1], iv[s0:s1], xr[s0:s1], **kw)
+    def run(fn, state, s0, s1, **route):
+        return fn(*state, xc[s0:s1], iv[s0:s1], xr[s0:s1], **kw, **route)
 
     def equal(a, b):
         return (all(torch.equal(x, y) for x, y in zip(a[:6], b[:6]))
@@ -839,6 +852,14 @@ def gng_phase(torch, np, KS, tens, card, m3, me3, ones3, fit, grid3):
                          gng.nodes), "gng_train on train_network's inputs "
           "differs from its graph")
     ms = median_ms(torch, lambda: run(GG.gng_train, start, 0, T), reps=3)
+    # The whole run on the block route (cluster=1), bit-equal to the
+    # cluster route's, timed beside it.
+    block = run(GG.gng_train, start, 0, T, cluster=1)
+    check(equal(block, full), f"gng_train's cluster route (K={K_g}) differs "
+          f"from its block route over the whole {T}-step run")
+    block_ms = median_ms(torch, lambda: run(GG.gng_train, start, 0, T,
+                                            cluster=1), reps=3)
+    del block
 
     # Kernel against plain, bit for bit on every state array: the first
     # PREFIX_G steps (the graph grows, the prune fires), TAIL_G steps from
@@ -881,7 +902,9 @@ def gng_phase(torch, np, KS, tens, card, m3, me3, ones3, fit, grid3):
                        4.0 * (3 * T * NFILT + 2 * N * (NFILT + 3 + 2 * GG.K)))
     deg = 2.0 * nedge / gng.NNODE
     print(f"gng_train: config 3, {N} nodes x {NFILT} filters, {T} steps: "
-          f"kernel {ms:.3f} ms ({1e3 * ms / T:.4f} us/step), plain "
+          f"kernel on a cluster of {K_g} CTAs {ms:.3f} ms "
+          f"({1e3 * ms / T:.4f} us/step), on one block {block_ms:.3f} ms "
+          f"({1e3 * block_ms / T:.4f} us/step), bit-equal; plain "
           f"{plain_ms:.3f} ms for the first {PREFIX_G} steps "
           f"({plain_ms / PREFIX_G * 1e3:.4f} us/step), bound {b_ms:.4f} ms "
           f"({b_by}; mean alive nodes {mean_alive:.1f}, alive at the "
@@ -937,9 +960,14 @@ def gng_phase(torch, np, KS, tens, card, m3, me3, ones3, fit, grid3):
     return {"name": "gng_train", "route": "cuda",
             "source": "frankenz_tpu_torch/csrc/gng_train.cu",
             "replaces": "frankenz_tpu/models/networks.py:2017",
-            "launches": launches["gng_train"],
+            "launches": launches["gng_train"] + launches[
+                "gng_train_cluster"],
+            "launches_by_route": {k: launches[k] for k in (
+                "gng_train", "gng_train_cluster")},
             # Every comparison above is bit for bit.
-            "max_abs_err": 0.0, "ms": ms,
+            "max_abs_err": 0.0, "ms": ms, "cluster": K_g,
+            "us_per_step": 1e3 * ms / T, "block_ms": block_ms,
+            "block_us_per_step": 1e3 * block_ms / T,
             "plain_ms": plain_ms, "plain_steps": PREFIX_G,
             "bound_ms": b_ms, "bound_by": b_by,
             # No PyTorch call trains a GNG.
@@ -1066,9 +1094,16 @@ def sampler_phase(torch, np, KS, tens, card):
     ps.run_mcmc(NITER_P, **run_kw)
     pop_s = time.perf_counter() - t0
     launches = KS.launch_counts()
-    check(launches["pop_chain"] == 1 and sum(launches.values()) == 1,
-          f"config 5 population run_mcmc did not launch pop_chain once "
-          f"({launches})")
+    idx = torch.cuda.current_device()
+    width = 2 + 2 * MH_P
+    K_p = PK.choose_cluster(
+        1, torch.cuda.get_device_properties(idx).multi_processor_count,
+        {k: PK._active(idx, NOBS5, width, MH_P, k)
+         for k in PK.cluster_sizes(NOBS5, width)})
+    check(K_p > 1 and launches["pop_chain_cluster"] == 1
+          and sum(launches.values()) == 1,
+          f"config 5 population run_mcmc did not launch pop_chain once on "
+          f"its cluster route (K={K_p}; {launches})")
     samples, lnps = ps.results
     check(samples.shape == (NITER_P, NBINS5) and lnps.shape == (NITER_P,),
           "config 5 population results' shape")
@@ -1106,6 +1141,14 @@ def sampler_phase(torch, np, KS, tens, card):
     del every, pos_steps, lnp_steps
     ms = median_ms(torch, lambda: PK.pop_chain(draws, pdfsT, *start, **kw),
                    reps=3)
+    # The whole chain on the block route (cluster=1), bit-equal to the
+    # cluster route's, timed beside it.
+    block = PK.pop_chain(draws, pdfsT, *start, cluster=1, **kw)
+    check(equal(block, full), f"pop_chain's cluster route (K={K_p}) differs "
+          f"from its block route over the whole {T}-step chain")
+    block_ms = median_ms(torch, lambda: PK.pop_chain(
+        draws, pdfsT, *start, cluster=1, **kw), reps=3)
+    del block
 
     # Kernel against plain, bit for bit on samples, lnpost and the carry.
     def seg(fn, carry, s0, s1):
@@ -1175,7 +1218,7 @@ def sampler_phase(torch, np, KS, tens, card):
     ps4 = population_sampler(pdfs, device="cuda")
     KS.reset_launch_counts()
     ps4.run_mcmc(NITER_P4, nchains=NCHAINS_P, **run_kw)
-    check(KS.launch_counts()["pop_chain"] == 1,
+    check(sum(KS.launch_counts().values()) == 1,
           f"{NCHAINS_P} chains took {KS.launch_counts()} launches")
     s4, l4 = ps4.results_by_chain
     d4 = ps4._tables(SEED_P, NCHAINS_P, NITER_P4 * THIN_P, NBINS5, MH_P)
@@ -1207,7 +1250,7 @@ def sampler_phase(torch, np, KS, tens, card):
     finally:
         TP._pop_draws = orig_draws
     nblocks = -(-NITER_P // BLOCK_P)
-    check(ndraws == [T] and KS.launch_counts()["pop_chain"] == nblocks,
+    check(ndraws == [T] and sum(KS.launch_counts().values()) == nblocks,
           f"sample(block={BLOCK_P}): tables drawn {ndraws}, launches "
           f"{KS.launch_counts()}")
     check(len(got) == NITER_P and all(
@@ -1233,8 +1276,10 @@ def sampler_phase(torch, np, KS, tens, card):
         4.0 * (pdfsT.numel() + draws.numel() + 2 * (NOBS5 + NBINS5 + 1)
                + NITER_P * (NBINS5 + 1)))
     print(f"pop_chain: config 5, {NBINS5} bins x {NOBS5} objects, {T} Gibbs "
-          f"steps x {MH_P} proposals: kernel {ms:.3f} ms "
-          f"({1e3 * ms / T:.4f} us/step), non-resident {nonres_ms:.3f} ms, "
+          f"steps x {MH_P} proposals: kernel on a cluster of {K_p} CTAs "
+          f"{ms:.3f} ms ({1e3 * ms / T:.4f} us/step), on one block "
+          f"{block_ms:.3f} ms ({1e3 * block_ms / T:.4f} us/step), "
+          f"bit-equal; non-resident {nonres_ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms for {plain_steps} steps "
           f"({plain_ms / plain_steps * 1e3:.4f} us/step), bound {b_ms:.4f} "
           f"ms ({b_by}); bit-equal to plain over {plain_note}, on the "
@@ -1372,9 +1417,15 @@ def sampler_phase(torch, np, KS, tens, card):
     return {"name": "pop_chain", "route": "cuda",
             "source": "frankenz_tpu_torch/csrc/pop_chain.cu",
             "replaces": "frankenz_tpu/samplers/population.py:179",
-            "launches": launches["pop_chain"],
+            "launches": launches["pop_chain"] + launches[
+                "pop_chain_cluster"],
+            "launches_by_route": {k: launches[k] for k in (
+                "pop_chain", "pop_chain_cluster")},
             # Every comparison above is bit for bit.
-            "max_abs_err": 0.0, "ms": ms, "nonresident_ms": nonres_ms,
+            "max_abs_err": 0.0, "ms": ms, "cluster": K_p,
+            "us_per_step": 1e3 * ms / T, "block_ms": block_ms,
+            "block_us_per_step": 1e3 * block_ms / T,
+            "nonresident_ms": nonres_ms,
             "plain_ms": plain_ms, "plain_steps": plain_steps,
             "bound_ms": b_ms, "bound_by": b_by,
             # No PyTorch call runs an MH chain.
@@ -1689,6 +1740,22 @@ def main():
         f"{v['spill_loads']} bytes spill stores / loads, stack {v['stack']}"
         f", {v['dynamic_smem']} bytes dynamic shared memory at F={NFILT} "
         f"Ngrid={NGRID}" for k, v in ptxas.items()), flush=True)
+    # The cluster probe: one cluster barrier, one DSMEM load, and the two
+    # in a dependent loop of 40,000 rounds, for K = 2, 4, 8, 16; and the
+    # clusters the card holds at once at the two chain kernels' launch
+    # shapes (config 3's GNG, config 5's chain), which pick their routes.
+    from frankenz_tpu_torch.kernels import gng as GG0
+    from frankenz_tpu_torch.kernels import pop as PK0
+    from frankenz_tpu_torch.kernels import probe as PRB
+    idx = torch.cuda.current_device()
+    occupancy = {
+        "gng_train": {k: GG0._active(idx, NMAX_G, NFILT, k)
+                      for k in GG0.CLUSTER_SIZES},
+        "pop_chain": {k: PK0._active(idx, NOBS5, 2 + 2 * MH_P, MH_P, k)
+                      for k in PK0.cluster_sizes(NOBS5, 2 + 2 * MH_P)}}
+    print("cluster_probe: " + json.dumps({
+        "rounds": 40_000, "probe": PRB.cluster_probe(dev, iters=40_000),
+        "max_active_clusters": occupancy, "card": card}), flush=True)
 
     # 3. kernels vs plain (bench.py:316-332's generator)
     rng = np.random.default_rng(0)

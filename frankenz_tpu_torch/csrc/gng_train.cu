@@ -38,9 +38,11 @@
 //                       errors first, as jnp.argmax ranks them)
 //               err  *= 1 - all_err_dec
 //   Bound on the H100: latency.  The steps form a strict chain, so the run
-//   is one thread block; the roofline bound of the whole run is well under
-//   a millisecond, the real floor is one step's latency.
-//   Design: one block of 128-1024 threads; thread `tid` owns nodes tid,
+//   is one thread block, or one cluster of K CTAs (the cluster route,
+//   below); the roofline bound of the whole run is well under a
+//   millisecond, the real floor is one step's latency.
+//   Design (the block route, `gng_train_kernel`): one block of 128-1024
+//   threads; thread `tid` owns nodes tid,
 //   tid + blockDim, ... (their scores, errors, prune and column pass).
 //   The node table [F][N], err, c and alive live in dynamic shared memory
 //   when they fit (2,500 nodes x 5 filters: 80 KB), else in device memory.
@@ -69,6 +71,8 @@
 //   parallel; the next step's draw is prefetched into registers as in
 //   som_train.cu.  Instantiated for F = 1..8 at compile time and for any
 //   F at run time.
+//   The cluster route (`gng_train_cluster_kernel`) spreads the nodes and
+//   their rows over the shared memory of K CTAs: see the note above it.
 //
 // Arithmetic: every per-node operation is an explicitly rounded IEEE
 // intrinsic (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn, logf), the filter
@@ -79,14 +83,22 @@
 // ---------------------------------------------------------------------
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kK = 32;
 constexpr int kMinThreads = 128;
 constexpr int kMaxThreads = 1024;
+constexpr int kClusterMaxThreads = 512;  // 128 registers a thread
+constexpr int kMaxEntries = 8;  // exchange entries a lane: 16 x 16 / 32
+// A cluster CTA asks for at least this much shared memory, over half an
+// SM's 228 KB, so that no two CTAs of a run share an SM.
+constexpr int kSpreadSmem = 120 * 1024;
 constexpr int kSched = 2;     // A, a1
 constexpr int kPrefetch = 3;  // F <= 120: 3F + 2 <= 3 x 128
 constexpr int kNone = 1000000000;
@@ -108,6 +120,7 @@ struct GngArgs {
   int N, F, T, nbatch, max_age;
   float lb, ln, dec_new, dec_all;
   int dim_prior;
+  int K, NL;     // cluster route: CTAs, node slots a CTA (ceil(N / K))
 };
 
 // torch.maximum(a, b) for a constant b: NaN passes through.
@@ -609,6 +622,553 @@ __global__ void __launch_bounds__(kMaxThreads)
   if (tid == 0) a.ov[0] = *ctl_ov;
 }
 
+// ---------------------------------------------------------------------
+// The cluster route: one run on a cluster of K CTAs (K = 2..16).
+//   Ownership: node n belongs to CTA n mod K, at slot m = n / K, for the
+//   whole run: its pos column, err, c, alive and its ids / sref rows sit
+//   in that CTA's dynamic shared memory (72 words a node at F = 5: 90 KB a
+//   CTA at 2,500 nodes and K = 8) and go back to device memory at the
+//   end.  The rows are slot-major, slot k of slot m at k LS + m with the
+//   stride LS = NL | 1 odd: a thread scanning its own row and a warp
+//   upserting one row (lane = slot) both touch 32 distinct banks (the
+//   block route's [n][32] rows would put a warp's 32 rows in one bank).
+//   Thread t of a CTA
+//   owns its slots t, t + blockDim, ...: their scores, column search,
+//   moves, errors, prune and searches, so a node's own state needs no
+//   barrier from one step to the next.
+//   Per step: the score pass over the CTA's nodes, a per-thread top-2 of
+//   64-bit rank keys (`rank_key`), the warp's top-2 by four redux.sync
+//   reductions (`warp_key2`) to this CTA's exchange slot; one cluster
+//   barrier; warp 0 of every CTA
+//   loads every warp's slot of every CTA over DSMEM (all of a lane's
+//   loads in flight at once) and merges them (the keys order as `better`,
+//   a strict total order, so every CTA gets the same bmu and bmu2 as the
+//   block route); warp 0 of bmu's owner upserts bmu2 into bmu's row, then
+//   warp 0 of bmu2's owner bmu into bmu2's row (in that order when one CTA
+//   owns both), and every warp 0 writes bmu for its CTA; a CTA
+//   barrier; then every thread runs the column search over its own rows
+//   (the rows that hold bmu, bmu's own included: bmu2's row holds it once
+//   upserted), decrements the slots holding bmu, moves those nodes and
+//   bmu (bmu's owner first takes chi2[bmu] from the unmoved node), adds
+//   chi2[bmu] to bmu's error and bumps its counter.  The column search is
+//   the block route's rule once an upsert was dropped, and equals its
+//   row walk before (every edge sits in both rows), so it is taken at
+//   every step; the drops are counted per CTA and summed at the end.
+//   One cluster barrier and one CTA barrier a step.
+//   Batch steps: the prune over own rows, then one exchange (alive count,
+//   first dead index, the (err, index) best); below N alive nodes the e2
+//   search over own rows and a second exchange; then warp 0 of each CTA
+//   makes the insert's operations on the rows and nodes it owns, in the
+//   block route's order (each row's operations read only that row and its
+//   owner's counters, so rows owned by different CTAs commute).  The
+//   inserted node's owner reads pos[e1] and pos[e2] over DSMEM (no CTA
+//   writes those before the next step's barrier) and takes err[e1] decayed
+//   from the exchanged best; a CTA barrier follows.
+//   Exchange slots: [2][32] x 16 bytes, alternating between exchanges, so
+//   a slot is rewritten two barriers after it was read.  The draws' A and
+//   a1 are computed by the CTAs in turn and published by a cluster
+//   barrier; each CTA stages the draw records itself.  A last cluster
+//   barrier keeps every CTA's shared memory until all reads are done.
+//   Bit-equal to the block route and the plain version: every per-node
+//   operation is the same, every cross-node choice an argmax / argmin
+//   under a total order or an integer sum.
+// ---------------------------------------------------------------------
+
+// The cluster route ranks (score, node) pairs as one 64-bit key, larger
+// is better: the score's order-preserving bits (-0 taken as +0, which
+// compares equal) above the complement of the index (ties to the lowest
+// index).  For scores that are not NaN (the score pass maps NaN to -inf)
+// this is `better`'s order, so a top 2 is two unsigned maxima and a
+// merge of two disjoint top 2s four min / max operations.
+__device__ __forceinline__ unsigned long long rank_key(float v, int i) {
+  unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (unsigned)~i;
+}
+
+__device__ __forceinline__ float key_score(unsigned long long k) {
+  const unsigned u = (unsigned)(k >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u ^ 0x80000000u) : ~u);
+}
+
+__device__ __forceinline__ int key_node(unsigned long long k) {
+  return (int)~(unsigned)k;
+}
+
+struct Key2 {
+  unsigned long long k1, k2;  // k1 >= k2
+};
+
+__device__ __forceinline__ void key2_merge(Key2& t, unsigned long long b1,
+                                           unsigned long long b2) {
+  const unsigned long long lo = min(t.k1, b1), hi2 = max(t.k2, b2);
+  t.k1 = max(t.k1, b1);
+  t.k2 = max(lo, hi2);
+}
+
+// The largest key over the warp's lanes, in every lane: two 32-bit
+// reductions (redux.sync), the high words, then the low words of the
+// lanes that hold the largest high word.
+__device__ __forceinline__ unsigned long long warp_key_max(
+    unsigned long long k) {
+  const unsigned hi = __reduce_max_sync(kFull, (unsigned)(k >> 32));
+  const unsigned lo = __reduce_max_sync(
+      kFull, (unsigned)(k >> 32) == hi ? (unsigned)k : 0u);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// The warp's top 2 of the union of its lanes' disjoint top 2s (distinct
+// keys), in every lane: the largest k1, then the largest of every lane's
+// k1, or k2 in the lane whose k1 won.
+__device__ __forceinline__ void warp_key2(Key2& t) {
+  const unsigned long long b1 = warp_key_max(t.k1);
+  t.k2 = warp_key_max(t.k1 == b1 ? t.k2 : t.k1);
+  t.k1 = b1;
+}
+
+// Upsert of edge j into node slot m's slots (slot-major rows, stride ls),
+// anchor ci, by one warp; every lane returns the drop (0 or 1).
+__device__ __forceinline__ int warp_upsert_sm(int* ids, int* sref, int ls,
+                                              int m, int j, int ci,
+                                              int lane) {
+  const int at = lane * ls + m;
+  const int slot = upsert_slot(ids[at], j);
+  if (lane == slot) {
+    ids[at] = j;
+    sref[at] = ci;
+  }
+  __syncwarp();
+  return slot < 0;
+}
+
+#ifdef FZ_STAMPS
+// Debug builds only (nvcc -DFZ_STAMPS; tools/ab_chains.py --stamps): CTA
+// 0's thread 0 adds the clock64 cycles of each part of a step to register
+// i of its own, and stores them in fz_gng_stamps at the end.
+__device__ unsigned long long fz_gng_stamps[8];
+#define FZ_STAMP_INIT                   \
+  long long t_stamp = clock64();        \
+  unsigned long long t_acc[8] = {}
+#define FZ_STAMP(i)                                   \
+  do {                                                \
+    const long long t_ = clock64();                   \
+    t_acc[i] += (unsigned long long)(t_ - t_stamp);   \
+    t_stamp = t_;                                     \
+  } while (0)
+#define FZ_STAMP_STORE                                \
+  do {                                                \
+    if (rank == 0 && tid == 0)                       \
+      for (int i_ = 0; i_ < 8; ++i_) fz_gng_stamps[i_] += t_acc[i_]; \
+  } while (0)
+#else
+#define FZ_STAMP_INIT
+#define FZ_STAMP(i) \
+  do {              \
+  } while (0)
+#define FZ_STAMP_STORE \
+  do {                 \
+  } while (0)
+#endif
+
+template <int kF>
+__global__ void __launch_bounds__(kClusterMaxThreads)
+    gng_train_cluster_kernel(const GngArgs a) {
+  extern __shared__ int4 smem4[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int K = a.K, NL = a.NL;
+  const int rank = (int)cl.block_rank();
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nth >> 5;
+  const int nx = K * nwarps;  // exchange entries of the cluster
+  const int N = a.N, T = a.T;
+  const int F = kF ? kF : a.F;
+  const int rlen = 3 * F + kSched;
+
+  const int LS = NL | 1;  // row stride: odd, so a warp's slots miss banks
+  int4* xch = smem4;                                       // [2][32]
+  int* pick = reinterpret_cast<int*>(smem4 + 64);          // bmu
+  int* ids = reinterpret_cast<int*>(smem4 + 65);           // [32][LS]
+  int* sref = ids + (size_t)kK * LS;                       // [32][LS]
+  float* pos = reinterpret_cast<float*>(sref + (size_t)kK * LS);  // [F][NL]
+  float* err = pos + (size_t)F * NL;
+  int* cc = reinterpret_cast<int*>(err + NL);
+  int* alive = cc + NL;
+  float* recs = reinterpret_cast<float*>(alive + NL);      // 3 records
+
+  auto mine = [&](int n) { return n >= 0 && n < N && n % K == rank; };
+
+  for (int m = tid; m < NL; m += nth) {
+    const int n = m * K + rank;
+    const bool real = n < N;
+    for (int f = 0; f < F; ++f)
+      pos[f * NL + m] = real ? a.pos[f * N + n] : 0.0f;
+    err[m] = real ? a.err[n] : 0.0f;
+    cc[m] = real ? a.c[n] : 0;
+    alive[m] = real ? a.alive[n] : 0;
+  }
+  for (int k = tid; k < NL * kK; k += nth) {
+    const int m = k / kK, n = m * K + rank, at = (k % kK) * LS + m;
+    ids[at] = n < N ? a.ids[(size_t)n * kK + k % kK] : -1;
+    sref[at] = n < N ? a.sref[(size_t)n * kK + k % kK] : 0;
+  }
+  // The draws' A and a1, by the CTAs in turn (the block route's prologue).
+  for (int s = rank * nth + tid; s < T; s += K * nth) {
+    const float* xc = a.xc + (size_t)s * F;
+    const float* iv = a.iv + (size_t)s * F;
+    float A = 0.0f;
+    int ndim = 0;
+    for (int f = 0; f < F; ++f) {
+      const float term = __fmul_rn(xc[f], __fmul_rn(xc[f], iv[f]));
+      A = f == 0 ? term : __fadd_rn(A, term);
+      ndim += iv[f] > 0.0f;
+    }
+    a.sched[(size_t)s * kSched] = A;
+    a.sched[(size_t)s * kSched + 1] =
+        __fsub_rn(__fmul_rn(0.5f, __fsub_rn((float)ndim, 1.0f)), 1.0f);
+  }
+  __threadfence();
+  cl.sync();  // every CTA started; the schedule published
+  if (T > 0)
+    for (int k = tid; k < rlen; k += nth) {
+      float lo, hi;
+      record_load(a, F, 0, k, lo, hi);
+      recs[k] = record_value(F, k, lo, hi);
+    }
+  __syncthreads();
+
+  // Warp 0's exchange entries e = lane + 32 q: CTA e / nwarps, warp
+  // e % nwarps (phase 0; phase 1 is 32 entries on).
+  const int4* rx[kMaxEntries];
+#pragma unroll
+  for (int q = 0; q < kMaxEntries; ++q) {
+    const int e = min(lane + 32 * q, nx - 1);
+    rx[q] = cl.map_shared_rank(xch, e / nwarps) + e % nwarps;
+  }
+  const unsigned long long none = rank_key(-INFINITY, INT_MAX);
+  int ph = 0, drops = 0;
+  FZ_STAMP_INIT;
+  for (int s = 0; s < T; ++s) {
+    const float* cur = recs + (s % 3) * rlen;
+    const float* cxiv = cur;
+    const float* civ = cur + F;
+    const float* cxr = cur + 2 * F;
+    const float A = cur[3 * F], a1 = cur[3 * F + 1];
+
+    float pre[kPrefetch], pre_hi[kPrefetch];
+    const bool more = s + 1 < T;
+#pragma unroll
+    for (int j = 0; j < kPrefetch; ++j) {
+      const int k = tid + j * nth;
+      pre[j] = pre_hi[j] = 0.0f;
+      if (more && k < rlen) record_load(a, F, s + 1, k, pre[j], pre_hi[j]);
+    }
+
+    // Score pass over this CTA's nodes: this thread's top 2 as keys.
+    Key2 t = {none, none};
+    for (int m = tid; m < NL; m += nth) {
+      const int n = m * K + rank;
+      if (n >= N) break;
+      float score = kNeg;
+      if (alive[m]) {
+        const float chi2 = node_chi2<kF>(pos, NL, F, m, cxiv, civ, A);
+        score = a.dim_prior
+                    ? __fsub_rn(__fmul_rn(a1, logf(max_nan(chi2, 1e-30f))),
+                                __fmul_rn(0.5f, chi2))
+                    : __fmul_rn(-0.5f, chi2);
+        if (score != score) score = -INFINITY;
+      }
+      key2_merge(t, rank_key(score, n), none);
+    }
+    warp_key2(t);
+    FZ_STAMP(0);
+    int4* xs = xch + ph * 32;
+    if (lane == 0)
+      xs[warp] = make_int4((int)(unsigned)t.k1, (int)(unsigned)(t.k1 >> 32),
+                           (int)(unsigned)t.k2, (int)(unsigned)(t.k2 >> 32));
+    if (more) {
+      float* nxt = recs + ((s + 1) % 3) * rlen;
+#pragma unroll
+      for (int j = 0; j < kPrefetch; ++j) {
+        const int k = tid + j * nth;
+        if (k < rlen) nxt[k] = record_value(F, k, pre[j], pre_hi[j]);
+      }
+    }
+    FZ_STAMP(1);
+    cl.sync();  // exchange: every warp's top 2
+    FZ_STAMP(2);
+    // Warp 0 alone merges the cluster's entries (every entry's load first,
+    // from the pointers set up before the loop), makes this CTA's upserts
+    // and hands bmu to the CTA behind the CTA barrier.
+    if (warp == 0) {
+      int4 v[kMaxEntries];
+#pragma unroll
+      for (int q = 0; q < kMaxEntries; ++q)
+        if (lane + 32 * q < nx) v[q] = rx[q][ph * 32];
+      t.k1 = t.k2 = none;
+#pragma unroll
+      for (int q = 0; q < kMaxEntries; ++q)
+        if (lane + 32 * q < nx)
+          key2_merge(t,
+                     ((unsigned long long)(unsigned)v[q].y << 32) |
+                         (unsigned)v[q].x,
+                     ((unsigned long long)(unsigned)v[q].w << 32) |
+                         (unsigned)v[q].z);
+      warp_key2(t);
+      const int b1 = key_node(t.k1);
+      const int b2 = better(kNeg, b1, key_score(t.k2), key_node(t.k2))
+                         ? b1
+                         : key_node(t.k2);
+      FZ_STAMP(3);
+      if (mine(b1))
+        drops += warp_upsert_sm(ids, sref, LS, b1 / K, b2, cc[b1 / K], lane);
+      if (mine(b2))
+        drops += warp_upsert_sm(ids, sref, LS, b2 / K, b1, cc[b2 / K], lane);
+      if (lane == 0) *pick = b1;
+    }
+    ph ^= 1;
+    __syncthreads();  // the upserted rows and bmu
+    FZ_STAMP(4);
+    const int bmu = *pick;
+
+    // Column search, moves, errors and counters over this CTA's nodes.
+    const bool batch = s % a.nbatch == 0;
+    for (int m = tid; m < NL; m += nth) {
+      const int n = m * K + rank;
+      if (n >= N) break;
+      // The row's slots first (no store between the loads), then the
+      // decrements of the slots that hold bmu.
+      unsigned hold = 0;
+#pragma unroll
+      for (int k = 0; k < kK; ++k)
+        hold |= (unsigned)(ids[k * LS + m] == bmu) << k;
+      const bool nb = hold != 0;
+      for (unsigned b = hold; b; b &= b - 1) sref[(__ffs(b) - 1) * LS + m] -= 1;
+      float chi2b = 0.0f;
+      if (n == bmu) chi2b = node_chi2<kF>(pos, NL, F, m, cxiv, civ, A);
+      if (nb || n == bmu)
+        move_node<kF>(pos, NL, F, m,
+                      __fadd_rn(n == bmu ? a.lb : 0.0f, nb ? a.ln : 0.0f),
+                      cxr);
+      const float e = __fadd_rn(err[m], n == bmu ? chi2b : 0.0f);
+      err[m] = batch ? e : __fmul_rn(e, a.dec_all);
+      if (n == bmu) cc[m] += 1;
+    }
+    FZ_STAMP(5);
+    if (!batch) continue;
+
+    // Batch update: prune own rows, deaths, and the insert's reductions.
+    int cnt = 0, fr = INT_MAX, ei = INT_MAX;
+    float ev = -INFINITY;
+    for (int m = tid; m < NL; m += nth) {
+      const int n = m * K + rank;
+      if (n >= N) break;
+      const int cn = cc[m];
+      unsigned old = 0;  // the slots this prune empties
+      int deg = 0;
+#pragma unroll
+      for (int k = 0; k < kK; ++k) {
+        const bool used = ids[k * LS + m] >= 0;
+        const bool aged = cn - sref[k * LS + m] >= a.max_age;
+        old |= (unsigned)(used && aged) << k;
+        deg += used && !aged;
+      }
+      for (unsigned b = old; b; b &= b - 1) ids[(__ffs(b) - 1) * LS + m] = -1;
+      const bool al = alive[m] && deg > 0;
+      alive[m] = al;
+      if (al) {
+        ++cnt;
+        if (better(err[m], n, ev, ei)) {
+          ev = err[m];
+          ei = n;
+        }
+      } else {
+        fr = min(fr, n);
+      }
+    }
+    cnt = warp_sum(cnt);
+    fr = warp_min(fr);
+    warp_best(ev, ei);
+    xs = xch + ph * 32;
+    if (lane == 0) xs[warp] = make_int4(cnt, fr, __float_as_int(ev), ei);
+    cl.sync();  // exchange: alive counts, first dead, largest error
+    cnt = 0;
+    fr = INT_MAX;
+    ev = -INFINITY;
+    ei = INT_MAX;
+    for (int e = lane; e < nx; e += 32) {
+      const int4 v = cl.map_shared_rank(xs, e / nwarps)[e % nwarps];
+      cnt += v.x;
+      fr = min(fr, v.y);
+      if (better(__int_as_float(v.z), v.w, ev, ei)) {
+        ev = __int_as_float(v.z);
+        ei = v.w;
+      }
+    }
+    cnt = warp_sum(cnt);
+    fr = warp_min(fr);
+    warp_best(ev, ei);
+    ph ^= 1;
+    if (cnt < N) {
+      const int e1 = ei == INT_MAX ? kNone : ei;
+      // e2: the best error among the nodes whose slots hold e1.
+      float v = -INFINITY;
+      int vi = INT_MAX;
+      if (e1 != kNone)
+        for (int m = tid; m < NL; m += nth) {
+          const int n = m * K + rank;
+          if (n >= N) break;
+          bool holds = false;
+#pragma unroll
+          for (int k = 0; k < kK; ++k) holds |= ids[k * LS + m] == e1;
+          if (holds && better(err[m], n, v, vi)) {
+            v = err[m];
+            vi = n;
+          }
+        }
+      warp_best(v, vi);
+      xs = xch + ph * 32;
+      if (lane == 0) xs[warp] = make_int4(__float_as_int(v), vi, 0, 0);
+      cl.sync();  // exchange: e2
+      v = -INFINITY;
+      vi = INT_MAX;
+      for (int e = lane; e < nx; e += 32) {
+        const int4 x = cl.map_shared_rank(xs, e / nwarps)[e % nwarps];
+        if (better(__int_as_float(x.x), x.y, v, vi)) {
+          v = __int_as_float(x.x);
+          vi = x.y;
+        }
+      }
+      warp_best(v, vi);
+      ph ^= 1;
+      const int e2 = vi == INT_MAX ? kNone : vi;
+      const int fnode = fr;  // < N: fewer than N nodes are alive
+      if (warp == 0) {
+        // The block route's insert, each operation by the owner of the
+        // node or row it writes, in the block route's order.
+        if (lane == 0) {
+          if (mine(e1)) err[e1 / K] = __fmul_rn(err[e1 / K], a.dec_new);
+          if (mine(e2) && e2 != e1)
+            err[e2 / K] = __fmul_rn(err[e2 / K], a.dec_new);
+          if (mine(fnode)) {
+            err[fnode / K] = e1 != kNone ? __fmul_rn(ev, a.dec_new) : 0.0f;
+            alive[fnode / K] = 1;
+          }
+        }
+        if (mine(fnode))
+          for (int f = lane; f < F; f += 32) {
+            const float p1 =
+                e1 != kNone
+                    ? cl.map_shared_rank(pos, e1 % K)[f * NL + e1 / K]
+                    : 0.0f;
+            const float p2 =
+                e2 != kNone
+                    ? cl.map_shared_rank(pos, e2 % K)[f * NL + e2 / K]
+                    : 0.0f;
+            pos[f * NL + fnode / K] = __fmul_rn(0.5f, __fadd_rn(p1, p2));
+          }
+        if (mine(e1) && ids[lane * LS + e1 / K] == e2)
+          ids[lane * LS + e1 / K] = -1;
+        __syncwarp();
+        if (mine(e2) && ids[lane * LS + e2 / K] == e1)
+          ids[lane * LS + e2 / K] = -1;
+        __syncwarp();
+        if (mine(fnode)) ids[lane * LS + fnode / K] = -1;
+        __syncwarp();
+        if (mine(fnode)) {
+          const int cf = cc[fnode / K];
+          drops += warp_upsert_sm(ids, sref, LS, fnode / K, e1, cf, lane);
+          drops += warp_upsert_sm(ids, sref, LS, fnode / K, e2, cf, lane);
+        }
+        if (mine(e1))
+          drops += warp_upsert_sm(ids, sref, LS, e1 / K, fnode, cc[e1 / K],
+                                  lane);
+        if (mine(e2))
+          drops += warp_upsert_sm(ids, sref, LS, e2 / K, fnode, cc[e2 / K],
+                                  lane);
+      }
+      __syncthreads();  // the inserted node
+    }
+    for (int m = tid; m < NL; m += nth)
+      if (m * K + rank < N) err[m] = __fmul_rn(err[m], a.dec_all);
+    FZ_STAMP(6);
+  }
+  FZ_STAMP_STORE;
+
+  __syncthreads();
+  for (int m = tid; m < NL; m += nth) {
+    const int n = m * K + rank;
+    if (n >= N) break;
+    for (int f = 0; f < F; ++f) a.pos[f * N + n] = pos[f * NL + m];
+    a.err[n] = err[m];
+    a.c[n] = cc[m];
+    a.alive[n] = alive[m];
+  }
+  for (int k = tid; k < NL * kK; k += nth) {
+    const int m = k / kK, n = m * K + rank, at = (k % kK) * LS + m;
+    if (n < N) {
+      a.ids[(size_t)n * kK + k % kK] = ids[at];
+      a.sref[(size_t)n * kK + k % kK] = sref[at];
+    }
+  }
+  // The drops: warp 0's count (the same in every lane) from every CTA.
+  int4* xs = xch + ph * 32;
+  if (tid == 0) xs[0].x = drops;
+  cl.sync();
+  if (rank == 0 && tid == 0) {
+    int ov = a.ov[0];
+    for (int r = 0; r < K; ++r) ov += cl.map_shared_rank(xs, r)[0].x;
+    a.ov[0] = ov;
+  }
+  cl.sync();  // every CTA's shared memory stays until the last read
+}
+
+template <int kF>
+cudaError_t cluster_launch(const GngArgs& a, int threads, int smem,
+                           cudaStream_t stream, int* max_active) {
+  auto kern = gng_train_cluster_kernel<kF>;
+  smem = smem > kSpreadSmem ? smem : kSpreadSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, a.K > 8);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.K);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_active) return cudaOccupancyMaxActiveClusters(max_active, kern, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kern, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t cluster_launch_f(const GngArgs& a, int threads, int smem,
+                             cudaStream_t stream, int* max_active) {
+  switch (a.F) {
+    case 1: return cluster_launch<1>(a, threads, smem, stream, max_active);
+    case 2: return cluster_launch<2>(a, threads, smem, stream, max_active);
+    case 3: return cluster_launch<3>(a, threads, smem, stream, max_active);
+    case 4: return cluster_launch<4>(a, threads, smem, stream, max_active);
+    case 5: return cluster_launch<5>(a, threads, smem, stream, max_active);
+    case 6: return cluster_launch<6>(a, threads, smem, stream, max_active);
+    case 7: return cluster_launch<7>(a, threads, smem, stream, max_active);
+    case 8: return cluster_launch<8>(a, threads, smem, stream, max_active);
+    default: return cluster_launch<0>(a, threads, smem, stream, max_active);
+  }
+}
+
 template <bool kResident, int kF>
 cudaError_t launch(const GngArgs& a, int threads, int smem,
                    cudaStream_t stream) {
@@ -634,6 +1194,19 @@ cudaError_t launch_f(const GngArgs& a, int threads, int smem,
     case 8: return launch<kResident, 8>(a, threads, smem, stream);
     default: return launch<kResident, 0>(a, threads, smem, stream);
   }
+}
+
+// The cluster route's shape arguments; false when it does not take them.
+bool cluster_args(GngArgs& a, int N, int F, int K, int threads) {
+  if (N < 2 || F < 1 || K < 2 || K > 16 ||
+      3 * F + kSched > kPrefetch * threads || threads < kMinThreads ||
+      threads > kClusterMaxThreads || threads % 32 != 0)
+    return false;
+  a.N = N;
+  a.F = F;
+  a.K = K;
+  a.NL = (N + K - 1) / K;
+  return true;
 }
 
 }  // namespace
@@ -690,5 +1263,78 @@ int fz_gng_train(float* posT, float* err, int* alive, int* ids, int* sref,
   return (int)(resident ? launch_f<true>(a, threads, smem, st)
                         : launch_f<false>(a, threads, smem, st));
 }
+
+// The cluster route (K = 2..16 CTAs): shared-memory bytes of one CTA,
+// its ceil(N / K) nodes' state and rows with the exchange slots and the
+// draw records.
+int fz_gng_train_cluster_smem(int N, int F, int K) {
+  if (N < 1 || F < 1 || K < 1) return INT_MAX;
+  const long long NL = ((long long)N + K - 1) / K;
+  const long long words =
+      260 + 2LL * kK * (NL | 1) + (F + 3LL) * NL + 3LL * (3 * F + kSched);
+  const long long bytes = words * 4LL;
+  return bytes > INT_MAX ? INT_MAX : (int)bytes;
+}
+
+// Clusters of this shape that the card holds at once (0: it cannot
+// schedule them), or minus a CUDA error.
+int fz_gng_train_cluster_max_active(int N, int F, int K, int threads) {
+  GngArgs a = {};
+  if (!cluster_args(a, N, F, K, threads)) return -(int)cudaErrorInvalidValue;
+  int n = 0;
+  const cudaError_t err = cluster_launch_f(
+      a, threads, fz_gng_train_cluster_smem(N, F, K), nullptr, &n);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)err;
+  }
+  return n;
+}
+
+// As fz_gng_train, on a cluster of K CTAs of `threads` (128-512) threads
+// each (the state always in shared memory).
+int fz_gng_train_cluster(float* posT, float* err, int* alive, int* ids,
+                         int* sref, int* c, int* ov, const float* xc,
+                         const float* iv, const float* xr, float* sched, int N,
+                         int F, int T, int nbatch, int max_age, float lb,
+                         float ln, float dec_new, float dec_all,
+                         int dim_prior, int threads, int K, void* stream) {
+  GngArgs a = {};
+  if (T < 0 || nbatch < 1 || !cluster_args(a, N, F, K, threads))
+    return (int)cudaErrorInvalidValue;
+  a.xc = xc;
+  a.iv = iv;
+  a.xr = xr;
+  a.sched = sched;
+  a.pos = posT;
+  a.err = err;
+  a.alive = alive;
+  a.c = c;
+  a.ids = ids;
+  a.sref = sref;
+  a.ov = ov;
+  a.T = T;
+  a.nbatch = nbatch;
+  a.max_age = max_age;
+  a.lb = lb;
+  a.ln = ln;
+  a.dec_new = dec_new;
+  a.dec_all = dec_all;
+  a.dim_prior = dim_prior;
+  return (int)cluster_launch_f(a, threads, fz_gng_train_cluster_smem(N, F, K),
+                               (cudaStream_t)stream, nullptr);
+}
+
+#ifdef FZ_STAMPS
+// The debug build's step-part cycles since the last call ([8]; host
+// memory), then zeroed.
+int fz_gng_train_stamps(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, fz_gng_stamps,
+                                         sizeof(fz_gng_stamps));
+  if (err != cudaSuccess) return (int)err;
+  unsigned long long zero[8] = {};
+  return (int)cudaMemcpyToSymbol(fz_gng_stamps, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

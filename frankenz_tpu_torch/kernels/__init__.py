@@ -9,12 +9,14 @@ wrappers, plain PyTorch versions and launch counters.
 `lnl_onepass`), in fixed and free scale, and the free-scale sweep counts
 (`scale_sweeps`); ``som``: the whole SOM training run (`som_train`);
 ``gng``: the whole GrowingNeuralGas training run (`gng_train`); ``pop``:
-whole flat-prior population MH-in-Gibbs chains (`pop_chain`).
+whole flat-prior population MH-in-Gibbs chains (`pop_chain`).  The two
+chain kernels run one chain on one block or on a thread-block cluster;
+``probe`` times a cluster's barrier and DSMEM loads (`cluster_probe`).
 `reset_launch_counts` and `launch_counts` here cover every module, so a
 phase can show which kernels one call launched.
 """
 
-from . import fullmask, general, gng, pop, screened, som  # noqa: F401
+from . import fullmask, general, gng, pop, probe, screened, som  # noqa: F401
 from .fullmask import (  # noqa: F401
     chi2_brackets,
     chi2_brackets_plain,

@@ -72,7 +72,8 @@ def build(force=False):
     # One nvcc per source, all started together (lnl_general.cu and
     # lnl_freescale.cu, with their many template instantiations, take
     # tens of seconds each; chi2_fullmask.cu, chi2_screened.cu,
-    # som_train.cu, gng_train.cu and pop_chain.cu seconds),
+    # som_train.cu, gng_train.cu, pop_chain.cu and cluster_probe.cu
+    # seconds),
     # then one link.  The library is written to a temporary name and
     # renamed: a concurrent loader never sees a half-written one.
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
@@ -210,6 +211,28 @@ def _bind(lib):
     lib.fz_pop_chain_smem.restype = I
     lib.fz_pop_chain.argtypes = [P] * 11 + [I] * 9 + [P]
     lib.fz_pop_chain.restype = I
+    # The cluster routes of the two chain kernels: shared-memory bytes,
+    # the card's schedulability query (clusters held at once, or minus a
+    # CUDA error) and the launch (the block route's arguments with the
+    # cluster size in place of `resident`; pop_chain's has no dcol
+    # scratch).
+    lib.fz_gng_train_cluster_smem.argtypes = [I] * 3
+    lib.fz_gng_train_cluster_max_active.argtypes = [I] * 4
+    lib.fz_gng_train_cluster.argtypes = ([P] * 11 + [I] * 5 + [F] * 4
+                                         + [I] * 3 + [P])
+    lib.fz_pop_chain_cluster_smem.argtypes = [I] * 4
+    lib.fz_pop_chain_cluster_max_active.argtypes = [I] * 5
+    lib.fz_pop_chain_cluster.argtypes = [P] * 10 + [I] * 9 + [P]
+    # csrc/cluster_probe.cu: the query, and K, mode, iterations, the
+    # cycles and sink outputs, stream.
+    lib.fz_cluster_probe_max_active.argtypes = [I]
+    lib.fz_cluster_probe.argtypes = [I, I, I, P, P, P]
+    for name in ("fz_gng_train_cluster_smem",
+                 "fz_gng_train_cluster_max_active", "fz_gng_train_cluster",
+                 "fz_pop_chain_cluster_smem",
+                 "fz_pop_chain_cluster_max_active", "fz_pop_chain_cluster",
+                 "fz_cluster_probe_max_active", "fz_cluster_probe"):
+        getattr(lib, name).restype = I
     return lib
 
 

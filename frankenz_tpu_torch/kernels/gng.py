@@ -38,14 +38,28 @@ multiple of the update, so a NaN in a masked band of a draw reaches
 only the nodes the step moves.  A selection that finds no candidate
 gives the index `NONE` (1e9, the Pallas kernel's own `big`).
 
+On the card the run takes one of two routes of the same source: one
+thread block (``gng_train_kernel``, its node table in shared memory when
+it fits, the adjacency in device memory), or a thread-block cluster of K
+CTAs (``gng_train_cluster_kernel``, K = 2 to 16) that holds every node's
+state and adjacency rows in the shared memory of the CTA that owns it.
+The two agree bit for bit.  `choose_cluster` picks K from the sizes whose
+CTA fits in shared memory and the card's schedulability query; with none
+the run takes the block; ``cluster=`` forces a route (1: the block).  A
+refused cluster launch raises: there is no retry on the block.
+
 On a CPU tensor the wrapper runs `gng_train_plain`; on a CUDA tensor it
 launches the kernel or raises: there is no fallback.
-``gng_train.launches`` counts the launches.  The plain version makes the
+``gng_train.launches`` counts the block route's launches and
+``gng_train.cluster_launches`` the cluster route's (`launch_counts` names
+them ``gng_train`` and ``gng_train_cluster``).  The plain version makes the
 kernel's operations in its order, with every constant a tensor on the
 inputs' device, so on the card the two agree bit for bit.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -53,8 +67,9 @@ import torch
 from . import build as _build
 from .fullmask import _SMEM_MAX, _check
 
-__all__ = ["gng_train", "gng_train_plain", "MAX_NODES", "MAX_FILT", "K",
-           "NONE", "reset_launch_counts", "launch_counts"]
+__all__ = ["gng_train", "gng_train_plain", "choose_cluster",
+           "cluster_threads", "MAX_NODES", "MAX_FILT", "K", "NONE",
+           "CLUSTER_SIZES", "reset_launch_counts", "launch_counts"]
 
 # The kernel's own limits: past shared memory the per-node state stays in
 # device memory, so the node cap is that of the SOM kernel.
@@ -64,6 +79,43 @@ K = 32
 NONE = 1_000_000_000
 NEG = -3.0e38
 _MIN_THREADS, _MAX_THREADS = 128, 1024
+# Cluster sizes of the cluster route (16 is above the portable 8: not
+# every card schedules it), in the order `choose_cluster` prefers them.
+CLUSTER_SIZES = (2, 4, 8, 16)
+CLUSTER_ORDER = (16, 8, 4, 2)
+
+
+_CLUSTER_MAX_THREADS = 512  # the cluster kernel's launch bound
+
+
+def cluster_threads(N, k):
+    """Threads of a cluster CTA: one a node slot, in [128, 512]."""
+    slots = -(-int(N) // k)
+    return min(_CLUSTER_MAX_THREADS, max(_MIN_THREADS, -(-slots // 32) * 32))
+
+
+def choose_cluster(active):
+    """The cluster size for one run: the first of CLUSTER_ORDER with at
+    least one cluster held at once in `active` ({K: clusters of this shape
+    the card holds, for the sizes whose CTA fits in shared memory}); 1
+    (the block route) when none is."""
+    return next((k for k in CLUSTER_ORDER if active.get(k, 0) >= 1), 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _active(device_index, N, F, k):
+    """The card's schedulability query for cluster size k (0 when the CTA
+    does not fit in shared memory); raises on a CUDA error."""
+    lib = _build.load()
+    if lib.fz_gng_train_cluster_smem(N, F, k) > _SMEM_MAX:
+        return 0
+    with torch.cuda.device(device_index):
+        n = lib.fz_gng_train_cluster_max_active(N, F, k,
+                                                cluster_threads(N, k))
+    if n < 0:
+        raise RuntimeError(f"gng_train: the cluster query at K={k} failed: "
+                           f"CUDA error {-n}")
+    return n
 
 
 def _constants(learn_best, learn_neighbor, new_err_dec, all_err_dec):
@@ -232,23 +284,40 @@ def _check_inputs(pos, err, alive, ids, sref, c, xc, iv, xr):
 
 def gng_train(pos, err, alive, ids, sref, c, overflow, xc, iv, xr, *,
               nbatch, max_age=15, learn_best=0.2, learn_neighbor=0.005,
-              new_err_dec=0.5, all_err_dec=0.005, dim_prior=True):
+              new_err_dec=0.5, all_err_dec=0.005, dim_prior=True,
+              cluster=None):
     """Train the GNG state over the T draws in one kernel launch.
 
+    `cluster` (card only): None lets `choose_cluster` pick the route, 1
+    forces the block, K in CLUSTER_SIZES a cluster of K CTAs (raises
+    where the CTA does not fit or the card cannot schedule it).
     Returns (pos, err, alive, ids, sref, c, overflow) in the input forms
     (overflow an int).
     """
     N, F, T = _check_inputs(pos, err, alive, ids, sref, c, xc, iv, xr)
     if int(nbatch) < 1 or int(max_age) < 0:
         raise ValueError("nbatch must be >= 1 and max_age >= 0")
+    if cluster is not None and cluster != 1 and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"gng_train takes cluster=None, 1 or one of "
+                         f"{CLUSTER_SIZES}, got {cluster}")
     kw = dict(nbatch=int(nbatch), max_age=int(max_age),
               learn_best=learn_best, learn_neighbor=learn_neighbor,
               new_err_dec=new_err_dec, all_err_dec=all_err_dec,
               dim_prior=dim_prior)
     if pos.device.type == "cpu":
+        if cluster is not None:
+            raise ValueError("cluster= picks a route on the card; a CPU "
+                             "tensor runs the plain version")
         return gng_train_plain(pos, err, alive, ids, sref, c, overflow, xc,
                                iv, xr, **kw)
     dev = pos.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if cluster is None:
+        cluster = choose_cluster({k: _active(index, N, F, k)
+                                  for k in CLUSTER_SIZES})
+    elif cluster > 1 and _active(index, N, F, cluster) < 1:
+        raise ValueError(f"gng_train: no cluster of {cluster} CTAs at {N} "
+                         f"nodes x {F} filters (shared memory or the card)")
     # A copy even where the transpose is already contiguous (F = 1): the
     # kernel trains it in place.
     posT = pos.t().clone(memory_format=torch.contiguous_format)
@@ -258,36 +327,44 @@ def gng_train(pos, err, alive, ids, sref, c, overflow, xc, iv, xr, *,
     ov = torch.tensor([int(overflow)], dtype=torch.int32, device=dev)
     sched = torch.empty((T, 2), dtype=torch.float32, device=dev)
     lib = _build.load()
-    resident = int(lib.fz_gng_train_smem(N, F, 1) <= _SMEM_MAX)
-    threads = min(_MAX_THREADS, max(_MIN_THREADS, -(-N // 32) * 32))
     lb, ln, dn, da = _constants(learn_best, learn_neighbor, new_err_dec,
                                 all_err_dec)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fz_gng_train(
-            posT.data_ptr(), err_o.data_ptr(), alive_o.data_ptr(),
+    args = (posT.data_ptr(), err_o.data_ptr(), alive_o.data_ptr(),
             ids_o.data_ptr(), sref_o.data_ptr(), c_o.data_ptr(),
             ov.data_ptr(), xc.data_ptr(), iv.data_ptr(), xr.data_ptr(),
             sched.data_ptr(), N, F, T, int(nbatch), int(max_age), lb, ln,
-            dn, da, int(bool(dim_prior)), threads, resident, stream)
+            dn, da, int(bool(dim_prior)))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if cluster > 1:
+            rc = lib.fz_gng_train_cluster(*args, cluster_threads(N, cluster),
+                                          int(cluster), stream)
+        else:
+            resident = int(lib.fz_gng_train_smem(N, F, 1) <= _SMEM_MAX)
+            threads = min(_MAX_THREADS, max(_MIN_THREADS, -(-N // 32) * 32))
+            rc = lib.fz_gng_train(*args, threads, resident, stream)
     if rc != 0:
-        raise RuntimeError(f"gng_train launch failed: CUDA error {rc}")
-    gng_train.launches += 1
+        raise RuntimeError(f"gng_train launch (cluster {cluster}) failed: "
+                           f"CUDA error {rc}")
+    if cluster > 1:
+        gng_train.cluster_launches += 1
+    else:
+        gng_train.launches += 1
     return (posT.t().contiguous(), err_o, alive_o != 0, ids_o, sref_o, c_o,
             int(ov.item()))
 
 
 gng_train.launches = 0
-
-_WRAPPERS = (gng_train,)
+gng_train.cluster_launches = 0
 
 
 def reset_launch_counts():
-    """Set the kernel wrapper's launch count to 0."""
-    for fn in _WRAPPERS:
-        fn.launches = 0
+    """Set both routes' launch counts to 0."""
+    gng_train.launches = gng_train.cluster_launches = 0
 
 
 def launch_counts():
-    """{wrapper name: launches since the last reset}."""
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    """{route: launches since the last reset}: ``gng_train`` the block
+    route, ``gng_train_cluster`` the cluster route."""
+    return {"gng_train": gng_train.launches,
+            "gng_train_cluster": gng_train.cluster_launches}

@@ -34,10 +34,22 @@ which the kernel walks as its threads own the objects (see the source).
 The tree depends on the thread count, which `chain_threads` derives from
 Nobs alone.
 
+On the card a chain runs on one of two routes of the same source: one
+thread block (``pop_chain_kernel``), or a thread-block cluster of K CTAs
+that splits that block's warps (``pop_chain_cluster_kernel``, K = 2 to
+16), which folds the same tree, so the two agree bit for bit and the
+result does not depend on K.  `choose_cluster` picks K from the chain
+count, the card's SM count and its schedulability query for this shape
+(`cluster_sizes` lists the sizes a shape admits); ``cluster=`` forces one
+(1: the block).  A refused cluster launch raises: there is no retry on
+the block.
+
 On a CPU tensor the wrapper runs `pop_chain_plain`; on a CUDA tensor it
 launches the kernel or raises: there is no fallback.
-``pop_chain.launches`` counts the launches.  The plain version makes the
-kernel's operations in its order, with every constant a tensor on the
+``pop_chain.launches`` counts the block route's launches and
+``pop_chain.cluster_launches`` the cluster route's (`launch_counts`
+names them ``pop_chain`` and ``pop_chain_cluster``).  The plain version
+makes the kernel's operations in its order, with every constant a tensor on the
 inputs' device, so on the card the two agree bit for bit.
 """
 
@@ -51,7 +63,8 @@ from . import build as _build
 from .fullmask import _SMEM_MAX, _check
 
 __all__ = ["pop_chain", "pop_chain_plain", "tree_sum", "chain_threads",
-           "limits_reason", "MAX_BINS", "MAX_WIDTH", "MAX_OBS", "NEG",
+           "cluster_sizes", "choose_cluster", "limits_reason", "MAX_BINS",
+           "MAX_WIDTH", "MAX_OBS", "NEG", "CLUSTER_SIZES",
            "reset_launch_counts", "launch_counts"]
 
 # The kernel's own limits: a warp holds the position in registers (4 bins
@@ -62,6 +75,9 @@ MAX_WIDTH = 128
 MAX_OBS = 4_194_304
 NEG = -3.0e38
 _MIN_THREADS, _MAX_THREADS = 128, 1024
+# Cluster sizes of the cluster route (16 is above the portable 8: not
+# every card schedules it).
+CLUSTER_SIZES = (2, 4, 8, 16)
 
 
 def chain_threads(nobs):
@@ -155,6 +171,43 @@ def tree_sum(v, threads):
     return _halve(v, -1)[..., 0]
 
 
+def cluster_sizes(nobs, width):
+    """The cluster sizes the cluster route takes for chains of `nobs`
+    objects and draw rows of `width` values: K divides the chain's warp
+    count and a CTA's threads hold a draw row."""
+    threads = chain_threads(nobs)
+    return tuple(k for k in CLUSTER_SIZES
+                 if k <= threads // 32 and width <= threads // k)
+
+
+def choose_cluster(nchains, sm_count, active):
+    """The cluster size for `nchains` chains: the largest K of `active`
+    ({K: clusters of this shape the card holds at once, for the sizes whose
+    CTA fits in shared memory}) with nchains x K CTAs within `sm_count`
+    and all nchains clusters held at once; 1 (the block route) when none
+    is."""
+    ok = [k for k, n in active.items()
+          if n >= nchains and nchains * k <= sm_count]
+    return max(ok, default=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _active(device_index, nobs, width, mh_steps, k):
+    """The card's schedulability query for cluster size k (0 when a CTA's
+    objects do not fit in shared memory); raises on a CUDA error."""
+    lib = _build.load()
+    threads = chain_threads(nobs)
+    if lib.fz_pop_chain_cluster_smem(nobs, threads, width, k) > _SMEM_MAX:
+        return 0
+    with torch.cuda.device(device_index):
+        n = lib.fz_pop_chain_cluster_max_active(nobs, threads, width,
+                                                mh_steps, k)
+    if n < 0:
+        raise RuntimeError(f"pop_chain: the cluster query at K={k} failed: "
+                           f"CUDA error {-n}")
+    return n
+
+
 def pop_chain_plain(draws, pdfsT, pos, ov, lnp, *, thin, mh_steps):
     """Plain version of `pop_chain`: a step loop in torch, the chains a
     batch dimension, with the kernel's operations in its order."""
@@ -231,31 +284,69 @@ def _check_inputs(draws, pdfsT, pos, ov, lnp, thin, mh_steps):
     return nchains, T, width, nbins, nobs
 
 
-def pop_chain(draws, pdfsT, pos, ov, lnp, *, thin, mh_steps, resident=None):
+def pop_chain(draws, pdfsT, pos, ov, lnp, *, thin, mh_steps, resident=None,
+              cluster=None):
     """Run T Gibbs steps of every chain in one kernel launch.
 
     `resident` (card only) keeps each chain's overlaps and pair direction
     in shared memory; the default takes it when they fit, and the two
-    variants agree bit for bit.  Returns (samples, lnps, pos, ov, lnp).
+    variants agree bit for bit.  `cluster` (card only): None lets
+    `choose_cluster` pick the route, 1 forces the block, K in
+    `cluster_sizes` a cluster of K CTAs a chain (resident; raises where
+    the card cannot schedule it).  Returns (samples, lnps, pos, ov, lnp).
     """
     nchains, T, width, nbins, nobs = _check_inputs(draws, pdfsT, pos, ov,
                                                    lnp, thin, mh_steps)
     thin, mh_steps = int(thin), int(mh_steps)
+    if cluster is not None and cluster != 1 and cluster not in cluster_sizes(
+            nobs, width):
+        raise ValueError(f"pop_chain takes cluster=None, 1 or one of "
+                         f"{cluster_sizes(nobs, width)} at {nobs} objects "
+                         f"and draw rows of {width}, got {cluster}")
+    if cluster is not None and cluster != 1 and resident is False:
+        raise ValueError("the cluster route keeps the chains resident: "
+                         "cluster > 1 with resident=False")
     if pdfsT.device.type == "cpu":
+        if cluster is not None:
+            raise ValueError("cluster= picks a route on the card; a CPU "
+                             "tensor runs the plain version")
         return pop_chain_plain(draws, pdfsT, pos, ov, lnp, thin=thin,
                                mh_steps=mh_steps)
     dev = pdfsT.device
     threads = chain_threads(nobs)
     lib = _build.load()
+    samples = torch.empty((nchains, T // thin, nbins), dtype=torch.float32,
+                          device=dev)
+    lnps = torch.empty((nchains, T // thin), dtype=torch.float32, device=dev)
+    pos_o, ov_o, lnp_o = (torch.empty_like(x) for x in (pos, ov, lnp))
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if cluster is None and resident is not False:
+        active = {k: _active(index, nobs, width, mh_steps, k)
+                  for k in cluster_sizes(nobs, width)}
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        cluster = choose_cluster(nchains, sms, active)
+    if cluster is not None and cluster > 1:
+        if _active(index, nobs, width, mh_steps, cluster) < 1:
+            raise ValueError(f"pop_chain: the card schedules no cluster of "
+                             f"{cluster} CTAs at {nobs} objects")
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.fz_pop_chain_cluster(
+                draws.data_ptr(), pdfsT.data_ptr(), pos.data_ptr(),
+                ov.data_ptr(), lnp.data_ptr(), samples.data_ptr(),
+                lnps.data_ptr(), pos_o.data_ptr(), ov_o.data_ptr(),
+                lnp_o.data_ptr(), nchains, T, width, nbins, nobs, thin,
+                mh_steps, threads, int(cluster), stream)
+        if rc != 0:
+            raise RuntimeError(f"pop_chain cluster launch (K={cluster}) "
+                               f"failed: CUDA error {rc}")
+        pop_chain.cluster_launches += 1
+        return samples, lnps, pos_o, ov_o, lnp_o
     fits = lib.fz_pop_chain_smem(nobs, threads, width, 1) <= _SMEM_MAX
     if resident is None:
         resident = fits
     elif resident and not fits:
         raise ValueError(f"{nobs} objects do not fit in shared memory")
-    samples = torch.empty((nchains, T // thin, nbins), dtype=torch.float32,
-                          device=dev)
-    lnps = torch.empty((nchains, T // thin), dtype=torch.float32, device=dev)
-    pos_o, ov_o, lnp_o = (torch.empty_like(x) for x in (pos, ov, lnp))
     dcol = None if resident else torch.empty_like(ov)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -273,16 +364,16 @@ def pop_chain(draws, pdfsT, pos, ov, lnp, *, thin, mh_steps, resident=None):
 
 
 pop_chain.launches = 0
-
-_WRAPPERS = (pop_chain,)
+pop_chain.cluster_launches = 0
 
 
 def reset_launch_counts():
-    """Set the kernel wrapper's launch count to 0."""
-    for fn in _WRAPPERS:
-        fn.launches = 0
+    """Set both routes' launch counts to 0."""
+    pop_chain.launches = pop_chain.cluster_launches = 0
 
 
 def launch_counts():
-    """{wrapper name: launches since the last reset}."""
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    """{route: launches since the last reset}: ``pop_chain`` the block
+    route, ``pop_chain_cluster`` the cluster route."""
+    return {"pop_chain": pop_chain.launches,
+            "pop_chain_cluster": pop_chain.cluster_launches}

@@ -15,9 +15,11 @@ median, the device busy time (kernels and copies; `aten::` rows left out,
 as they repeat their kernels' time) and its share of the profiled wall,
 and the heaviest device operations.  Then it times the `pop_chain` kernel
 alone (CUDA events, median of 3) over 4,000 Gibbs steps at `mh_steps` 1 to
-4, whose slope is the cost of one proposal pass and whose intercept that
-of the gradient pass and the step's fixed work, and over 2,000 steps with
-1 to 264 chains in one launch (one block a chain, 132 SMs).  It writes
+4, on the route the wrapper picks for one chain (a cluster) and on the
+block, whose slope is the cost of one proposal pass and whose intercept
+that of the gradient pass and the step's fixed work, and over 2,000 steps
+with 1 to 264 chains in one launch on the route the wrapper picks for
+each count (its cluster size printed beside it; 132 SMs).  It writes
 ``profile_samplers.json`` to `--out` (default ``build/profile``), and
 with `--traces` one Chrome trace per sampler (the hierarchical one holds
 ~30,000 device operations: tens of MB).
@@ -116,7 +118,7 @@ def main(argv=None):
             prof.export_chrome_trace(str(out_dir / f"trace_{name}.json"))
 
     # The kernel alone: proposals per step, then chains per launch.
-    def kernel_ms(nchains, nsteps, mh):
+    def kernel_ms(nchains, nsteps, mh, cluster=None):
         draws = ps._tables(0, nchains, nsteps, NBINS, mh).contiguous()
         start = ps._start(ps._resolve_pos0(None, nchains), TP._zero_prior,
                           True)
@@ -126,23 +128,38 @@ def main(argv=None):
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             PK.pop_chain(draws, ps._pdfsT(), *start, thin=nsteps,
-                         mh_steps=mh)
+                         mh_steps=mh, cluster=cluster)
             e1.record()
             e1.synchronize()
             times.append(e0.elapsed_time(e1))
         return statistics.median(times[1:])
 
+    def picked(nchains, mh):
+        idx = torch.cuda.current_device()
+        width = 2 + 2 * mh
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        return PK.choose_cluster(nchains, sms, {
+            k: PK._active(idx, NOBS, width, mh, k)
+            for k in PK.cluster_sizes(NOBS, width)})
+
     ps.reset()
-    by_mh = {mh: kernel_ms(1, 4_000, mh) for mh in (1, 2, 3, 4)}
-    slope = (by_mh[4] - by_mh[1]) / 3 / 4_000 * 1e3
-    print(f"== pop_chain, 1 chain x 4,000 steps, ms by mh_steps: {by_mh}; "
-          f"{slope} us per proposal pass, {by_mh[1] / 4 - slope} us per "
-          f"step for the gradient pass and the rest | {card}", flush=True)
+    for route, cluster in (("default", None), ("block", 1)):
+        by_mh = {mh: kernel_ms(1, 4_000, mh, cluster) for mh in (1, 2, 3, 4)}
+        slope = (by_mh[4] - by_mh[1]) / 3 / 4_000 * 1e3
+        k = picked(1, 3) if cluster is None else 1
+        print(f"== pop_chain on the {route} route (cluster {k}), 1 chain x "
+              f"4,000 steps, ms by mh_steps: {by_mh}; {slope} us per "
+              f"proposal pass, {by_mh[1] / 4 - slope} us per step for the "
+              f"gradient pass and the rest | {card}", flush=True)
+        report[f"pop_chain_ms_by_mh_steps_{route}"] = by_mh
+        report[f"pop_chain_cluster_{route}"] = k
     by_chains = {n: kernel_ms(n, 2_000, 3) for n in (1, 4, 32, 132, 264)}
+    clusters = {n: picked(n, 3) for n in by_chains}
     print(f"== pop_chain, 2,000 steps x 3 proposals, ms by chains in one "
-          f"launch: {by_chains} | {card}", flush=True)
-    report["pop_chain_ms_by_mh_steps"] = by_mh
+          f"launch: {by_chains}, cluster sizes {clusters} | {card}",
+          flush=True)
     report["pop_chain_ms_by_chains"] = by_chains
+    report["pop_chain_cluster_by_chains"] = clusters
     (out_dir / "profile_samplers.json").write_text(
         json.dumps(report, indent=1))
 

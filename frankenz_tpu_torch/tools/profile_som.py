@@ -11,7 +11,8 @@ training steps with seed 1, 10,000 noisy objects on a 321-point grid in
 `som_train` kernel), `populate_network` and nodes-only `fit_predict`
 (``save_fits=False``), then the same three for a `GrowingNeuralGas`
 over the same models (bench.py:164-172, :201-209: 5,000 x 50 steps up
-to 2,500 nodes, seed 2; `train_network` on the `gng_train` kernel):
+to 2,500 nodes, seed 2; `train_network` on the `gng_train` kernel, the
+route its wrapper picks: a cluster at this shape):
 one warm-up, `--reps` timed walls, then one run under the profiler.  It prints the walls, their median, the device busy
 time (kernels and copies; `aten::` rows left out, as they repeat their
 kernels' time) and its share of the profiled wall, and the heaviest

@@ -25,7 +25,11 @@ node at every step and nodes within 1e-6 relative (expected bit-equal:
 the same operations in the same order); `gng_train` every state array
 bit for bit (the same operations in the same order); `pop_chain` samples,
 lnpost and the carry bit for bit (one differing ulp in a log-sum could
-flip an accept, after which the chains part for good).
+flip an accept, after which the chains part for good).  The two chain
+kernels' cluster routes are held against their block routes and plain
+versions bit for bit at every cluster size (`cluster=`) the card
+schedules; on the CPU the route choice and the split identities of
+`tree_sum` are checked in plain Python.
 """
 
 import numpy as np
@@ -187,7 +191,9 @@ def test_cpu_general_wrappers_run_plain_versions_without_launching(name):
                                       "screen_seed", "chi2_brackets_screened",
                                       "chi2_stack_screened", *GENERAL,
                                       "lnl_onepass", "scale_sweeps",
-                                      "som_train", "gng_train", "pop_chain"}
+                                      "som_train", "gng_train",
+                                      "gng_train_cluster", "pop_chain",
+                                      "pop_chain_cluster"}
 
 
 def _free_flags(t, ignore_model_err, tm=96, **flags):
@@ -836,7 +842,7 @@ def test_gng_train_cpu_runs_plain_without_launching():
     got = GG.gng_train(*state, 0, *draws, nbatch=25)
     want = GG.gng_train_plain(*state, 0, *draws, nbatch=25)
     _gng_equal(got, want)
-    assert GG.launch_counts() == {"gng_train": 0}
+    assert GG.launch_counts() == {"gng_train": 0, "gng_train_cluster": 0}
     assert int(got[2].sum()) > 2 and got[2].dtype == torch.bool
     assert got[3].dtype == torch.int32 and got[6] == 0
 
@@ -913,10 +919,129 @@ def test_gng_train_matches_plain_on_card(cuda_device, N, F, T, kw):
     got = GG.gng_train(*state, 0, *draws, **kw)
     want = GG.gng_train_plain(*state, 0, *draws, **kw)
     torch.cuda.synchronize()
-    assert GG.launch_counts() == {"gng_train": 1}
+    assert sum(GG.launch_counts().values()) == 1
     _gng_equal(got, want)
     assert bool(torch.isfinite(got[0]).all())
     assert int(got[2].sum()) > 2
+
+
+def test_gng_cluster_choice_follows_the_order_and_the_query():
+    """The route and K from the card's answers alone: the first of
+    CLUSTER_ORDER that the card holds at least once, else the block; a
+    CTA's threads cover its node slots within [128, 512]."""
+    assert GG.choose_cluster({2: 9, 4: 5, 8: 3, 16: 1}) == GG.CLUSTER_ORDER[0]
+    assert GG.choose_cluster({k: 0 for k in GG.CLUSTER_SIZES}) == 1
+    assert GG.choose_cluster({}) == 1
+    for k in GG.CLUSTER_SIZES:
+        only = {j: int(j == k) for j in GG.CLUSTER_SIZES}
+        assert GG.choose_cluster(only) == k
+    assert sorted(GG.CLUSTER_ORDER) == list(GG.CLUSTER_SIZES)
+    assert GG.cluster_threads(2500, 8) == 320
+    assert GG.cluster_threads(40, 16) == 128
+    assert GG.cluster_threads(32768, 2) == 512
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 16, 0, 3, 32])
+def test_gng_train_refuses_cluster_on_cpu_and_bad_sizes(cluster):
+    """`cluster=` picks a route on the card: a CPU tensor refuses any
+    value, and a size outside CLUSTER_SIZES is refused before the device
+    is looked at."""
+    state, draws = _gng_problem(30, T=8)
+    with pytest.raises(ValueError):
+        GG.gng_train(*state, 0, *draws, nbatch=25, cluster=cluster)
+
+
+def _gng_on(device, N, F=5, T=400, **kw):
+    state, draws = _gng_problem(N, F=F, T=T, **kw)
+    return ([x.to(device) for x in state], [x.to(device) for x in draws])
+
+
+def _require_cluster(N, F, k):
+    if k > 1 and GG._active(torch.cuda.current_device(), N, F, k) < 1:
+        pytest.skip(f"no cluster of {k} CTAs at N={N}, F={F} on this card")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("N,F,T,kw", [
+    (2500, 5, 3000, dict(nbatch=50)),
+    (2500, 5, 1500, dict(nbatch=1)),
+    (2501, 5, 1200, dict(nbatch=3)),
+    (40, 3, 300, dict(nbatch=25, hub=True, max_age=1000)),
+    (40, 5, 300, dict(nbatch=25, dup=True, max_age=1000)),
+    (300, 9, 800, dict(nbatch=5, bad_bands=True, dim_prior=False)),
+])
+def test_gng_train_cluster_equals_block_and_plain_on_card(cuda_device, k, N,
+                                                          F, T, kw):
+    """Every cluster size against the block route and the plain version,
+    bit for bit on every state array: the default block length, a graph
+    grown by an insert every step, N = 2,501 (no multiple of any K), the
+    overflow hub, rows holding a node twice, F = 9 with bad bands."""
+    kw = dict(kw)
+    _require_cluster(N, F, k)
+    state, draws = _gng_on(cuda_device, N, F=F, T=T, bad_bands=kw.pop(
+        "bad_bands", False), hub=kw.pop("hub", False),
+        dup=kw.pop("dup", False))
+    block = GG.gng_train(*state, 0, *draws, cluster=1, **kw)
+    GG.reset_launch_counts()
+    got = GG.gng_train(*state, 0, *draws, cluster=k, **kw)
+    torch.cuda.synchronize()
+    route = "gng_train" if k == 1 else "gng_train_cluster"
+    assert GG.launch_counts()[route] == 1
+    assert sum(GG.launch_counts().values()) == 1
+    _gng_equal(got, block)
+    _gng_equal(got, GG.gng_train_plain(*state, 0, *draws, **kw))
+    if kw.get("max_age") == 1000 and N == 40 and F == 3:
+        assert got[6] > 0
+
+
+@pytest.mark.gpu
+def test_gng_train_segments_compose_across_routes_on_card(cuda_device):
+    """A run cut at a block boundary composes whatever route each segment
+    takes: block then cluster, cluster then block, and the default."""
+    state, draws = _gng_on(cuda_device, 2500, T=2000)
+    kw = dict(nbatch=50)
+    whole = GG.gng_train(*state, 0, *draws, cluster=1, **kw)
+    sizes = [k for k in GG.CLUSTER_SIZES
+             if GG._active(torch.cuda.current_device(), 2500, 5, k) >= 1]
+    assert sizes, "the card schedules no cluster at config 3's shape"
+    for first, second in ((1, sizes[-1]), (sizes[0], 1), (None, None)):
+        head = GG.gng_train(*state, 0, *(d[:1000] for d in draws),
+                            cluster=first, **kw)
+        tail = GG.gng_train(*head, *(d[1000:] for d in draws),
+                            cluster=second, **kw)
+        _gng_equal(tail, whole)
+
+
+@pytest.mark.gpu
+def test_gng_train_too_large_for_a_cluster_takes_the_block(cuda_device):
+    """32,768 nodes: no CTA of any cluster size holds its share, so the
+    default takes the block route (and a forced cluster is refused)."""
+    state, draws = _gng_on(cuda_device, GG.MAX_NODES, T=60)
+    idx = torch.cuda.current_device()
+    assert all(GG._active(idx, GG.MAX_NODES, 5, k) == 0
+               for k in GG.CLUSTER_SIZES)
+    GG.reset_launch_counts()
+    got = GG.gng_train(*state, 0, *draws, nbatch=5)
+    torch.cuda.synchronize()
+    assert GG.launch_counts() == {"gng_train": 1, "gng_train_cluster": 0}
+    _gng_equal(got, GG.gng_train_plain(*state, 0, *draws, nbatch=5))
+    with pytest.raises(ValueError):
+        GG.gng_train(*state, 0, *draws, nbatch=5, cluster=16)
+
+
+@pytest.mark.gpu
+def test_gng_train_default_takes_a_cluster_on_card(cuda_device):
+    """Config 3's shape (2,500 nodes x 5 filters) takes the cluster route
+    by default, at the size `choose_cluster` gives for the card's query."""
+    state, draws = _gng_on(cuda_device, 2500, T=200)
+    idx = torch.cuda.current_device()
+    want = GG.choose_cluster({k: GG._active(idx, 2500, 5, k)
+                              for k in GG.CLUSTER_SIZES})
+    assert want > 1
+    GG.reset_launch_counts()
+    GG.gng_train(*state, 0, *draws, nbatch=50)
+    assert GG.launch_counts() == {"gng_train": 0, "gng_train_cluster": 1}
 
 
 # ---------------------------------------------------------------------
@@ -968,7 +1093,7 @@ def test_pop_chain_cpu_runs_plain_without_launching():
     got = PK.pop_chain(*t, thin=10, mh_steps=2)
     want = PK.pop_chain_plain(*t, thin=10, mh_steps=2)
     _pop_equal(got, want)
-    assert PK.launch_counts() == {"pop_chain": 0}
+    assert PK.launch_counts() == {"pop_chain": 0, "pop_chain_cluster": 0}
     assert K.launch_counts()["pop_chain"] == 0
     samples, lnps, pos, ov, lnp = got
     assert samples.shape == (1, 4, 12) and lnps.shape == (1, 4)
@@ -1110,12 +1235,185 @@ def test_pop_chain_matches_plain_on_card(cuda_device, prob, kw):
     got = PK.pop_chain(*t, mh_steps=prob["mh"], resident=resident, **kw)
     want = PK.pop_chain_plain(*t, mh_steps=prob["mh"], **kw)
     torch.cuda.synchronize()
-    assert PK.launch_counts() == {"pop_chain": 1}
+    assert sum(PK.launch_counts().values()) == 1
+    if resident is False:
+        assert PK.launch_counts()["pop_chain"] == 1
     _pop_equal(got, want)
     assert bool(torch.isfinite(got[0]).all())
     assert not torch.equal(got[2], t[2])
     if resident is False:
         _pop_equal(PK.pop_chain(*t, mh_steps=prob["mh"], **kw), got)
+
+
+def _split_sum(v, threads, k):
+    """The chain's sum as a cluster of k CTAs would fold it, CTA c holding
+    the warps w = c + k m: each thread's rows and each warp's lanes as
+    `tree_sum` folds them, then CTA c halves over its 32 / k warp slots
+    (warp m at slot m, zero-padded), then the k CTA partials halve over c."""
+    nobs = v.shape[-1]
+    rows = PK._rows_per_thread(nobs, threads)
+    padded = torch.zeros(v.shape[:-1] + (rows * threads,), dtype=v.dtype)
+    padded[..., :nobs] = v
+    x = PK._halve(padded.reshape(v.shape[:-1] + (rows, threads)), -2)
+    x = PK._halve(x.reshape(v.shape[:-1] + (threads // 32, 32)), -1)[..., 0]
+    slots = torch.zeros(v.shape[:-1] + (32,), dtype=v.dtype)
+    slots[..., :threads // 32] = x
+    per_cta = slots.reshape(v.shape[:-1] + (32 // k, k))  # [m, c]
+    part = PK._halve(per_cta, -2)[..., 0, :]
+    return PK._halve(part, -1)[..., 0]
+
+
+@pytest.mark.parametrize("nobs", [1, 5, 300, 1237, 4097, 5000, 20000,
+                                  65537, 100000])
+def test_warp_class_split_equals_tree_sum(nobs):
+    """The halving over the 32 warp slots pairs w with w + 16, ..., so its
+    last log2(K) levels combine the K residue classes of w mod K: a
+    cluster whose CTA c holds the warps w = c (mod K) folds the same tree
+    for every K = 1 to 32, bit for bit."""
+    threads = PK.chain_threads(nobs)
+    rng = np.random.default_rng(nobs)
+    v = torch.from_numpy(rng.normal(-5, 3, (3, nobs)).astype(np.float32))
+    want = PK.tree_sum(v, threads)
+    for k in (1, 2, 4, 8, 16, 32):
+        assert torch.equal(_split_sum(v, threads, k), want), k
+
+
+def _leaf_rows(G):
+    """The rows of a tree thread's 8 G leaves in the order its fold merges
+    them (the kernel's `leaf_row`): leaf 8 g + i is row kb(g) + q G, q the
+    3-bit reversal of i, kb(g) the bit reversal of g over log2 G bits."""
+    bits = G.bit_length() - 1
+
+    def rev(x, n):
+        return int(format(x, f"0{n}b")[::-1], 2) if n else 0
+
+    return [rev(lam >> 3, bits) + rev(lam & 7, 3) * G for lam in range(8 * G)]
+
+
+@pytest.mark.parametrize("nobs", [5, 1237, 20000, 40000, 100000])
+def test_leaf_split_equals_a_thread_fold(nobs):
+    """A tree thread's objects taken in leaf order and folded as a complete
+    binary tree (adjacent pairs first) give the thread's halving fold over
+    its rows bit for bit: any aligned block of leaves, such as the cluster
+    route's blocks of whole groups of 8, is a subtree, so S threads may
+    fold one block each and shuffles merge the blocks."""
+    threads = PK.chain_threads(nobs)
+    rows = PK._rows_per_thread(nobs, threads)
+    G = rows // 8
+    rng = np.random.default_rng(nobs + 1)
+    v = torch.from_numpy(rng.normal(-5, 3, nobs).astype(np.float32))
+    padded = torch.zeros(rows * threads)
+    padded[:nobs] = v
+    grid = padded.reshape(rows, threads)
+    want = PK._halve(grid, 0)[0]
+    leaves = grid[_leaf_rows(G)]
+    while leaves.shape[0] > 1:
+        leaves = leaves[0::2] + leaves[1::2]
+    assert torch.equal(leaves[0], want)
+
+
+def test_pop_cluster_sizes_and_choice():
+    """The sizes a shape admits (K divides the warp count, a CTA holds a
+    draw row) and the choice from the card's answers alone: the largest K
+    with every chain held at once and nchains x K CTAs within the SMs,
+    else the block."""
+    assert PK.cluster_sizes(20000, 8) == (2, 4, 8, 16)
+    assert PK.cluster_sizes(300, 8) == (2, 4)          # 128 threads
+    assert PK.cluster_sizes(300, 128) == ()            # a row of 128
+    assert PK.cluster_sizes(20000, 128) == (2, 4, 8)
+    active = {2: 66, 4: 33, 8: 16, 16: 7}
+    assert PK.choose_cluster(1, 132, active) == 16
+    assert PK.choose_cluster(4, 132, active) == 16
+    assert PK.choose_cluster(8, 132, active) == 8      # 7 clusters of 16
+    assert PK.choose_cluster(20, 132, active) == 4
+    assert PK.choose_cluster(132, 132, active) == 1
+    assert PK.choose_cluster(1, 132, {2: 0, 4: 0}) == 1
+    assert PK.choose_cluster(1, 132, {}) == 1
+    assert PK.choose_cluster(1, 132, {2: 1, 8: 1, 16: 0}) == 8
+
+
+@pytest.mark.parametrize("cluster,resident", [(1, None), (2, None),
+                                              (16, None), (3, None),
+                                              (32, None), (2, False)])
+def test_pop_chain_refuses_cluster_on_cpu_and_bad_sizes(cluster, resident):
+    """`cluster=` picks a route on the card: a CPU tensor refuses any
+    value; a size the shape does not admit, or a cluster without
+    residency, is refused before the device is looked at."""
+    t = _pop_problem(T=8, mh=2)
+    with pytest.raises(ValueError):
+        PK.pop_chain(*t, thin=4, mh_steps=2, cluster=cluster,
+                     resident=resident)
+
+
+def _require_pop_cluster(nobs, mh, k):
+    width = 2 + 2 * mh
+    if k > 1 and (k not in PK.cluster_sizes(nobs, width) or PK._active(
+            torch.cuda.current_device(), nobs, width, mh, k) < 1):
+        pytest.skip(f"no cluster of {k} CTAs at {nobs} objects here")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("prob,kw", [
+    (dict(nbins=50, nobs=20000, T=300, mh=3), dict(thin=50)),
+    (dict(nbins=50, nobs=20000, T=60, mh=3, nchains=3), dict(thin=20)),
+    (dict(nbins=20, nobs=1237, T=304, mh=3), dict(thin=8)),
+    (dict(nbins=12, nobs=300, T=300, mh=5), dict(thin=3)),
+    (dict(nbins=12, nobs=300, T=400, mh=3, zero_overlap=True, spread=4.0),
+     dict(thin=10)),
+    (dict(nbins=128, nobs=40000, T=60, mh=2, nchains=2), dict(thin=10)),
+    (dict(nbins=8, nobs=300_000, T=20, mh=2), dict(thin=10)),
+])
+def test_pop_chain_cluster_equals_block_and_plain_on_card(cuda_device, k,
+                                                          prob, kw):
+    """Every cluster size against the block route and the plain version,
+    bit for bit on samples, lnpost and the carry: config 5's shape, three
+    chains, a ragged object count, the run-time proposal loop, the
+    zero-overlap case, 40,000 objects x 128 bins and 300,000 objects."""
+    _require_pop_cluster(prob["nobs"], prob["mh"], k)
+    t = [x.to(cuda_device) for x in _pop_problem(**prob)]
+    block = PK.pop_chain(*t, mh_steps=prob["mh"], cluster=1, **kw)
+    PK.reset_launch_counts()
+    got = PK.pop_chain(*t, mh_steps=prob["mh"], cluster=k, **kw)
+    torch.cuda.synchronize()
+    assert PK.launch_counts()["pop_chain" if k == 1 else
+                              "pop_chain_cluster"] == 1
+    assert sum(PK.launch_counts().values()) == 1
+    _pop_equal(got, block)
+    if prob["nobs"] <= 20000 or prob["T"] <= 20:
+        _pop_equal(got, PK.pop_chain_plain(*t, mh_steps=prob["mh"], **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nchains", [1, 3, 132])
+def test_pop_chain_default_route_by_chain_count_on_card(cuda_device,
+                                                        nchains):
+    """The default route for 1, 3 and 132 chains at config 5's shape is
+    `choose_cluster`'s for the card's query (one chain on a cluster, 132
+    on blocks), equal to the block route bit for bit; resident=False
+    keeps the block."""
+    t = [x.to(cuda_device) for x in _pop_problem(
+        nbins=50, nobs=20000, T=40, mh=3, nchains=nchains)]
+    kw = dict(thin=10, mh_steps=3)
+    idx = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    want = PK.choose_cluster(nchains, sms, {
+        k: PK._active(idx, 20000, 8, 3, k)
+        for k in PK.cluster_sizes(20000, 8)})
+    if nchains == 1:
+        assert want > 1
+    if nchains >= sms:
+        assert want == 1
+    block = PK.pop_chain(*t, cluster=1, **kw)
+    PK.reset_launch_counts()
+    got = PK.pop_chain(*t, **kw)
+    assert PK.launch_counts()[
+        "pop_chain" if want == 1 else "pop_chain_cluster"] == 1
+    _pop_equal(got, block)
+    PK.reset_launch_counts()
+    nonres = PK.pop_chain(*t, resident=False, **kw)
+    assert PK.launch_counts() == {"pop_chain": 1, "pop_chain_cluster": 0}
+    _pop_equal(nonres, block)
 
 
 @pytest.mark.gpu
@@ -1139,8 +1437,9 @@ def test_samplers_on_card_match_cpu_and_count_launches(cuda_device):
     card = population_sampler(pdfs, device=cuda_device)
     K.reset_launch_counts()
     card.run_mcmc(4, **kw)
-    assert K.launch_counts()["pop_chain"] == 1
     assert sum(K.launch_counts().values()) == 1
+    assert K.launch_counts()["pop_chain"] + K.launch_counts()[
+        "pop_chain_cluster"] == 1
     np.testing.assert_allclose(card.results[0], cpu.results[0], rtol=2e-4,
                                atol=2e-6)
     np.testing.assert_allclose(card.results[1], cpu.results[1], rtol=2e-5,

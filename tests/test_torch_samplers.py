@@ -185,7 +185,8 @@ def test_entry_points_match_pallas_on_the_scripted_table(scripted,
     ours = population_sampler(s["pdfs"], device="cpu")
     ours.run_mcmc(s["niter"], **kw)
     assert calls == [s["niter"] * s["thin"]]
-    assert PK.launch_counts() == {"pop_chain": 0}  # CPU: the plain version
+    # CPU: the plain version, neither route of the kernel.
+    assert PK.launch_counts() == {"pop_chain": 0, "pop_chain_cluster": 0}
     got, got_lnp = ours.results
     want, want_lnp = jsamp.results
     assert got.shape == (s["niter"], 12) and got.dtype == np.float64
