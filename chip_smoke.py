@@ -47,29 +47,41 @@ port, numpy and scipy, and:
    band): holds the four general kernels against their plain versions
    at B=2,048 on six cases (masked dim prior; model masks too; the
    Normal likelihood on full masks; ragged M=99,937 with B=1,000; rows
-   with Ndim 0, 1 and 2; duplicate models, whose lnl ties), then drives
-   masked `fit_predict` over the 131,072 objects (the general route:
-   `lnl_reduce` + `lnl_stack`, and not the full-mask pair), `fit_summarize`,
+   with Ndim 0, 1 and 2; duplicate models, whose lnl ties), on each the
+   two-pass threshold route on its lnl table against the recompute route
+   bit for bit (lmap, levid, pdf; the table against `lnl_tile_plain` in
+   ulps), also on the four fixed-scale two-pass instantiations the cases
+   do not hold, then drives masked `fit_predict` over the 131,072 objects
+   (the general route's table route: `lnl_reduce` writing the lnl table
+   + `lnl_stack` reading it, two row chunks a batch, and not the
+   full-mask pair), `fit_summarize`,
    the cdf mode over one 65,536-object batch (`lnl_reduce` + `lnl_topk` +
    `lnl_cut_stack`, no batch rerun), and a flat-posterior batch whose cut
    is undetermined at cdf_thresh 0.999999 and 0.5 (it must rerun, find
    the cut by bisection with `lnl_reduce_split`, and agree with the
    plain composition); one-pass (`lnl_onepass`) joins each of the six
    cases, and at the batch it is timed beside `lnl_reduce` + `lnl_stack`
-   keeping every weight;
+   keeping every weight; one 65,536-object batch through the two-pass
+   threshold route on both routes (the table route in its row chunks),
+   bit for bit, with each route's `lnl_reduce` and `lnl_stack` times;
 6. free scale (K6) and no weight threshold (K4): every free-scale
    instantiation (model errors or not x full or masked x dim prior or
    Normal) against its plain version at B=2,048 on config-8 data
-   (bench.py:628-649: scaled noisy model copies), the sweep tables equal;
+   (bench.py:628-649: scaled noisy model copies), the sweep tables equal,
+   and the table route against the recompute route as in phase 5;
    config 8 end to end (16,384 objects, free scale with model errors,
-   wt_thresh 1e-3, ltol 1e-4: `scale_sweeps` + `lnl_reduce` +
-   `lnl_stack`), every row against the plain composition in 2,048-row
-   batches, and `fit_summarize`; free scale without model errors over
+   wt_thresh 1e-3, ltol 1e-4: the table route, `scale_sweeps` writing the
+   lnl table + `lnl_reduce` + `lnl_stack` reading it), every row against
+   the plain composition in 2,048-row batches, and `fit_summarize`; free
+   scale without model errors over
    one masked 65,536 batch under wt_thresh, the cdf mode and no
    threshold (one-pass), and a flat-posterior batch that reruns through
    the bisection; fixed scale with no threshold over one masked batch
    (`lnl_onepass` alone);
-7. the free-scale kernel times at config 8's batch;
+7. config 8's batch (16,384 rows, one chunk) through the two-pass
+   threshold route on both routes, bit for bit (the sweep table too),
+   with each route's `scale_sweeps`, `lnl_reduce` and `lnl_stack` times;
+   `lnl_onepass` timed;
 8. SOM (config 3 without GNG, bench.py:164-215: 100,000 models over 5
    filters, a 50 x 50 lattice, 100,000 training steps, seed 1):
    `SelfOrganizingMap.train_network` on the `som_train` kernel with the
@@ -117,7 +129,10 @@ port, numpy and scipy, and:
    warm, and once with a reference sample;
 11. prints one JSON line of kernel results (fixed-scale entry points by
    their wrapper's name, the screened trio with its run fractions,
-   free-scale ones with the suffix ``_fs``,
+   free-scale ones with the suffix ``_fs``; `lnl_reduce`, `lnl_stack` and
+   `scale_sweeps` with their table route (``lnl_route``, the table's
+   source file, table launches, chunks and bytes at the batch, the
+   recompute route's times and bounds beside),
    `scale_sweeps`, `som_train`, `gng_train` and `pop_chain`, the last two
    with their cluster size, us a step and the block route's time), each
    with its bound
@@ -208,6 +223,16 @@ NITER_H, THIN_H = 200, 5
 # The card's peaks for the bounds (H100 SXM datasheet: dense float32
 # outside the tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# The table route's kernels on the main path (the two-pass threshold
+# route): the fixed-scale producer is `lnl_reduce_store` (lnl_common.cuh,
+# instantiated in lnl_general.cu), the free-scale one `scale_sweeps`; the
+# readers are in lnl_table.cu.
+TABLE_SOURCES = {
+    "lnl_reduce": "frankenz_tpu_torch/csrc/lnl_general.cu",
+    "lnl_stack": "frankenz_tpu_torch/csrc/lnl_table.cu",
+    "lnl_reduce_fs": "frankenz_tpu_torch/csrc/lnl_table.cu",
+    "lnl_stack_fs": "frankenz_tpu_torch/csrc/lnl_table.cu",
+    "scale_sweeps": "frankenz_tpu_torch/csrc/lnl_freescale.cu"}
 
 
 def fail(msg):
@@ -324,15 +349,17 @@ def lnl_pair_ops(F, flags, sweeps_mean=0.0):
 
 
 def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
-                   tie, nkeep, sweeps_mean):
+                   tie, nkeep, sweeps_mean, lnl):
     """{kernel: (bound ms, bound by)} of one general case: lnl per pair
     plus each kernel's own work, the stacks' 2 Ngrid operations for each
-    pair whose weight they keep (counted from the plain lnl grid)."""
+    pair whose weight they keep (counted from the plain lnl grid `lnl`).
+    `lnl_reduce`, `lnl_stack` and `scale_sweeps` on the table route (the
+    two-pass threshold route's): the producer also writes 4 bytes a
+    pair, the readers read them and compute no lnl (`table_bounds`)."""
     d, mT = args[0], args[3]
     B, F = d.shape
     M = mT.shape[1]
     ngrid = G.shape[1]
-    lnl = GK.lnl_tile_plain(*args, **flags)
     lmap, levid = want
     kept_stack = float((lnl > (lmap + float(np.float32(log_thr)))[:, None])
                        .sum())
@@ -341,7 +368,7 @@ def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
     kept_cut = float(((lnl <= cut[:, None])
                       | (is_tie & (rank < nkeep[:, None]))).sum())
     kept_all = float((torch.exp(lnl - lmap[:, None]) > 0).sum())
-    del lnl, is_tie, rank
+    del is_tie, rank
     pairs = float(B) * M
     base = lnl_pair_ops(F, flags, sweeps_mean)
     io = 4.0 * (3 * B * F + 3 * F * M)
@@ -363,7 +390,138 @@ def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
         # The counting sweeps also take each pair's F logs.
         out["scale_sweeps"] = bound(pairs * sweeps_mean * (9 * F + 4),
                                     io + 2.0 * flags["sweeps"].numel())
+    for k, v in table_bounds(F, B, M, ngrid, flags, kept_stack,
+                             sweeps_mean).items():
+        out[k + "_table"] = v
     return out
+
+
+def table_bounds(F, B, M, ngrid, flags, kept, sweeps_mean):
+    """{kernel: (bound ms, bound by)} on the table route for B x M pairs,
+    `kept` of them above the weight threshold: the producer (`lnl_reduce`,
+    or `scale_sweeps` under free scale with model errors, whose pairs
+    also take the residual pass) writes 4 bytes a pair; the reduce reader
+    reads them (a max, an exp and two adds a pair); the stack reads them
+    (a compare a pair; an exp and 2 Ngrid operations a kept pair)."""
+    pairs = float(B) * M
+    io = 4.0 * (3 * B * F + 3 * F * M)
+    table = 4.0 * pairs
+    out = {"lnl_stack": bound(pairs + kept * (2.0 + 2.0 * ngrid),
+                              table + 4.0 * (M * ngrid + B * ngrid)
+                              + 8.0 * B)}
+    if flags.get("free_scale") and not flags.get("ignore_model_err"):
+        ng = -(-M // int(flags["tm"]))
+        out["scale_sweeps"] = bound(
+            pairs * (sweeps_mean * (9 * F + 4) + lnl_pair_ops(
+                F, dict(flags, ignore_model_err=True))),
+            io + 2.0 * B * ng + table)
+        out["lnl_reduce"] = bound(pairs * 4, table + 8.0 * B)
+    else:
+        out["lnl_reduce"] = bound(pairs * (lnl_pair_ops(F, flags) + 4),
+                                  io + table + 8.0 * B)
+    return out
+
+
+def table_route(torch, GK, args, G, flags, log_thr, sweep_kw=None):
+    """The two-pass threshold route on one lnl table (NaN-filled first):
+    the producer (`lnl_reduce`, or `scale_sweeps` under free scale with
+    model errors), `lnl_reduce`, `lnl_stack`.  Returns (sweeps or None,
+    lmap, levid, pdf, table)."""
+    B, M = args[0].shape[0], args[3].shape[1]
+    table = torch.full((B, GK.table_width(M)), float("nan"),
+                       device=args[0].device)
+    fl, sw = dict(flags), None
+    if sweep_kw is not None:
+        sw = GK.scale_sweeps(*args, table=table,
+                             dim_prior=flags.get("dim_prior", True),
+                             **sweep_kw)
+        fl.update(sweeps=sw, tm=sweep_kw["tm"])
+    lmap, levid = GK.lnl_reduce(*args, table=table, **fl)
+    pdf = GK.lnl_stack(*args, G, lmap, levid, log_thr=log_thr, table=table,
+                       **fl)
+    return sw, lmap, levid, pdf, table
+
+
+def table_route_check(torch, np, GK, args, G, flags, log_thr, what,
+                      sweep_kw=None, lnl_plain=None):
+    """The table route against the recompute route (the same wrappers
+    without a table) bit for bit: sweep table, lmap, levid, pdf; the
+    table untouched past M and, against `lnl_plain` (or
+    `lnl_tile_plain`), within TOL_ULP (the entries that differ
+    counted).  Returns (route outputs, {"table_ulp", "table_ulp_count"})."""
+    fl = dict(flags)
+    sw_r = None
+    if sweep_kw is not None:
+        sw_r = GK.scale_sweeps(*args, **sweep_kw)
+        fl.update(sweeps=sw_r, tm=sweep_kw["tm"])
+    lm_r, lv_r = GK.lnl_reduce(*args, **fl)
+    pdf_r = GK.lnl_stack(*args, G, lm_r, lv_r, log_thr=log_thr, **fl)
+    out = table_route(torch, GK, args, G, flags, log_thr, sweep_kw)
+    sw, lmap, levid, pdf, table = out
+    torch.cuda.synchronize()
+    if sweep_kw is not None:
+        check(torch.equal(sw, sw_r), f"{what}: the table producer's sweep "
+                                     "table differs")
+    for nm, g, w in (("lmap", lmap, lm_r), ("levid", levid, lv_r),
+                     ("pdf", pdf, pdf_r)):
+        check(torch.equal(g, w), f"{what}: table route {nm} differs from "
+                                 "the recompute route")
+    M = args[3].shape[1]
+    check(bool(torch.isnan(table[:, M:]).all()),
+          f"{what}: the table was written past M")
+    if lnl_plain is None:
+        lnl_plain = GK.lnl_tile_plain(*args, **fl)
+    _, ulp = ulp_err(torch, table[:, :M], lnl_plain)
+    check(ulp <= TOL_ULP, f"{what}: the lnl table is {ulp} ulp from "
+                          "lnl_tile_plain")
+    n_ulp = int((table[:, :M] != lnl_plain).sum())
+    return out, {"table_ulp": ulp, "table_ulp_count": n_ulp}
+
+
+def chunk_times(torch, np, GK, args, G, flags, log_thr, sweep_kw=None,
+                reps=3):
+    """The table route's kernels over a batch as the route runs them (row
+    chunks of at most TABLE_BYTES_MAX bytes of table, one buffer), each
+    kernel's time summed over the chunks (CUDA events), median of `reps`
+    after one warm run, which also counts the pairs above the weight
+    threshold.  Returns ({kernel: ms}, chunks, table bytes of the buffer,
+    kept pairs)."""
+    B, M = args[0].shape[0], args[3].shape[1]
+    rows = GK.table_rows(B, M)
+    buf = torch.empty((min(rows, B), GK.table_width(M)),
+                      dtype=torch.float32, device=args[0].device)
+    names = (["scale_sweeps"] if sweep_kw else []) + ["lnl_reduce",
+                                                      "lnl_stack"]
+    runs, kept = [], 0.0
+    for rep in range(reps + 1):
+        tot = dict.fromkeys(names, 0.0)
+        for r0 in range(0, B, rows):
+            part = [x[r0:r0 + rows] for x in args[:3]] + list(args[3:])
+            table = buf[:part[0].shape[0]]
+            fl = dict(flags)
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(names) + 1)]
+            ev[0].record()
+            if sweep_kw:
+                fl.update(tm=sweep_kw["tm"], sweeps=GK.scale_sweeps(
+                    *part, table=table, dim_prior=flags.get("dim_prior", True),
+                    **sweep_kw))
+                ev[1].record()
+            lm, lv = GK.lnl_reduce(*part, table=table, **fl)
+            ev[-2].record()
+            GK.lnl_stack(*part, G, lm, lv, log_thr=log_thr, table=table, **fl)
+            ev[-1].record()
+            ev[-1].synchronize()
+            if rep == 0:
+                thr = lm + float(np.float32(log_thr))
+                kept += float((table[:, :M] > thr[:, None]).sum())
+            for i, nm in enumerate(names):
+                tot[nm] += ev[i].elapsed_time(ev[i + 1])
+        runs.append(tot)
+    nbytes = buf.numel() * 4
+    del buf
+    return ({nm: statistics.median(r[nm] for r in runs[1:]) for nm in names},
+            -(-B // rows), nbytes, kept)
 
 
 def general_cases(np, rng, data, models, dmask):
@@ -399,10 +557,14 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
                         plain_reps=5, bounds=False):
     """Hold the general kernels (with `lnl_onepass`, and `scale_sweeps`
     under free scale with model errors) against their plain versions on
-    one case; returns {kernel: result}.  `plain_reps` = 1 times the
-    plain version by the call that is compared (free scale with model
-    errors: seconds per call).  With `bounds`, each result also holds
-    its bound (`general_bounds`)."""
+    one case, and the two-pass threshold route on its lnl table against
+    the recompute route bit for bit (`table_route_check`); returns
+    {kernel: result}, where `lnl_reduce`, `lnl_stack` and `scale_sweeps`
+    hold the table route's time as ``ms`` and the recompute route's as
+    ``recompute_ms``.  `plain_reps` = 1 times the plain version by the
+    call that is compared (free scale with model errors: seconds per
+    call).  With `bounds`, each result also holds its bound
+    (`general_bounds`)."""
     name, d_np, dm_np, m_np, mm_np, flags = case
     Gc = G[:m_np.shape[0]].contiguous()
     args = [tens(x) for x in (d_np, np.full(d_np.shape, 0.25, np.float32),
@@ -423,6 +585,7 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
         return got, want, median_ms(torch, kernel,
                                     reps=5 if plain_reps > 1 else 3), pms
 
+    sweep_kw = None
     if flags.get("free_scale") and not flags.get("ignore_model_err"):
         kw = dict(tm=TF.group_width(m_np.shape[0], 512),
                   full_mask=flags.get("full_mask", False))
@@ -433,6 +596,8 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
             max_abs_err=0.0, mean_sweeps=float(want.float().mean()),
             max_sweeps=int(want.max()), ms=ms, plain_ms=pms)
         flags = dict(flags, sweeps=got, tm=kw["tm"])
+        sweep_kw = kw
+    lnl_plain = GK.lnl_tile_plain(*args, **flags)
 
     got, want, ms, pms = run(lambda: GK.lnl_reduce(*args, **flags),
                              lambda: GK.lnl_reduce_plain(*args, **flags))
@@ -509,22 +674,56 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
     out["lnl_onepass"] = dict(
         max_abs_err=max(a0, a1, float((got[0] - want[0]).abs().max())),
         lmap_ulp=u0, levid_err=r1, max_rel_err=p_row, ms=ms, plain_ms=pms)
+
+    # The two-pass threshold route on the lnl table: bit for bit the
+    # recompute route; then each of its kernels timed on the table.
+    base = {k: v for k, v in flags.items() if k not in ("sweeps", "tm")}
+    (_, lm_t, lv_t, _, table), tab = table_route_check(
+        torch, np, GK, args, Gc, base, log_thr, name, sweep_kw, lnl_plain)
+    reps = 5 if plain_reps > 1 else 3
+    timed = {"lnl_reduce": lambda: GK.lnl_reduce(*args, table=table,
+                                                  **flags),
+             "lnl_stack": lambda: GK.lnl_stack(*args, Gc, lm_t, lv_t,
+                                                log_thr=log_thr, table=table,
+                                                **flags)}
+    if sweep_kw is not None:
+        timed["scale_sweeps"] = lambda: GK.scale_sweeps(
+            *args, table=table, dim_prior=flags.get("dim_prior", True),
+            **sweep_kw)
+    for kname, fn in timed.items():
+        out[kname]["recompute_ms"] = out[kname]["ms"]
+        out[kname]["ms"] = median_ms(torch, fn, reps=reps)
+    out["lnl_reduce"].update(tab)
+    del table
     if bounds:
         sw_mean = (float(flags["sweeps"].float().mean())
                    if flags.get("sweeps") is not None else 0.0)
         for kname, (bms, by) in general_bounds(
                 torch, np, GK, TF, args, Gc, flags, (lmap, levid), log_thr,
-                cut, tie, nkeep, sw_mean).items():
-            out[kname].update(bound_ms=bms, bound_by=by)
+                cut, tie, nkeep, sw_mean, lnl_plain).items():
+            if kname.endswith("_table"):
+                # The table route's kernel: its bound is the entry's.
+                res = out[kname[:-len("_table")]]
+                res.update(recompute_bound_ms=res["bound_ms"],
+                           recompute_bound_by=res["bound_by"])
+            else:
+                res = out[kname]
+            res.update(bound_ms=bms, bound_by=by)
     shown = {k: v for k, v in flags.items() if k != "sweeps"}
     sw = out.get("scale_sweeps")
+    del lnl_plain
     print(f"kernel_vs_plain {name}: B={d_np.shape[0]} M={m_np.shape[0]} "
           f"F={d_np.shape[1]} {shown} | " + " | ".join(
-              f"{k} abs {v['max_abs_err']:.3g} {v['ms']:.3f} ms (plain "
-              f"{v['plain_ms']:.3f} ms)" for k, v in out.items())
+              f"{k} abs {v['max_abs_err']:.3g} {v['ms']:.3f} ms"
+              + (f" (recompute {v['recompute_ms']:.3f} ms)"
+                 if "recompute_ms" in v else "")
+              + f" (plain {v['plain_ms']:.3f} ms)" for k, v in out.items())
           + f" | lmap {out['lnl_reduce']['lmap_ulp']:.3g} ulp, levid err "
           f"{out['lnl_reduce']['levid_err']:.3g}, top-T "
-          f"{out['lnl_topk']['vals_ulp']:.3g} ulp"
+          f"{out['lnl_topk']['vals_ulp']:.3g} ulp | table route == "
+          f"recompute route bit for bit (sweeps, lmap, levid, pdf), lnl "
+          f"table {tab['table_ulp']:.3g} ulp from lnl_tile_plain "
+          f"({tab['table_ulp_count']} entries differ)"
           + (f", sweeps mean {sw['mean_sweeps']:.4g} max {sw['max_sweeps']}"
              " (tables equal)" if sw else "")
           + f" | card {card}", flush=True)
@@ -2035,6 +2234,28 @@ def main():
                                   bounds=case[0] == "masked_dimprior")
         for kname, r in per.items():
             results[kname][case[0]] = r
+    # The table route on the fixed-scale two-pass instantiations that the
+    # six cases do not hold, bit for bit the recompute route.
+    log_thr = float(np.log(WT_THRESH))
+    for fl in (dict(dim_prior=False), dict(ignore_model_err=True),
+               dict(dim_prior=False, ignore_model_err=True),
+               dict(full_mask=True, dim_prior=False, ignore_model_err=True)):
+        fl = dict(dict(full_mask=False), **fl)
+        dm_k = (np.ones_like(dmask[:N_KERNEL]) if fl["full_mask"]
+                else dmask[:N_KERNEL])
+        args_k = [tens(x) for x in (
+            data[:N_KERNEL], np.full((N_KERNEL, NFILT), 0.25, f32), dm_k,
+            models.T, (0.05 * models).T, np.ones_like(models).T)]
+        _, tab = table_route_check(torch, np, GK, args_k, G, fl, log_thr,
+                                   f"table route {fl}")
+        results["lnl_reduce"]["masked_dimprior"].setdefault(
+            "table_ulp_other", {})[str(fl)] = tab
+        print(f"table_route {fl}: B={N_KERNEL} M={NMODEL} == recompute "
+              f"route bit for bit (lmap, levid, pdf); lnl table "
+              f"{tab['table_ulp']:.3g} ulp from lnl_tile_plain "
+              f"({tab['table_ulp_count']} entries differ) | card {card}",
+              flush=True)
+        del args_k
 
     sub = (data[:N_SUBSET], data_err[:N_SUBSET], dmask[:N_SUBSET], zlabels,
            zerrs)
@@ -2050,6 +2271,13 @@ def main():
     check(launches_m["lnl_reduce"] > 0 and launches_m["lnl_stack"] > 0,
           f"masked fit_predict did not launch the general kernels "
           f"({launches_m})")
+    # The table route alone: every reduce and stack launch on the table,
+    # two chunks a 65,536-object batch.
+    chunks_m = -(-BATCH // GK.table_rows(BATCH, NMODEL))
+    check(launches_m["lnl_reduce_table"] == launches_m["lnl_reduce"]
+          == launches_m["lnl_stack_table"] == launches_m["lnl_stack"]
+          == chunks_m * -(-N_E2E // BATCH),
+          f"masked fit_predict left the table route ({launches_m})")
     check(all(launches_m[k] == 0 for k in K1_PAIR + SCREENED),
           f"masked fit_predict launched a full-mask kernel ({launches_m})")
     dead = ~np.isfinite(gof_m[0])
@@ -2099,9 +2327,10 @@ def main():
     for kname in ("lnl_reduce", "lnl_topk", "lnl_cut_stack"):
         check(launches_c[kname] > 0, f"cdf fit_predict did not launch "
                                      f"{kname} ({launches_c})")
-    check(launches_c["lnl_stack"] == launches_c["lnl_reduce_split"] == 0,
-          f"cdf fit_predict launched lnl_stack or the bisection "
-          f"({launches_c})")
+    check(launches_c["lnl_stack"] == launches_c["lnl_reduce_split"] == 0
+          and launches_c["lnl_reduce_table"] == 0,
+          f"cdf fit_predict launched lnl_stack, the bisection or the table "
+          f"route ({launches_c})")
     check(bf.cdf_reruns == 0, f"{bf.cdf_reruns} cdf batches reran")
     off_c = check_vs_plain(np, bf, (pdfs_c[:N_SUBSET],
                                     (gof_c[0][:N_SUBSET],
@@ -2157,7 +2386,30 @@ def main():
     split_b = lm_b - 3.0
     vals_b, cnts_b = GK.lnl_topk(*args_b, T=8)
     cut_b, tie_b, nkeep_b, _ = TF.cdf_cut(vals_b, cnts_b, lv_b, CDF_THRESH)
-    log_thr = float(np.log(WT_THRESH))
+    # The two-pass threshold route over the batch on both routes: the
+    # table route (row chunks under TABLE_BYTES_MAX, one buffer) bit for
+    # bit the recompute route; each route's lnl_reduce and lnl_stack time
+    # over the batch.
+    flags_b = dict(full_mask=False, dim_prior=True, ignore_model_err=False,
+                   free_scale=False, sweeps=None, tm=None)
+    pdf_r = GK.lnl_stack(*args_b, G, lm_b, lv_b, log_thr=log_thr)
+    pdf_t, lm_t, lv_t = TF._table_route(*args_b, G, flags=flags_b,
+                                        log_thr=log_thr, sweep_kw=None)
+    torch.cuda.synchronize()
+    for nm, g, w in (("lmap", lm_t, lm_b), ("levid", lv_t, lv_b),
+                     ("pdf", pdf_t, pdf_r)):
+        check(torch.equal(g, w), f"masked {BATCH} batch: table route {nm} "
+                                 "differs from the recompute route")
+    del pdf_r, pdf_t, lm_t, lv_t
+    ms_table_b, chunks_b, bytes_b, kept_b = chunk_times(
+        torch, np, GK, args_b, G, flags_b, log_thr)
+    bounds_b = table_bounds(NFILT, BATCH, NMODEL, NGRID, flags_b, kept_b, 0.0)
+    table_batch = {k: dict(ms=v, chunks=chunks_b, table_bytes=bytes_b,
+                           batch_table_bytes=4 * BATCH
+                           * GK.table_width(NMODEL),
+                           kept_pairs=kept_b, bound_ms=bounds_b[k][0],
+                           bound_by=bounds_b[k][1])
+                   for k, v in ms_table_b.items()}
     for kname, fn in (
             ("lnl_reduce", lambda: GK.lnl_reduce(*args_b)),
             ("lnl_reduce_split", lambda: GK.lnl_reduce_split(*args_b,
@@ -2168,11 +2420,19 @@ def main():
             ("lnl_cut_stack", lambda: GK.lnl_cut_stack(
                 *args_b, G, cut_b, lv_b, tie_b, nkeep_b))):
         ms_batch[kname] = median_ms(torch, fn, reps=3)
-    print(f"kernel_at_batch {BATCH}x{NMODEL} masked: " + ", ".join(
-        f"{k} {ms_batch[k]:.3f} ms" for k in (
-            "lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_topk",
-            "lnl_cut_stack"))
-        + f" | card {card}", flush=True)
+    for kname in ("lnl_reduce", "lnl_stack"):
+        table_batch[kname]["recompute_ms"] = ms_batch[kname]
+        ms_batch[kname] = table_batch[kname]["ms"]
+    print(f"kernel_at_batch {BATCH}x{NMODEL} masked: two-pass threshold "
+          f"route, table == recompute bit for bit over the batch ({chunks_b} "
+          f"chunks, a {bytes_b / 1e9:.4g} GB table buffer): table route "
+          + ", ".join(f"{k} {v['ms']:.3f} ms" for k, v in table_batch.items())
+          + ", recompute route " + ", ".join(
+              f"{k} {v['recompute_ms']:.3f} ms"
+              for k, v in table_batch.items())
+          + " | " + ", ".join(f"{k} {ms_batch[k]:.3f} ms" for k in (
+              "lnl_reduce_split", "lnl_topk", "lnl_cut_stack"))
+          + f" | card {card}", flush=True)
     # K4: one walk against lnl_reduce + lnl_stack keeping every weight.
     ms_batch["lnl_onepass"] = median_ms(
         torch, lambda: GK.lnl_onepass(*args_b, G), reps=3)
@@ -2269,6 +2529,11 @@ def main():
     out8, wall8, launches8 = drive(
         call8, kw8, ("scale_sweeps", "lnl_reduce", "lnl_stack"),
         "config 8 fit_predict", absent=("lnl_onepass",))
+    # The table route alone: `scale_sweeps` writes the lnl table, which
+    # `lnl_reduce` and `lnl_stack` read.
+    check(all(launches8[k + "_table"] == launches8[k] for k in (
+        "scale_sweeps", "lnl_reduce", "lnl_stack")),
+          f"config 8 fit_predict left the table route ({launches8})")
     check_rows(out8[0], out8[1], "config 8 fit_predict")
     mT8 = bf.models.T.contiguous()
     sw8 = GK.scale_sweeps(tens(data8), tens(de8), tens(ones8), mT8,
@@ -2329,6 +2594,10 @@ def main():
         out9, walls9[label], l9 = drive(
             call9, kw9, expect, what, absent=("scale_sweeps",) + tuple(
                 k for k in GENERAL + ("lnl_onepass",) if k not in expect))
+        check((l9["lnl_reduce_table"] == l9["lnl_reduce"]
+               == l9["lnl_stack_table"]) if label == "wt_thresh"
+              else l9["lnl_reduce_table"] == 0,
+              f"{what}: the reduce ran on the wrong route ({l9})")
         check(bf.cdf_reruns == 0, f"{what}: {bf.cdf_reruns} batches reran")
         check_rows(out9[0], out9[1], what, n_dead9)
         off9 = check_vs_plain(np, bf, head(out9), sub, kw9, what,
@@ -2392,6 +2661,28 @@ def main():
     fl8 = dict(full_mask=True, free_scale=True, sweeps=sw8,
                tm=TF.group_width(NMODEL, 512))
     lm8, lv8 = GK.lnl_reduce(*args8, **fl8)
+    # The two-pass threshold route on both routes at config 8's batch (one
+    # chunk): the table route bit for bit the recompute route, the sweep
+    # table unchanged; each route's scale_sweeps, lnl_reduce and lnl_stack.
+    flags8 = dict(full_mask=True, dim_prior=True, ignore_model_err=False,
+                  free_scale=True)
+    sk8 = dict(tm=fl8["tm"], full_mask=True)
+    pdf8 = GK.lnl_stack(*args8, G8, lm8, lv8, log_thr=log_thr, **fl8)
+    sw_t, lm_t, lv_t, pdf_t, tab8 = table_route(torch, GK, args8, G8, flags8,
+                                                log_thr, sk8)
+    torch.cuda.synchronize()
+    for nm, g, w in (("sweep table", sw_t, sw8), ("lmap", lm_t, lm8),
+                     ("levid", lv_t, lv8), ("pdf", pdf_t, pdf8)):
+        check(torch.equal(g, w), f"config 8 {N8} batch: table route {nm} "
+                                 "differs from the recompute route")
+    check(bool(torch.isnan(tab8[:, NMODEL:]).all()),
+          "config 8: the table was written past M")
+    del sw_t, lm_t, lv_t, pdf_t, tab8, pdf8
+    torch.cuda.empty_cache()
+    ms_table8, chunks8, bytes8, kept8 = chunk_times(
+        torch, np, GK, args8, G8, flags8, log_thr, sk8)
+    bounds8 = table_bounds(NFILT, N8, NMODEL, NGRID, dict(flags8, tm=sk8["tm"]),
+                           kept8, float(sw8.float().mean()))
     for kname, fn in (
             ("scale_sweeps", lambda: GK.scale_sweeps(
                 *args8, tm=fl8["tm"], full_mask=True)),
@@ -2400,10 +2691,27 @@ def main():
                 *args8, G8, lm8, lv8, log_thr=log_thr, **fl8)),
             ("lnl_onepass_fs", lambda: GK.lnl_onepass(*args8, G8, **fl8))):
         ms_batch[kname] = median_ms(torch, fn, reps=3)
-    print(f"kernel_at_batch {N8}x{NMODEL} config 8: " + ", ".join(
-        f"{k} {ms_batch[k]:.3f} ms" for k in (
-            "scale_sweeps", "lnl_reduce_fs", "lnl_stack_fs",
-            "lnl_onepass_fs")) + f" | card {card}", flush=True)
+    for kname, k8 in (("scale_sweeps", "scale_sweeps"),
+                      ("lnl_reduce", "lnl_reduce_fs"),
+                      ("lnl_stack", "lnl_stack_fs")):
+        table_batch[k8] = dict(ms=ms_table8[kname], chunks=chunks8,
+                               table_bytes=bytes8,
+                               batch_table_bytes=4 * N8
+                               * GK.table_width(NMODEL),
+                               recompute_ms=ms_batch[k8], kept_pairs=kept8,
+                               bound_ms=bounds8[kname][0],
+                               bound_by=bounds8[kname][1])
+        ms_batch[k8] = ms_table8[kname]
+    print(f"kernel_at_batch {N8}x{NMODEL} config 8: two-pass threshold "
+          f"route, table == recompute bit for bit ({chunks8} chunk(s), a "
+          f"{bytes8 / 1e9:.4g} GB table): table route " + ", ".join(
+              f"{k} {table_batch[k]['ms']:.3f} ms" for k in (
+                  "scale_sweeps", "lnl_reduce_fs", "lnl_stack_fs"))
+          + ", recompute route " + ", ".join(
+              f"{k} {table_batch[k]['recompute_ms']:.3f} ms" for k in (
+                  "scale_sweeps", "lnl_reduce_fs", "lnl_stack_fs"))
+          + f", lnl_onepass_fs {ms_batch['lnl_onepass_fs']:.3f} ms | card "
+          f"{card}", flush=True)
     del args8, lm8, lv8, sw8
 
     # 8. SOM (config 3 without GNG)
@@ -2437,7 +2745,9 @@ def main():
                      "lnl_stack": launches_m["lnl_stack"],
                      "lnl_topk": launches_c["lnl_topk"],
                      "lnl_cut_stack": launches_c["lnl_cut_stack"],
-                     "lnl_onepass": launches10["lnl_onepass"]}
+                     "lnl_onepass": launches10["lnl_onepass"],
+                     "lnl_reduce_table": launches_m["lnl_reduce_table"],
+                     "lnl_stack_table": launches_m["lnl_stack_table"]}
     # The free-scale instantiations (csrc/lnl_freescale.cu: the `_fs`
     # entry points and the sweep counts) replace the same Pallas kernels
     # with `_lnl_tile`'s free-scale branch (ops/fused.py:316-596); their
@@ -2445,9 +2755,12 @@ def main():
     # batch under three weight selections, the flat-posterior rerun).
     replaces["scale_sweeps"] = "frankenz_tpu/ops/fused.py:452"
     main_launches["scale_sweeps"] = launches_fs["scale_sweeps"]
+    main_launches["scale_sweeps_table"] = launches_fs["scale_sweeps_table"]
     for kname in GENERAL + ("lnl_onepass",):
         replaces[kname + "_fs"] = replaces[kname]
         main_launches[kname + "_fs"] = launches_fs[kname]
+    for kname in ("lnl_reduce", "lnl_stack"):
+        main_launches[kname + "_fs_table"] = launches_fs[kname + "_table"]
     kernels = []
     for kname in replaces:
         per = results[kname]
@@ -2478,6 +2791,23 @@ def main():
             entry["route_run_fractions"] = scr_fractions
         if kname in ms_batch:
             entry[f"ms_batch_{N8 if free else BATCH}"] = ms_batch[kname]
+        if kname in table_batch:
+            # Rows 6-7 (and the sweeps) on the two-pass threshold route:
+            # the table route's kernel; the recompute route's beside it.
+            tb, n = table_batch[kname], N8 if free else BATCH
+            entry.update({
+                "lnl_route": "table",
+                "source": TABLE_SOURCES[kname],
+                "table_launches": main_launches[kname + "_table"],
+                "recompute_ms": ref["recompute_ms"],
+                "recompute_bound_ms": ref.get("recompute_bound_ms"),
+                f"chunks_batch_{n}": tb["chunks"],
+                f"table_bytes_batch_{n}": tb["table_bytes"],
+                f"table_bytes_whole_batch_{n}": tb["batch_table_bytes"],
+                f"kept_pairs_batch_{n}": tb["kept_pairs"],
+                f"bound_ms_batch_{n}": tb["bound_ms"],
+                f"bound_by_batch_{n}": tb["bound_by"],
+                f"recompute_ms_batch_{n}": tb["recompute_ms"]})
         if kname in bound_batch:
             entry[f"bound_ms_batch_{BATCH}"] = bound_batch[kname][0]
             entry[f"bound_by_batch_{BATCH}"] = bound_batch[kname][1]

@@ -18,6 +18,13 @@
 // [b, g] holds the fixed-point sweeps of object b over model group g =
 // j / tm (csrc/lnl_freescale.cu, `scale_sweeps`).  Every kernel masks the
 // ragged object and model edges itself.  No fast math anywhere.
+//
+// The lnl table of the two-pass threshold route is float32 (rows, ldm),
+// row-major, ldm = M rounded up to kRTile (= kSTile): entry [b, j] holds
+// pair (b, j)'s lnl, the columns past M unwritten.  `lnl_reduce_store`
+// below writes it (fixed scale, and free scale without model errors);
+// `scale_sweeps` writes it under free scale with model errors; the
+// readers are in csrc/lnl_table.cu.
 
 #pragma once
 
@@ -35,6 +42,17 @@ constexpr int kTRows = 32;      // reduce / topk with a sweep table: objects
 constexpr int kTThreads = 256;  // ... and threads per block (RowShape)
 constexpr int kSObjects = 32;   // stack / onepass: objects per block
 constexpr int kSTile = 64;      // stack / onepass: models per shared tile
+// lnl_reduce_store's shape; other values only in the builds that
+// tools/ab_table.py times against the package's (-DFZ_PROWS=...,
+// -DFZ_PTHREADS=...).
+#ifndef FZ_PROWS
+#define FZ_PROWS 64
+#endif
+#ifndef FZ_PTHREADS
+#define FZ_PTHREADS 256
+#endif
+constexpr int kPRows = FZ_PROWS;        // lnl_reduce_store: rows per block
+constexpr int kPThreads = FZ_PTHREADS;  // ... and threads per block
 
 // Max that keeps a NaN from either side, as jnp.max / torch.amax do.
 __device__ __forceinline__ float nanmax(float a, float b) {
@@ -121,17 +139,17 @@ __device__ __forceinline__ void load_rows(const RowSmem& s,
   for (int k = t; k <= F; k += blockDim.x) s.sgl[k] = gl[k];
 }
 
-// With a sweep table: the block computes the tile's lnl into slnl as
-// [kRTile][R] (0 outside the block's live rows and the tile's models).
-template <class P>
+// The block computes the tile's lnl for its R rows into slnl as
+// [kRTile][ls] (0 outside the block's live rows and the tile's models).
+template <class P, int R>
 __device__ __forceinline__ void tile_lnl(const RowSmem& s, float* slnl,
+                                         int ls,
                                          const short* __restrict__ sweeps,
                                          int b0, int B, int m0, int n, int F,
                                          float nd_full, int ng, int tm) {
-  constexpr int R = RowShape<P>::kRows;
   for (int p = threadIdx.x; p < R * kRTile; p += blockDim.x) {
     const int bb = p / kRTile, j = p - bb * kRTile;
-    slnl[j * R + bb] =
+    slnl[j * ls + bb] =
         (b0 + bb < B && j < n)
             ? P::lnl(s.sd + bb, s.sde2 + bb, s.sdm + bb, R, s.sm + j,
                      s.sme + j, s.smm + j, kRTile, F, s.sgl, nd_full,
@@ -153,6 +171,26 @@ __device__ __forceinline__ void lse_join(float& rm, float& sum, float& comp,
   comp = __fsub_rn(__fsub_rn(next, sum), y);
   sum = next;
   rm = new_m;
+}
+
+// One model tile of a row, lnl_reduce's way (lnl_reduce_kernel below with
+// SPLIT = false): the tile maximum in model order, the new running
+// maximum, the tile's sum of exp(lnl - new max), the join.  `at(j)` is
+// the row's lnl of the tile's model j < n <= kRTile; the loops unroll, so
+// `at` may index a register array.
+template <class At>
+__device__ __forceinline__ void reduce_tile(const At& at, int n, float& rm,
+                                            float& sum, float& comp) {
+  float tmax = kNegInf;
+#pragma unroll
+  for (int j = 0; j < kRTile; ++j)
+    if (j < n) tmax = nanmax(tmax, at(j));
+  const float new_m = nanmax(rm, tmax);
+  float tile_sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kRTile; ++j)
+    if (j < n) tile_sum = __fadd_rn(tile_sum, expf(__fsub_rn(at(j), new_m)));
+  lse_join(rm, sum, comp, new_m, tile_sum);
 }
 
 // SPLIT = false: lmap, levid over every pair.  SPLIT = true: levid over
@@ -191,7 +229,7 @@ __global__ void lnl_reduce_kernel(
                                   n, kRTile);
     __syncthreads();
     if (P::kSweeps) {
-      tile_lnl<P>(s, slnl, sweeps, b0, B, m0, n, F, nd_full, ng, tm);
+      tile_lnl<P, R>(s, slnl, R, sweeps, b0, B, m0, n, F, nd_full, ng, tm);
       __syncthreads();
     }
     if (!live) continue;
@@ -236,6 +274,58 @@ __global__ void lnl_reduce_kernel(
   }
 }
 
+// The table route's producer for the pair policies without a sweep
+// table: lnl_reduce's lmap and levid (bit for bit), and every pair's lnl
+// stored into the table.  The block holds kPRows rows and computes each
+// model tile's lnl with all kPThreads threads (16 pairs a thread at 64
+// rows and 256 threads, so a short row batch still fills the card; 7.5%
+// faster than 32 rows, tools/ab_table.py),
+// stores the tile row by row (a warp on 32 consecutive models of one row)
+// and then the first kPRows threads reduce their rows from shared memory
+// while the others go on.  slnl has a padded column stride (kPRows + 1):
+// the threads of a warp write and read one row's consecutive models
+// without bank conflicts.
+template <class P>
+__global__ void lnl_reduce_store_kernel(
+    const float* __restrict__ d, const float* __restrict__ de,
+    const float* __restrict__ dm, const float* __restrict__ mT,
+    const float* __restrict__ meT, const float* __restrict__ mmT,
+    const float* __restrict__ gl, float* __restrict__ lmap,
+    float* __restrict__ levid, float* __restrict__ table, int ldm, int B,
+    int M, int F, float nd_full) {
+  constexpr int R = kPRows, LS = kPRows + 1;
+  extern __shared__ float smem[];
+  const RowSmem s = row_smem(smem, F, R);
+  float* slnl = s.sx;  // [kRTile][LS]: this tile's lnl, per object
+  const int t = threadIdx.x;
+  const int b0 = blockIdx.x * R;
+  const int b = b0 + t;
+  const int nb = min(R, B - b0);
+  const bool live = t < nb;
+  load_rows(s, d, de, dm, gl, b, live, F, R);
+
+  float rm = kNegInf, sum = 0.0f, comp = 0.0f;
+  for (int m0 = 0; m0 < M; m0 += kRTile) {
+    const int n = min(kRTile, M - m0);
+    __syncthreads();  // the previous tile is stored and reduced
+    load_model_tile<P::kSquareMe>(mT, meT, mmT, s.sm, s.sme, s.smm, F, M, m0,
+                                  n, kRTile);
+    __syncthreads();
+    tile_lnl<P, R>(s, slnl, LS, nullptr, b0, B, m0, n, F, nd_full, 1, 1);
+    __syncthreads();
+    for (int p = t; p < nb * kRTile; p += blockDim.x) {
+      const int bb = p / kRTile, j = p - bb * kRTile;
+      if (j < n) table[(size_t)(b0 + bb) * ldm + m0 + j] = slnl[j * LS + bb];
+    }
+    if (live)
+      reduce_tile([&](int j) { return slnl[j * LS + t]; }, n, rm, sum, comp);
+  }
+  if (live) {
+    lmap[b] = rm;
+    levid[b] = __fadd_rn(logf(sum), rm);
+  }
+}
+
 template <class P>
 __global__ void lnl_topk_kernel(
     const float* __restrict__ d, const float* __restrict__ de,
@@ -270,7 +360,7 @@ __global__ void lnl_topk_kernel(
                                   n, kRTile);
     __syncthreads();
     if (P::kSweeps) {
-      tile_lnl<P>(s, slnl, sweeps, b0, B, m0, n, F, nd_full, ng, tm);
+      tile_lnl<P, R>(s, slnl, R, sweeps, b0, B, m0, n, F, nd_full, ng, tm);
       __syncthreads();
     }
     if (!live) continue;
@@ -588,6 +678,12 @@ inline int reduce_smem(int F, int R) {
          (3 * F * R + 3 * F * kRTile + (F + 1) + kRTile * R);
 }
 
+// The producer: kPRows rows and the padded lnl tile.
+inline int reduce_store_smem(int F) {
+  return (int)sizeof(float) * (3 * F * kPRows + 3 * F * kRTile + (F + 1) +
+                               kRTile * (kPRows + 1));
+}
+
 inline int topk_smem(int F, int T, int R, bool tile) {
   return (int)sizeof(float) * (3 * F * R + 3 * F * kRTile + (F + 1) +
                                2 * T * R + (tile ? kRTile * R : 0));
@@ -623,6 +719,27 @@ int launch_reduce(const float* d, const float* de, const float* dm,
       d, de, dm, mT, meT, mmT, gl, sweeps, split, lmap, levid, levid_le,
       count, B, M, F, nd_full, ng, tm);
   return (int)cudaGetLastError();
+}
+
+template <class P>
+int launch_reduce_store(const float* d, const float* de, const float* dm,
+                        const float* mT, const float* meT, const float* mmT,
+                        const float* gl, float* lmap, float* levid,
+                        float* table, int ldm, int B, int M, int F,
+                        float nd_full, cudaStream_t stream) {
+  if constexpr (P::kSweeps) {
+    // Free scale with model errors: `scale_sweeps` writes the table.
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const int smem = reduce_store_smem(F);
+    cudaError_t err = allow_smem(lnl_reduce_store_kernel<P>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((B + kPRows - 1) / kPRows);
+    lnl_reduce_store_kernel<P><<<grid, kPThreads, smem, stream>>>(
+        d, de, dm, mT, meT, mmT, gl, lmap, levid, table, ldm, B, M, F,
+        nd_full);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <class P>
@@ -717,6 +834,16 @@ int launch_onepass(const float* d, const float* de, const float* dm,
     FZ_DISPATCH(PAIR, fz::launch_reduce, FZ_ALL, d, de, dm, mT, meT, mmT, gl, \
                 sweeps, nullptr, lmap, levid, nullptr, nullptr, B, M, F,      \
                 nd_full, ng, tm, (cudaStream_t)stream)                        \
+  }                                                                           \
+  int fz_lnl_reduce_store##SUFFIX(                                            \
+      const float* d, const float* de, const float* dm, const float* mT,      \
+      const float* meT, const float* mmT, const float* gl, float* lmap,       \
+      float* levid, float* table, int ldm, int B, int M, int F,               \
+      int full_mask, int dim_prior, int ignore_model_err, float nd_full,      \
+      void* stream) {                                                         \
+    FZ_DISPATCH(PAIR, fz::launch_reduce_store, FZ_NOEXTRA, d, de, dm, mT,    \
+                meT, mmT, gl, lmap, levid, table, ldm, B, M, F, nd_full,      \
+                (cudaStream_t)stream)                                         \
   }                                                                           \
   int fz_lnl_reduce_split##SUFFIX(                                            \
       const float* d, const float* de, const float* dm, const float* mT,      \

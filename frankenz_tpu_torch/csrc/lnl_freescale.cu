@@ -38,8 +38,12 @@
 //   intrinsic and IEEE logf, so every kernel computes the same lnl for a
 //   pair, bit for bit, and the plain PyTorch version mirrors the order.
 //   A pair's value depends only on its sweep count k, read from the
-//   sweep table; the kernels rerun the scale recurrence (inter and shape
-//   only, no logs) k times per pair instead of keeping per-pair state.
+//   sweep table; the recompute route's kernels (the cdf mode, one pass,
+//   and every wrapper called without an lnl table) rerun the scale
+//   recurrence (inter and shape only, no logs) k times per pair.  The
+//   two-pass threshold route runs it once: `scale_sweeps` stores each
+//   pair's lnl in the lnl table, which lnl_reduce and lnl_stack read
+//   (csrc/lnl_table.cu).
 //
 // scale_sweeps
 //   Replaces: the while_loop of `_lnl_tile_freescale_me` (:513-544): the
@@ -55,15 +59,26 @@
 //             last group's maxima before `valid` masks them
 //             (ops/fused.py:2146-2154); they are all alike, so one
 //             sentinel slot stands for them here.
+//   With an lnl table (the two-pass threshold route's producer): also
+//             each real pair's lnl from its final (var(s_{k-1}), s_k) by
+//             `residual_lnl`, the recompute route's value bit for bit.
 //   Bound on the H100: arithmetic, F divides and F logs per pair and
-//   sweep, over (k + 1) sweeps.
-//   Design: grid = (object blocks of 8) x (model groups), 256 threads
-//   over the group's models.  The group's models and each pair's running
-//   (scale, lnl) stay in shared memory across sweeps; per sweep every
-//   thread updates its pairs of the rows still iterating, the rows'
-//   maxima of |delta lnl| and of A go through warp shuffles and shared
-//   memory, and one thread per row decides its freeze.  The block stops
-//   when every row has frozen or at max_iter.
+//   sweep, over (k + 1) sweeps, and one residual pass per pair; with a
+//   table, 4 bytes written per pair.
+//   Design: grid = (object blocks of 2) x (model groups), 256 threads
+//   over the group's models (2 rows a block: 3.6% faster than 8 and
+//   bit-equal, tools/ab_table.py; 1 row 3.8%, 4 rows 2.8%, 16 rows and
+//   128 or 512 threads slower, __frcp_rn for the reciprocals no faster).
+//   The pair updates take 91% of a block's cycles: the kernel is
+//   issue-bound there, F divides and F logs a pair and sweep.  The
+//   group's models and each pair's running (scale, lnl) stay in shared
+//   memory across sweeps (with a table also the scale before the last
+//   sweep); per sweep every thread updates its pairs of the rows still
+//   iterating, the rows' maxima of |delta lnl| and of A go through warp
+//   shuffles and shared memory, and one thread per row decides its
+//   freeze.  The block stops when every row has frozen or at max_iter;
+//   with a table its threads then write the group's lnl row by row
+//   (coalesced).
 //
 // Every lnl_*_fs entry point is the lnl_general.cu kernel template
 // (lnl_common.cuh) instantiated with FreePair; the model tiles hold me,
@@ -72,7 +87,9 @@
 // block, 32 consecutive threads on 32 models of one object (one sweep
 // count per warp), and then reduce per object as before.  With one
 // thread per object each warp waited for the largest sweep count of its
-// 32 objects (2,588 against 166 ms at B = 2,048 on an H100).  No fast
+// 32 objects (2,588 against 166 ms at B = 2,048 on an H100).  Without
+// model errors `lnl_reduce_store` is the table route's producer; with
+// them `scale_sweeps` is, and `fz_lnl_reduce_store_fs` refuses.  No fast
 // math anywhere.
 // ---------------------------------------------------------------------
 
@@ -86,9 +103,40 @@ using fz::nanmax;
 
 constexpr float kChi2Noise = 1.9073486328125e-06f;  // 16 * float32 eps
 constexpr float kEps4 = 4.76837158203125e-07f;      // 4 * float32 eps
-constexpr int kWRows = 8;       // scale_sweeps: objects per block
-constexpr int kWThreads = 256;  // scale_sweeps: threads per block
+// scale_sweeps' shape; other values only in the builds that
+// tools/ab_table.py times against the package's (-DFZ_WROWS=...,
+// -DFZ_WTHREADS=...).
+#ifndef FZ_WROWS
+#define FZ_WROWS 2
+#endif
+#ifndef FZ_WTHREADS
+#define FZ_WTHREADS 256
+#endif
+constexpr int kWRows = FZ_WROWS;        // scale_sweeps: objects per block
+constexpr int kWThreads = FZ_WTHREADS;  // scale_sweeps: threads per block
 constexpr int kWWarps = kWThreads / 32;
+
+#ifdef FZ_STAMPS
+// Debug builds only (nvcc -DFZ_STAMPS; tools/ab_table.py --stamps): each
+// block's thread 0 adds the clock64 cycles of the parts of scale_sweeps to
+// [0] staging and sweep 0, [1] the sweeps' pair updates, [2] the warp
+// maxima and the barrier after them, [3] the freeze and the barriers
+// around it, [4] the table pass; [5] counts the block sweeps and [6] the
+// blocks.
+__device__ unsigned long long fz_sweep_stamps[8];
+#define FZ_STAMP(i)                             \
+  do {                                          \
+    if (t == 0) {                               \
+      const long long c1 = clock64();           \
+      stamp[i] += c1 - c0;                      \
+      c0 = c1;                                  \
+    }                                           \
+  } while (0)
+#else
+#define FZ_STAMP(i) \
+  do {              \
+  } while (0)
+#endif
 
 // jnp.maximum: NaN from either side wins.
 __device__ __forceinline__ float jmax(float a, float b) {
@@ -158,6 +206,32 @@ __device__ __forceinline__ float lnl_tail(float chi2, float ndim,
   return lnl < kNegInf ? kNegInf : lnl;
 }
 
+// The residual pass with model errors kept (ops/fused.py:537-569): chi2
+// = sum mask (d - s m)^2 / var(prev) with the (var(s_prev), s) pairing,
+// floored at 16 eps A, then the tail.  FreePair::lnl ends with it, and
+// `scale_sweeps` calls it once per pair on the state it ends with, so a
+// table entry is the recompute route's lnl bit for bit.
+template <bool FULL_MASK, bool DIM_PRIOR>
+__device__ __forceinline__ float residual_lnl(
+    const float* d, const float* de2, const float* dm, int ds, const float* m,
+    const float* me, const float* mm, int ms, int F, const float* gl,
+    float nd_full, float s, float prev) {
+  float chi2 = 0.0f, A = 0.0f, ndim = 0.0f, logvar = 0.0f;
+  for (int f = 0; f < F; ++f) {
+    float var, iv;
+    var_iv<FULL_MASK>(de2[f * ds], me[f * ms], dm[f * ds], mm[f * ms], prev,
+                      var, iv);
+    const float dk = d[f * ds];
+    const float r = __fsub_rn(dk, __fmul_rn(s, m[f * ms]));
+    chi2 = __fadd_rn(chi2, __fmul_rn(iv, __fmul_rn(r, r)));
+    A = __fadd_rn(A, __fmul_rn(iv, __fmul_rn(dk, dk)));
+    if (!FULL_MASK) ndim = __fadd_rn(ndim, __fmul_rn(dm[f * ds], mm[f * ms]));
+    if (!DIM_PRIOR) logvar = __fadd_rn(logvar, logf(var));
+  }
+  chi2 = jmax(chi2, __fmul_rn(kChi2Noise, A));
+  return lnl_tail<FULL_MASK, DIM_PRIOR>(chi2, ndim, logvar, F, gl, nd_full);
+}
+
 template <bool FULL_MASK, bool DIM_PRIOR, bool IGNORE_ME>
 struct FreePair {
   static constexpr bool kSquareMe = false;
@@ -167,58 +241,47 @@ struct FreePair {
       const float* d, const float* de2, const float* dm, int ds,
       const float* m, const float* me, const float* mm, int ms, int F,
       const float* gl, float nd_full, int k) {
-    float chi2 = 0.0f, A = 0.0f, ndim = 0.0f, logvar = 0.0f;
-    if (IGNORE_ME) {
-      // Closed form (ops/fused.py:345-368, :387-410).
-      float inter = 0.0f, shape = 0.0f;
-      for (int f = 0; f < F; ++f) {
-        const float iv = __fdiv_rn(1.0f, de2[f * ds]);
-        const float dk = d[f * ds], mk = m[f * ms];
-        float it = __fmul_rn(__fmul_rn(dk, iv), mk);
-        float sh = __fmul_rn(iv, __fmul_rn(mk, mk));
-        float aa = __fmul_rn(__fmul_rn(dk, dk), iv);
-        if (!FULL_MASK) {
-          const float mask = __fmul_rn(dm[f * ds], mm[f * ms]);
-          it = __fmul_rn(mask, it);
-          sh = __fmul_rn(mask, sh);
-          aa = __fmul_rn(mask, aa);
-          ndim = __fadd_rn(ndim, mask);
-        }
-        inter = __fadd_rn(inter, it);
-        shape = __fadd_rn(shape, sh);
-        A = __fadd_rn(A, aa);
-        if (!DIM_PRIOR) logvar = __fadd_rn(logvar, logf(de2[f * ds]));
-      }
-      const float s = __fmul_rn(inter, __fdiv_rn(1.0f, shape_floor(shape)));
-      for (int f = 0; f < F; ++f) {
-        const float iv = __fdiv_rn(1.0f, de2[f * ds]);
-        const float r = __fsub_rn(d[f * ds], __fmul_rn(s, m[f * ms]));
-        float term = __fmul_rn(__fmul_rn(r, r), iv);
-        if (!FULL_MASK)
-          term = __fmul_rn(__fmul_rn(dm[f * ds], mm[f * ms]), term);
-        chi2 = __fadd_rn(chi2, term);
-      }
-    } else {
-      // k sweeps of the recurrence, then the residual pass with the
-      // (var(s_prev), s) pairing (ops/fused.py:537-569).
+    if (!IGNORE_ME) {
+      // k sweeps of the recurrence, then the residual pass.
       float s = scale_step<FULL_MASK>(d, de2, dm, ds, m, me, mm, ms, F, 1.0f);
       float prev = s;
       for (int i = 0; i < k; ++i) {
         prev = s;
         s = scale_step<FULL_MASK>(d, de2, dm, ds, m, me, mm, ms, F, s);
       }
-      for (int f = 0; f < F; ++f) {
-        float var, iv;
-        var_iv<FULL_MASK>(de2[f * ds], me[f * ms], dm[f * ds], mm[f * ms],
-                          prev, var, iv);
-        const float dk = d[f * ds];
-        const float r = __fsub_rn(dk, __fmul_rn(s, m[f * ms]));
-        chi2 = __fadd_rn(chi2, __fmul_rn(iv, __fmul_rn(r, r)));
-        A = __fadd_rn(A, __fmul_rn(iv, __fmul_rn(dk, dk)));
-        if (!FULL_MASK) ndim = __fadd_rn(ndim, __fmul_rn(dm[f * ds],
-                                                         mm[f * ms]));
-        if (!DIM_PRIOR) logvar = __fadd_rn(logvar, logf(var));
+      return residual_lnl<FULL_MASK, DIM_PRIOR>(d, de2, dm, ds, m, me, mm, ms,
+                                                F, gl, nd_full, s, prev);
+    }
+    float chi2 = 0.0f, A = 0.0f, ndim = 0.0f, logvar = 0.0f;
+    // Datum-only variance: the closed form (ops/fused.py:345-368,
+    // :387-410).
+    float inter = 0.0f, shape = 0.0f;
+    for (int f = 0; f < F; ++f) {
+      const float iv = __fdiv_rn(1.0f, de2[f * ds]);
+      const float dk = d[f * ds], mk = m[f * ms];
+      float it = __fmul_rn(__fmul_rn(dk, iv), mk);
+      float sh = __fmul_rn(iv, __fmul_rn(mk, mk));
+      float aa = __fmul_rn(__fmul_rn(dk, dk), iv);
+      if (!FULL_MASK) {
+        const float mask = __fmul_rn(dm[f * ds], mm[f * ms]);
+        it = __fmul_rn(mask, it);
+        sh = __fmul_rn(mask, sh);
+        aa = __fmul_rn(mask, aa);
+        ndim = __fadd_rn(ndim, mask);
       }
+      inter = __fadd_rn(inter, it);
+      shape = __fadd_rn(shape, sh);
+      A = __fadd_rn(A, aa);
+      if (!DIM_PRIOR) logvar = __fadd_rn(logvar, logf(de2[f * ds]));
+    }
+    const float s = __fmul_rn(inter, __fdiv_rn(1.0f, shape_floor(shape)));
+    for (int f = 0; f < F; ++f) {
+      const float iv = __fdiv_rn(1.0f, de2[f * ds]);
+      const float r = __fsub_rn(d[f * ds], __fmul_rn(s, m[f * ms]));
+      float term = __fmul_rn(__fmul_rn(r, r), iv);
+      if (!FULL_MASK)
+        term = __fmul_rn(__fmul_rn(dm[f * ds], mm[f * ms]), term);
+      chi2 = __fadd_rn(chi2, term);
     }
     chi2 = jmax(chi2, __fmul_rn(kChi2Noise, A));
     return lnl_tail<FULL_MASK, DIM_PRIOR>(chi2, ndim, logvar, F, gl,
@@ -264,12 +327,20 @@ __device__ __forceinline__ float warp_nanmax(float v) {
   return v;
 }
 
-template <bool FULL_MASK>
+// TABLE: the table route's producer under free scale with model errors.
+// Each pair's s_{k-1} stays beside s_k (sp); once the block stops, every
+// real model's lnl from (var(s_{k-1}), s_k) goes into the table through
+// `residual_lnl`, the pass FreePair::lnl ends with.  s_k is the recompute
+// route's: `count_sweep`'s new scale is `scale_step`'s, operation for
+// operation.  On full masks the model mask is not staged (nothing reads
+// it), which leaves room for three blocks an SM with sp.
+template <bool FULL_MASK, bool DIM_PRIOR, bool TABLE>
 __global__ void scale_sweeps_kernel(
     const float* __restrict__ d, const float* __restrict__ de,
     const float* __restrict__ dm, const float* __restrict__ mT,
     const float* __restrict__ meT, const float* __restrict__ mmT,
-    short* __restrict__ sweeps, int B, int M, int F, int tm, int ng,
+    const float* __restrict__ gl, short* __restrict__ sweeps,
+    float* __restrict__ table, int ldm, int B, int M, int F, int tm, int ng,
     float ltol, int max_iter, float nd_full) {
   extern __shared__ float smem[];
   float* sd = smem;                   // [kWRows][F]
@@ -277,10 +348,12 @@ __global__ void scale_sweeps_kernel(
   float* sdm = sde2 + kWRows * F;     // [kWRows][F]
   float* sm = sdm + kWRows * F;       // [F][tm]
   float* sme = sm + F * tm;           // [F][tm]
-  float* smm = sme + F * tm;          // [F][tm]
-  float* ss = smm + F * tm;           // [kWRows][tm] running scale
+  float* smm = sme + F * tm;          // [F][tm], masked data only
+  float* ss = smm + (FULL_MASK ? 0 : F * tm);  // [kWRows][tm] running scale
   float* sl = ss + kWRows * tm;       // [kWRows][tm] running in-loop lnl
-  float* sred = sl + kWRows * tm;     // [2][kWRows][kWWarps]
+  float* sp = sl + kWRows * tm;       // [kWRows][tm] TABLE: the scale before
+  float* sgl = sp + (TABLE ? kWRows * tm : 0);  // [F + 1] TABLE
+  float* sred = sgl + (TABLE ? F + 1 : 0);      // [2][kWRows][kWWarps]
   int* sk = (int*)(sred + 2 * kWRows * kWWarps);  // [kWRows] sweeps run
   int* sdone = sk + kWRows;                       // [kWRows] frozen
 
@@ -288,6 +361,10 @@ __global__ void scale_sweeps_kernel(
   const int lane = t & 31, warp = t >> 5;
   const int b0 = blockIdx.x * kWRows;
   const int j0 = blockIdx.y * tm;
+#ifdef FZ_STAMPS
+  long long stamp[5] = {0, 0, 0, 0, 0}, c0 = clock64();
+  int nsweeps = 0;
+#endif
   const int nreal = min(tm, M - j0);
   // A ragged last group holds one sentinel slot (index nreal).
   const int nslot = nreal + (j0 + tm > M ? 1 : 0);
@@ -307,13 +384,15 @@ __global__ void scale_sweeps_kernel(
       const size_t src = (size_t)f * M + j0 + j;
       sm[i] = mT[src];
       sme[i] = meT[src];
-      smm[i] = mmT[src];
+      if (!FULL_MASK) smm[i] = mmT[src];
     } else if (j == nreal && j < nslot) {
       sm[i] = 1e15f;
       sme[i] = 1.0f;
-      smm[i] = 0.0f;
+      if (!FULL_MASK) smm[i] = 0.0f;
     }
   }
+  if (TABLE)
+    for (int k = t; k <= F; k += kWThreads) sgl[k] = gl[k];
   if (t < kWRows) {
     sk[t] = 0;
     sdone[t] = b0 + t < B ? 0 : 1;
@@ -330,10 +409,16 @@ __global__ void scale_sweeps_kernel(
                              s_new, lnl, A);
       ss[r * tm + j] = s_new;
       sl[r * tm + j] = lnl;
+      if (TABLE) sp[r * tm + j] = s_new;
     }
   }
+  FZ_STAMP(0);
   for (int it = 1; it <= max_iter; ++it) {
     __syncthreads();  // sweep it - 1 and the freeze flags are written
+    FZ_STAMP(3);
+#ifdef FZ_STAMPS
+    ++nsweeps;
+#endif
     float dmax[kWRows], amax[kWRows];
 #pragma unroll
     for (int r = 0; r < kWRows; ++r) {
@@ -341,16 +426,19 @@ __global__ void scale_sweeps_kernel(
       amax[r] = -INFINITY;
       if (sdone[r]) continue;
       for (int j = t; j < nslot; j += kWThreads) {
+        const float s_old = ss[r * tm + j];
         float s_new, lnl, A;
         count_sweep<FULL_MASK>(sd + r * F, sde2 + r * F, sdm + r * F, 1,
-                               sm + j, sme + j, smm + j, tm, F,
-                               ss[r * tm + j], nd_full, s_new, lnl, A);
+                               sm + j, sme + j, smm + j, tm, F, s_old,
+                               nd_full, s_new, lnl, A);
         dmax[r] = nanmax(dmax[r], fabsf(__fsub_rn(lnl, sl[r * tm + j])));
         amax[r] = nanmax(amax[r], A);
         ss[r * tm + j] = s_new;
         sl[r * tm + j] = lnl;
+        if (TABLE) sp[r * tm + j] = s_old;
       }
     }
+    FZ_STAMP(1);
 #pragma unroll
     for (int r = 0; r < kWRows; ++r) {
       const float dw = warp_nanmax(dmax[r]);
@@ -361,6 +449,7 @@ __global__ void scale_sweeps_kernel(
       }
     }
     __syncthreads();
+    FZ_STAMP(2);
     if (t < kWRows && !sdone[t]) {
       float dmx = -INFINITY, amx = -INFINITY;
       for (int w = 0; w < kWWarps; ++w) {
@@ -374,31 +463,54 @@ __global__ void scale_sweeps_kernel(
     __syncthreads();
     int all = 1;
     for (int r = 0; r < kWRows; ++r) all &= sdone[r];
+    FZ_STAMP(3);
     if (all) break;
   }
   if (t < kWRows && b0 + t < B)
     sweeps[(size_t)(b0 + t) * ng + blockIdx.y] = (short)sk[t];
+  if (TABLE) {
+    __syncthreads();  // the last sweep's scales (sweep 0's at max_iter 0)
+    for (int r = 0; r < kWRows && b0 + r < B; ++r) {
+      float* row = table + (size_t)(b0 + r) * ldm + j0;
+      for (int j = t; j < nreal; j += kWThreads)
+        row[j] = residual_lnl<FULL_MASK, DIM_PRIOR>(
+            sd + r * F, sde2 + r * F, sdm + r * F, 1, sm + j, sme + j,
+            smm + j, tm, F, sgl, nd_full, ss[r * tm + j], sp[r * tm + j]);
+    }
+  }
+#ifdef FZ_STAMPS
+  FZ_STAMP(4);
+  if (t == 0) {
+    for (int i = 0; i < 5; ++i)
+      atomicAdd(&fz_sweep_stamps[i], (unsigned long long)stamp[i]);
+    atomicAdd(&fz_sweep_stamps[5], (unsigned long long)nsweeps);
+    atomicAdd(&fz_sweep_stamps[6], 1ull);
+  }
+#endif
 }
 
-int sweeps_smem(int F, int tm) {
-  return (int)sizeof(float) * (3 * kWRows * F + 3 * F * tm + 2 * kWRows * tm +
-                               2 * kWRows * kWWarps) +
+int sweeps_smem(int F, int tm, bool full_mask, bool table) {
+  return (int)sizeof(float) *
+             (3 * kWRows * F + (full_mask ? 2 : 3) * F * tm +
+              (table ? 3 : 2) * kWRows * tm + (table ? F + 1 : 0) +
+              2 * kWRows * kWWarps) +
          (int)sizeof(int) * 2 * kWRows;
 }
 
-template <bool FULL_MASK>
+template <bool FULL_MASK, bool DIM_PRIOR, bool TABLE>
 int launch_sweeps(const float* d, const float* de, const float* dm,
                   const float* mT, const float* meT, const float* mmT,
-                  short* sweeps, int B, int M, int F, int tm, int ng,
-                  float ltol, int max_iter, float nd_full,
-                  cudaStream_t stream) {
-  const int smem = sweeps_smem(F, tm);
-  cudaError_t err = fz::allow_smem(scale_sweeps_kernel<FULL_MASK>, smem);
+                  const float* gl, short* sweeps, float* table, int ldm,
+                  int B, int M, int F, int tm, int ng, float ltol,
+                  int max_iter, float nd_full, cudaStream_t stream) {
+  const int smem = sweeps_smem(F, tm, FULL_MASK, TABLE);
+  auto kernel = scale_sweeps_kernel<FULL_MASK, DIM_PRIOR, TABLE>;
+  cudaError_t err = fz::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + kWRows - 1) / kWRows, ng);
-  scale_sweeps_kernel<FULL_MASK><<<grid, kWThreads, smem, stream>>>(
-      d, de, dm, mT, meT, mmT, sweeps, B, M, F, tm, ng, ltol, max_iter,
-      nd_full);
+  kernel<<<grid, kWThreads, smem, stream>>>(d, de, dm, mT, meT, mmT, gl,
+                                            sweeps, table, ldm, B, M, F, tm,
+                                            ng, ltol, max_iter, nd_full);
   return (int)cudaGetLastError();
 }
 
@@ -408,20 +520,61 @@ FZ_ENTRY_POINTS(FreePair, _fs)
 
 extern "C" {
 
-int fz_scale_sweeps_smem(int F, int tm) { return sweeps_smem(F, tm); }
+int fz_scale_sweeps_smem(int F, int tm, int full_mask, int table) {
+  return sweeps_smem(F, tm, full_mask != 0, table != 0);
+}
 
+// Blocks of scale_sweeps an SM holds at once (the dim-prior
+// instantiation), or minus a CUDA error.
+int fz_scale_sweeps_occupancy(int F, int tm, int full_mask, int table) {
+  const int smem = sweeps_smem(F, tm, full_mask != 0, table != 0);
+  auto kernel = full_mask ? (table ? scale_sweeps_kernel<true, true, true>
+                                   : scale_sweeps_kernel<true, true, false>)
+                          : (table ? scale_sweeps_kernel<false, true, true>
+                                   : scale_sweeps_kernel<false, true, false>);
+  cudaError_t err = fz::allow_smem(kernel, smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kWThreads,
+                                                        smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+#ifdef FZ_STAMPS
+// The debug build's cycles since the last call ([8]; host memory), then
+// zeroed.
+int fz_scale_sweeps_stamps(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, fz_sweep_stamps,
+                                         sizeof(fz_sweep_stamps));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  return (int)cudaMemcpyToSymbol(fz_sweep_stamps, zero, sizeof(zero));
+}
+#endif
+
+// `table` NULL: the sweep table alone (the cdf and one-pass routes, which
+// recompute lnl); otherwise also the lnl table (rows B, stride ldm).
 int fz_scale_sweeps(const float* d, const float* de, const float* dm,
                     const float* mT, const float* meT, const float* mmT,
-                    short* sweeps, int B, int M, int F, int tm, int ng,
-                    int full_mask, float ltol, int max_iter, float nd_full,
+                    const float* gl, short* sweeps, float* table, int ldm,
+                    int B, int M, int F, int tm, int ng, int full_mask,
+                    int dim_prior, float ltol, int max_iter, float nd_full,
                     void* stream) {
-  if (full_mask)
-    return launch_sweeps<true>(d, de, dm, mT, meT, mmT, sweeps, B, M, F, tm,
-                               ng, ltol, max_iter, nd_full,
-                               (cudaStream_t)stream);
-  return launch_sweeps<false>(d, de, dm, mT, meT, mmT, sweeps, B, M, F, tm,
-                              ng, ltol, max_iter, nd_full,
-                              (cudaStream_t)stream);
+#define FZ_SWEEPS(FM, DP, TB)                                              \
+  return launch_sweeps<FM, DP, TB>(d, de, dm, mT, meT, mmT, gl, sweeps,    \
+                                   table, ldm, B, M, F, tm, ng, ltol,      \
+                                   max_iter, nd_full, (cudaStream_t)stream)
+  if (table == nullptr) {
+    if (full_mask) FZ_SWEEPS(true, true, false);
+    FZ_SWEEPS(false, true, false);
+  }
+  switch ((full_mask ? 2 : 0) | (dim_prior ? 1 : 0)) {
+    case 0: FZ_SWEEPS(false, false, true);
+    case 1: FZ_SWEEPS(false, true, true);
+    case 2: FZ_SWEEPS(true, false, true);
+    default: FZ_SWEEPS(true, true, true);
+  }
+#undef FZ_SWEEPS
 }
 
 }  // extern "C"

@@ -49,6 +49,19 @@
 //   as the JAX grid merges 512-model tiles: no single running sum over
 //   100,000 terms.
 //
+// lnl_reduce_store  (the table route's producer, lnl_common.cuh)
+//   Replaces: `_make_reduce_kernel` (ops/fused.py:599) on the two-pass
+//             threshold route, where lnl_stack then reads the table.
+//   Computes: lnl_reduce's lmap and levid, bit for bit, and every pair's
+//             lnl into the float32 lnl table.
+//   Bound on the H100: the lnl chain per pair (as lnl_reduce), and 4
+//   bytes written per pair.
+//   Design: 64 rows a block; all 256 threads compute each 64-model
+//   tile's lnl (16 pairs a thread: a 32,768-row chunk fills the card
+//   with 8 warps a block where one thread a row gave 2), store it row by
+//   row, and two warps reduce the rows as lnl_reduce does
+//   (`reduce_tile`).
+//
 // lnl_reduce_split  (a second entry point of the lnl_reduce template)
 //   Replaces: no Pallas kernel.  The JAX fitter finds the cdf cut of a
 //             batch that lnl_topk leaves undetermined with an XLA sort of
@@ -92,6 +105,9 @@
 //   Bound on the H100: the lnl chain per pair, plus Ngrid FMAs per pair
 //   that survives the cut: few after the wt_thresh cut, nearly all in the
 //   cdf mode (it drops only the heaviest weights), where the FMAs lead.
+//   The two-pass threshold route reads lnl from the lnl table instead
+//   (`lnl_stack_read`, csrc/lnl_table.cu); this kernel serves the cdf
+//   mode and every call without a table.
 //   Design: grid = (object blocks of 32) x (column chunks of up to 512
 //   grid columns), one thread per grid column.  A block computes its 32
 //   objects' kept weights against a 64-model tile into shared memory,
@@ -207,5 +223,6 @@ int fz_lnl_topk_smem(int F, int T, int sweeps) {
                       sweeps != 0);
 }
 int fz_lnl_stack_smem(int F) { return fz::col_smem_bytes(F); }
+int fz_lnl_reduce_store_smem(int F) { return fz::reduce_store_smem(F); }
 
 }  // extern "C"

@@ -20,7 +20,8 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["nvcc_path", "library_path", "build", "load", "ptxas_report"]
+__all__ = ["nvcc_path", "library_path", "build", "load", "ptxas_report",
+           "parse_ptxas"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
@@ -72,8 +73,8 @@ def build(force=False):
     # One nvcc per source, all started together (lnl_general.cu and
     # lnl_freescale.cu, with their many template instantiations, take
     # tens of seconds each; chi2_fullmask.cu, chi2_screened.cu,
-    # som_train.cu, gng_train.cu, pop_chain.cu and cluster_probe.cu
-    # seconds),
+    # lnl_table.cu, som_train.cu, gng_train.cu, pop_chain.cu and
+    # cluster_probe.cu seconds),
     # then one link.  The library is written to a temporary name and
     # renamed: a concurrent loader never sees a half-written one.
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
@@ -116,8 +117,14 @@ def ptxas_report(source):
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{run.stdout}")
+    return parse_ptxas(run.stdout)
+
+
+def parse_ptxas(text):
+    """{mangled name: {"registers", "spill_stores", "spill_loads", "stack",
+    "static_smem"}} from the output of an nvcc run with -Xptxas -v."""
     out, cur = {}, None
-    for line in run.stdout.splitlines():
+    for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([\w$]+)'?", line)
         if m:
@@ -169,7 +176,9 @@ def _bind(lib):
     lib.fz_expf_probe.argtypes = [P, P, I, P]
     lib.fz_expf_probe.restype = I
     for name, nargs in (("fz_lnl_reduce_smem", 2), ("fz_lnl_topk_smem", 3),
-                        ("fz_lnl_stack_smem", 1), ("fz_scale_sweeps_smem", 2)):
+                        ("fz_lnl_stack_smem", 1), ("fz_scale_sweeps_smem", 4),
+                        ("fz_scale_sweeps_occupancy", 4),
+                        ("fz_lnl_reduce_store_smem", 1)):
         getattr(lib, name).argtypes = [I] * nargs
         getattr(lib, name).restype = I
     # Pointers (7 inputs, then outputs / extra inputs), sizes, flags,
@@ -185,13 +194,25 @@ def _bind(lib):
         "fz_lnl_stack": [P] * 11 + [I] * 4 + [F] + [I] * 3 + tail + [I, P],
         "fz_lnl_cut_stack": [P] * 13 + [I] * 7 + tail + [I, P],
         "fz_lnl_onepass": [P] * 11 + [I] * 7 + tail + [I, P],
+        # The table route's producer: the lnl table and its stride after
+        # lmap and levid, no sweep table.
+        "fz_lnl_reduce_store": [P] * 10 + [I] * 7 + [F, P],
     }
     for name, argtypes in general.items():
         for fn in (getattr(lib, name), getattr(lib, name + "_fs")):
             fn.argtypes = argtypes
             fn.restype = I
-    lib.fz_scale_sweeps.argtypes = [P] * 7 + [I] * 6 + [F, I, F, P]
+    # Pointers (the lnl table NULL for the sweep table alone), ldm, sizes,
+    # flags, ltol, max_iter, nd_full, stream.
+    lib.fz_scale_sweeps.argtypes = [P] * 9 + [I] * 8 + [F, I, F, P]
     lib.fz_scale_sweeps.restype = I
+    # csrc/lnl_table.cu: the lnl table's readers.
+    lib.fz_lnl_reduce_read.argtypes = [P, I, P, P, I, I, P]
+    lib.fz_lnl_reduce_read.restype = I
+    lib.fz_lnl_stack_read.argtypes = [P, I] + [P] * 4 + [I] * 3 + [F, I, P]
+    lib.fz_lnl_stack_read.restype = I
+    lib.fz_lnl_stack_read_smem.argtypes = [I]
+    lib.fz_lnl_stack_read_smem.restype = I
     # csrc/som_train.cu: pointers, sizes, off, nsteps_total, nside,
     # wt_thresh, flags, the two schedules, threads, resident, stream.
     lib.fz_som_train_smem.argtypes = [I] * 4

@@ -13,7 +13,20 @@ cut the top-T table leaves undetermined (`ops.fused.cdf_cut_exact`).
 model group), the table the other kernels read under free scale with
 model errors.  The CUDA sources, with the design notes, are
 ``csrc/lnl_general.cu`` (fixed scale), ``csrc/lnl_freescale.cu`` (free
-scale) and ``csrc/lnl_common.cuh`` (the kernel templates).
+scale), ``csrc/lnl_common.cuh`` (the kernel templates) and
+``csrc/lnl_table.cu`` (the lnl table's readers).
+
+The two-pass threshold route (`lnl_reduce`, then `lnl_stack`) computes
+each pair's lnl once per call into an lnl table: float32 (B,
+`table_width(M)`), row-major, entry [b, j] the lnl of object b and model
+j (the columns past M are never written).  `lnl_reduce(..., table=t)`
+computes, stores and reduces, except under free scale with model errors,
+where `scale_sweeps(..., table=t)` stores each pair's lnl as its fixed
+point ends and `lnl_reduce` reads it; `lnl_stack(..., table=t)` reads it
+on every instantiation.  The values are the recompute route's (the same
+wrappers without ``table``) bit for bit, and so are lmap, levid and the
+PDF.  `table_rows` cuts a batch into row chunks of at most
+`TABLE_BYTES_MAX` bytes of table (`ops.fused` runs the route per chunk).
 
 Each wrapper takes float32 contiguous tensors:
 
@@ -34,7 +47,9 @@ recurrence.
 
 On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises: there is no fallback.  Each
-wrapper counts its launches in ``<wrapper>.launches``.
+wrapper counts its launches in ``<wrapper>.launches``, and `lnl_reduce`,
+`lnl_stack` and `scale_sweeps` those with a table also in
+``.table_launches`` (``launch_counts()["<wrapper>_table"]``).
 
 The plain versions compute the (B, M) lnl grid with `lnl_tile_plain`,
 in the kernels' order (filters k = 0..F-1, ``iv = 1/var``, ``term =
@@ -59,7 +74,8 @@ __all__ = ["lnl_tile_plain", "lnl_reduce", "lnl_reduce_plain",
            "lnl_stack_plain", "lnl_onepass", "lnl_onepass_plain",
            "lnl_topk", "lnl_topk_plain", "lnl_cut_stack",
            "lnl_cut_stack_plain", "scale_sweeps", "scale_sweeps_plain",
-           "gl_table", "NEG_INF", "reset_launch_counts", "launch_counts"]
+           "gl_table", "table_width", "table_rows", "TABLE_BYTES_MAX",
+           "NEG_INF", "reset_launch_counts", "launch_counts"]
 
 NEG_INF = float(np.finfo(np.float32).min)  # the lnl floor
 _LOG_2 = 0.6931471805599453
@@ -72,6 +88,12 @@ _EPS4 = 4.0 * _EPS
 # The JAX glue's model padding (ops/fused.py:2151-2153): the sentinels
 # join the last model group's convergence maxima.
 _SENTINEL = (float(np.float32(1e15)), 1.0, 0.0)
+
+# The lnl table: rows are padded to the kernels' 64-model tile, so every
+# tile of a row is whole and 16-byte aligned for the readers' copies; a
+# batch is cut into row chunks of at most TABLE_BYTES_MAX bytes of table.
+_TABLE_TILE = 64
+TABLE_BYTES_MAX = 16 * 2 ** 30
 
 # Built once per (F, device): a host-to-device copy from pageable memory
 # on every launch would synchronize the host with the stream.
@@ -91,6 +113,30 @@ def gl_table(nfilt, device):
         table = torch.tensor(vals, dtype=torch.float32, device=dev)
         _GL_CACHE[key] = table
     return table
+
+
+def table_width(nmodel):
+    """Columns of the lnl table (its row stride): M rounded up to 64."""
+    return -(-int(nmodel) // _TABLE_TILE) * _TABLE_TILE
+
+
+def table_rows(nobj, nmodel):
+    """Rows per chunk of the lnl table for a batch of `nobj` objects: the
+    fewest chunks of at most `TABLE_BYTES_MAX` bytes, of equal size (the
+    last one shorter), at least one row."""
+    cap = max(1, TABLE_BYTES_MAX // (4 * table_width(nmodel)))
+    nchunks = max(1, -(-int(nobj) // cap))
+    return max(1, -(-int(nobj) // nchunks))
+
+
+def _check_table(table, B, M, device):
+    """The lnl table of a (B objects, M models) call."""
+    if not isinstance(table, torch.Tensor) or table.dtype != torch.float32:
+        raise TypeError("table must be a float32 tensor")
+    if tuple(table.shape) != (B, table_width(M)) or table.device != device \
+            or not table.is_contiguous() or table.data_ptr() % 16:
+        raise ValueError(f"table must be a contiguous, 16-byte aligned "
+                         f"({B}, {table_width(M)}) tensor on {device}")
 
 
 def _nd_full(nfilt):
@@ -147,7 +193,13 @@ def _flag_dict(full_mask, dim_prior, ignore_model_err, free_scale, sweeps,
                 free_scale=bool(free_scale), sweeps=sweeps, tm=tm)
 
 
-def _table_args(B, M, device, *, free_scale, ignore_model_err, sweeps, tm,
+def _sweep_policy(flags):
+    """Free scale with model errors: the pair policy with a sweep table,
+    whose lnl table `scale_sweeps` writes."""
+    return bool(flags["free_scale"]) and not flags["ignore_model_err"]
+
+
+def _sweep_args(B, M, device, *, free_scale, ignore_model_err, sweeps, tm,
                 **_):
     """Check the sweep table against the flags; returns (pointer, ng, tm)
     of the C call (a null table outside free scale with model errors)."""
@@ -224,13 +276,16 @@ def _fs_count_sweep_plain(d, de2, dm, mT, meT, mmT, s, ndt, full_mask):
 
 
 def scale_sweeps_plain(d, de, dm, mT, meT, mmT, *, tm, full_mask=False,
-                       ltol=1e-4, max_iter=100):
+                       ltol=1e-4, max_iter=100, table=None, dim_prior=True):
     """Plain version of `scale_sweeps`: the int16 (B, ceil(M / tm))
     table of fixed-point sweeps per (object, model group), as the JAX
     tile's while_loop runs them (ops/fused.py:510-544), the models padded
-    to a multiple of tm with the JAX glue's sentinels."""
+    to a multiple of tm with the JAX glue's sentinels.  With `table`, as
+    the kernel: each pair's scale before its last sweep is kept, and the
+    lnl from the pair's final (s_prev, s) goes into table[:, :M]."""
     B, F = d.shape
     M = mT.shape[1]
+    real = (mT, meT, mmT)
     tm = int(tm)
     ng = -(-M // tm)
     pad = ng * tm - M
@@ -248,6 +303,7 @@ def scale_sweeps_plain(d, de, dm, mT, meT, mmT, *, tm, full_mask=False,
         ndt = ndim * _LOG_2PI
     s, lnl, _ = _fs_count_sweep_plain(d, de2, dm, mT, meT, mmT, None, ndt,
                                       full_mask)
+    prev = s
     count = torch.zeros((B, ng), dtype=torch.int16, device=d.device)
     done = torch.zeros((B, ng), dtype=torch.bool, device=d.device)
     ltol = float(np.float32(ltol))
@@ -259,11 +315,16 @@ def scale_sweeps_plain(d, de, dm, mT, meT, mmT, *, tm, full_mask=False,
         thr = torch.clamp_min(_EPS4 * A_n.view(B, ng, tm).amax(dim=2), ltol)
         live = ~done
         upd = live.repeat_interleave(tm, dim=1)
+        prev = torch.where(upd, s, prev)
         s = torch.where(upd, s_n, s)
         lnl = torch.where(upd, lnl_n, lnl)
         it += 1
         count = torch.where(live, it, count).to(torch.int16)
         done = done | (delta <= thr)
+    if table is not None:
+        table[:, :M] = _fs_residual_plain(
+            d, de2, dm, *real, s[:, :M], prev[:, :M], full_mask=full_mask,
+            dim_prior=dim_prior)
     return count
 
 
@@ -290,6 +351,27 @@ def _fs_tail(chi2, ndim, logvar, F, full_mask, dim_prior):
     return torch.where(lnl < NEG_INF, NEG_INF, lnl)
 
 
+def _fs_residual_plain(d, de2, dm, mT, meT, mmT, s, prev, *, full_mask,
+                       dim_prior):
+    """The residual pass with model errors kept (the kernels'
+    `residual_lnl`): lnl from each pair's (var(prev), s)."""
+    B, F = d.shape
+    chi2 = torch.zeros((B, mT.shape[1]), dtype=d.dtype, device=d.device)
+    A, ndim, logvar = chi2, chi2, chi2
+    for k in range(F):
+        var, iv = _fs_var_iv(d, de2, dm, mT, meT, mmT, k, prev, full_mask)
+        dk = d[:, k:k + 1]
+        r = dk - s * mT[k]
+        chi2 = chi2 + iv * (r * r)
+        A = A + iv * (dk * dk)
+        if not full_mask:
+            ndim = ndim + dm[:, k:k + 1] * mmT[k]
+        if not dim_prior:
+            logvar = logvar + torch.log(var)
+    chi2 = torch.maximum(chi2, CHI2_NOISE * A)
+    return _fs_tail(chi2, ndim, logvar, F, full_mask, dim_prior)
+
+
 def _fs_tile_plain(d, de, dm, mT, meT, mmT, *, full_mask, dim_prior,
                    ignore_model_err, sweeps, tm):
     """The free-scale (B, M) lnl grid in the kernels' order (`FreePair`
@@ -297,36 +379,7 @@ def _fs_tile_plain(d, de, dm, mT, meT, mmT, *, full_mask, dim_prior,
     B, F = d.shape
     M = mT.shape[1]
     de2 = de * de
-    zeros = torch.zeros((B, M), dtype=d.dtype, device=d.device)
-    chi2, ndim = zeros, zeros
-    logvar = torch.zeros((B, 1), dtype=d.dtype, device=d.device)
-    if ignore_model_err:
-        inter, shape = zeros, zeros
-        A = torch.zeros_like(logvar)
-        for k in range(F):
-            iv = 1.0 / de2[:, k:k + 1]
-            dk, mk = d[:, k:k + 1], mT[k]
-            it = (dk * iv) * mk
-            sh = iv * (mk * mk)
-            aa = (dk * dk) * iv
-            if not full_mask:
-                mask = dm[:, k:k + 1] * mmT[k]
-                it, sh, aa = mask * it, mask * sh, mask * aa
-                ndim = ndim + mask
-            inter = inter + it
-            shape = shape + sh
-            A = A + aa
-            if not dim_prior:
-                logvar = logvar + torch.log(de2[:, k:k + 1])
-        s = inter * (1.0 / _shape_floor(shape))
-        for k in range(F):
-            iv = 1.0 / de2[:, k:k + 1]
-            r = d[:, k:k + 1] - s * mT[k]
-            term = (r * r) * iv
-            if not full_mask:
-                term = (dm[:, k:k + 1] * mmT[k]) * term
-            chi2 = chi2 + term
-    else:
+    if not ignore_model_err:
         count = sweeps.long()[:, torch.arange(M, device=d.device) // int(tm)]
         s = _fs_scale_plain(d, de2, dm, mT, meT, mmT, None, full_mask)
         prev = s
@@ -335,18 +388,37 @@ def _fs_tile_plain(d, de, dm, mT, meT, mmT, *, full_mask, dim_prior,
             upd = count >= i
             prev = torch.where(upd, s, prev)
             s = torch.where(upd, s_n, s)
-        A = zeros
-        logvar = zeros
-        for k in range(F):
-            var, iv = _fs_var_iv(d, de2, dm, mT, meT, mmT, k, prev, full_mask)
-            dk = d[:, k:k + 1]
-            r = dk - s * mT[k]
-            chi2 = chi2 + iv * (r * r)
-            A = A + iv * (dk * dk)
-            if not full_mask:
-                ndim = ndim + dm[:, k:k + 1] * mmT[k]
-            if not dim_prior:
-                logvar = logvar + torch.log(var)
+        return _fs_residual_plain(d, de2, dm, mT, meT, mmT, s, prev,
+                                  full_mask=full_mask, dim_prior=dim_prior)
+    zeros = torch.zeros((B, M), dtype=d.dtype, device=d.device)
+    chi2, ndim = zeros, zeros
+    logvar = torch.zeros((B, 1), dtype=d.dtype, device=d.device)
+    # Datum-only variance: the closed form.
+    inter, shape = zeros, zeros
+    A = torch.zeros_like(logvar)
+    for k in range(F):
+        iv = 1.0 / de2[:, k:k + 1]
+        dk, mk = d[:, k:k + 1], mT[k]
+        it = (dk * iv) * mk
+        sh = iv * (mk * mk)
+        aa = (dk * dk) * iv
+        if not full_mask:
+            mask = dm[:, k:k + 1] * mmT[k]
+            it, sh, aa = mask * it, mask * sh, mask * aa
+            ndim = ndim + mask
+        inter = inter + it
+        shape = shape + sh
+        A = A + aa
+        if not dim_prior:
+            logvar = logvar + torch.log(de2[:, k:k + 1])
+    s = inter * (1.0 / _shape_floor(shape))
+    for k in range(F):
+        iv = 1.0 / de2[:, k:k + 1]
+        r = d[:, k:k + 1] - s * mT[k]
+        term = (r * r) * iv
+        if not full_mask:
+            term = (dm[:, k:k + 1] * mmT[k]) * term
+        chi2 = chi2 + term
     chi2 = torch.maximum(chi2, CHI2_NOISE * A)
     return _fs_tail(chi2, ndim, logvar, F, full_mask, dim_prior)
 
@@ -401,9 +473,17 @@ def lnl_tile_plain(d, de, dm, mT, meT, mmT, *, full_mask=False,
     return torch.where(lnl < NEG_INF, NEG_INF, lnl)
 
 
-def lnl_reduce_plain(d, de, dm, mT, meT, mmT, **flags):
-    """Plain version of `lnl_reduce`: (lmap, levid), each (B,)."""
-    lnl = lnl_tile_plain(d, de, dm, mT, meT, mmT, **flags)
+def lnl_reduce_plain(d, de, dm, mT, meT, mmT, *, table=None, **flags):
+    """Plain version of `lnl_reduce`: (lmap, levid), each (B,).  With
+    `table`: the lnl read from it under free scale with model errors,
+    else computed and stored into table[:, :M]."""
+    M = mT.shape[1]
+    if table is not None and _sweep_policy(flags):
+        lnl = table[:, :M]
+    else:
+        lnl = lnl_tile_plain(d, de, dm, mT, meT, mmT, **flags)
+        if table is not None:
+            table[:, :M] = lnl
     lmap = lnl.amax(dim=1)
     levid = torch.log(torch.exp(lnl - lmap[:, None]).sum(dim=1)) + lmap
     return lmap, levid
@@ -445,9 +525,11 @@ def lnl_topk_plain(d, de, dm, mT, meT, mmT, *, T, **flags):
 
 
 def lnl_stack_plain(d, de, dm, mT, meT, mmT, G, lmap, levid, *, log_thr,
-                    **flags):
-    """Plain version of `lnl_stack`: pdf (B, Ngrid)."""
-    lnl = lnl_tile_plain(d, de, dm, mT, meT, mmT, **flags)
+                    table=None, **flags):
+    """Plain version of `lnl_stack`: pdf (B, Ngrid); the lnl read from
+    `table` when given."""
+    lnl = (lnl_tile_plain(d, de, dm, mT, meT, mmT, **flags) if table is None
+           else table[:, :mT.shape[1]])
     thr = lmap + float(np.float32(log_thr))
     w = torch.where(lnl > thr[:, None], torch.exp(lnl - levid[:, None]), 0.0)
     return fp32_matmul(w, G)
@@ -482,11 +564,17 @@ def _load_checked(name, smem):
 
 
 def scale_sweeps(d, de, dm, mT, meT, mmT, *, tm, full_mask=False, ltol=1e-4,
-                 max_iter=100):
+                 max_iter=100, table=None, dim_prior=True):
     """Per object and model group (models [g tm, (g + 1) tm)), the
     sweeps the free-scale fixed point with model errors runs before the
     group's max |delta lnl| is at most max(ltol, 4 eps max A), at most
-    `max_iter`.  Returns an int16 (B, ceil(M / tm)) tensor."""
+    `max_iter`.  Returns an int16 (B, ceil(M / tm)) tensor.
+
+    With `table` ((B, table_width(M)) float32), also each pair's lnl
+    under `dim_prior` (the Normal likelihood when False) from the state
+    its fixed point ends in: the lnl table of the two-pass threshold
+    route, equal to the free-scale `lnl_tile_plain` over this sweep
+    table."""
     B, F, M = _check_inputs(d, de, dm, mT, meT, mmT)
     tm, max_iter = int(tm), int(max_iter)
     ng = -(-M // tm) if tm >= 1 else 0
@@ -495,48 +583,79 @@ def scale_sweeps(d, de, dm, mT, meT, mmT, *, tm, full_mask=False, ltol=1e-4,
                          "groups")
     if not 0 <= max_iter <= np.iinfo(np.int16).max:
         raise ValueError(f"max_iter={max_iter} does not fit the int16 table")
+    if table is not None:
+        _check_table(table, B, M, d.device)
     kw = dict(tm=tm, full_mask=full_mask, ltol=ltol, max_iter=max_iter)
     if d.device.type == "cpu":
-        return scale_sweeps_plain(d, de, dm, mT, meT, mmT, **kw)
+        return scale_sweeps_plain(d, de, dm, mT, meT, mmT, table=table,
+                                  dim_prior=dim_prior, **kw)
     out = torch.empty((B, ng), dtype=torch.int16, device=d.device)
     if B == 0:
         return out
-    lib = _load_checked("scale_sweeps",
-                        lambda lib: lib.fz_scale_sweeps_smem(F, tm))
+    lib = _load_checked("scale_sweeps", lambda lib: lib.fz_scale_sweeps_smem(
+        F, tm, int(bool(full_mask)), int(table is not None)))
+    gl = gl_table(F, d.device)
     with torch.cuda.device(d.device):
         rc = lib.fz_scale_sweeps(
-            *_ptrs(d, de, dm, mT, meT, mmT, out), B, M, F, tm, ng,
-            int(bool(full_mask)), float(ltol), max_iter, _nd_full(F),
-            _stream(d.device))
+            *_ptrs(d, de, dm, mT, meT, mmT, gl, out),
+            None if table is None else table.data_ptr(), table_width(M), B,
+            M, F, tm, ng, int(bool(full_mask)), int(bool(dim_prior)),
+            float(ltol), max_iter, _nd_full(F), _stream(d.device))
     _check_rc("scale_sweeps", rc)
     scale_sweeps.launches += 1
+    scale_sweeps.table_launches += table is not None
     return out
 
 
 def lnl_reduce(d, de, dm, mT, meT, mmT, *, full_mask=False, dim_prior=True,
                ignore_model_err=False, free_scale=False, sweeps=None,
-               tm=None):
+               tm=None, table=None):
     """Per object over all models: lmap = max lnl and levid = log sum
-    exp(lnl - lmap) + lmap.  Returns (lmap, levid), float32 (B,)."""
+    exp(lnl - lmap) + lmap.  Returns (lmap, levid), float32 (B,).
+
+    With `table` ((B, table_width(M)) float32), the table route: under
+    free scale with model errors the lnl is read from the table, which
+    `scale_sweeps(..., table=)` wrote (no likelihood is computed);
+    otherwise each pair's lnl is computed, stored into the table and
+    reduced.  Either way the result is the recompute route's bit for
+    bit."""
     B, F, M = _check_inputs(d, de, dm, mT, meT, mmT)
     flags = _flag_dict(full_mask, dim_prior, ignore_model_err, free_scale,
                        sweeps, tm)
-    table = _table_args(B, M, d.device, **flags)
+    sweep = _sweep_args(B, M, d.device, **flags)
+    if table is not None:
+        _check_table(table, B, M, d.device)
     if d.device.type == "cpu":
-        return lnl_reduce_plain(d, de, dm, mT, meT, mmT, **flags)
+        return lnl_reduce_plain(d, de, dm, mT, meT, mmT, table=table,
+                                **flags)
     lmap = torch.empty(B, dtype=torch.float32, device=d.device)
     levid = torch.empty_like(lmap)
     if B == 0:
         return lmap, levid
-    lib = _load_checked("lnl_reduce", lambda lib: lib.fz_lnl_reduce_smem(
-        F, table[0] is not None))
-    gl = gl_table(F, d.device)
+    stream = _stream(d.device)
     with torch.cuda.device(d.device):
-        rc = _entry(lib, "fz_lnl_reduce", **flags)(
-            *_ptrs(d, de, dm, mT, meT, mmT, gl, lmap, levid), B, M, F,
-            *_flags(**flags), _nd_full(F), *table, _stream(d.device))
+        if table is not None and _sweep_policy(flags):
+            rc = _build.load().fz_lnl_reduce_read(
+                table.data_ptr(), table_width(M), *_ptrs(lmap, levid), B, M,
+                stream)
+        elif table is not None:
+            lib = _load_checked("lnl_reduce",
+                                lambda lib: lib.fz_lnl_reduce_store_smem(F))
+            rc = _entry(lib, "fz_lnl_reduce_store", **flags)(
+                *_ptrs(d, de, dm, mT, meT, mmT, gl_table(F, d.device), lmap,
+                       levid, table), table_width(M), B, M, F,
+                *_flags(**flags), _nd_full(F), stream)
+        else:
+            lib = _load_checked("lnl_reduce",
+                                lambda lib: lib.fz_lnl_reduce_smem(
+                                    F, sweep[0] is not None))
+            rc = _entry(lib, "fz_lnl_reduce", **flags)(
+                *_ptrs(d, de, dm, mT, meT, mmT, gl_table(F, d.device), lmap,
+                       levid), B, M, F, *_flags(**flags), _nd_full(F),
+                *sweep, stream)
     _check_rc("lnl_reduce", rc)
     lnl_reduce.launches += 1
+    lnl_reduce.table_launches += table is not None
     return lmap, levid
 
 
@@ -551,7 +670,7 @@ def lnl_reduce_split(d, de, dm, mT, meT, mmT, split, *, full_mask=False,
     _check("split", split, (B,), d.device)
     flags = _flag_dict(full_mask, dim_prior, ignore_model_err, free_scale,
                        sweeps, tm)
-    table = _table_args(B, M, d.device, **flags)
+    sweep = _sweep_args(B, M, d.device, **flags)
     if d.device.type == "cpu":
         return lnl_reduce_split_plain(d, de, dm, mT, meT, mmT, split,
                                       **flags)
@@ -561,12 +680,12 @@ def lnl_reduce_split(d, de, dm, mT, meT, mmT, split, *, full_mask=False,
     if B == 0:
         return gt, le, count
     lib = _load_checked("lnl_reduce_split", lambda lib: lib.fz_lnl_reduce_smem(
-        F, table[0] is not None))
+        F, sweep[0] is not None))
     gl = gl_table(F, d.device)
     with torch.cuda.device(d.device):
         rc = _entry(lib, "fz_lnl_reduce_split", **flags)(
             *_ptrs(d, de, dm, mT, meT, mmT, gl, split, gt, le, count),
-            B, M, F, *_flags(**flags), _nd_full(F), *table,
+            B, M, F, *_flags(**flags), _nd_full(F), *sweep,
             _stream(d.device))
     _check_rc("lnl_reduce_split", rc)
     lnl_reduce_split.launches += 1
@@ -584,7 +703,7 @@ def lnl_topk(d, de, dm, mT, meT, mmT, *, T, full_mask=False, dim_prior=True,
         raise ValueError(f"T={T}: need at least one slot")
     flags = _flag_dict(full_mask, dim_prior, ignore_model_err, free_scale,
                        sweeps, tm)
-    table = _table_args(B, M, d.device, **flags)
+    sweep = _sweep_args(B, M, d.device, **flags)
     if d.device.type == "cpu":
         return lnl_topk_plain(d, de, dm, mT, meT, mmT, T=T, **flags)
     vals = torch.empty((B, T), dtype=torch.float32, device=d.device)
@@ -592,12 +711,12 @@ def lnl_topk(d, de, dm, mT, meT, mmT, *, T, full_mask=False, dim_prior=True,
     if B == 0:
         return vals, cnts
     lib = _load_checked("lnl_topk", lambda lib: lib.fz_lnl_topk_smem(
-        F, T, table[0] is not None))
+        F, T, sweep[0] is not None))
     gl = gl_table(F, d.device)
     with torch.cuda.device(d.device):
         rc = _entry(lib, "fz_lnl_topk", **flags)(
             *_ptrs(d, de, dm, mT, meT, mmT, gl, vals, cnts), B, M, F, T,
-            *_flags(**flags), _nd_full(F), *table, _stream(d.device))
+            *_flags(**flags), _nd_full(F), *sweep, _stream(d.device))
     _check_rc("lnl_topk", rc)
     lnl_topk.launches += 1
     return vals, cnts
@@ -611,8 +730,14 @@ def _check_stack_inputs(d, G, M, rows):
         _check(name, t, (d.shape[0],), d.device)
 
 
+def _col_threads(ngrid):
+    """Threads of a grid-column kernel: one a grid column, up to
+    _STACK_MAX_THREADS (more columns take more blocks)."""
+    return min(-(-ngrid // 32) * 32, _STACK_MAX_THREADS)
+
+
 def _launch_cols(name, fn, d, de, dm, mT, meT, mmT, G, ptrs, sizes, flags,
-                 table):
+                 sweep):
     """Launch a grid-column kernel (stack, cut stack, onepass): `ptrs`
     are the pointers after G, `sizes` the arguments after Ngrid and
     before the flags."""
@@ -620,36 +745,49 @@ def _launch_cols(name, fn, d, de, dm, mT, meT, mmT, G, ptrs, sizes, flags,
     ngrid = G.shape[1]
     lib = _load_checked(name, lambda lib: lib.fz_lnl_stack_smem(F))
     gl = gl_table(F, d.device)
-    threads = min(-(-ngrid // 32) * 32, _STACK_MAX_THREADS)
     with torch.cuda.device(d.device):
         rc = _entry(lib, fn, **flags)(
             *_ptrs(d, de, dm, mT, meT, mmT, gl, G, *ptrs), B,
             mT.shape[1], F, ngrid, *sizes, *_flags(**flags), _nd_full(F),
-            *table, threads, _stream(d.device))
+            *sweep, _col_threads(ngrid), _stream(d.device))
     _check_rc(name, rc)
 
 
 def lnl_stack(d, de, dm, mT, meT, mmT, G, lmap, levid, *, log_thr,
               full_mask=False, dim_prior=True, ignore_model_err=False,
-              free_scale=False, sweeps=None, tm=None):
+              free_scale=False, sweeps=None, tm=None, table=None):
     """pdf = sum over models of exp(lnl - levid) * G[m], keeping pairs
     with lnl > float32(log_thr) + lmap (the sum rounded in float32).
-    Returns pdf (B, Ngrid), float32, in the exp(lnl - levid) scale."""
+    Returns pdf (B, Ngrid), float32, in the exp(lnl - levid) scale.  With
+    `table`, the lnl is read from it (the table route; `lnl_reduce`
+    wrote it, or `scale_sweeps`) on every instantiation, bit for bit the
+    recompute route's PDF."""
     B, F, M = _check_inputs(d, de, dm, mT, meT, mmT)
     _check_stack_inputs(d, G, M, dict(lmap=lmap, levid=levid))
     flags = _flag_dict(full_mask, dim_prior, ignore_model_err, free_scale,
                        sweeps, tm)
-    table = _table_args(B, M, d.device, **flags)
+    sweep = _sweep_args(B, M, d.device, **flags)
+    if table is not None:
+        _check_table(table, B, M, d.device)
     if d.device.type == "cpu":
         return lnl_stack_plain(d, de, dm, mT, meT, mmT, G, lmap, levid,
-                               log_thr=log_thr, **flags)
+                               log_thr=log_thr, table=table, **flags)
     pdf = torch.empty((B, G.shape[1]), dtype=torch.float32, device=d.device)
     if B == 0:
         return pdf
-    _launch_cols("lnl_stack", "fz_lnl_stack", d, de, dm, mT, meT, mmT, G,
-                 (lmap, levid, pdf), [float(np.float32(log_thr))], flags,
-                 table)
+    log_thr = float(np.float32(log_thr))
+    if table is None:
+        _launch_cols("lnl_stack", "fz_lnl_stack", d, de, dm, mT, meT, mmT, G,
+                     (lmap, levid, pdf), [log_thr], flags, sweep)
+    else:
+        ngrid = G.shape[1]
+        with torch.cuda.device(d.device):
+            rc = _build.load().fz_lnl_stack_read(
+                table.data_ptr(), table_width(M), *_ptrs(G, lmap, levid, pdf),
+                B, M, ngrid, log_thr, _col_threads(ngrid), _stream(d.device))
+        _check_rc("lnl_stack", rc)
     lnl_stack.launches += 1
+    lnl_stack.table_launches += table is not None
     return pdf
 
 
@@ -664,7 +802,7 @@ def lnl_onepass(d, de, dm, mT, meT, mmT, G, *, full_mask=False,
     _check_stack_inputs(d, G, M, {})
     flags = _flag_dict(full_mask, dim_prior, ignore_model_err, free_scale,
                        sweeps, tm)
-    table = _table_args(B, M, d.device, **flags)
+    sweep = _sweep_args(B, M, d.device, **flags)
     if d.device.type == "cpu":
         return lnl_onepass_plain(d, de, dm, mT, meT, mmT, G, **flags)
     pdf = torch.empty((B, G.shape[1]), dtype=torch.float32, device=d.device)
@@ -673,7 +811,7 @@ def lnl_onepass(d, de, dm, mT, meT, mmT, G, *, full_mask=False,
     if B == 0:
         return pdf, lmap, levid
     _launch_cols("lnl_onepass", "fz_lnl_onepass", d, de, dm, mT, meT, mmT, G,
-                 (pdf, lmap, levid), [], flags, table)
+                 (pdf, lmap, levid), [], flags, sweep)
     lnl_onepass.launches += 1
     return pdf, lmap, levid
 
@@ -690,7 +828,7 @@ def lnl_cut_stack(d, de, dm, mT, meT, mmT, G, cut, levid, tie, nkeep, *,
                                       nkeep=nkeep))
     flags = _flag_dict(full_mask, dim_prior, ignore_model_err, free_scale,
                        sweeps, tm)
-    table = _table_args(B, M, d.device, **flags)
+    sweep = _sweep_args(B, M, d.device, **flags)
     if d.device.type == "cpu":
         return lnl_cut_stack_plain(d, de, dm, mT, meT, mmT, G, cut, levid,
                                    tie, nkeep, **flags)
@@ -698,23 +836,32 @@ def lnl_cut_stack(d, de, dm, mT, meT, mmT, G, cut, levid, tie, nkeep, *,
     if B == 0:
         return pdf
     _launch_cols("lnl_cut_stack", "fz_lnl_cut_stack", d, de, dm, mT, meT,
-                 mmT, G, (cut, levid, tie, nkeep, pdf), [], flags, table)
+                 mmT, G, (cut, levid, tie, nkeep, pdf), [], flags, sweep)
     lnl_cut_stack.launches += 1
     return pdf
 
 
 _WRAPPERS = (lnl_reduce, lnl_reduce_split, lnl_stack, lnl_topk,
              lnl_cut_stack, lnl_onepass, scale_sweeps)
-for _fn in _WRAPPERS:
-    _fn.launches = 0
+# The wrappers with a table route also count its launches apart.
+_TABLE_WRAPPERS = (lnl_reduce, lnl_stack, scale_sweeps)
 
 
 def reset_launch_counts():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0."""
     for fn in _WRAPPERS:
         fn.launches = 0
+    for fn in _TABLE_WRAPPERS:
+        fn.table_launches = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts():
-    """{wrapper name: launches since the last reset}."""
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    """{wrapper name: launches since the last reset}, and
+    {"<wrapper>_table": those with an lnl table} for `lnl_reduce`,
+    `lnl_stack` and `scale_sweeps`."""
+    return {**{fn.__name__: fn.launches for fn in _WRAPPERS},
+            **{fn.__name__ + "_table": fn.table_launches
+               for fn in _TABLE_WRAPPERS}}

@@ -34,10 +34,17 @@ serve every configuration of it:
 
     free scale with model errors: `kernels.general.scale_sweeps` first,
         the per-(object, model group) sweep counts of the scale fixed
-        point, which every kernel below then reads;
-    `kernels.general.lnl_reduce`: lmap, levid;
-    wt_thresh: `lnl_stack` keeps lnl > ln(wt_thresh) + lmap;
-    cdf mode: `lnl_topk` (the T heaviest distinct lnl values and tie
+        point, which the recompute kernels below then read (on the table
+        route it also writes the lnl table);
+    wt_thresh, the table route (`_table_route`): each pair's lnl is
+        computed once per call into a float32 lnl table, `lnl_reduce`
+        (lmap, levid; under free scale with model errors `scale_sweeps`
+        writes the table and `lnl_reduce` reads it) then `lnl_stack`
+        (keeps lnl > ln(wt_thresh) + lmap) reading it, per row chunk of
+        at most `kernels.general.TABLE_BYTES_MAX` bytes of table, in
+        one buffer; bit for bit the wrappers' recompute route (no table);
+    cdf mode: `lnl_reduce` (lmap, levid), `lnl_topk` (the T heaviest
+        distinct lnl values and tie
         counts), `cdf_cut` (the exact per-object cut, plain torch) and
         `lnl_cut_stack` (keeps lnl <= cut, and the reference's share of
         a tie group that straddles it); with ``cdf_exact=True``, rows
@@ -250,18 +257,43 @@ def cdf_cut_exact(d, de, dm, mT, meT, mmT, levid, cdf_thresh, **flags):
             torch.where(split_group, nkeep, 0.0))
 
 
-def _general(d, de, dm, mT, meT, mmT, G, *, flags, wt_thresh, cdf_thresh,
-             cdf_topk, cdf_exact=False):
-    """Glue of `_fused_call`'s general body around the general kernels;
-    returns (pdf, lmap, levid, ok), pdf in the exp(lnl - levid) scale and
-    `ok` the per-row cdf flag (None off the cdf mode).  `flags` are the
-    kernels' flags, with the sweep table under free scale and model
-    errors."""
+def _table_route(d, de, dm, mT, meT, mmT, G, *, flags, log_thr, sweep_kw):
+    """The two-pass threshold route on the lnl table: per row chunk of at
+    most `TABLE_BYTES_MAX` bytes of table (`table_rows`), the producer
+    (`lnl_reduce`, or `scale_sweeps` under free scale with model errors,
+    `sweep_kw` its keywords), `lnl_reduce` and `lnl_stack`, in one
+    buffer.  Rows are independent, so chunking changes no bit.  Returns
+    (pdf, lmap, levid), pdf in the exp(lnl - levid) scale.  A table that
+    does not fit raises: there is no recompute fallback."""
+    B, M = d.shape[0], mT.shape[1]
+    rows = _gen.table_rows(B, M)
+    buf = torch.empty((min(rows, B), _gen.table_width(M)),
+                      dtype=torch.float32, device=d.device)
+    outs = []
+    for r0 in range(0, max(B, 1), rows):
+        part = [x[r0:r0 + rows] for x in (d, de, dm)]
+        table = buf[:part[0].shape[0]]
+        fl = dict(flags)
+        if sweep_kw is not None:
+            fl["sweeps"] = _gen.scale_sweeps(
+                *part, mT, meT, mmT, table=table,
+                dim_prior=flags["dim_prior"], **sweep_kw)
+        lmap, levid = _gen.lnl_reduce(*part, mT, meT, mmT, table=table, **fl)
+        pdf = _gen.lnl_stack(*part, mT, meT, mmT, G, lmap, levid,
+                             log_thr=log_thr, table=table, **fl)
+        outs.append((pdf, lmap, levid))
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def _cdf_route(d, de, dm, mT, meT, mmT, G, *, flags, cdf_thresh, cdf_topk,
+               cdf_exact=False):
+    """Glue of `_fused_call`'s general body in the cdf mode around the
+    general kernels; returns (pdf, lmap, levid, ok), pdf in the exp(lnl -
+    levid) scale and `ok` the per-row cdf flag.  `flags` are the kernels'
+    flags, with the sweep table under free scale and model errors."""
     lmap, levid = _gen.lnl_reduce(d, de, dm, mT, meT, mmT, **flags)
-    if wt_thresh is not None:
-        pdf = _gen.lnl_stack(d, de, dm, mT, meT, mmT, G, lmap, levid,
-                             log_thr=float(np.log(wt_thresh)), **flags)
-        return pdf, lmap, levid, None
     vals, cnts = _gen.lnl_topk(d, de, dm, mT, meT, mmT, T=cdf_topk, **flags)
     cut, tie, nkeep, ok = cdf_cut(vals, cnts, levid, float(cdf_thresh))
     # A degenerate row (every model at the floor) tracks no mass, so its
@@ -389,19 +421,28 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
         flags = dict(full_mask=full_mask, dim_prior=dim_prior,
                      ignore_model_err=ignore_model_err,
                      free_scale=free_scale, sweeps=None, tm=None)
+        sweep_kw = None
         if free_scale and not ignore_model_err:
             tm = group_width(mT.shape[1], tm)
-            flags.update(tm=tm, sweeps=_gen.scale_sweeps(
-                d, de, dm, mT, meT, mmT, tm=tm, full_mask=full_mask,
-                ltol=scale_ltol, max_iter=scale_max_iter))
-        if route == "onepass":
-            pdf, lmap, levid = _onepass(d, de, dm, mT, meT, mmT, G,
-                                        flags=flags)
-        else:
-            pdf, lmap, levid, ok = _general(
+            flags["tm"] = tm
+            sweep_kw = dict(tm=tm, full_mask=full_mask, ltol=scale_ltol,
+                            max_iter=scale_max_iter)
+        if route == "general" and wt_thresh is not None:
+            pdf, lmap, levid = _table_route(
                 d, de, dm, mT, meT, mmT, G, flags=flags,
-                wt_thresh=wt_thresh, cdf_thresh=cdf_thresh,
-                cdf_topk=int(cdf_topk), cdf_exact=cdf_exact)
+                log_thr=float(np.log(wt_thresh)), sweep_kw=sweep_kw)
+        else:
+            if sweep_kw is not None:
+                flags["sweeps"] = _gen.scale_sweeps(d, de, dm, mT, meT, mmT,
+                                                    **sweep_kw)
+            if route == "onepass":
+                pdf, lmap, levid = _onepass(d, de, dm, mT, meT, mmT, G,
+                                            flags=flags)
+            else:
+                pdf, lmap, levid, ok = _cdf_route(
+                    d, de, dm, mT, meT, mmT, G, flags=flags,
+                    cdf_thresh=cdf_thresh, cdf_topk=int(cdf_topk),
+                    cdf_exact=cdf_exact)
     # Degenerate rows (every model at the -inf floor): zero PDF, -inf GOF.
     good = lmap > _NEG_INF / 2
     pdf = torch.where(good[:, None], pdf, 0.0)

@@ -1,6 +1,7 @@
 """Wall times and one `torch.profiler` trace of the fused routes.
 
     python -m frankenz_tpu_torch.tools.profile_general [--out DIR] [--reps N]
+        [--runs NAME ...]
 
 Run from the root of a checkout on a machine with a CUDA card and
 `nvcc`.  At config-4 widths (5 filters, 100,000 models, the 301-point
@@ -11,17 +12,21 @@ missing with probability 0.15) it times `BruteForce.fit_predict` over
 same two 65,536-object batches through `fused_fit_pdf` on the screened
 route and on the K1 pair (``screen=False``; BruteForce takes no
 `screen`), each batch normalised and read back as `fit_predict` does,
-`fit_predict` over 131,072 masked objects (wt_thresh 1e-3: `lnl_reduce` + `lnl_stack`),
+`fit_predict` over 131,072 masked objects (wt_thresh 1e-3: the table
+route, `lnl_reduce` writing the lnl table and `lnl_stack` reading it, two
+row chunks a batch),
 over 65,536 in the cdf mode (cdf_thresh 2e-4: `lnl_reduce` + `lnl_topk`
 + `lnl_cut_stack`) and over 65,536 with no weight threshold (one pass:
 `lnl_onepass`), and config 8 (bench.py:612-699: 16,384 noisy scaled
 model copies on full masks, free scale with model errors, wt_thresh
-1e-3, ltol 1e-4: `scale_sweeps` + free-scale `lnl_reduce` +
-`lnl_stack`): one warm-up, `--reps` timed walls, then one run under the
+1e-3, ltol 1e-4: the table route, `scale_sweeps` writing the lnl
+table, free-scale `lnl_reduce` and `lnl_stack` reading it): one warm-up,
+`--reps` timed walls, then one run under the
 profiler.  It prints the walls, their median, the device busy time
 (kernels and copies) and its share of the profiled run's wall, and the
 heaviest device operations, and writes ``profile_general.json`` and one
-Chrome trace per run to `--out` (default ``build/profile``).
+Chrome trace per run to `--out` (default ``build/profile``); `--runs`
+keeps only the runs named (as printed, e.g. ``masked_fit_predict``).
 """
 
 import argparse
@@ -52,6 +57,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--runs", nargs="*", default=None,
+                    help="only these runs (names as printed)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -123,6 +130,8 @@ def main(argv=None):
              (data8, np.full((N8, NFILT), 0.25, f32),
               np.ones((N8, NFILT), f32), zl8, zerrs),
              dict(lprob_kwargs=dict(free_scale=True, ltol=1e-4)))):
+        if args.runs is not None and name not in args.runs:
+            continue
         if callable(call):
             rows, fn, call = n, call, ()
         else:

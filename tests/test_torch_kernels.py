@@ -191,6 +191,8 @@ def test_cpu_general_wrappers_run_plain_versions_without_launching(name):
                                       "screen_seed", "chi2_brackets_screened",
                                       "chi2_stack_screened", *GENERAL,
                                       "lnl_onepass", "scale_sweeps",
+                                      "lnl_reduce_table", "lnl_stack_table",
+                                      "scale_sweeps_table",
                                       "som_train", "gng_train",
                                       "gng_train_cluster", "pop_chain",
                                       "pop_chain_cluster"}
@@ -580,6 +582,109 @@ def test_onepass_matches_plain_on_card(cuda_device, flags, F, B, M, Ngrid):
     torch.testing.assert_close(got[0] / scale, want[0] / scale, rtol=0,
                                atol=1e-5)
     assert GK.launch_counts()["lnl_onepass"] == 1
+
+
+# The lnl table of the two-pass threshold route: every instantiation
+# (fixed or free scale x full or masked x dim prior or Normal x model
+# errors kept or ignored).
+TABLE_CASES = [dict(free_scale=fs, full_mask=fm, dim_prior=dp,
+                    ignore_model_err=ime)
+               for fs in (False, True) for fm in (False, True)
+               for dp in (True, False) for ime in (False, True)]
+TABLE_IDS = ["{}-{}-{}-{}".format(
+    "free" if c["free_scale"] else "fixed",
+    "full" if c["full_mask"] else "masked",
+    "dimprior" if c["dim_prior"] else "normal",
+    "ime" if c["ignore_model_err"] else "me") for c in TABLE_CASES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F,B,M,Ngrid", [(5, 19, 251, 77),
+                                          (5, 40, 99_937, 301)])
+@pytest.mark.parametrize("inst", TABLE_CASES, ids=TABLE_IDS)
+def test_table_route_equals_recompute_route_on_card(cuda_device, inst, F, B,
+                                                    M, Ngrid):
+    """The producer (`lnl_reduce`, or `scale_sweeps` under free scale with
+    model errors, its sweep table unchanged) and the readers against the
+    recompute route bit for bit: lmap, levid, pdf; the table against
+    `lnl_tile_plain` within 1 ulp (expected bit-equal, up to the last ulp
+    of `log`) and untouched past M.  Masked rows 1-3 hold Ndim 0, 1 and
+    2; M = 99,937 leaves a ragged last tile and group."""
+    t = [x.to(cuda_device) for x in _general_problem(
+        F, B=B, M=M, Ngrid=Ngrid, masked=not inst["full_mask"])]
+    flags = dict(inst, sweeps=None, tm=None)
+    table = torch.full((B, GK.table_width(M)), torch.nan, device=cuda_device)
+    sweep_policy = inst["free_scale"] and not inst["ignore_model_err"]
+    K.reset_launch_counts()
+    if sweep_policy:
+        tm = TF.group_width(M, 512)
+        flags.update(tm=tm, sweeps=GK.scale_sweeps(
+            *t[:6], tm=tm, full_mask=inst["full_mask"], table=table,
+            dim_prior=inst["dim_prior"]))
+        assert torch.equal(flags["sweeps"], GK.scale_sweeps(
+            *t[:6], tm=tm, full_mask=inst["full_mask"]))
+    lmap, levid = GK.lnl_reduce(*t[:6], table=table, **flags)
+    pdf = GK.lnl_stack(*t[:6], t[6], lmap, levid, log_thr=np.log(1e-3),
+                       table=table, **flags)
+    want_lmap, want_levid = GK.lnl_reduce(*t[:6], **flags)
+    want_pdf = GK.lnl_stack(*t[:6], t[6], want_lmap, want_levid,
+                            log_thr=np.log(1e-3), **flags)
+    torch.cuda.synchronize()
+    for got, want in ((lmap, want_lmap), (levid, want_levid),
+                      (pdf, want_pdf)):
+        assert torch.equal(got, want)
+    _assert_within_ulp(table[:, :M], GK.lnl_tile_plain(*t[:6], **flags))
+    assert torch.isnan(table[:, M:]).all()
+    counts = K.launch_counts()
+    assert counts["lnl_reduce_table"] == counts["lnl_stack_table"] == 1
+    assert counts["lnl_reduce"] == counts["lnl_stack"] == 2
+    assert counts["scale_sweeps_table"] == int(sweep_policy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [True, False])
+def test_table_stack_with_a_signed_G_on_card(cuda_device, masked):
+    """`lnl_stack` on the table with a kernel matrix and with a G of
+    negative entries and -0.0 rows (whose zero-weight products are not
+    all +0): both bit for bit the recompute route, whose sum runs over
+    every marked model."""
+    t = [x.to(cuda_device) for x in _general_problem(
+        5, B=70, M=3000, Ngrid=301, masked=masked)]
+    flags = dict(full_mask=not masked, dim_prior=False)
+    table = torch.empty((70, GK.table_width(3000)), device=cuda_device)
+    lmap, levid = GK.lnl_reduce(*t[:6], table=table, **flags)
+    for G in (t[6], t[6].clone()):
+        if G is not t[6]:
+            G[::7] *= -1.0
+            G[3::11] = -0.0
+        got = GK.lnl_stack(*t[:6], G, lmap, levid, log_thr=np.log(1e-3),
+                           table=table, **flags)
+        want = GK.lnl_stack(*t[:6], G, lmap, levid, log_thr=np.log(1e-3),
+                            **flags)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert (got != 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inst", [TABLE_CASES[i] for i in (0, 10, 12)],
+                         ids=[TABLE_IDS[i] for i in (0, 10, 12)])
+def test_table_route_in_chunks_on_card(cuda_device, inst, monkeypatch):
+    """`fused_fit_pdf` with the byte cap at 16 rows of table: 70 rows in
+    five chunks of 14 through one buffer, bit for bit one chunk."""
+    t = [x.to(cuda_device) for x in _general_problem(
+        5, B=70, M=3000, Ngrid=301, masked=not inst["full_mask"])]
+    args = (*t[:3], t[3].T, t[4].T, t[5].T, t[6])
+    whole = TF.fused_fit_pdf(*args, **inst)
+    monkeypatch.setattr(GK, "TABLE_BYTES_MAX", 16 * 4 * GK.table_width(3000))
+    K.reset_launch_counts()
+    chunked = TF.fused_fit_pdf(*args, **inst)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["lnl_reduce_table"] == counts["lnl_stack_table"] == 5
+    assert counts["lnl_reduce"] == counts["lnl_stack"] == 5
+    for got, want in zip(chunked, whole):
+        assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------
