@@ -44,14 +44,20 @@ port, numpy and scipy, and:
    bounds from that batch's run fractions and kept weights;
 5. masked photometry (each data band missing with probability 0.15,
    from ``default_rng(2)``: about 10 of the 131,072 rows lose every
-   band): holds the four general kernels against their plain versions
+   band): first the band order of config 4's G (`band_sort`: its time,
+   the mean and widest band of a 64-model tile, the share of nonzero
+   (64-model, 32-column) blocks in the caller's and in band order and of
+   (64, 128) blocks in band order, the band kernels' shared memory and
+   blocks an SM); then holds the four general kernels against their plain versions
    at B=2,048 on six cases (masked dim prior; model masks too; the
    Normal likelihood on full masks; ragged M=99,937 with B=1,000; rows
    with Ndim 0, 1 and 2; duplicate models, whose lnl ties), on each the
    two-pass threshold route on its lnl table against the recompute route
    bit for bit (lmap, levid, pdf; the table against `lnl_tile_plain` in
    ulps), also on the four fixed-scale two-pass instantiations the cases
-   do not hold, then drives masked `fit_predict` over the 131,072 objects
+   do not hold, and the band stacks (`lnl_cut_stack`, `lnl_onepass`, over
+   the models in band order) on the six fixed-scale instantiations the
+   cases do not hold, then drives masked `fit_predict` over the 131,072 objects
    (the general route's table route: `lnl_reduce` writing the lnl table
    + `lnl_stack` reading it, two row chunks a batch, and not the
    full-mask pair), `fit_summarize`,
@@ -137,7 +143,11 @@ port, numpy and scipy, and:
    with their cluster size, us a step and the block route's time), each
    with its bound
    (the larger of its bytes over 3.35 TB/s and its operations over 67
-   TFLOP/s, counted from this run's shapes and data, see `bound`), the
+   TFLOP/s, counted from this run's shapes and data, see `bound`; the
+   band stacks `lnl_cut_stack` and `lnl_onepass`, source
+   ``csrc/lnl_band.cuh``, count 2 operations per nonzero G entry of each
+   kept model, the dense count of 2 Ngrid a kept pair beside it as
+   ``dense_bound_ms``, and carry the band statistics), the
    card line again, and last ``{"ok": true, "device": {...}}``.
 
 Matmul precision: TF32 is switched off and float32 matmul precision set
@@ -186,6 +196,8 @@ P_MISSING = 0.15
 CDF_THRESH = 2e-4
 GENERAL = ("lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_topk",
            "lnl_cut_stack")
+# The band stacks (csrc/lnl_band.cuh): the models in band order.
+BAND = ("lnl_cut_stack", "lnl_onepass")
 K1_PAIR = ("chi2_brackets", "chi2_stack")
 SCREENED = ("screen_seed", "chi2_brackets_screened", "chi2_stack_screened")
 # Free scale end to end against the plain composition: JAX's own GOF
@@ -352,10 +364,13 @@ def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
                    tie, nkeep, sweeps_mean, lnl):
     """{kernel: (bound ms, bound by)} of one general case: lnl per pair
     plus each kernel's own work, the stacks' 2 Ngrid operations for each
-    pair whose weight they keep (counted from the plain lnl grid `lnl`).
+    pair whose weight they keep and is nonzero (counted from the plain lnl
+    grid `lnl`).
     `lnl_reduce`, `lnl_stack` and `scale_sweeps` on the table route (the
     two-pass threshold route's): the producer also writes 4 bytes a
-    pair, the readers read them and compute no lnl (`table_bounds`)."""
+    pair, the readers read them and compute no lnl (`table_bounds`).  The
+    band stacks (`lnl_cut_stack`, `lnl_onepass`): 2 operations per
+    nonzero G entry of each kept model; ``*_dense`` the dense count."""
     d, mT = args[0], args[3]
     B, F = d.shape
     M = mT.shape[1]
@@ -365,10 +380,20 @@ def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
                        .sum())
     is_tie = lnl == tie[:, None]
     rank = torch.cumsum(is_tie.to(torch.int32), dim=1) - 1
-    kept_cut = float(((lnl <= cut[:, None])
-                      | (is_tie & (rank < nkeep[:, None]))).sum())
-    kept_all = float((torch.exp(lnl - lmap[:, None]) > 0).sum())
-    del is_tie, rank
+    # The band stacks' products: 2 operations per nonzero G entry of each
+    # kept model (JAX's `band_stack_products` idea), beside the dense
+    # count of 2 Ngrid per kept pair.
+    # A pair counts only where its weight is nonzero: a kept weight
+    # exp(lnl - levid) that underflows to 0 adds nothing.
+    nnz = (G != 0).sum(dim=1).to(torch.float32)
+    keep_cut = (((lnl <= cut[:, None]) | (is_tie & (rank < nkeep[:, None])))
+                & (torch.exp(lnl - levid[:, None]) > 0))
+    kept_cut = float(keep_cut.sum())
+    band_cut = float((keep_cut.to(torch.float32) @ nnz).sum())
+    keep_all = torch.exp(lnl - lmap[:, None]) > 0
+    kept_all = float(keep_all.sum())
+    band_all = float((keep_all.to(torch.float32) @ nnz).sum())
+    del is_tie, rank, keep_cut, keep_all
     pairs = float(B) * M
     base = lnl_pair_ops(F, flags, sweeps_mean)
     io = 4.0 * (3 * B * F + 3 * F * M)
@@ -381,10 +406,15 @@ def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
         "lnl_topk": bound(pairs * (base + 8), io + 64.0 * B),
         "lnl_stack": bound(pairs * (base + 3) + 2.0 * ngrid * kept_stack,
                            io + g_bytes + 8.0 * B),
-        "lnl_cut_stack": bound(pairs * (base + 4) + 2.0 * ngrid * kept_cut,
+        "lnl_cut_stack": bound(pairs * (base + 4) + 2.0 * band_cut,
                                io + g_bytes + 16.0 * B),
-        "lnl_onepass": bound(pairs * (base + 6) + 2.0 * ngrid * kept_all,
+        "lnl_onepass": bound(pairs * (base + 6) + 2.0 * band_all,
                              io + g_bytes + 8.0 * B),
+        "lnl_cut_stack_dense": bound(
+            pairs * (base + 4) + 2.0 * ngrid * kept_cut,
+            io + g_bytes + 16.0 * B),
+        "lnl_onepass_dense": bound(pairs * (base + 6) + 2.0 * ngrid * kept_all,
+                                   io + g_bytes + 8.0 * B),
     }
     if sweeps_mean:
         # The counting sweeps also take each pair's F logs.
@@ -638,8 +668,11 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
     def stack(fn, thr):
         return fn(*args, Gc, lmap, levid, log_thr=thr, **flags)
 
+    # The band stacks read the models in band order.
+    bs = GK.band_sort(Gc, *args[3:6])
+
     def cut_stack(fn, c):
-        return fn(*args, Gc, c, levid, tie, nkeep, **flags)
+        return fn(*args[:3], bs, c, levid, tie, nkeep, **flags)
 
     inf = torch.full_like(cut, torch.inf)
     for kname, kernel, plain, lo, hi in (
@@ -662,8 +695,9 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
 
     # No weight threshold: lmap and levid as lnl_reduce's, the PDF (in
     # the exp(lnl - lmap) scale) row-normwise, with no envelope.
-    got, want, ms, pms = run(lambda: GK.lnl_onepass(*args, Gc, **flags),
-                             lambda: GK.lnl_onepass_plain(*args, Gc, **flags))
+    got, want, ms, pms = run(
+        lambda: GK.lnl_onepass(*args[:3], bs, **flags),
+        lambda: GK.lnl_onepass_plain(*args[:3], bs, **flags))
     a0, u0 = ulp_err(torch, got[1], want[1])
     a1, r1 = levid_err(torch, got[2], want[2])
     p_row, ok = pdf_rows_close(torch, got[0], want[0], None, None,
@@ -706,12 +740,16 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
                 res = out[kname[:-len("_table")]]
                 res.update(recompute_bound_ms=res["bound_ms"],
                            recompute_bound_by=res["bound_by"])
+            elif kname.endswith("_dense"):
+                out[kname[:-len("_dense")]].update(dense_bound_ms=bms,
+                                                   dense_bound_by=by)
+                continue
             else:
                 res = out[kname]
             res.update(bound_ms=bms, bound_by=by)
     shown = {k: v for k, v in flags.items() if k != "sweeps"}
     sw = out.get("scale_sweeps")
-    del lnl_plain
+    del lnl_plain, bs
     print(f"kernel_vs_plain {name}: B={d_np.shape[0]} M={m_np.shape[0]} "
           f"F={d_np.shape[1]} {shown} | " + " | ".join(
               f"{k} abs {v['max_abs_err']:.3g} {v['ms']:.3f} ms"
@@ -729,6 +767,87 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
           + f" | card {card}", flush=True)
     del args
     torch.cuda.empty_cache()
+    return out
+
+
+def band_kernel_check(torch, np, GK, TF, args, G, flags, what):
+    """`lnl_onepass` and `lnl_cut_stack` against their plain versions on
+    one instantiation, at phase 5's tolerances (lmap 1 ulp, levid
+    TOL_SUM, PDFs row-normwise TOL_PDF_ROW, the cut stack inside the
+    one-ulp flip envelope of the cut); returns {kernel: ms}."""
+    bs = GK.band_sort(G, *args[3:6])
+    lmap, levid = GK.lnl_reduce_plain(*args, **flags)
+    vals, cnts = GK.lnl_topk_plain(*args, T=8, **flags)
+    cut, tie, nkeep, _ = TF.cdf_cut(vals, cnts, levid, CDF_THRESH)
+    inf = torch.full_like(cut, torch.inf)
+
+    def cut_stack(fn, c):
+        return fn(*args[:3], bs, c, levid, tie, nkeep, **flags)
+
+    got = cut_stack(GK.lnl_cut_stack, cut)
+    want = cut_stack(GK.lnl_cut_stack_plain, cut)
+    p_row, ok = pdf_rows_close(
+        torch, got, want,
+        lambda: cut_stack(GK.lnl_cut_stack_plain, torch.nextafter(cut, -inf)),
+        lambda: cut_stack(GK.lnl_cut_stack_plain, torch.nextafter(cut, inf)),
+        TOL_PDF_ROW)
+    check(ok, f"{what}: lnl_cut_stack PDFs differ beyond the flip envelope "
+              f"(row-normwise {p_row})")
+    got = GK.lnl_onepass(*args[:3], bs, **flags)
+    want = GK.lnl_onepass_plain(*args[:3], bs, **flags)
+    _, u0 = ulp_err(torch, got[1], want[1])
+    _, r1 = levid_err(torch, got[2], want[2])
+    p1, ok = pdf_rows_close(torch, got[0], want[0], None, None, TOL_PDF_ROW)
+    check(u0 <= TOL_ULP and r1 <= TOL_SUM and ok,
+          f"{what}: lnl_onepass lmap {u0} ulp, levid {r1}, PDFs {p1}")
+    return {"lnl_cut_stack": median_ms(torch, lambda: cut_stack(
+        GK.lnl_cut_stack, cut), reps=3),
+        "lnl_onepass": median_ms(torch, lambda: GK.lnl_onepass(
+            *args[:3], bs, **flags), reps=3),
+        "cut_row_err": p_row, "onepass_row_err": p1}
+
+
+def band_stats(torch, GK, G, margs, card, reps=5):
+    """Config 4's G in band order: `band_sort`'s time (CUDA events,
+    median of `reps`), each 64-model tile's band (mean and max columns),
+    the share of (64-model, 32-column) blocks of G holding a nonzero in
+    the caller's order and in band order, and of (64, 128)-column blocks
+    in band order (JAX's flags).  `margs`: the (F, M) model arrays the
+    sort permutes with G."""
+    ms = median_ms(torch, lambda: GK.band_sort(G, *margs), reps=reps)
+    M, ngrid = G.shape
+    bs = GK.band_sort(G, *margs)
+    cols = (bs.bands[:, 1] - bs.bands[:, 0]).to(torch.float64)
+
+    def nonzero_blocks(g, width):
+        mp, cp = -(-M // 64) * 64, -(-ngrid // width) * width
+        nz = torch.zeros((mp, cp), dtype=torch.bool, device=g.device)
+        nz[:M, :ngrid] = g[:M, :ngrid] != 0
+        return float(nz.view(mp // 64, 64, cp // width, width)
+                     .any(dim=3).any(dim=1).to(torch.float64).mean())
+
+    out = dict(sort_ms=ms, band_cols_mean=float(cols.mean()),
+               band_cols_max=int(cols.max()), width=int(bs.width),
+               nonzero_blocks_32_caller=nonzero_blocks(G, 32),
+               nonzero_blocks_32_band=nonzero_blocks(bs.G, 32),
+               nonzero_blocks_128_band=nonzero_blocks(bs.G, 128),
+               nnz_per_model=float((G != 0).sum(dim=1).to(
+                   torch.float64).mean()))
+    lib = GK._build.load()
+    ldg = bs.G.shape[1]
+    out["blocks_per_sm"] = {k: lib.fz_lnl_band_blocks(NFILT, ldg, bs.width, c)
+                            for k, c in (("onepass", 0), ("cut_stack", 1))}
+    out["smem_bytes"] = lib.fz_lnl_band_smem(NFILT, ldg, bs.width, 0)
+    print(f"band_sort: config 4's G ({M} x {ngrid}), {out['nnz_per_model']:.4g}"
+          f" nonzero columns a model: sort {ms:.3f} ms (median of {reps}); "
+          f"band columns a 64-model tile mean {out['band_cols_mean']:.4g} max "
+          f"{out['band_cols_max']}, widest rounded to 4 {out['width']}; "
+          f"nonzero (64-model, 32-column) blocks caller order "
+          f"{out['nonzero_blocks_32_caller']:.4f}, band order "
+          f"{out['nonzero_blocks_32_band']:.4f}; (64, 128) blocks band order "
+          f"{out['nonzero_blocks_128_band']:.4f}; band kernels "
+          f"{out['smem_bytes']} B shared a block, blocks an SM "
+          f"{out['blocks_per_sm']} | card {card}", flush=True)
     return out
 
 
@@ -2223,6 +2342,8 @@ def main():
     torch.cuda.empty_cache()
 
     # 5. masked photometry: the general kernels
+    band = band_stats(torch, GK, G, [tens(x) for x in (
+        models.T, models_err.T, np.ones_like(models).T)], card)
     dmask = (np.random.default_rng(2).uniform(size=(N_E2E, NFILT))
              >= P_MISSING).astype(f32)
     n_dead = int((dmask.sum(axis=1) == 0).sum())
@@ -2255,6 +2376,29 @@ def main():
               f"{tab['table_ulp']:.3g} ulp from lnl_tile_plain "
               f"({tab['table_ulp_count']} entries differ) | card {card}",
               flush=True)
+        del args_k
+    # The band stacks on the fixed-scale instantiations that the six
+    # cases do not hold.
+    for fl in (dict(dim_prior=False), dict(ignore_model_err=True),
+               dict(dim_prior=False, ignore_model_err=True),
+               dict(full_mask=True), dict(full_mask=True,
+                                          ignore_model_err=True),
+               dict(full_mask=True, dim_prior=False, ignore_model_err=True)):
+        fl = dict(dict(full_mask=False), **fl)
+        dm_k = (np.ones_like(dmask[:N_KERNEL]) if fl["full_mask"]
+                else dmask[:N_KERNEL])
+        args_k = [tens(x) for x in (
+            data[:N_KERNEL], np.full((N_KERNEL, NFILT), 0.25, f32), dm_k,
+            models.T, (0.05 * models).T, np.ones_like(models).T)]
+        got = band_kernel_check(torch, np, GK, TF, args_k, G, fl,
+                                f"band stacks {fl}")
+        results["lnl_onepass"]["masked_dimprior"].setdefault(
+            "other_instantiations", {})[str(fl)] = got
+        print(f"band_stacks {fl}: B={N_KERNEL} M={NMODEL}: lnl_cut_stack "
+              f"{got['lnl_cut_stack']:.3f} ms (row-normwise "
+              f"{got['cut_row_err']:.3g}), lnl_onepass "
+              f"{got['lnl_onepass']:.3f} ms ({got['onepass_row_err']:.3g}) "
+              f"against their plain versions | card {card}", flush=True)
         del args_k
 
     sub = (data[:N_SUBSET], data_err[:N_SUBSET], dmask[:N_SUBSET], zlabels,
@@ -2386,6 +2530,7 @@ def main():
     split_b = lm_b - 3.0
     vals_b, cnts_b = GK.lnl_topk(*args_b, T=8)
     cut_b, tie_b, nkeep_b, _ = TF.cdf_cut(vals_b, cnts_b, lv_b, CDF_THRESH)
+    bs_b = GK.band_sort(G, *args_b[3:6])
     # The two-pass threshold route over the batch on both routes: the
     # table route (row chunks under TABLE_BYTES_MAX, one buffer) bit for
     # bit the recompute route; each route's lnl_reduce and lnl_stack time
@@ -2418,7 +2563,7 @@ def main():
                                                log_thr=log_thr)),
             ("lnl_topk", lambda: GK.lnl_topk(*args_b, T=8)),
             ("lnl_cut_stack", lambda: GK.lnl_cut_stack(
-                *args_b, G, cut_b, lv_b, tie_b, nkeep_b))):
+                *args_b[:3], bs_b, cut_b, lv_b, tie_b, nkeep_b))):
         ms_batch[kname] = median_ms(torch, fn, reps=3)
     for kname in ("lnl_reduce", "lnl_stack"):
         table_batch[kname]["recompute_ms"] = ms_batch[kname]
@@ -2435,7 +2580,7 @@ def main():
           + f" | card {card}", flush=True)
     # K4: one walk against lnl_reduce + lnl_stack keeping every weight.
     ms_batch["lnl_onepass"] = median_ms(
-        torch, lambda: GK.lnl_onepass(*args_b, G), reps=3)
+        torch, lambda: GK.lnl_onepass(*args_b[:3], bs_b), reps=3)
 
     def reduce_and_stack_all():
         lm, lv = GK.lnl_reduce(*args_b)
@@ -2447,6 +2592,7 @@ def main():
           f"lnl_stack keeping every weight {ms_two:.3f} ms | card {card}",
           flush=True)
     del args_b, lm_b, lv_b, split_b, vals_b, cnts_b, cut_b, tie_b, nkeep_b
+    del bs_b
     torch.cuda.empty_cache()
 
     # 6. free scale (K6) and the one-pass kernel (K4): every free-scale
@@ -2661,6 +2807,7 @@ def main():
     fl8 = dict(full_mask=True, free_scale=True, sweeps=sw8,
                tm=TF.group_width(NMODEL, 512))
     lm8, lv8 = GK.lnl_reduce(*args8, **fl8)
+    bs8 = GK.band_sort(G8, *args8[3:6])
     # The two-pass threshold route on both routes at config 8's batch (one
     # chunk): the table route bit for bit the recompute route, the sweep
     # table unchanged; each route's scale_sweeps, lnl_reduce and lnl_stack.
@@ -2689,7 +2836,8 @@ def main():
             ("lnl_reduce_fs", lambda: GK.lnl_reduce(*args8, **fl8)),
             ("lnl_stack_fs", lambda: GK.lnl_stack(
                 *args8, G8, lm8, lv8, log_thr=log_thr, **fl8)),
-            ("lnl_onepass_fs", lambda: GK.lnl_onepass(*args8, G8, **fl8))):
+            ("lnl_onepass_fs", lambda: GK.lnl_onepass(*args8[:3], bs8,
+                                                       **fl8))):
         ms_batch[kname] = median_ms(torch, fn, reps=3)
     for kname, k8 in (("scale_sweeps", "scale_sweeps"),
                       ("lnl_reduce", "lnl_reduce_fs"),
@@ -2712,7 +2860,7 @@ def main():
                   "scale_sweeps", "lnl_reduce_fs", "lnl_stack_fs"))
           + f", lnl_onepass_fs {ms_batch['lnl_onepass_fs']:.3f} ms | card "
           f"{card}", flush=True)
-    del args8, lm8, lv8, sw8
+    del args8, lm8, lv8, sw8, bs8
 
     # 8. SOM (config 3 without GNG)
     som_entry, data3 = som_phase(torch, np, KS, tens, card)
@@ -2811,6 +2959,13 @@ def main():
         if kname in bound_batch:
             entry[f"bound_ms_batch_{BATCH}"] = bound_batch[kname][0]
             entry[f"bound_by_batch_{BATCH}"] = bound_batch[kname][1]
+        if kname.replace("_fs", "") in BAND:
+            # Rows 8 and 10: the band kernels (K7) over the models in band
+            # order; bound_ms counts each kept model's nonzero G entries,
+            # dense_bound_ms 2 Ngrid a kept pair.
+            entry.update(source="frankenz_tpu_torch/csrc/lnl_band.cuh",
+                         band=band, dense_bound_ms=ref["dense_bound_ms"],
+                         dense_bound_by=ref["dense_bound_by"])
         if kname == "chi2_stack_screened":
             entry.update({f"{k}_batch_{BATCH}": v
                           for k, v in kept_batch.items()})

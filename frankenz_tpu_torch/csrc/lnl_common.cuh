@@ -1,7 +1,8 @@
 // Shared machinery of the general lnl kernels (csrc/lnl_general.cu, fixed
 // scale; csrc/lnl_freescale.cu, free scale): shared-memory staging, the
 // online log-sum-exp join, and the kernel templates, each templated on a
-// pair policy `P` that computes the lnl of one (object, model) pair.
+// pair policy `P` that computes the lnl of one (object, model) pair.  The
+// band kernels (`lnl_onepass`, `lnl_cut_stack`) are in lnl_band.cuh.
 //
 // A pair policy provides
 //   static constexpr bool kSquareMe;  // stage me*me (fixed) or me (free)
@@ -40,8 +41,8 @@ constexpr int kRThreads = 128;  // reduce / topk: objects per block
 constexpr int kRTile = 64;      // reduce / topk: models per shared tile
 constexpr int kTRows = 32;      // reduce / topk with a sweep table: objects
 constexpr int kTThreads = 256;  // ... and threads per block (RowShape)
-constexpr int kSObjects = 32;   // stack / onepass: objects per block
-constexpr int kSTile = 64;      // stack / onepass: models per shared tile
+constexpr int kSObjects = 32;   // stack: objects per block
+constexpr int kSTile = 64;      // stack: models per shared tile
 // lnl_reduce_store's shape; other values only in the builds that
 // tools/ab_table.py times against the package's (-DFZ_PROWS=...,
 // -DFZ_PTHREADS=...).
@@ -401,13 +402,13 @@ __global__ void lnl_topk_kernel(
   }
 }
 
-// Shared layout of the grid-column kernels (stack, cut stack, onepass):
-// the block's objects as [kSObjects][F], per-object rows, the
-// normalizations, a model tile as [F][kSTile], the tile's weights as
-// [kSObjects][kSTile] and per-model flags.
+// Shared layout of the grid-column kernel (`lnl_stack`): the block's
+// objects as [kSObjects][F], per-object rows, the normalizations, a model
+// tile as [F][kSTile], the tile's weights as [kSObjects][kSTile] and
+// per-model flags.
 struct ColSmem {
-  float *sd, *sde2, *sdm, *sa, *sb, *sc, *sgl, *sm, *sme, *smm, *sw;
-  int *nz, *istie;
+  float *sd, *sde2, *sdm, *sa, *sb, *sgl, *sm, *sme, *smm, *sw;
+  int* nz;
 };
 
 __device__ __forceinline__ ColSmem col_smem(float* smem, int F) {
@@ -417,14 +418,12 @@ __device__ __forceinline__ ColSmem col_smem(float* smem, int F) {
   s.sdm = s.sde2 + kSObjects * F;          // [kSObjects][F]
   s.sa = s.sdm + kSObjects * F;            // [kSObjects]
   s.sb = s.sa + kSObjects;                 // [kSObjects]
-  s.sc = s.sb + kSObjects;                 // [kSObjects]
-  s.sgl = s.sc + kSObjects;                // [F + 1]
+  s.sgl = s.sb + kSObjects;                // [F + 1]
   s.sm = s.sgl + (F + 1);                  // [F][kSTile]
   s.sme = s.sm + F * kSTile;               // [F][kSTile]
   s.smm = s.sme + F * kSTile;              // [F][kSTile]
   s.sw = s.smm + F * kSTile;               // [kSObjects][kSTile]
   s.nz = (int*)(s.sw + kSObjects * kSTile);  // [kSTile]
-  s.istie = s.nz + kSTile;                 // [kSObjects][kSTile]
   return s;
 }
 
@@ -478,24 +477,21 @@ __device__ __forceinline__ bool tile_products(const ColSmem& s,
   return any;
 }
 
-// CUT = false: keep lnl > log_thr + rowv[b] (rowv = lmap);
-// CUT = true:  keep lnl <= rowv[b] (rowv = cut), and the first nkeep[b]
-//              models with lnl == tie[b].
-template <class P, bool CUT>
+// Keep lnl > log_thr + lmap[b].  The table route's reader
+// (`lnl_stack_read`, csrc/lnl_table.cu) is bit for bit this kernel.
+template <class P>
 __global__ void lnl_stack_kernel(
     const float* __restrict__ d, const float* __restrict__ de,
     const float* __restrict__ dm, const float* __restrict__ mT,
     const float* __restrict__ meT, const float* __restrict__ mmT,
     const float* __restrict__ gl, const short* __restrict__ sweeps,
-    const float* __restrict__ G, const float* __restrict__ rowv,
-    const float* __restrict__ levid, const float* __restrict__ tie,
-    const float* __restrict__ nkeep, float* __restrict__ pdf, int B, int M,
+    const float* __restrict__ G, const float* __restrict__ lmap,
+    const float* __restrict__ levid, float* __restrict__ pdf, int B, int M,
     int F, int Ngrid, float log_thr, float nd_full, int ng, int tm) {
   extern __shared__ float smem[];
   const ColSmem s = col_smem(smem, F);
   float* sthr = s.sa;
   float* slev = s.sb;
-  float* stie = s.sc;
 
   const int t = threadIdx.x;
   const int nt = blockDim.x;
@@ -506,20 +502,13 @@ __global__ void lnl_stack_kernel(
   load_cols(s, d, de, dm, gl, b0, nb, F);
   for (int i = t; i < kSObjects; i += nt) {
     if (i < nb) {
-      sthr[i] = CUT ? rowv[b0 + i] : __fadd_rn(log_thr, rowv[b0 + i]);
+      sthr[i] = __fadd_rn(log_thr, lmap[b0 + i]);
       slev[i] = levid[b0 + i];
     } else {  // a dead row keeps nothing
-      sthr[i] = CUT ? -INFINITY : INFINITY;
+      sthr[i] = INFINITY;
       slev[i] = 0.0f;
     }
-    // NaN never equals an lnl: no tie group to split.
-    stie[i] = (CUT && i < nb && nkeep[b0 + i] > 0.0f) ? tie[b0 + i] : NAN;
   }
-  // Thread bb < nb counts its row's straddling tie members in model order.
-  const float my_nkeep = (CUT && t < nb) ? nkeep[b0 + t] : 0.0f;
-  float my_seen = 0.0f;
-  const bool split_ties =
-      __syncthreads_or(CUT && t < nb && my_nkeep > 0.0f) != 0;
 
   float acc[kSObjects];
 #pragma unroll
@@ -535,31 +524,16 @@ __global__ void lnl_stack_kernel(
     for (int p = t; p < kSObjects * kSTile; p += nt) {
       const int bb = p / kSTile, j = p - bb * kSTile;
       float w = 0.0f;
-      int is_tie = 0;
       if (bb < nb && j < n) {
         const float v = P::lnl(
             s.sd + bb * F, s.sde2 + bb * F, s.sdm + bb * F, 1, s.sm + j,
             s.sme + j, s.smm + j, kSTile, F, s.sgl, nd_full,
             sweeps_of<P>(sweeps, b0 + bb, m0 + j, ng, tm));
-        is_tie = CUT && v == stie[bb];
-        const bool keep = CUT ? (v <= sthr[bb] || is_tie) : (v > sthr[bb]);
-        if (keep) w = expf(__fsub_rn(v, slev[bb]));
+        if (v > sthr[bb]) w = expf(__fsub_rn(v, slev[bb]));
       }
       s.sw[p] = w;
-      if (CUT) s.istie[p] = is_tie;
     }
     __syncthreads();
-    if (CUT && split_ties) {
-      // Keep the first nkeep members of the row's straddling tie group.
-      if (t < nb) {
-        for (int j = 0; j < n; ++j) {
-          if (!s.istie[t * kSTile + j]) continue;
-          if (my_seen >= my_nkeep) s.sw[t * kSTile + j] = 0.0f;
-          my_seen += 1.0f;
-        }
-      }
-      __syncthreads();
-    }
     mark_nonzero(s);
     __syncthreads();
 
@@ -582,95 +556,6 @@ __global__ void lnl_stack_kernel(
   }
 }
 
-// The one-pass kernel: no weight threshold, so lmap, levid and the PDF
-// come from one walk over the models, with the running maximum rm:
-//   w = exp(lnl - rm_new), pdf = pdf * exp(rm_old - rm_new) + w @ G.
-// pdf comes out in the exp(lnl - lmap) scale (the caller rescales).
-template <class P>
-__global__ void lnl_onepass_kernel(
-    const float* __restrict__ d, const float* __restrict__ de,
-    const float* __restrict__ dm, const float* __restrict__ mT,
-    const float* __restrict__ meT, const float* __restrict__ mmT,
-    const float* __restrict__ gl, const short* __restrict__ sweeps,
-    const float* __restrict__ G, float* __restrict__ pdf,
-    float* __restrict__ lmap, float* __restrict__ levid, int B, int M, int F,
-    int Ngrid, float nd_full, int ng, int tm) {
-  extern __shared__ float smem[];
-  const ColSmem s = col_smem(smem, F);
-  float* snew = s.sa;    // [kSObjects] the tile's new running maximum
-  float* salpha = s.sb;  // [kSObjects] exp(old - new) for the accumulator
-
-  const int t = threadIdx.x;
-  const int nt = blockDim.x;
-  const int b0 = blockIdx.x * kSObjects;
-  const int nb = min(kSObjects, B - b0);
-  const int g = blockIdx.y * nt + t;
-  load_cols(s, d, de, dm, gl, b0, nb, F);
-
-  // Thread t < kSObjects keeps row t's running log-sum-exp.
-  float rm = kNegInf, sum = 0.0f, comp = 0.0f;
-  float acc[kSObjects];
-#pragma unroll
-  for (int bb = 0; bb < kSObjects; ++bb) acc[bb] = 0.0f;
-
-  for (int m0 = 0; m0 < M; m0 += kSTile) {
-    const int n = min(kSTile, M - m0);
-    __syncthreads();  // the previous tile's weights are consumed
-    load_model_tile<P::kSquareMe>(mT, meT, mmT, s.sm, s.sme, s.smm, F, M, m0,
-                                  n, kSTile);
-    __syncthreads();
-    for (int p = t; p < kSObjects * kSTile; p += nt) {
-      const int bb = p / kSTile, j = p - bb * kSTile;
-      // -inf outside the block's rows and models: no weight, no maximum.
-      s.sw[p] = (bb < nb && j < n)
-                    ? P::lnl(s.sd + bb * F, s.sde2 + bb * F, s.sdm + bb * F,
-                             1, s.sm + j, s.sme + j, s.smm + j, kSTile, F,
-                             s.sgl, nd_full,
-                             sweeps_of<P>(sweeps, b0 + bb, m0 + j, ng, tm))
-                    : -INFINITY;
-    }
-    __syncthreads();
-    if (t < kSObjects) {
-      float tmax = kNegInf;
-      for (int j = 0; j < n; ++j) tmax = nanmax(tmax, s.sw[t * kSTile + j]);
-      snew[t] = nanmax(rm, tmax);
-    }
-    __syncthreads();
-    for (int p = t; p < kSObjects * kSTile; p += nt)
-      s.sw[p] = expf(__fsub_rn(s.sw[p], snew[p / kSTile]));
-    __syncthreads();
-    if (t < kSObjects) {
-      float tile_sum = 0.0f;
-      for (int j = 0; j < n; ++j) tile_sum = __fadd_rn(tile_sum,
-                                                       s.sw[t * kSTile + j]);
-      salpha[t] = expf(__fsub_rn(rm, snew[t]));
-      lse_join(rm, sum, comp, snew[t], tile_sum);
-    }
-    mark_nonzero(s);
-    __syncthreads();
-
-    if (g < Ngrid) {
-      float part[kSObjects];
-      tile_products(s, G, m0, n, g, Ngrid, part);
-      // Per-tile partial, then the rescaled running total: one order,
-      // run to run.
-#pragma unroll
-      for (int bb = 0; bb < kSObjects; ++bb)
-        acc[bb] = __fadd_rn(__fmul_rn(acc[bb], salpha[bb]), part[bb]);
-    }
-  }
-
-  if (g < Ngrid) {
-#pragma unroll
-    for (int bb = 0; bb < kSObjects; ++bb)
-      if (bb < nb) pdf[(size_t)(b0 + bb) * Ngrid + g] = acc[bb];
-  }
-  if (blockIdx.y == 0 && t < nb) {
-    lmap[b0 + t] = rm;
-    levid[b0 + t] = __fadd_rn(logf(sum), rm);
-  }
-}
-
 // Shared-memory bytes of the row kernels, for R rows per block (and the
 // lnl tile of a pair policy with a sweep table).
 inline int reduce_smem(int F, int R) {
@@ -690,9 +575,9 @@ inline int topk_smem(int F, int T, int R, bool tile) {
 }
 
 inline int col_smem_bytes(int F) {
-  return (int)sizeof(float) * (3 * kSObjects * F + 3 * kSObjects + (F + 1) +
+  return (int)sizeof(float) * (3 * kSObjects * F + 2 * kSObjects + (F + 1) +
                                3 * F * kSTile + kSObjects * kSTile) +
-         (int)sizeof(int) * (kSTile + kSObjects * kSTile);
+         (int)sizeof(int) * kSTile;
 }
 
 template <class K>
@@ -759,40 +644,21 @@ int launch_topk(const float* d, const float* de, const float* dm,
   return (int)cudaGetLastError();
 }
 
-template <class P, bool CUT>
+template <class P>
 int launch_stack(const float* d, const float* de, const float* dm,
                  const float* mT, const float* meT, const float* mmT,
                  const float* gl, const short* sweeps, const float* G,
-                 const float* rowv, const float* levid, const float* tie,
-                 const float* nkeep, float* pdf, int B, int M, int F,
-                 int Ngrid, float log_thr, float nd_full, int ng, int tm,
-                 int threads, cudaStream_t stream) {
+                 const float* lmap, const float* levid, float* pdf, int B,
+                 int M, int F, int Ngrid, float log_thr, float nd_full,
+                 int ng, int tm, int threads, cudaStream_t stream) {
   const int smem = col_smem_bytes(F);
-  cudaError_t err = allow_smem(lnl_stack_kernel<P, CUT>, smem);
+  cudaError_t err = allow_smem(lnl_stack_kernel<P>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + kSObjects - 1) / kSObjects,
                   (Ngrid + threads - 1) / threads);
-  lnl_stack_kernel<P, CUT><<<grid, threads, smem, stream>>>(
-      d, de, dm, mT, meT, mmT, gl, sweeps, G, rowv, levid, tie, nkeep, pdf,
-      B, M, F, Ngrid, log_thr, nd_full, ng, tm);
-  return (int)cudaGetLastError();
-}
-
-template <class P>
-int launch_onepass(const float* d, const float* de, const float* dm,
-                   const float* mT, const float* meT, const float* mmT,
-                   const float* gl, const short* sweeps, const float* G,
-                   float* pdf, float* lmap, float* levid, int B, int M, int F,
-                   int Ngrid, float nd_full, int ng, int tm, int threads,
-                   cudaStream_t stream) {
-  const int smem = col_smem_bytes(F);
-  cudaError_t err = allow_smem(lnl_onepass_kernel<P>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kSObjects - 1) / kSObjects,
-                  (Ngrid + threads - 1) / threads);
-  lnl_onepass_kernel<P><<<grid, threads, smem, stream>>>(
-      d, de, dm, mT, meT, mmT, gl, sweeps, G, pdf, lmap, levid, B, M, F,
-      Ngrid, nd_full, ng, tm);
+  lnl_stack_kernel<P><<<grid, threads, smem, stream>>>(
+      d, de, dm, mT, meT, mmT, gl, sweeps, G, lmap, levid, pdf, B, M, F,
+      Ngrid, log_thr, nd_full, ng, tm);
   return (int)cudaGetLastError();
 }
 
@@ -817,8 +683,8 @@ int launch_onepass(const float* d, const float* de, const float* dm,
 #define FZ_NOEXTRA
 #define FZ_ALL , false
 #define FZ_SPLIT , true
-#define FZ_KEEP_GT , false
-#define FZ_KEEP_LE , true
+#define FZ_ONEPASS , false
+#define FZ_CUT , true
 
 // The extern "C" entry points every pair family exports, with the same
 // signatures (the sweep table, its width ng and the group width tm are
@@ -872,30 +738,33 @@ int launch_onepass(const float* d, const float* de, const float* dm,
       int Ngrid, float log_thr, int full_mask, int dim_prior,                 \
       int ignore_model_err, float nd_full, const short* sweeps, int ng,       \
       int tm, int threads, void* stream) {                                    \
-    FZ_DISPATCH(PAIR, fz::launch_stack, FZ_KEEP_GT, d, de, dm, mT, meT, mmT,  \
-                gl, sweeps, G, lmap, levid, nullptr, nullptr, pdf, B, M, F,   \
-                Ngrid, log_thr, nd_full, ng, tm, threads,                     \
-                (cudaStream_t)stream)                                         \
+    FZ_DISPATCH(PAIR, fz::launch_stack, FZ_NOEXTRA, d, de, dm, mT, meT, mmT,  \
+                gl, sweeps, G, lmap, levid, pdf, B, M, F, Ngrid, log_thr,     \
+                nd_full, ng, tm, threads, (cudaStream_t)stream)               \
   }                                                                           \
   int fz_lnl_cut_stack##SUFFIX(                                               \
       const float* d, const float* de, const float* dm, const float* mT,      \
       const float* meT, const float* mmT, const float* gl, const float* G,    \
-      const float* cut, const float* levid, const float* tie,                 \
-      const float* nkeep, float* pdf, int B, int M, int F, int Ngrid,         \
-      int full_mask, int dim_prior, int ignore_model_err, float nd_full,      \
-      const short* sweeps, int ng, int tm, int threads, void* stream) {       \
-    FZ_DISPATCH(PAIR, fz::launch_stack, FZ_KEEP_LE, d, de, dm, mT, meT, mmT,  \
-                gl, sweeps, G, cut, levid, tie, nkeep, pdf, B, M, F, Ngrid,   \
-                0.0f, nd_full, ng, tm, threads, (cudaStream_t)stream)         \
+      const int* perm, const int* inv, const int* bands, const float* cut,    \
+      const float* levid, const float* tie, const float* nkeep, float* pdf,   \
+      int B, int M, int F, int Ngrid, int ldg, int width, int full_mask,      \
+      int dim_prior, int ignore_model_err, float nd_full,                     \
+      const short* sweeps, int ng, int tm, void* stream) {                    \
+    FZ_DISPATCH(PAIR, fz::launch_band, FZ_CUT, d, de, dm, mT, meT, mmT, gl,   \
+                sweeps, perm, inv, G, bands, cut, levid, tie, nkeep, pdf,     \
+                nullptr, nullptr, B, M, F, Ngrid, ldg, width, nd_full, ng,    \
+                tm, (cudaStream_t)stream)                                     \
   }                                                                           \
   int fz_lnl_onepass##SUFFIX(                                                 \
       const float* d, const float* de, const float* dm, const float* mT,      \
       const float* meT, const float* mmT, const float* gl, const float* G,    \
-      float* pdf, float* lmap, float* levid, int B, int M, int F, int Ngrid,  \
+      const int* perm, const int* bands, float* pdf, float* lmap,             \
+      float* levid, int B, int M, int F, int Ngrid, int ldg, int width,       \
       int full_mask, int dim_prior, int ignore_model_err, float nd_full,      \
-      const short* sweeps, int ng, int tm, int threads, void* stream) {       \
-    FZ_DISPATCH(PAIR, fz::launch_onepass, FZ_NOEXTRA, d, de, dm, mT, meT,    \
-                mmT, gl, sweeps, G, pdf, lmap, levid, B, M, F, Ngrid,         \
-                nd_full, ng, tm, threads, (cudaStream_t)stream)               \
+      const short* sweeps, int ng, int tm, void* stream) {                    \
+    FZ_DISPATCH(PAIR, fz::launch_band, FZ_ONEPASS, d, de, dm, mT, meT, mmT,   \
+                gl, sweeps, perm, nullptr, G, bands, nullptr, nullptr,        \
+                nullptr, nullptr, pdf, lmap, levid, B, M, F, Ngrid, ldg,      \
+                width, nd_full, ng, tm, (cudaStream_t)stream)                 \
   }                                                                           \
   }

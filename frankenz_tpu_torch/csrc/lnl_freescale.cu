@@ -81,7 +81,9 @@
 //   (coalesced).
 //
 // Every lnl_*_fs entry point is the lnl_general.cu kernel template
-// (lnl_common.cuh) instantiated with FreePair; the model tiles hold me,
+// (lnl_common.cuh; lnl_band.cuh for `lnl_onepass_fs` and
+// `lnl_cut_stack_fs`, whose band order reads sweeps[b, perm[j] / tm])
+// instantiated with FreePair; the model tiles hold me,
 // not me^2.  With model errors (a sweep table) the one-thread-per-object
 // kernels, reduce and topk, compute each model tile's lnl with the whole
 // block, 32 consecutive threads on 32 models of one object (one sweep
@@ -93,7 +95,7 @@
 // math anywhere.
 // ---------------------------------------------------------------------
 
-#include "lnl_common.cuh"
+#include "lnl_band.cuh"
 
 namespace {
 

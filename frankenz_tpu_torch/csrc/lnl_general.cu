@@ -90,24 +90,16 @@
 //   compare; otherwise it pools into an equal value or is inserted.  The
 //   result is a set, so it does not depend on the model order.
 //
-// lnl_stack / lnl_cut_stack  (one kernel template, two entry points)
-//   Replace: `_make_stack_kernel` (ops/fused.py:634; pallas_call :1998)
-//            and `_make_cut_stack_kernel` (:779; pallas_call :1937).
-//   Compute: w = exp(lnl - levid), kept where lnl > ln(wt_thresh) + lmap
-//            (that sum rounded in float32, as the JAX kernel forms it)
-//            or where lnl <= cut; pdf[b, :] = sum_m w * G[m, :].
-//            The cdf mode also keeps the first nkeep[b] models, in model
-//            order, whose lnl equals tie[b]: the tie group that straddles
-//            the reference's cut, of which the reference's stable sort
-//            drops only as many members as the mass needs.  (The JAX
-//            kernel drops the whole group; float32 lnl values tie at the
-//            dim prior's flat peak, not only for duplicate models.)
+// lnl_stack
+//   Replaces: `_make_stack_kernel` (ops/fused.py:634; pallas_call :1998).
+//   Computes: w = exp(lnl - levid), kept where lnl > ln(wt_thresh) + lmap
+//             (that sum rounded in float32, as the JAX kernel forms it);
+//             pdf[b, :] = sum_m w * G[m, :].
 //   Bound on the H100: the lnl chain per pair, plus Ngrid FMAs per pair
-//   that survives the cut: few after the wt_thresh cut, nearly all in the
-//   cdf mode (it drops only the heaviest weights), where the FMAs lead.
-//   The two-pass threshold route reads lnl from the lnl table instead
-//   (`lnl_stack_read`, csrc/lnl_table.cu); this kernel serves the cdf
-//   mode and every call without a table.
+//   that survives the cut (few after the wt_thresh cut).  The two-pass
+//   threshold route reads lnl from the lnl table instead
+//   (`lnl_stack_read`, csrc/lnl_table.cu, bit for bit this kernel); this
+//   kernel serves every call without a table.
 //   Design: grid = (object blocks of 32) x (column chunks of up to 512
 //   grid columns), one thread per grid column.  A block computes its 32
 //   objects' kept weights against a 64-model tile into shared memory,
@@ -115,37 +107,20 @@
 //   per-tile partial first and then the running total, models in a fixed
 //   order: no atomics, bitwise stable run to run.  A model whose 32 kept
 //   weights are all exactly 0.0 skips its G row (adding zeros is exact).
-//   Straddling tie members are marked while the weights are computed and
-//   counted in model order by one thread per object afterwards (only in
-//   blocks that hold such a row).  The product is fp32 FMA on the CUDA
-//   cores, not TF32.
+//   The product is fp32 FMA on the CUDA cores, not TF32.
 //
-// lnl_onepass
-//   Replaces: `_make_onepass_kernel` (ops/fused.py:670; pallas_call
-//             :1958), the route of `wt_thresh=None, cdf_thresh=None` off
-//             the full-mask dim-prior pair (K4 in ROADMAP).
-//   Computes: lmap, levid and pdf = sum_m exp(lnl - lmap) G[m, :] in one
-//             walk over the models: the running maximum rm rescales the
-//             running sum and the PDF accumulator by exp(rm_old - rm_new)
-//             whenever it grows (the caller turns the PDF into the
-//             exp(lnl - levid) scale, ops/fused.py:1972-1975).
-//   Bound on the H100: every pair is kept, so Ngrid FMAs per pair lead,
-//   as in the cdf mode's lnl_cut_stack, plus the lnl chain.
-//   Design: lnl_stack's grid (32 objects x up to 512 grid columns per
-//   block).  Per 64-model tile: the pairs' lnl into shared memory, each
-//   row's tile maximum and the new running maximum (one thread per row),
-//   the weights exp(lnl - new max) by every thread, the row's tile sum
-//   joined to its compensated running sum (lse_join), and per grid
-//   column a per-tile partial sum of products added to the rescaled
-//   total, acc = acc * alpha + part: one fixed order, bitwise stable run
-//   to run, and no single running sum over 100,000 products.
+// lnl_cut_stack, lnl_onepass
+//   Replace: `_make_cut_stack_kernel` (:779) and `_make_onepass_kernel`
+//            (:670) with their band skip (K7): the band kernel of
+//            lnl_band.cuh over the models in band order, instantiated
+//            here with FixedPair (design notes there).
 //
 // Every kernel masks the ragged object and model edges itself: no
 // padded objects or `valid`-flagged models, as the JAX glue adds
 // (ops/fused.py:2140-2158).  No fast math anywhere.
 // ---------------------------------------------------------------------
 
-#include "lnl_common.cuh"
+#include "lnl_band.cuh"
 
 namespace {
 
@@ -224,5 +199,30 @@ int fz_lnl_topk_smem(int F, int T, int sweeps) {
 }
 int fz_lnl_stack_smem(int F) { return fz::col_smem_bytes(F); }
 int fz_lnl_reduce_store_smem(int F) { return fz::reduce_store_smem(F); }
+
+// The band kernels (lnl_band.cuh) at F filters, `ldg` padded grid columns
+// and a widest band of `width` columns: the block's shared-memory bytes (0
+// when no column window fits) and the blocks an SM holds of the masked
+// dim-prior instantiation (cut: the cut stack's).
+int fz_lnl_band_smem(int F, int ldg, int width, int cut) {
+  const int win = fz::band_window(F, ldg, width, cut != 0, false);
+  return win ? fz::band_smem(F, win, width < win ? width : win, cut != 0,
+                             false)
+             : 0;
+}
+int fz_lnl_band_blocks(int F, int ldg, int width, int cut) {
+  return cut ? fz::band_blocks_per_sm<FixedPair<false, true, false>, true>(
+                   F, ldg, width)
+             : fz::band_blocks_per_sm<FixedPair<false, true, false>, false>(
+                   F, ldg, width);
+}
+
+#ifdef FZ_STAMPS
+// The band kernels' cycles by part (a -DFZ_STAMPS build: ab_band.py
+// --stamps), [8] into host memory, then zeroed.
+int fz_lnl_band_stamps(unsigned long long* out) {
+  return fz::band_stamps(out);
+}
+#endif
 
 }  // extern "C"

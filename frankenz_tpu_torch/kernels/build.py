@@ -178,7 +178,8 @@ def _bind(lib):
     for name, nargs in (("fz_lnl_reduce_smem", 2), ("fz_lnl_topk_smem", 3),
                         ("fz_lnl_stack_smem", 1), ("fz_scale_sweeps_smem", 4),
                         ("fz_scale_sweeps_occupancy", 4),
-                        ("fz_lnl_reduce_store_smem", 1)):
+                        ("fz_lnl_reduce_store_smem", 1),
+                        ("fz_lnl_band_smem", 4), ("fz_lnl_band_blocks", 4)):
         getattr(lib, name).argtypes = [I] * nargs
         getattr(lib, name).restype = I
     # Pointers (7 inputs, then outputs / extra inputs), sizes, flags,
@@ -192,8 +193,10 @@ def _bind(lib):
         "fz_lnl_reduce_split": [P] * 11 + [I] * 6 + tail + [P],
         "fz_lnl_topk": [P] * 9 + [I] * 7 + tail + [P],
         "fz_lnl_stack": [P] * 11 + [I] * 4 + [F] + [I] * 3 + tail + [I, P],
-        "fz_lnl_cut_stack": [P] * 13 + [I] * 7 + tail + [I, P],
-        "fz_lnl_onepass": [P] * 11 + [I] * 7 + tail + [I, P],
+        # The band kernels (csrc/lnl_band.cuh): G, perm (, inv), bands,
+        # the rows and outputs, sizes with G's stride and the widest band.
+        "fz_lnl_cut_stack": [P] * 16 + [I] * 9 + tail + [P],
+        "fz_lnl_onepass": [P] * 13 + [I] * 9 + tail + [P],
         # The table route's producer: the lnl table and its stride after
         # lmap and levid, no sweep table.
         "fz_lnl_reduce_store": [P] * 10 + [I] * 7 + [F, P],

@@ -14,7 +14,14 @@ model group), the table the other kernels read under free scale with
 model errors.  The CUDA sources, with the design notes, are
 ``csrc/lnl_general.cu`` (fixed scale), ``csrc/lnl_freescale.cu`` (free
 scale), ``csrc/lnl_common.cuh`` (the kernel templates) and
-``csrc/lnl_table.cu`` (the lnl table's readers).
+``csrc/lnl_table.cu`` (the lnl table's readers) and ``csrc/lnl_band.cuh``
+(`lnl_onepass` and `lnl_cut_stack`).
+
+`lnl_onepass` and `lnl_cut_stack` take the models in band order
+(`band_sort`, the port of JAX's `_band_sort`, K7): sorted by the centre
+of their kernel-matrix support, so each 64-model tile's G rows are
+nonzero only in a narrow band of grid columns, and only that band gets
+products.  A product is skipped only where G is exactly zero.
 
 The two-pass threshold route (`lnl_reduce`, then `lnl_stack`) computes
 each pair's lnl once per call into an lnl table: float32 (B,
@@ -26,7 +33,9 @@ point ends and `lnl_reduce` reads it; `lnl_stack(..., table=t)` reads it
 on every instantiation.  The values are the recompute route's (the same
 wrappers without ``table``) bit for bit, and so are lmap, levid and the
 PDF.  `table_rows` cuts a batch into row chunks of at most
-`TABLE_BYTES_MAX` bytes of table (`ops.fused` runs the route per chunk).
+`TABLE_BYTES_MAX` bytes of table, and of at most a byte budget when one
+is given (`ops.fused` runs the route per chunk, its budget the card's
+free memory less a margin).
 
 Each wrapper takes float32 contiguous tensors:
 
@@ -61,6 +70,8 @@ stack product run in another order.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 from scipy.special import gammaln as _sp_gammaln
@@ -75,7 +86,8 @@ __all__ = ["lnl_tile_plain", "lnl_reduce", "lnl_reduce_plain",
            "lnl_topk", "lnl_topk_plain", "lnl_cut_stack",
            "lnl_cut_stack_plain", "scale_sweeps", "scale_sweeps_plain",
            "gl_table", "table_width", "table_rows", "TABLE_BYTES_MAX",
-           "NEG_INF", "reset_launch_counts", "launch_counts"]
+           "BandSort", "band_sort", "NEG_INF", "reset_launch_counts",
+           "launch_counts"]
 
 NEG_INF = float(np.finfo(np.float32).min)  # the lnl floor
 _LOG_2 = 0.6931471805599453
@@ -120,13 +132,84 @@ def table_width(nmodel):
     return -(-int(nmodel) // _TABLE_TILE) * _TABLE_TILE
 
 
-def table_rows(nobj, nmodel):
+def table_rows(nobj, nmodel, budget=None):
     """Rows per chunk of the lnl table for a batch of `nobj` objects: the
-    fewest chunks of at most `TABLE_BYTES_MAX` bytes, of equal size (the
-    last one shorter), at least one row."""
-    cap = max(1, TABLE_BYTES_MAX // (4 * table_width(nmodel)))
+    fewest chunks of at most `TABLE_BYTES_MAX` bytes (and at most `budget`
+    bytes when given), of equal size (the last one shorter), at least one
+    row.  Raises MemoryError when `budget` does not hold one row."""
+    row = 4 * table_width(nmodel)
+    cap = max(1, TABLE_BYTES_MAX // row)
+    if budget is not None:
+        if budget < row:
+            raise MemoryError(f"one row of the lnl table ({row} bytes) does "
+                              f"not fit the {int(budget)} bytes free")
+        cap = min(cap, int(budget) // row)
     nchunks = max(1, -(-int(nobj) // cap))
     return max(1, -(-int(nobj) // nchunks))
+
+
+class BandSort(NamedTuple):
+    """The models in band order (`band_sort`), as `lnl_onepass` and
+    `lnl_cut_stack` read them.
+
+    perm, inv: int32 (M,): band position -> caller index, and back;
+    mT, meT, mmT: float32 (F, M), the model columns in band order;
+    G: float32 (table_width(M), ldg), the kernel matrix's rows in band
+        order, ldg = Ngrid rounded up to 4, zeros past M rows and Ngrid
+        columns (16-byte rows for the kernels' copies);
+    bands: int32 (ceil(M / 64), 2): each 64-model tile's nonzero columns
+        [lo, hi) of G ([0, 0) for a tile of all-zero rows);
+    ngrid: Ngrid;
+    width: the widest band, its edges rounded out to 4 columns."""
+    perm: torch.Tensor
+    inv: torch.Tensor
+    mT: torch.Tensor
+    meT: torch.Tensor
+    mmT: torch.Tensor
+    G: torch.Tensor
+    bands: torch.Tensor
+    ngrid: int
+    width: int
+
+
+def band_sort(G, mT, meT, mmT):
+    """The models in band order (JAX's `_band_sort`,
+    frankenz_tpu/ops/fused.py:243-267): a stable sort by lo + hi, the first
+    and last nonzero columns of each G row, all-zero rows last.  Returns a
+    `BandSort`: the permuted model arrays, the padded G, and each
+    64-model tile's exact nonzero band (JAX flags 128-column blocks
+    instead).  One argsort and one gather of G; reading `width` is one
+    synchronization with the device."""
+    M, ngrid = G.shape
+    dev = G.device
+    cols = torch.arange(ngrid, dtype=torch.int32, device=dev)
+    nz = G != 0.0
+    lo = torch.where(nz, cols, ngrid).amin(dim=1)
+    hi = torch.where(nz, cols, -1).amax(dim=1)
+    del nz
+    key = torch.where(hi >= 0, lo + hi, 2 * ngrid + 1)
+    order = torch.argsort(key, stable=True)
+    perm = order.to(torch.int32)
+    inv = torch.empty_like(perm)
+    inv[order] = torch.arange(M, dtype=torch.int32, device=dev)
+    mp, ldg = table_width(M), -(-ngrid // 4) * 4
+    Gs = torch.zeros((mp, ldg), dtype=torch.float32, device=dev)
+    Gs[:M, :ngrid] = G[order]
+    ntiles = mp // _TABLE_TILE
+    lo_t = torch.full((mp,), ngrid, dtype=torch.int32, device=dev)
+    hi_t = torch.zeros((mp,), dtype=torch.int32, device=dev)
+    lo_t[:M] = lo[order]
+    hi_t[:M] = hi[order] + 1
+    lo_t = lo_t.view(ntiles, _TABLE_TILE).amin(dim=1)
+    hi_t = hi_t.view(ntiles, _TABLE_TILE).amax(dim=1)
+    empty = hi_t == 0
+    bands = torch.stack([torch.where(empty, 0, lo_t),
+                         torch.where(empty, 0, hi_t)], dim=1).contiguous()
+    span = torch.where(empty, 0, ((hi_t + 3) // 4 - lo_t // 4) * 4)
+    width = int(span.max()) if ntiles else 0
+    return BandSort(perm, inv, *(x[:, order].contiguous()
+                                 for x in (mT, meT, mmT)),
+                    Gs, bands, int(ngrid), width)
 
 
 def _check_table(table, B, M, device):
@@ -373,14 +456,16 @@ def _fs_residual_plain(d, de2, dm, mT, meT, mmT, s, prev, *, full_mask,
 
 
 def _fs_tile_plain(d, de, dm, mT, meT, mmT, *, full_mask, dim_prior,
-                   ignore_model_err, sweeps, tm):
+                   ignore_model_err, sweeps, tm, perm):
     """The free-scale (B, M) lnl grid in the kernels' order (`FreePair`
     of csrc/lnl_freescale.cu)."""
     B, F = d.shape
     M = mT.shape[1]
     de2 = de * de
     if not ignore_model_err:
-        count = sweeps.long()[:, torch.arange(M, device=d.device) // int(tm)]
+        caller = (torch.arange(M, device=d.device) if perm is None
+                  else perm.long())
+        count = sweeps.long()[:, caller // int(tm)]
         s = _fs_scale_plain(d, de2, dm, mT, meT, mmT, None, full_mask)
         prev = s
         for i in range(1, int(count.max()) + 1 if count.numel() else 1):
@@ -425,14 +510,16 @@ def _fs_tile_plain(d, de, dm, mT, meT, mmT, *, full_mask, dim_prior,
 
 def lnl_tile_plain(d, de, dm, mT, meT, mmT, *, full_mask=False,
                    dim_prior=True, ignore_model_err=False, free_scale=False,
-                   sweeps=None, tm=None):
+                   sweeps=None, tm=None, perm=None):
     """The (B, M) lnl grid in the kernels' order (`_lnl_tile`,
-    ops/fused.py:316-596), floored at float32 min."""
+    ops/fused.py:316-596), floored at float32 min.  `perm`: the caller
+    index of each model column (band order), whose sweep group is
+    perm // tm."""
     if free_scale:
         return _fs_tile_plain(d, de, dm, mT, meT, mmT, full_mask=full_mask,
                               dim_prior=dim_prior,
                               ignore_model_err=ignore_model_err,
-                              sweeps=sweeps, tm=tm)
+                              sweeps=sweeps, tm=tm, perm=perm)
     B, F = d.shape
     de2 = de * de
     me2 = meT * meT
@@ -535,24 +622,45 @@ def lnl_stack_plain(d, de, dm, mT, meT, mmT, G, lmap, levid, *, log_thr,
     return fp32_matmul(w, G)
 
 
-def lnl_onepass_plain(d, de, dm, mT, meT, mmT, G, **flags):
+def _band_lnl(d, de, dm, bs, flags):
+    """The (B, M) lnl grid of the models in band order."""
+    return lnl_tile_plain(d, de, dm, bs.mT, bs.meT, bs.mmT, perm=bs.perm,
+                          **flags)
+
+
+def _band_product(w, bs):
+    """sum over models of w[:, m] G[m, :], in band order: each 64-model
+    tile's product over its band [lo, hi) (G is zero outside it) added to
+    the running total, tile by tile."""
+    B, M = w.shape
+    pdf = torch.zeros((B, bs.ngrid), dtype=w.dtype, device=w.device)
+    for t, (lo, hi) in enumerate(bs.bands.tolist()):
+        if hi > lo:
+            m0, m1 = t * _TABLE_TILE, min((t + 1) * _TABLE_TILE, M)
+            pdf[:, lo:hi] += fp32_matmul(w[:, m0:m1], bs.G[m0:m1, lo:hi])
+    return pdf
+
+
+def lnl_onepass_plain(d, de, dm, bs, **flags):
     """Plain version of `lnl_onepass`: (pdf, lmap, levid), pdf in the
-    exp(lnl - lmap) scale."""
-    lnl = lnl_tile_plain(d, de, dm, mT, meT, mmT, **flags)
+    exp(lnl - lmap) scale; `bs` the models in band order."""
+    lnl = _band_lnl(d, de, dm, bs, flags)
     lmap = lnl.amax(dim=1)
     w = torch.exp(lnl - lmap[:, None])
-    return fp32_matmul(w, G), lmap, torch.log(w.sum(dim=1)) + lmap
+    return _band_product(w, bs), lmap, torch.log(w.sum(dim=1)) + lmap
 
 
-def lnl_cut_stack_plain(d, de, dm, mT, meT, mmT, G, cut, levid, tie, nkeep,
-                        **flags):
-    """Plain version of `lnl_cut_stack`: pdf (B, Ngrid)."""
-    lnl = lnl_tile_plain(d, de, dm, mT, meT, mmT, **flags)
+def lnl_cut_stack_plain(d, de, dm, bs, cut, levid, tie, nkeep, **flags):
+    """Plain version of `lnl_cut_stack`: pdf (B, Ngrid); `bs` the models
+    in band order.  A straddling tie group keeps its first nkeep members
+    in the caller's order."""
+    lnl = _band_lnl(d, de, dm, bs, flags)
     is_tie = lnl == tie[:, None]
-    rank = torch.cumsum(is_tie.to(torch.int32), dim=1) - 1
-    keep = (lnl <= cut[:, None]) | (is_tie & (rank < nkeep[:, None]))
+    rank = torch.cumsum(is_tie[:, bs.inv.long()].to(torch.int32), dim=1) - 1
+    first = (rank < nkeep[:, None])[:, bs.perm.long()]
+    keep = (lnl <= cut[:, None]) | (is_tie & first)
     w = torch.where(keep, torch.exp(lnl - levid[:, None]), 0.0)
-    return fp32_matmul(w, G)
+    return _band_product(w, bs)
 
 
 def _load_checked(name, smem):
@@ -731,26 +839,9 @@ def _check_stack_inputs(d, G, M, rows):
 
 
 def _col_threads(ngrid):
-    """Threads of a grid-column kernel: one a grid column, up to
+    """Threads of the stack kernels: one a grid column, up to
     _STACK_MAX_THREADS (more columns take more blocks)."""
     return min(-(-ngrid // 32) * 32, _STACK_MAX_THREADS)
-
-
-def _launch_cols(name, fn, d, de, dm, mT, meT, mmT, G, ptrs, sizes, flags,
-                 sweep):
-    """Launch a grid-column kernel (stack, cut stack, onepass): `ptrs`
-    are the pointers after G, `sizes` the arguments after Ngrid and
-    before the flags."""
-    B, F = d.shape
-    ngrid = G.shape[1]
-    lib = _load_checked(name, lambda lib: lib.fz_lnl_stack_smem(F))
-    gl = gl_table(F, d.device)
-    with torch.cuda.device(d.device):
-        rc = _entry(lib, fn, **flags)(
-            *_ptrs(d, de, dm, mT, meT, mmT, gl, G, *ptrs), B,
-            mT.shape[1], F, ngrid, *sizes, *_flags(**flags), _nd_full(F),
-            *sweep, _col_threads(ngrid), _stream(d.device))
-    _check_rc(name, rc)
 
 
 def lnl_stack(d, de, dm, mT, meT, mmT, G, lmap, levid, *, log_thr,
@@ -776,67 +867,120 @@ def lnl_stack(d, de, dm, mT, meT, mmT, G, lmap, levid, *, log_thr,
     if B == 0:
         return pdf
     log_thr = float(np.float32(log_thr))
-    if table is None:
-        _launch_cols("lnl_stack", "fz_lnl_stack", d, de, dm, mT, meT, mmT, G,
-                     (lmap, levid, pdf), [log_thr], flags, sweep)
-    else:
-        ngrid = G.shape[1]
-        with torch.cuda.device(d.device):
+    ngrid = G.shape[1]
+    with torch.cuda.device(d.device):
+        if table is None:
+            lib = _load_checked("lnl_stack",
+                                lambda lib: lib.fz_lnl_stack_smem(F))
+            rc = _entry(lib, "fz_lnl_stack", **flags)(
+                *_ptrs(d, de, dm, mT, meT, mmT, gl_table(F, d.device), G,
+                       lmap, levid, pdf), B, M, F, ngrid, log_thr,
+                *_flags(**flags), _nd_full(F), *sweep, _col_threads(ngrid),
+                _stream(d.device))
+        else:
             rc = _build.load().fz_lnl_stack_read(
                 table.data_ptr(), table_width(M), *_ptrs(G, lmap, levid, pdf),
                 B, M, ngrid, log_thr, _col_threads(ngrid), _stream(d.device))
-        _check_rc("lnl_stack", rc)
+    _check_rc("lnl_stack", rc)
     lnl_stack.launches += 1
     lnl_stack.table_launches += table is not None
     return pdf
 
 
-def lnl_onepass(d, de, dm, mT, meT, mmT, G, *, full_mask=False,
-                dim_prior=True, ignore_model_err=False, free_scale=False,
-                sweeps=None, tm=None):
-    """No weight threshold, one walk over the models: lmap, levid and
-    pdf = sum over models of exp(lnl - lmap) * G[m].  Returns (pdf,
-    lmap, levid), float32 (B, Ngrid), (B,), (B,); pdf in the exp(lnl -
-    lmap) scale."""
-    B, F, M = _check_inputs(d, de, dm, mT, meT, mmT)
-    _check_stack_inputs(d, G, M, {})
+def _check_band(bs, F, device):
+    """The models in band order (`band_sort`) for F filters on `device`;
+    returns M."""
+    if not isinstance(bs, BandSort):
+        raise TypeError("bs must be the BandSort of `band_sort`")
+    M = bs.perm.shape[0] if bs.perm.ndim == 1 else -1
+    if M < 1:
+        raise ValueError("need at least one model")
+    for name, t in (("mT", bs.mT), ("meT", bs.meT), ("mmT", bs.mmT)):
+        _check(name, t, (F, M), device)
+    _check("G", bs.G, (table_width(M), -(-int(bs.ngrid) // 4) * 4), device)
+    for name, t, shape in (("perm", bs.perm, (M,)), ("inv", bs.inv, (M,)),
+                           ("bands", bs.bands,
+                            (table_width(M) // _TABLE_TILE, 2))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape \
+                or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 {shape} "
+                             f"tensor on {device}")
+    if bs.G.data_ptr() % 16:
+        raise ValueError("G must be 16-byte aligned")
+    return M
+
+
+def _launch_band(name, fn, d, de, dm, bs, ptrs, flags, sweep):
+    """Launch a band kernel: `ptrs` the pointers after G (perm onward)."""
+    B, F = d.shape
+    M = bs.perm.shape[0]
+    with torch.cuda.device(d.device):
+        rc = _entry(_build.load(), fn, **flags)(
+            *_ptrs(d, de, dm, bs.mT, bs.meT, bs.mmT, gl_table(F, d.device),
+                   bs.G, *ptrs), B, M, F, bs.ngrid, bs.G.shape[1],
+            int(bs.width), *_flags(**flags), _nd_full(F), *sweep,
+            _stream(d.device))
+    _check_rc(name, rc)
+
+
+def lnl_onepass(d, de, dm, bs, *, full_mask=False, dim_prior=True,
+                ignore_model_err=False, free_scale=False, sweeps=None,
+                tm=None):
+    """No weight threshold, one walk over the models in band order (`bs`,
+    from `band_sort`): lmap, levid and pdf = sum over models of exp(lnl -
+    lmap) * G[m].  Returns (pdf, lmap, levid), float32 (B, Ngrid), (B,),
+    (B,); pdf in the exp(lnl - lmap) scale.  Under free scale with model
+    errors `sweeps` is in the caller's order (model j of the band order
+    runs sweeps[b, perm[j] // tm])."""
+    if d.ndim != 2:
+        raise ValueError("d must be (B, F)")
+    B, F = d.shape
+    M = _check_band(bs, F, d.device)
+    _check_inputs(d, de, dm, bs.mT, bs.meT, bs.mmT)
     flags = _flag_dict(full_mask, dim_prior, ignore_model_err, free_scale,
                        sweeps, tm)
     sweep = _sweep_args(B, M, d.device, **flags)
     if d.device.type == "cpu":
-        return lnl_onepass_plain(d, de, dm, mT, meT, mmT, G, **flags)
-    pdf = torch.empty((B, G.shape[1]), dtype=torch.float32, device=d.device)
+        return lnl_onepass_plain(d, de, dm, bs, **flags)
+    pdf = torch.empty((B, bs.ngrid), dtype=torch.float32, device=d.device)
     lmap = torch.empty(B, dtype=torch.float32, device=d.device)
     levid = torch.empty_like(lmap)
     if B == 0:
         return pdf, lmap, levid
-    _launch_cols("lnl_onepass", "fz_lnl_onepass", d, de, dm, mT, meT, mmT, G,
-                 (pdf, lmap, levid), [], flags, sweep)
+    _launch_band("lnl_onepass", "fz_lnl_onepass", d, de, dm, bs,
+                 (bs.perm, bs.bands, pdf, lmap, levid), flags, sweep)
     lnl_onepass.launches += 1
     return pdf, lmap, levid
 
 
-def lnl_cut_stack(d, de, dm, mT, meT, mmT, G, cut, levid, tie, nkeep, *,
-                  full_mask=False, dim_prior=True, ignore_model_err=False,
-                  free_scale=False, sweeps=None, tm=None):
-    """As `lnl_stack`, keeping pairs with lnl <= cut[b] and the first
-    nkeep[b] models (in model order) with lnl == tie[b] (see
+def lnl_cut_stack(d, de, dm, bs, cut, levid, tie, nkeep, *, full_mask=False,
+                  dim_prior=True, ignore_model_err=False, free_scale=False,
+                  sweeps=None, tm=None):
+    """As `lnl_stack` over the models in band order (`bs`, from
+    `band_sort`), keeping pairs with lnl <= cut[b] and the first nkeep[b]
+    models in the caller's order with lnl == tie[b] (see
     `ops.fused.cdf_cut`).  Returns pdf (B, Ngrid), float32, in the
     exp(lnl - levid) scale."""
-    B, F, M = _check_inputs(d, de, dm, mT, meT, mmT)
-    _check_stack_inputs(d, G, M, dict(cut=cut, levid=levid, tie=tie,
-                                      nkeep=nkeep))
+    if d.ndim != 2:
+        raise ValueError("d must be (B, F)")
+    B, F = d.shape
+    M = _check_band(bs, F, d.device)
+    _check_inputs(d, de, dm, bs.mT, bs.meT, bs.mmT)
+    for name, t in (("cut", cut), ("levid", levid), ("tie", tie),
+                    ("nkeep", nkeep)):
+        _check(name, t, (B,), d.device)
     flags = _flag_dict(full_mask, dim_prior, ignore_model_err, free_scale,
                        sweeps, tm)
     sweep = _sweep_args(B, M, d.device, **flags)
     if d.device.type == "cpu":
-        return lnl_cut_stack_plain(d, de, dm, mT, meT, mmT, G, cut, levid,
-                                   tie, nkeep, **flags)
-    pdf = torch.empty((B, G.shape[1]), dtype=torch.float32, device=d.device)
+        return lnl_cut_stack_plain(d, de, dm, bs, cut, levid, tie, nkeep,
+                                   **flags)
+    pdf = torch.empty((B, bs.ngrid), dtype=torch.float32, device=d.device)
     if B == 0:
         return pdf
-    _launch_cols("lnl_cut_stack", "fz_lnl_cut_stack", d, de, dm, mT, meT,
-                 mmT, G, (cut, levid, tie, nkeep, pdf), [], flags, sweep)
+    _launch_band("lnl_cut_stack", "fz_lnl_cut_stack", d, de, dm, bs,
+                 (bs.perm, bs.inv, bs.bands, cut, levid, tie, nkeep, pdf),
+                 flags, sweep)
     lnl_cut_stack.launches += 1
     return pdf
 

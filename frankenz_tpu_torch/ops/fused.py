@@ -47,14 +47,24 @@ serve every configuration of it:
         distinct lnl values and tie
         counts), `cdf_cut` (the exact per-object cut, plain torch) and
         `lnl_cut_stack` (keeps lnl <= cut, and the reference's share of
-        a tie group that straddles it); with ``cdf_exact=True``, rows
+        a tie group that straddles it) over the models in band order;
+        with ``cdf_exact=True``, rows
         whose cut the top-T table leaves undetermined find it by
         bisection (`cdf_cut_exact`, `lnl_reduce_split` per step).
 
 * "onepass", both thresholds None off the full-mask routes: the
   single-pass kernel of ops/fused.py:1952-1975 (`lnl_onepass`, after
-  `scale_sweeps` under free scale with model errors), and the glue's
-  rescale pdf * exp(lmap - levid).
+  `scale_sweeps` under free scale with model errors) over the models in
+  band order, and the glue's rescale pdf * exp(lmap - levid).
+
+The two band stacks (`lnl_cut_stack`, `lnl_onepass`) read the models in
+band order (`band_sort`, JAX's `_band_sort`, ops/fused.py:243-267): sorted
+by the centre of their kernel-matrix support, computed once per call, so
+each 64-model tile's G rows are nonzero only in a narrow band of grid
+columns, the only columns that get products (JAX's band skip, K7, flags
+128-column blocks and runs only past 128 padded columns; the port takes
+each tile's exact band at every Ngrid).  Every other kernel keeps the
+caller's order, so lmap, levid and the cdf cut are what they were.
 
 On CUDA tensors the routes launch their kernels; on CPU tensors the same
 glue runs the kernels' plain versions.  Nothing catches a failed build
@@ -64,8 +74,9 @@ The free-scale fixed point with model errors converges per (object,
 group of ``tm`` models), as the JAX tile does (ops/fused.py:529-539): the
 group's max |delta lnl| decides, and the models of a ragged last group
 are joined by the JAX glue's padding sentinels.  The groups are the
-models in the caller's order.  (JAX band-sorts the models by their
-kernel-matrix support when the padded grid exceeds 128 columns,
+models in the caller's order, on the band stacks too (model j of the band
+order runs sweeps[b, perm[j] // tm]).  (JAX band-sorts the models by
+their kernel-matrix support when the padded grid exceeds 128 columns,
 ops/fused.py:1863-1872, which regroups them: its free-scale results then
 depend on G.  ROADMAP section 3.)
 
@@ -84,14 +95,18 @@ import torch
 from ..kernels import build as _build
 from ..kernels import fullmask as _fm
 from ..kernels import general as _gen
+from ..kernels.general import BandSort, band_sort
 from . import screen as _screen
 from .screen import lmap_and_shift
 
 __all__ = ["fused_fit_pdf", "fused_route", "group_width",
-           "kernels_available", "cdf_cut", "cdf_cut_exact",
-           "FusedCdfFallback"]
+           "kernels_available", "cdf_cut", "cdf_cut_exact", "band_sort",
+           "BandSort", "FusedCdfFallback", "TABLE_MARGIN"]
 
 _NEG_INF = float(np.finfo(np.float32).min)
+# Device memory the table route leaves free beside its lnl table: the
+# batch's PDFs, the sweep table and the glue's temporaries.
+TABLE_MARGIN = 2 ** 30
 
 
 def kernels_available():
@@ -257,16 +272,29 @@ def cdf_cut_exact(d, de, dm, mT, meT, mmT, levid, cdf_thresh, **flags):
             torch.where(split_group, nkeep, 0.0))
 
 
+def _free_table_bytes(device):
+    """Bytes the lnl table may take on `device`: on the card its free
+    memory and the blocks PyTorch's allocator holds unused, less
+    `TABLE_MARGIN`; None (no cap) on the CPU."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    unused = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return free + unused - TABLE_MARGIN
+
+
 def _table_route(d, de, dm, mT, meT, mmT, G, *, flags, log_thr, sweep_kw):
     """The two-pass threshold route on the lnl table: per row chunk of at
-    most `TABLE_BYTES_MAX` bytes of table (`table_rows`), the producer
-    (`lnl_reduce`, or `scale_sweeps` under free scale with model errors,
-    `sweep_kw` its keywords), `lnl_reduce` and `lnl_stack`, in one
-    buffer.  Rows are independent, so chunking changes no bit.  Returns
-    (pdf, lmap, levid), pdf in the exp(lnl - levid) scale.  A table that
-    does not fit raises: there is no recompute fallback."""
+    most `TABLE_BYTES_MAX` bytes of table and at most the memory free
+    (`table_rows`, `_free_table_bytes`), the producer (`lnl_reduce`, or
+    `scale_sweeps` under free scale with model errors, `sweep_kw` its
+    keywords), `lnl_reduce` and `lnl_stack`, in one buffer.  Rows are
+    independent, so chunking changes no bit.  Returns (pdf, lmap,
+    levid), pdf in the exp(lnl - levid) scale.  Raises MemoryError when
+    one row of the table does not fit: there is no recompute fallback."""
     B, M = d.shape[0], mT.shape[1]
-    rows = _gen.table_rows(B, M)
+    rows = _gen.table_rows(B, M, budget=_free_table_bytes(d.device))
     buf = torch.empty((min(rows, B), _gen.table_width(M)),
                       dtype=torch.float32, device=d.device)
     outs = []
@@ -287,12 +315,13 @@ def _table_route(d, de, dm, mT, meT, mmT, G, *, flags, log_thr, sweep_kw):
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
-def _cdf_route(d, de, dm, mT, meT, mmT, G, *, flags, cdf_thresh, cdf_topk,
+def _cdf_route(d, de, dm, mT, meT, mmT, bs, *, flags, cdf_thresh, cdf_topk,
                cdf_exact=False):
     """Glue of `_fused_call`'s general body in the cdf mode around the
     general kernels; returns (pdf, lmap, levid, ok), pdf in the exp(lnl -
     levid) scale and `ok` the per-row cdf flag.  `flags` are the kernels'
-    flags, with the sweep table under free scale and model errors."""
+    flags, with the sweep table under free scale and model errors; `bs`
+    the models in band order, which only the stack reads."""
     lmap, levid = _gen.lnl_reduce(d, de, dm, mT, meT, mmT, **flags)
     vals, cnts = _gen.lnl_topk(d, de, dm, mT, meT, mmT, T=cdf_topk, **flags)
     cut, tie, nkeep, ok = cdf_cut(vals, cnts, levid, float(cdf_thresh))
@@ -316,15 +345,15 @@ def _cdf_route(d, de, dm, mT, meT, mmT, G, *, flags, cdf_thresh, cdf_topk,
                 t[rows] = v
             ok = torch.ones_like(ok)
     cut = cut.contiguous()
-    pdf = _gen.lnl_cut_stack(d, de, dm, mT, meT, mmT, G, cut, levid,
-                             tie.contiguous(), nkeep.contiguous(), **flags)
+    pdf = _gen.lnl_cut_stack(d, de, dm, bs, cut, levid, tie.contiguous(),
+                             nkeep.contiguous(), **flags)
     return pdf, lmap, levid, ok
 
 
-def _onepass(d, de, dm, mT, meT, mmT, G, *, flags):
-    """Glue of the one-pass kernel (ops/fused.py:1952-1975): its PDF
-    comes in the exp(lnl - lmap) scale."""
-    pdf, lmap, levid = _gen.lnl_onepass(d, de, dm, mT, meT, mmT, G, **flags)
+def _onepass(d, de, dm, bs, *, flags):
+    """Glue of the one-pass kernel (ops/fused.py:1952-1975) over the
+    models in band order: its PDF comes in the exp(lnl - lmap) scale."""
+    pdf, lmap, levid = _gen.lnl_onepass(d, de, dm, bs, **flags)
     return pdf * torch.exp(lmap - levid)[:, None], lmap, levid
 
 
@@ -435,12 +464,12 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
             if sweep_kw is not None:
                 flags["sweeps"] = _gen.scale_sweeps(d, de, dm, mT, meT, mmT,
                                                     **sweep_kw)
+            bs = band_sort(G, mT, meT, mmT)
             if route == "onepass":
-                pdf, lmap, levid = _onepass(d, de, dm, mT, meT, mmT, G,
-                                            flags=flags)
+                pdf, lmap, levid = _onepass(d, de, dm, bs, flags=flags)
             else:
                 pdf, lmap, levid, ok = _cdf_route(
-                    d, de, dm, mT, meT, mmT, G, flags=flags,
+                    d, de, dm, mT, meT, mmT, bs, flags=flags,
                     cdf_thresh=cdf_thresh, cdf_topk=int(cdf_topk),
                     cdf_exact=cdf_exact)
     # Degenerate rows (every model at the -inf floor): zero PDF, -inf GOF.

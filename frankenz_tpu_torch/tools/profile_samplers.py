@@ -23,6 +23,15 @@ each count (its cluster size printed beside it; 132 SMs).  It writes
 ``profile_samplers.json`` to `--out` (default ``build/profile``), and
 with `--traces` one Chrome trace per sampler (the hierarchical one holds
 ~30,000 device operations: tens of MB).
+
+With ``--drift N`` it runs only the carried overlap's drift instead: one
+chain N times config 5's length (N x 40,000 Gibbs steps x 3 proposals,
+the draw table from seed 0) in one `pop_chain` launch on the cluster
+route the wrapper picks and on one block (``cluster=1``), the two held
+bit for bit, and prints for each max |ov - pdfs . pos| / ov, the carried
+overlaps against pdfs . pos in float64 from the final position, the
+accepting steps and the final lnpost against sum log(pdfs . pos)
+(``drift.json`` in `--out`).
 """
 
 import argparse
@@ -53,6 +62,7 @@ def main(argv=None):
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--traces", action="store_true")
+    ap.add_argument("--drift", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -73,6 +83,8 @@ def main(argv=None):
     pdfs = np.exp(-0.5 * ((grid[None] - c[:, None]) / 1.5) ** 2)
     pdfs /= pdfs.sum(1, keepdims=True)
     ps = population_sampler(pdfs, device="cuda")
+    if args.drift:
+        return _drift(ps, pdfs, args.drift, out_dir, card)
     hs = hierarchical_sampler(pdfs, device="cuda")
 
     def run(samp, kw):
@@ -164,5 +176,53 @@ def main(argv=None):
         json.dumps(report, indent=1))
 
 
+def _drift(ps, pdfs, mult, out_dir, card):
+    """The carried overlap's drift over a chain `mult` times config 5's
+    length, on both population routes."""
+    import numpy as np
+    import torch
+
+    from ..kernels import pop as PK
+    from ..samplers import population as TP
+
+    nsteps = mult * POP["Niter"] * POP["thin"]
+    draws = ps._tables(POP["seed"], 1, nsteps, NBINS,
+                       POP["mh_steps"]).contiguous()
+    start = ps._start(ps._resolve_pos0(None, 1), TP._zero_prior, True)
+    report = {"card": card, "gibbs_steps": nsteps,
+              "proposals": nsteps * POP["mh_steps"]}
+    outs = {}
+    for route, cluster in (("cluster", None), ("block", 1)):
+        t0 = time.perf_counter()
+        out = PK.pop_chain(draws, ps._pdfsT(), *start, thin=POP["thin"],
+                           mh_steps=POP["mh_steps"], cluster=cluster)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outs[route] = out
+        samples = out[0][0].cpu().numpy().astype(float)
+        pos = out[2][0].cpu().numpy().astype(float)
+        ov = out[3][0].cpu().numpy().astype(float)
+        ov64 = pdfs @ pos
+        moved = int((np.abs(np.diff(samples, axis=0)).sum(axis=1) > 0).sum())
+        report[route] = dict(
+            wall_s=wall, drift=float(np.max(np.abs(ov - ov64) / ov64)),
+            mean_drift=float(np.mean(np.abs(ov - ov64) / ov64)),
+            lnpost_off=float(out[4][0]) - float(np.sum(np.log(ov64))),
+            samples_moved=moved, samples=int(samples.shape[0]))
+        print(f"== drift, {route} route: {nsteps} Gibbs steps in "
+              f"{wall:.3f} s: max |ov - pdfs.pos| / ov "
+              f"{report[route]['drift']:.4e} (mean "
+              f"{report[route]['mean_drift']:.4e}), final lnpost "
+              f"{report[route]['lnpost_off']:+.4f} from sum log(pdfs.pos) "
+              f"in float64, {moved} of {samples.shape[0] - 1} thinned "
+              f"samples moved | {card}", flush=True)
+    report["routes_equal"] = all(
+        torch.equal(a, b) for a, b in zip(outs["cluster"], outs["block"]))
+    print(f"== drift: cluster and block routes bit-equal "
+          f"{report['routes_equal']} | {card}", flush=True)
+    (out_dir / "drift.json").write_text(json.dumps(report, indent=1))
+    return 0 if report["routes_equal"] else 1
+
+
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

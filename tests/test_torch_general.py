@@ -503,7 +503,8 @@ def test_cdf_cut_exact_selects_what_the_reference_selects(problem, masked,
     _, levid = GK.lnl_reduce_plain(*t, **flags)
     cut, tie, nkeep = TF.cdf_cut_exact(*t, levid, thr, **flags)
     eye = torch.eye(len(idx))
-    got = GK.lnl_cut_stack_plain(*t, eye, cut, levid, tie, nkeep, **flags)
+    got = GK.lnl_cut_stack_plain(*t[:3], GK.band_sort(eye, *t[3:6]), cut,
+                                 levid, tie, nkeep, **flags)
     lnl = GK.lnl_tile_plain(*t, **flags)
     want = TK.threshold_weights(torch.exp(lnl - levid[:, None]), None, thr)
     assert torch.equal(got, want)

@@ -153,14 +153,21 @@ def _general_problem(F=5, B=19, M=251, Ngrid=77, seed=29, masked=True):
 def _general_call(name, t, plain=False, bad=None, **flags):
     """Call a general wrapper (or its plain version) on problem `t`; the
     per-object rows it reads come from the plain versions.  `bad`
-    replaces the kernel inputs (d .. mmT) for the call itself."""
+    replaces the kernel inputs (d .. mmT) for the call itself.  The band
+    stacks (`lnl_onepass`, `lnl_cut_stack`) take the models in band order
+    (`band_sort` of the call's model arrays)."""
     args = t[:6]
     fn = getattr(GK, name + "_plain" if plain else name)
     call = bad if bad is not None else args
+    bs = None
+    if name in ("lnl_onepass", "lnl_cut_stack"):
+        bs = GK.band_sort(t[6], *args[3:6])
+        if bad is not None:
+            bs = bs._replace(mT=call[3], meT=call[4], mmT=call[5])
     if name == "lnl_reduce":
         return fn(*call, **flags)
     if name == "lnl_onepass":
-        return fn(*call, t[6], **flags)
+        return fn(*call[:3], bs, **flags)
     if name == "lnl_topk":
         return fn(*call, T=8, **flags)
     lmap, levid = GK.lnl_reduce_plain(*args, **flags)
@@ -175,7 +182,7 @@ def _general_call(name, t, plain=False, bad=None, **flags):
                    **flags),)
     vals, cnts = GK.lnl_topk_plain(*args, T=8, **flags)
     cut, tie, nkeep, _ = TF.cdf_cut(vals, cnts, levid, 2e-4)
-    return (fn(*call, t[6], cut, levid, tie, nkeep, **flags),)
+    return (fn(*call[:3], bs, cut, levid, tie, nkeep, **flags),)
 
 
 @pytest.mark.parametrize("name", GENERAL)
@@ -582,6 +589,123 @@ def test_onepass_matches_plain_on_card(cuda_device, flags, F, B, M, Ngrid):
     torch.testing.assert_close(got[0] / scale, want[0] / scale, rtol=0,
                                atol=1e-5)
     assert GK.launch_counts()["lnl_onepass"] == 1
+
+
+def _band_case(t, flags, shuffle_seed=None):
+    """The band stacks' inputs on problem `t`: the band order of its G
+    (its rows shuffled first when `shuffle_seed` is given, so the band
+    order is far from the caller's) and a cut on every row just below the
+    lnl of model 0, which model 40 duplicates: the group {0, 40, ...}
+    straddles it and keeps one member.  Returns (G, bs, (cut, levid, tie,
+    nkeep), rows with a straddling group)."""
+    G = t[6]
+    if shuffle_seed is not None:
+        order = np.random.default_rng(shuffle_seed).permutation(G.shape[0])
+        G = G[torch.as_tensor(order, device=G.device)].contiguous()
+    bs = GK.band_sort(G, *t[3:6])
+    _, levid = GK.lnl_reduce_plain(*t[:6], **flags)
+    tie = GK.lnl_tile_plain(*t[:6], **flags)[:, 0].contiguous()
+    split = tie > GK.NEG_INF
+    cut = torch.nextafter(tie, torch.full_like(tie, -torch.inf))
+    nkeep = split.to(torch.float32)
+    return G, bs, (cut, levid, torch.where(split, tie, torch.inf), nkeep), \
+        int(split.sum())
+
+
+def test_band_sort_orders_by_support_centre():
+    """`band_sort`: a stable sort by lo + hi of each G row's nonzero
+    columns, all-zero rows last; `inv` inverts `perm`; the model arrays
+    and G (padded to 64-row tiles and 4 columns with zeros) follow; each
+    tile's band is the exact nonzero hull of its rows; `width` the widest
+    band rounded out to 4 columns."""
+    t = _general_problem(B=5, M=251, Ngrid=77)
+    G = t[6].clone()
+    G[7] = 0.0
+    bs = GK.band_sort(G, *t[3:6])
+    nz = G != 0
+    cols = torch.arange(77)
+    lo = torch.where(nz, cols, 77).amin(1)
+    hi = torch.where(nz, cols, -1).amax(1)
+    key = torch.where(hi >= 0, lo + hi, 1000)
+    perm = bs.perm.long()
+    assert torch.equal(perm, torch.sort(key, stable=True).indices)
+    assert int(perm[-1]) == 7
+    assert torch.equal(bs.inv.long()[perm], torch.arange(251))
+    assert torch.equal(bs.mT, t[3][:, perm])
+    assert bs.G.shape == (256, 80) and torch.equal(bs.G[:251, :77], G[perm])
+    assert not bs.G[251:].any() and not bs.G[:, 77:].any()
+    for k, (a, b) in enumerate(bs.bands.tolist()):
+        c = torch.nonzero(bs.G[64 * k:64 * k + 64].any(0)).flatten()
+        assert (a, b) == ((int(c[0]), int(c[-1]) + 1) if c.numel()
+                          else (0, 0))
+    assert bs.width == max(((b + 3) // 4 - a // 4) * 4
+                           for a, b in bs.bands.tolist())
+
+
+@pytest.mark.parametrize("free", [False, True])
+def test_band_stacks_plain_equal_caller_order_products(free):
+    """The band stacks' plain versions against the caller-order products
+    of the same weights, rows shuffled so the band order is far from the
+    caller's; the straddling groups keep their first member in the
+    caller's order."""
+    t = _general_problem(M=700, Ngrid=301)
+    flags = _free_flags(t, False) if free else {}
+    G, bs, (cut, levid, tie, nkeep), nsplit = _band_case(t, flags, 4)
+    assert nsplit > 0
+    lnl = GK.lnl_tile_plain(*t[:6], **flags)
+    is_tie = lnl == tie[:, None]
+    rank = torch.cumsum(is_tie.to(torch.int32), dim=1) - 1
+    keep = (lnl <= cut[:, None]) | (is_tie & (rank < nkeep[:, None]))
+    w = torch.where(keep, torch.exp(lnl - levid[:, None]), 0.0)
+    got = GK.lnl_cut_stack(*t[:3], bs, cut, levid, tie, nkeep, **flags)
+    np.testing.assert_allclose(got.double().numpy(),
+                               (w.double() @ G.double()).numpy(),
+                               rtol=1e-5, atol=1e-9)
+    pdf, lmap, _ = GK.lnl_onepass(*t[:3], bs, **flags)
+    assert torch.equal(lmap, lnl.amax(1))
+    want = torch.exp(lnl - lmap[:, None]).double() @ G.double()
+    np.testing.assert_allclose(pdf.double().numpy(), want.numpy(),
+                               rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("free", [False, True])
+@pytest.mark.parametrize("flags,F,B,M,Ngrid", [
+    (dict(), 5, 70, 3000, 301),
+    (dict(dim_prior=False), 5, 33, 700, 1030),
+    (dict(full_mask=True), 5, 40, 1000, 4001),
+    (dict(ignore_model_err=True), 20, 33, 700, 77),
+])
+def test_band_stacks_match_plain_on_card(cuda_device, flags, F, B, M, Ngrid,
+                                         free):
+    """`lnl_onepass` and `lnl_cut_stack` over a shuffled G's band order,
+    with straddling tie groups forced on the rows whose top value ties:
+    lmap within 1 ulp, levid 1e-5, PDFs row-normwise 1e-5 (Ngrid 1030 and
+    4001: several column windows a row)."""
+    t = [x.to(cuda_device) for x in _general_problem(
+        F, B=B, M=M, Ngrid=Ngrid, masked=not flags.get("full_mask"))]
+    if free:
+        flags = _free_flags(t, flags.get("ignore_model_err", False),
+                            **{k: v for k, v in flags.items()
+                               if k != "ignore_model_err"})
+    _, bs, rows, nsplit = _band_case(t, flags, 9)
+    assert nsplit > 0
+    GK.reset_launch_counts()
+    got = GK.lnl_cut_stack(*t[:3], bs, *rows, **flags)
+    want = GK.lnl_cut_stack_plain(*t[:3], bs, *rows, **flags)
+    torch.cuda.synchronize()
+    scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=1e-5)
+    got = GK.lnl_onepass(*t[:3], bs, **flags)
+    want = GK.lnl_onepass_plain(*t[:3], bs, **flags)
+    torch.cuda.synchronize()
+    _assert_within_ulp(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
+    scale = want[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    torch.testing.assert_close(got[0] / scale, want[0] / scale, rtol=0,
+                               atol=1e-5)
+    counts = GK.launch_counts()
+    assert counts["lnl_cut_stack"] == counts["lnl_onepass"] == 1
 
 
 # The lnl table of the two-pass threshold route: every instantiation

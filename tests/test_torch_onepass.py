@@ -143,7 +143,8 @@ def test_lnl_onepass_plain_follows_its_definition(problem, flags):
          for x in (d, de, dm, m.T, me.T, mm.T, G)]
     lnl = GK.lnl_tile_plain(*t[:6], **flags).double().numpy()
     GK.reset_launch_counts()
-    pdf, lmap, levid = GK.lnl_onepass(*t, **flags)
+    pdf, lmap, levid = GK.lnl_onepass(*t[:3], GK.band_sort(t[6], *t[3:6]),
+                                      **flags)
     assert GK.launch_counts()["lnl_onepass"] == 0
     np.testing.assert_array_equal(lmap.numpy(), lnl.max(1))
     np.testing.assert_allclose(levid.numpy(), logsumexp(lnl, axis=1),
@@ -168,10 +169,13 @@ def test_lnl_onepass_checks_its_inputs(problem, bad):
         t[1] = t[1][:-1]
     elif bad == "contiguity":
         t[3] = t[3].T.contiguous().T
-    else:
-        t[6] = t[6][:-1]
+    bs = GK.band_sort(t[6], *(x.contiguous() for x in t[3:6]))
+    if bad == "contiguity":
+        bs = bs._replace(mT=t[3])
+    elif bad == "G":
+        bs = bs._replace(G=bs.G[:-1])
     with pytest.raises(err):
-        GK.lnl_onepass(*t)
+        GK.lnl_onepass(*t[:3], bs)
 
 
 @pytest.fixture(scope="module")
