@@ -14,7 +14,7 @@ port, numpy and scipy, and:
    cluster probe (`kernels.probe`): one cluster barrier round, one DSMEM
    load and the two in a dependent loop of 40,000 rounds at cluster sizes
    2, 4, 8 and 16, and the clusters the card holds at once at the launch
-   shapes of phases 9 and 10's cluster routes;
+   shapes of phases 8, 9 and 10's cluster routes;
 3. holds each full-mask kernel against its plain PyTorch version on the
    card, at the config-4 widths (F=5, 100,000 models, a 301-point
    PDFDict grid, 2,048 objects) and three edge shapes (ragged M=99,937
@@ -90,12 +90,17 @@ port, numpy and scipy, and:
    `lnl_onepass` timed;
 8. SOM (config 3 without GNG, bench.py:164-215: 100,000 models over 5
    filters, a 50 x 50 lattice, 100,000 training steps, seed 1):
-   `SelfOrganizingMap.train_network` on the `som_train` kernel with the
-   launch counters reset just before; the kernel against its plain
-   version over a 10,000-step run (niter 200: the same best node at
-   every step, nodes within 1e-6 relative) and over the whole
-   100,000-step run, whose two maps must give mean best-node lmaps
-   (from `populate_network`) within 1%; `populate_network` timed;
+   `SelfOrganizingMap.train_network` on the `som_train` kernel's cluster
+   route with the launch counters reset just before (one cluster launch,
+   no block launch); the kernel against its plain version over a
+   10,000-step run (niter 200: the same best node at every step, nodes
+   within 1e-6 relative) and over the whole 100,000-step run, whose two
+   maps must give mean best-node lmaps (from `populate_network`) within
+   1%; the whole run on the cluster route and on one block (cluster=1),
+   bit-equal on the nodes and all 100,000 best nodes, both timed (CUDA
+   events, median of 3), with K, the CTA's threads and shared bytes, us a
+   step and the step's floor (one cluster barrier and one DSMEM load at K,
+   `kernels.probe`); `populate_network` timed;
    nodes-only `fit_predict` over 10,000 objects in 2,048-object batches
    (warm repeats, against fit + predict); the exact-union `fit_predict`
    over 2,048 objects against fit + predict; `fit_summarize`;
@@ -139,8 +144,10 @@ port, numpy and scipy, and:
    `scale_sweeps` with their table route (``lnl_route``, the table's
    source file, table launches, chunks and bytes at the batch, the
    recompute route's times and bounds beside),
-   `scale_sweeps`, `som_train`, `gng_train` and `pop_chain`, the last two
-   with their cluster size, us a step and the block route's time), each
+   `scale_sweeps`, `som_train`, `som_train_cluster` (the route
+   train_network takes, with its CTA and the step's floor), `gng_train`
+   and `pop_chain`, the chain kernels with their cluster size, us a step
+   and the block route's time), each
    with its bound
    (the larger of its bytes over 3.35 TB/s and its operations over 67
    TFLOP/s, counted from this run's shapes and data, see `bound`; the
@@ -895,6 +902,8 @@ def som_phase(torch, np, KS, tens, card):
     """Config 3's SOM half (bench.py:164-215, without the GNG) on the
     card; returns the `som_train` entry of the kernels line and the
     model set and fit objects, which phase 9 reuses."""
+    from frankenz_tpu_torch.kernels import build as kbuild
+    from frankenz_tpu_torch.kernels import probe as PRB
     from frankenz_tpu_torch.kernels import som as SK
     from frankenz_tpu_torch.models import SelfOrganizingMap
     from frankenz_tpu_torch.models import networks as TN
@@ -918,9 +927,15 @@ def som_phase(torch, np, KS, tens, card):
     som.train_network(niter=NITER3, **train_kw)
     train_s = time.perf_counter() - t0
     launches = KS.launch_counts()
-    check(launches["som_train"] == 1,
-          f"config 3 train_network did not launch som_train once ({launches})")
-    check(som.nodes.shape == (NSIDE3 ** 2, NFILT)
+    T, N = NITER3 * NBATCH3, NSIDE3 ** 2
+    idx = torch.cuda.current_device()
+    K_s = SK.choose_cluster({k: SK._active(idx, N, NFILT, 2, k)
+                             for k in SK.CLUSTER_SIZES})
+    check(K_s > 1 and launches["som_train_cluster"] == 1
+          and launches["som_train"] == 0,
+          f"config 3 train_network did not launch som_train once on its "
+          f"cluster route (K={K_s}; {launches})")
+    check(som.nodes.shape == (N, NFILT)
           and np.isfinite(som.nodes).all(), "config 3 SOM nodes")
 
     # The kernel's inputs as train_network makes them (the same draws).
@@ -948,13 +963,30 @@ def som_phase(torch, np, KS, tens, card):
     abs10 = float((got - want).abs().max())
     del t_chk, got, want
 
-    # The whole 100,000-step run: kernel (timed) and plain version.
+    # The whole 100,000-step run: the kernel on its cluster route (the
+    # default) and on one block (cluster=1), bit-equal, both timed; then
+    # the plain version.
     t_full = inputs(NITER3)
-    kmap, _ = SK.som_train(*t_full, **kw)
+    kmap, bmu_kf = SK.som_train(*t_full, return_bmu=True, **kw)
     torch.cuda.synchronize()
     check(np.array_equal(kmap.cpu().numpy().astype(float), som.nodes),
           "som_train on train_network's inputs differs from its map")
+    bmap, bmu_bf = SK.som_train(*t_full, return_bmu=True, cluster=1, **kw)
+    check(torch.equal(bmu_kf, bmu_bf)
+          and torch.equal(kmap.view(torch.int32), bmap.view(torch.int32)),
+          f"som_train's cluster route (K={K_s}) differs from its block route "
+          f"over the whole {T}-step run")
+    del bmap, bmu_bf
     ms = median_ms(torch, lambda: SK.som_train(*t_full, **kw), reps=3)
+    block_ms = median_ms(torch, lambda: SK.som_train(*t_full, cluster=1,
+                                                     **kw), reps=3)
+    threads_s = SK.cluster_threads(N, K_s)
+    smem_s = kbuild.load().fz_som_train_cluster_smem(N, NFILT, 2, K_s)
+    # The step's floor on the cluster: one cluster barrier and one DSMEM
+    # load at K (kernels.probe).
+    prb = PRB.cluster_probe(torch.device("cuda"), sizes=(K_s,),
+                            iters=40_000)[K_s]
+    floor_us = 1e-3 * (prb["barrier_ns"] + prb["dsmem_load_ns"])
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -962,10 +994,8 @@ def som_phase(torch, np, KS, tens, card):
     e1.record()
     e1.synchronize()
     plain_ms = e0.elapsed_time(e1)
-    _, bmu_kf = SK.som_train(*t_full, return_bmu=True, **kw)
     same_steps = int((bmu_kf == bmu_pf).sum())
     abs100 = float((kmap - pmap).abs().max())
-    T, N = NITER3 * NBATCH3, NSIDE3 ** 2
     # Operations per (step, node): the score 5F + 4 (inter, shape, the
     # divide, the log and its tail), the neighbourhood 3P + 3, the
     # update 3F; bytes: the nodes and positions once, the three (T, F)
@@ -973,7 +1003,14 @@ def som_phase(torch, np, KS, tens, card):
     b_ms, b_by = bound(float(T) * N * (8 * NFILT + 3 * 2 + 11),
                        4.0 * (2 * N * NFILT + 2 * N + 3 * T * NFILT))
     print(f"som_train: config 3, {N} nodes x {NFILT} filters, {T} steps: "
-          f"kernel {ms:.3f} ms ({1e3 * ms / T:.4f} us/step), plain "
+          f"kernel on a cluster of {K_s} CTAs ({threads_s} threads, {smem_s} "
+          f"bytes of shared memory a CTA, the launch asking at least "
+          f"122,880) {ms:.3f} ms ({1e3 * ms / T:.4f} us/step), on one block "
+          f"{block_ms:.3f} ms ({1e3 * block_ms / T:.4f} us/step), "
+          f"bit-equal over the whole run (nodes and every best node); "
+          f"floor a step {floor_us:.4f} us (one cluster barrier "
+          f"{prb['barrier_ns']:.1f} ns + one DSMEM load "
+          f"{prb['dsmem_load_ns']:.1f} ns at K={K_s}); plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); 10,000-step "
           f"run: best nodes equal, nodes max rel {err10:.3g}; 100,000-step "
           f"run: {same_steps} of {T} best nodes equal, nodes max abs "
@@ -1094,16 +1131,32 @@ def som_phase(torch, np, KS, tens, card):
           f"{pop_s:.4f} s, nodes-only fit_predict {N3_FIT / fit_s:.6g} "
           f"objects/s | card {card}", flush=True)
     torch.cuda.empty_cache()
-    return {"name": "som_train", "route": "cuda",
-            "source": "frankenz_tpu_torch/csrc/som_train.cu",
-            "replaces": "frankenz_tpu/models/networks.py:1280",
-            "launches": launches["som_train"],
-            "max_abs_err": max(abs10, abs100), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            # No PyTorch call trains a SOM.
-            "library_ms": None, "train_s": train_s, "populate_s": pop_s,
-            "fit_objects_per_s": N3_FIT / fit_s,
-            "steps_equal_100k": same_steps}, (m3, me3, ones3, fit, grid3)
+    entry = {"name": "som_train", "route": "cuda",
+             "source": "frankenz_tpu_torch/csrc/som_train.cu",
+             "replaces": "frankenz_tpu/models/networks.py:1280",
+             "launches": launches["som_train"] + launches[
+                 "som_train_cluster"],
+             "launches_by_route": {k: launches[k] for k in (
+                 "som_train", "som_train_cluster")},
+             "max_abs_err": max(abs10, abs100), "ms": ms, "cluster": K_s,
+             "us_per_step": 1e3 * ms / T, "block_ms": block_ms,
+             "block_us_per_step": 1e3 * block_ms / T,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             # No PyTorch call trains a SOM.
+             "library_ms": None, "train_s": train_s, "populate_s": pop_s,
+             "fit_objects_per_s": N3_FIT / fit_s,
+             "steps_equal_100k": same_steps}
+    # The cluster route on its own (`som_train_cluster_kernel`, the route
+    # train_network takes): its launches on the main path, its CTA and the
+    # step's floor beside the time.
+    cluster_entry = dict(entry, name="som_train_cluster",
+                         launches=launches["som_train_cluster"],
+                         threads_per_cta=threads_s, smem_per_cta=smem_s,
+                         floor_us_per_step=floor_us,
+                         probe_barrier_ns=prb["barrier_ns"],
+                         probe_dsmem_load_ns=prb["dsmem_load_ns"])
+    del cluster_entry["launches_by_route"]
+    return [entry, cluster_entry], (m3, me3, ones3, fit, grid3)
 
 
 def gng_phase(torch, np, KS, tens, card, m3, me3, ones3, fit, grid3):
@@ -2065,8 +2118,11 @@ def main():
     from frankenz_tpu_torch.kernels import gng as GG0
     from frankenz_tpu_torch.kernels import pop as PK0
     from frankenz_tpu_torch.kernels import probe as PRB
+    from frankenz_tpu_torch.kernels import som as SK0
     idx = torch.cuda.current_device()
     occupancy = {
+        "som_train": {k: SK0._active(idx, NSIDE3 ** 2, NFILT, 2, k)
+                      for k in SK0.CLUSTER_SIZES},
         "gng_train": {k: GG0._active(idx, NMAX_G, NFILT, k)
                       for k in GG0.CLUSTER_SIZES},
         "pop_chain": {k: PK0._active(idx, NOBS5, 2 + 2 * MH_P, MH_P, k)
@@ -2863,7 +2919,7 @@ def main():
     del args8, lm8, lv8, sw8, bs8
 
     # 8. SOM (config 3 without GNG)
-    som_entry, data3 = som_phase(torch, np, KS, tens, card)
+    som_entries, data3 = som_phase(torch, np, KS, tens, card)
 
     # 9. GNG (config 3's other half)
     gng_entry = gng_phase(torch, np, KS, tens, card, *data3)
@@ -2972,7 +3028,7 @@ def main():
         if kname in ptxas:
             entry["ptxas"] = ptxas[kname]
         kernels.append(entry)
-    kernels.append(som_entry)
+    kernels.extend(som_entries)
     kernels.append(gng_entry)
     kernels.append(pop_entry)
     print(json.dumps({"kernels": kernels}), flush=True)

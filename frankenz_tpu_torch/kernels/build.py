@@ -223,6 +223,12 @@ def _bind(lib):
     lib.fz_som_train.argtypes = ([P] * 7 + [I] * 4 + [F, I, F, F, I, I]
                                  + [I, F, F, F, F] * 2 + [I, I, P])
     lib.fz_som_train.restype = I
+    # Its cluster route: shared-memory bytes (N, F, P, K), the card's
+    # schedulability query (N, F, P, K, threads) and the launch (the block
+    # route's arguments with the cluster size in place of `resident`).
+    lib.fz_som_train_cluster_smem.argtypes = [I] * 4
+    lib.fz_som_train_cluster_max_active.argtypes = [I] * 5
+    lib.fz_som_train_cluster.argtypes = lib.fz_som_train.argtypes
     # csrc/gng_train.cu: 11 pointers, sizes, nbatch, max_age, the four
     # constants, dim_prior, threads, resident, stream.
     lib.fz_gng_train_smem.argtypes = [I] * 3
@@ -251,7 +257,9 @@ def _bind(lib):
     # cycles and sink outputs, stream.
     lib.fz_cluster_probe_max_active.argtypes = [I]
     lib.fz_cluster_probe.argtypes = [I, I, I, P, P, P]
-    for name in ("fz_gng_train_cluster_smem",
+    for name in ("fz_som_train_cluster_smem",
+                 "fz_som_train_cluster_max_active", "fz_som_train_cluster",
+                 "fz_gng_train_cluster_smem",
                  "fz_gng_train_cluster_max_active", "fz_gng_train_cluster",
                  "fz_pop_chain_cluster_smem",
                  "fz_pop_chain_cluster_max_active", "fz_pop_chain_cluster",

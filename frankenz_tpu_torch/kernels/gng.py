@@ -59,17 +59,18 @@ inputs' device, so on the card the two agree bit for bit.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from . import build as _build
+from .cluster import CLUSTER_ORDER, CLUSTER_SIZES, choose_cluster, \
+    cluster_threads, max_active
 from .fullmask import _SMEM_MAX, _check
 
 __all__ = ["gng_train", "gng_train_plain", "choose_cluster",
            "cluster_threads", "MAX_NODES", "MAX_FILT", "K", "NONE",
-           "CLUSTER_SIZES", "reset_launch_counts", "launch_counts"]
+           "CLUSTER_SIZES", "CLUSTER_ORDER", "reset_launch_counts",
+           "launch_counts"]
 
 # The kernel's own limits: past shared memory the per-node state stays in
 # device memory, so the node cap is that of the SOM kernel.
@@ -79,43 +80,13 @@ K = 32
 NONE = 1_000_000_000
 NEG = -3.0e38
 _MIN_THREADS, _MAX_THREADS = 128, 1024
-# Cluster sizes of the cluster route (16 is above the portable 8: not
-# every card schedules it), in the order `choose_cluster` prefers them.
-CLUSTER_SIZES = (2, 4, 8, 16)
-CLUSTER_ORDER = (16, 8, 4, 2)
 
 
-_CLUSTER_MAX_THREADS = 512  # the cluster kernel's launch bound
-
-
-def cluster_threads(N, k):
-    """Threads of a cluster CTA: one a node slot, in [128, 512]."""
-    slots = -(-int(N) // k)
-    return min(_CLUSTER_MAX_THREADS, max(_MIN_THREADS, -(-slots // 32) * 32))
-
-
-def choose_cluster(active):
-    """The cluster size for one run: the first of CLUSTER_ORDER with at
-    least one cluster held at once in `active` ({K: clusters of this shape
-    the card holds, for the sizes whose CTA fits in shared memory}); 1
-    (the block route) when none is."""
-    return next((k for k in CLUSTER_ORDER if active.get(k, 0) >= 1), 1)
-
-
-@functools.lru_cache(maxsize=None)
 def _active(device_index, N, F, k):
-    """The card's schedulability query for cluster size k (0 when the CTA
-    does not fit in shared memory); raises on a CUDA error."""
-    lib = _build.load()
-    if lib.fz_gng_train_cluster_smem(N, F, k) > _SMEM_MAX:
-        return 0
-    with torch.cuda.device(device_index):
-        n = lib.fz_gng_train_cluster_max_active(N, F, k,
-                                                cluster_threads(N, k))
-    if n < 0:
-        raise RuntimeError(f"gng_train: the cluster query at K={k} failed: "
-                           f"CUDA error {-n}")
-    return n
+    """Clusters of k CTAs at N nodes x F filters the card holds at once
+    (0 when the CTA does not fit in shared memory)."""
+    return max_active("gng_train_cluster", device_index, (N, F, k),
+                      (N, F, k, cluster_threads(N, k)))
 
 
 def _constants(learn_best, learn_neighbor, new_err_dec, all_err_dec):

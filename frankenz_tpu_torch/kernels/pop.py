@@ -60,6 +60,7 @@ import functools
 import torch
 
 from . import build as _build
+from .cluster import CLUSTER_SIZES, max_active
 from .fullmask import _SMEM_MAX, _check
 
 __all__ = ["pop_chain", "pop_chain_plain", "tree_sum", "chain_threads",
@@ -75,9 +76,6 @@ MAX_WIDTH = 128
 MAX_OBS = 4_194_304
 NEG = -3.0e38
 _MIN_THREADS, _MAX_THREADS = 128, 1024
-# Cluster sizes of the cluster route (16 is above the portable 8: not
-# every card schedules it).
-CLUSTER_SIZES = (2, 4, 8, 16)
 
 
 def chain_threads(nobs):
@@ -191,21 +189,13 @@ def choose_cluster(nchains, sm_count, active):
     return max(ok, default=1)
 
 
-@functools.lru_cache(maxsize=None)
 def _active(device_index, nobs, width, mh_steps, k):
-    """The card's schedulability query for cluster size k (0 when a CTA's
-    objects do not fit in shared memory); raises on a CUDA error."""
-    lib = _build.load()
+    """Clusters of k CTAs for chains of `nobs` objects the card holds at
+    once (0 when a CTA's objects do not fit in shared memory)."""
     threads = chain_threads(nobs)
-    if lib.fz_pop_chain_cluster_smem(nobs, threads, width, k) > _SMEM_MAX:
-        return 0
-    with torch.cuda.device(device_index):
-        n = lib.fz_pop_chain_cluster_max_active(nobs, threads, width,
-                                                mh_steps, k)
-    if n < 0:
-        raise RuntimeError(f"pop_chain: the cluster query at K={k} failed: "
-                           f"CUDA error {-n}")
-    return n
+    return max_active("pop_chain_cluster", device_index,
+                      (nobs, threads, width, k),
+                      (nobs, threads, width, mh_steps, k))
 
 
 def pop_chain_plain(draws, pdfsT, pos, ov, lnp, *, thin, mh_steps):

@@ -200,7 +200,8 @@ def test_cpu_general_wrappers_run_plain_versions_without_launching(name):
                                       "lnl_onepass", "scale_sweeps",
                                       "lnl_reduce_table", "lnl_stack_table",
                                       "scale_sweeps_table",
-                                      "som_train", "gng_train",
+                                      "som_train", "som_train_cluster",
+                                      "gng_train",
                                       "gng_train_cluster", "pop_chain",
                                       "pop_chain_cluster"}
 
@@ -815,9 +816,17 @@ def test_table_route_in_chunks_on_card(cuda_device, inst, monkeypatch):
 # som_train (K8): the whole SOM training run
 # ---------------------------------------------------------------------
 
-def _som_problem(nside, F=5, T=400, nproj=2, seed=31, bad_bands=False):
+def _som_problem(nside, F=5, T=400, nproj=2, seed=31, bad_bands=False,
+                 nan_band=False, ties=False, zero_scores=False):
     """A lattice, its initial nodes and T cleaned draws, made as the
-    kernel route of `SelfOrganizingMap.train_network` makes them."""
+    kernel route of `SelfOrganizingMap.train_network` makes them.  With
+    `nan_band` every ninth model has a NaN in band 1, a masked band whose
+    raw NaN reaches the nodes a step moves (their scores are NaN from then
+    on); with `ties` every node starts as the same model (exact score ties
+    at every lattice distance); with `zero_scores` every third draw has
+    every band masked (iv = +0: without the dim prior every node scores
+    -0) and every third from the second every band at iv = -0 (every node
+    scores +0)."""
     rng = np.random.default_rng(seed)
     M = max(4 * nside ** nproj, 64)
     m = rng.uniform(1, 10, (M, F))
@@ -831,6 +840,10 @@ def _som_problem(nside, F=5, T=400, nproj=2, seed=31, bad_bands=False):
     pos = np.stack([(idx // nside ** (nproj - 1 - i)) % nside
                     for i in range(nproj)], axis=1).astype(np.float32)
     nodes = m[rng.choice(M, size=N, replace=False)].astype(np.float32)
+    if ties:
+        nodes[:] = nodes[0]
+    if nan_band:
+        m[::9, 1] = np.nan
     draws = rng.integers(0, M, T)
     x = m[draws].astype(np.float32)
     xe = me[draws].astype(np.float32)
@@ -838,6 +851,10 @@ def _som_problem(nside, F=5, T=400, nproj=2, seed=31, bad_bands=False):
     iv = np.where(ok, 1.0 / np.where(ok, xe, 1.0) ** 2, 0.0).astype(
         np.float32)
     xc = np.where(ok, x, 0.0).astype(np.float32)
+    if zero_scores:
+        xc[::3] = 0.0
+        iv[::3] = 0.0
+        iv[1::3] = -0.0
     return [torch.from_numpy(np.ascontiguousarray(a))
             for a in (nodes, pos, xc, iv, x)]
 
@@ -853,7 +870,7 @@ def test_som_train_cpu_runs_plain_without_launching():
     want, bmu_p = SK.som_train_plain(*t, return_bmu=True, **_SOM_KW)
     assert torch.equal(got, want) and torch.equal(bmu, bmu_p)
     assert bmu.dtype == torch.int32 and bmu.shape == (400,)
-    assert SK.launch_counts() == {"som_train": 0}
+    assert SK.launch_counts() == {"som_train": 0, "som_train_cluster": 0}
     assert SK.som_train(*t, **_SOM_KW)[1] is None
 
 
@@ -952,20 +969,30 @@ def test_som_train_breaks_ties_to_the_lowest_index():
     (50, 5, 2000, {}),
     (150, 5, 300, {}),
 ])
-def test_som_train_matches_plain_on_card(cuda_device, nside, F, T, kw):
+@pytest.mark.parametrize("cluster", [1, None])
+def test_som_train_matches_plain_on_card(cuda_device, nside, F, T, kw,
+                                         cluster):
     """Kernel against plain version on the card: the same best node at
-    every step and the same node table, bit for bit (at nside 150 the
-    table lies past shared memory, in device memory; at F = 1 the
-    transposed table the kernel trains must be a copy of the input)."""
+    every step and the same node table, bit for bit, on the block route
+    (cluster=1: at nside 150 the table lies past shared memory, in device
+    memory; at F = 1 the transposed table the kernel trains must be a
+    copy of the input) and on the route the wrapper picks (None)."""
     kw = dict(kw)
     t = [x.to(cuda_device) for x in _som_problem(
         nside, F=F, T=T, bad_bands=kw.pop("bad_bands", False))]
     args = dict(_SOM_KW, nside=nside, **kw)
+    N = nside ** 2
+    if nside == 150:
+        assert SK._build.load().fz_som_train_smem(N, F, 2, 1) > SK._SMEM_MAX
+    route = cluster or SK.choose_cluster(
+        {k: SK._active(torch.cuda.current_device(), N, F, 2, k)
+         for k in SK.CLUSTER_SIZES})
     SK.reset_launch_counts()
-    got, bmu = SK.som_train(*t, return_bmu=True, **args)
+    got, bmu = SK.som_train(*t, return_bmu=True, cluster=cluster, **args)
     want, bmu_p = SK.som_train_plain(*t, return_bmu=True, **args)
     torch.cuda.synchronize()
-    assert SK.launch_counts() == {"som_train": 1}
+    assert SK.launch_counts() == {"som_train": int(route == 1),
+                                  "som_train_cluster": int(route > 1)}
     assert torch.equal(bmu, bmu_p)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
     assert bool(torch.isfinite(got).all())
@@ -974,7 +1001,7 @@ def test_som_train_matches_plain_on_card(cuda_device, nside, F, T, kw):
 @pytest.mark.gpu
 def test_som_on_card_matches_cpu_and_counts_launches(cuda_device):
     """The SelfOrganizingMap path on the card: training launches
-    `som_train` once and lands within 2e-4 of the CPU route (its plain
+    `som_train` once, on the route its wrapper picks, and lands within 2e-4 of the CPU route (its plain
     version: the CPU's log and exp round differently); populate's member
     tables are equal on the same nodes, and nodes-only and exact-union
     fit_predict agree with the CPU at rtol 2e-3 / atol 2e-5."""
@@ -986,9 +1013,14 @@ def test_som_on_card_matches_cpu_and_counts_launches(cuda_device):
     args = (m, np.full_like(m, 0.05), np.ones_like(m))
     kw = dict(nside=6, nproj=2, niter=40, nbatch=25, seed=4, verbose=False)
     cpu = SelfOrganizingMap(*args, device="cpu").train_network(**kw)
+    route = SK.choose_cluster({k: SK._active(torch.cuda.current_device(),
+                                             36, 5, 2, k)
+                               for k in SK.CLUSTER_SIZES})
     K.reset_launch_counts()
     gpu = SelfOrganizingMap(*args, device="cuda").train_network(**kw)
-    assert K.launch_counts()["som_train"] == 1
+    counts = K.launch_counts()
+    assert (counts["som_train"], counts["som_train_cluster"]) == (
+        int(route == 1), int(route > 1))
     np.testing.assert_allclose(gpu.nodes, cpu.nodes, rtol=2e-4, atol=2e-4)
     gpu.nodes = cpu.nodes.copy()
     cpu.populate_network(verbose=False)
@@ -1007,6 +1039,135 @@ def test_som_on_card_matches_cpu_and_counts_launches(cuda_device):
         np.testing.assert_allclose(got[0], want[0], rtol=2e-3, atol=2e-5)
         for g, w in zip(got[1], want[1]):
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_som_cluster_choice_follows_the_order_and_the_query():
+    """The SOM kernel's route and K from the card's answers alone, by the
+    chain kernels' rule: the first of CLUSTER_ORDER that the card holds
+    at least once, else the block; a CTA's threads cover its node slots
+    within [128, 512]."""
+    assert SK.choose_cluster({2: 9, 4: 5, 8: 3, 16: 1}) == 16
+    assert SK.choose_cluster({2: 1, 4: 1, 8: 1, 16: 0}) == 8
+    assert SK.choose_cluster({k: 0 for k in SK.CLUSTER_SIZES}) == 1
+    assert SK.choose_cluster({}) == 1
+    for k in SK.CLUSTER_SIZES:
+        only = {j: int(j == k) for j in SK.CLUSTER_SIZES}
+        assert SK.choose_cluster(only) == k
+    assert sorted(SK.CLUSTER_ORDER) == list(SK.CLUSTER_SIZES)
+    assert SK.cluster_threads(2500, 16) == 160
+    assert SK.cluster_threads(40, 16) == 128
+    assert SK.cluster_threads(32768, 2) == 512
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 16, 0, 3, 32])
+def test_som_train_refuses_cluster_on_cpu_and_bad_sizes(cluster):
+    """`cluster=` picks a route on the card: a CPU tensor refuses any
+    value, and a size outside CLUSTER_SIZES is refused before the device
+    is looked at."""
+    t = _som_problem(3, T=8)
+    with pytest.raises(ValueError):
+        SK.som_train(*t, cluster=cluster, **_SOM_KW)
+
+
+def _som_bits_equal(got, want):
+    """Bit for bit, NaN included."""
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _require_som_cluster(N, F, P, k):
+    if k > 1 and SK._active(torch.cuda.current_device(), N, F, P, k) < 1:
+        pytest.skip(f"no cluster of {k} CTAs at N={N}, F={F} on this card")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("nside,F,T,kw", [
+    (50, 5, 2000, {}),
+    (51, 5, 1500, {}),
+    (4, 1, 300, {}),
+    (7, 20, 600, dict(bad_bands=True)),
+    (5, 5, 500, dict(lorentz=True, dim_prior=False,
+                     lr=SK.schedule("geometric", 0.6, 0.05),
+                     nb=SK.schedule("linear", 0.8, 0.1))),
+    (6, 5, 400, dict(nan_band=True)),
+    (9, 5, 400, dict(ties=True)),
+    (6, 3, 300, dict(zero_scores=True, dim_prior=False)),
+])
+def test_som_train_cluster_equals_block_and_plain_on_card(cuda_device, k,
+                                                          nside, F, T, kw):
+    """Every cluster size against the block route, bit for bit on every
+    best node and every node value, and against the plain version (the
+    same best nodes, nodes within 1e-6): config 3's 2,500 nodes, N =
+    2,601 (no multiple of any K), F = 1, F = 20 (the run-time filter loop)
+    with bad bands, the Lorentzian neighbourhood without the dim prior,
+    NaN nodes (a NaN score wins, the lowest index among them), exact ties
+    (every node the same model), and steps where every score is -0 or
+    +0."""
+    kw = dict(kw)
+    flags = {name: kw.pop(name, False)
+             for name in ("bad_bands", "nan_band", "ties", "zero_scores")}
+    t = [x.to(cuda_device) for x in _som_problem(nside, F=F, T=T, **flags)]
+    _require_som_cluster(nside ** 2, F, 2, k)
+    args = dict(_SOM_KW, nside=nside, **kw)
+    block, bmu_b = SK.som_train(*t, return_bmu=True, cluster=1, **args)
+    SK.reset_launch_counts()
+    got, bmu = SK.som_train(*t, return_bmu=True, cluster=k, **args)
+    torch.cuda.synchronize()
+    route = "som_train" if k == 1 else "som_train_cluster"
+    assert SK.launch_counts()[route] == 1
+    assert sum(SK.launch_counts().values()) == 1
+    assert torch.equal(bmu, bmu_b) and _som_bits_equal(got, block)
+    want, bmu_p = SK.som_train_plain(*t, return_bmu=True, **args)
+    assert torch.equal(bmu, bmu_p)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0, equal_nan=True)
+    if flags["nan_band"]:
+        assert bool(torch.isnan(got).any())
+    if flags["ties"]:
+        assert int(bmu[0]) == 0
+    if flags["zero_scores"]:
+        assert not bool(bmu[::3].any()) and not bool(bmu[1::3].any())
+
+
+@pytest.mark.gpu
+def test_som_train_segments_compose_across_routes_on_card(cuda_device):
+    """A run cut in two at step 700, each segment told its offset and the
+    run's length, equals the run in one launch bit for bit whatever route
+    each segment takes: block then cluster, cluster then block, and the
+    default."""
+    t = [x.to(cuda_device) for x in _som_problem(50, T=1500)]
+    args = dict(_SOM_KW, nside=50)
+    whole, bmu = SK.som_train(*t, return_bmu=True, cluster=1, **args)
+    idx = torch.cuda.current_device()
+    sizes = [k for k in SK.CLUSTER_SIZES
+             if SK._active(idx, 2500, 5, 2, k) >= 1]
+    assert sizes, "the card schedules no cluster at config 3's shape"
+    for first, second in ((1, sizes[-1]), (sizes[0], 1), (None, None)):
+        head, b1 = SK.som_train(t[0], t[1], *(x[:700] for x in t[2:]),
+                                nsteps_total=1500, return_bmu=True,
+                                cluster=first, **args)
+        tail, b2 = SK.som_train(head, t[1], *(x[700:] for x in t[2:]),
+                                off=700.0, nsteps_total=1500,
+                                return_bmu=True, cluster=second, **args)
+        assert _som_bits_equal(tail, whole)
+        assert torch.equal(torch.cat([b1, b2]), bmu)
+
+
+@pytest.mark.gpu
+def test_som_train_default_takes_a_cluster_on_card(cuda_device):
+    """Config 3's shape (2,500 nodes x 5 filters on a 50 x 50 lattice)
+    takes the cluster route by default, at the size `choose_cluster` gives
+    for the card's query; a size the card refuses raises."""
+    t = [x.to(cuda_device) for x in _som_problem(50, T=200)]
+    idx = torch.cuda.current_device()
+    active = {k: SK._active(idx, 2500, 5, 2, k) for k in SK.CLUSTER_SIZES}
+    assert SK.choose_cluster(active) > 1
+    SK.reset_launch_counts()
+    SK.som_train(*t, **dict(_SOM_KW, nside=50))
+    assert SK.launch_counts() == {"som_train": 0, "som_train_cluster": 1}
+    refused = [k for k in SK.CLUSTER_SIZES if active[k] < 1]
+    for k in refused:
+        with pytest.raises(ValueError):
+            SK.som_train(*t, cluster=k, **dict(_SOM_KW, nside=50))
 
 
 # ---------------------------------------------------------------------
