@@ -42,34 +42,36 @@ port, numpy and scipy, and:
    pair, beside the screened route on the same batch (both walls), and
    every full-mask kernel's time at that batch, with the screened trio's
    bounds from that batch's run fractions and kept weights;
-5. masked photometry (each data band missing with probability 0.15,
-   from ``default_rng(2)``: about 10 of the 131,072 rows lose every
-   band): first the band order of config 4's G (`band_sort`: its time,
-   the mean and widest band of a 64-model tile, the share of nonzero
-   (64-model, 32-column) blocks in the caller's and in band order and of
-   (64, 128) blocks in band order, the band kernels' shared memory and
-   blocks an SM); then holds the four general kernels against their plain versions
-   at B=2,048 on six cases (masked dim prior; model masks too; the
-   Normal likelihood on full masks; ragged M=99,937 with B=1,000; rows
-   with Ndim 0, 1 and 2; duplicate models, whose lnl ties), on each the
-   two-pass threshold route on its lnl table against the recompute route
-   bit for bit (lmap, levid, pdf; the table against `lnl_tile_plain` in
-   ulps), also on the four fixed-scale two-pass instantiations the cases
-   do not hold, and the band stacks (`lnl_cut_stack`, `lnl_onepass`, over
-   the models in band order) on the six fixed-scale instantiations the
-   cases do not hold, then drives masked `fit_predict` over the 131,072 objects
-   (the general route's table route: `lnl_reduce` writing the lnl table
-   + `lnl_stack` reading it, two row chunks a batch, and not the
-   full-mask pair), `fit_summarize`,
-   the cdf mode over one 65,536-object batch (`lnl_reduce` + `lnl_topk` +
-   `lnl_cut_stack`, no batch rerun), and a flat-posterior batch whose cut
-   is undetermined at cdf_thresh 0.999999 and 0.5 (it must rerun, find
-   the cut by bisection with `lnl_reduce_split`, and agree with the
-   plain composition); one-pass (`lnl_onepass`) joins each of the six
-   cases, and at the batch it is timed beside `lnl_reduce` + `lnl_stack`
-   keeping every weight; one 65,536-object batch through the two-pass
-   threshold route on both routes (the table route in its row chunks),
-   bit for bit, with each route's `lnl_reduce` and `lnl_stack` times;
+5. masked photometry (each data band missing with probability 0.15, from
+   ``default_rng(2)``: about 10 of the 131,072 rows lose every band):
+   first the band order of config 4's G (`band_sort`: its time, the mean
+   and widest band of a 64-model tile, the share of nonzero (64-model,
+   32-column) blocks in the caller's and in band order and of (64, 128)
+   blocks in band order, the band kernels' shared memory and blocks an
+   SM); then holds the general kernels against their plain versions at
+   B=2,048 on six cases (masked dim prior; model masks too; the Normal
+   likelihood on full masks; ragged M=99,937 with B=1,000; rows with Ndim
+   0, 1 and 2; duplicate models, whose lnl ties; the cdf mode's
+   `lnl_reduce_topk` also with lmap and levid bit-equal to the
+   `lnl_reduce` kernel's), on each the two-pass threshold route on its lnl
+   table against the recompute route bit for bit (lmap, levid, pdf; the
+   table against `lnl_tile_plain` in ulps), also on the four fixed-scale
+   two-pass instantiations the cases do not hold, and the band stacks
+   (`lnl_cut_stack`, `lnl_onepass`, over the models in band order) on the
+   six fixed-scale instantiations the cases do not hold, then drives
+   masked `fit_predict` over the 131,072 objects (the general route's
+   table route: `lnl_reduce` writing the lnl table + `lnl_stack` reading
+   it, two row chunks a batch, and not the full-mask pair),
+   `fit_summarize`, the cdf mode over one 65,536-object batch
+   (`lnl_reduce_topk` + `lnl_cut_stack`, and no `lnl_reduce` or
+   `lnl_topk`; no batch rerun), and a flat-posterior batch whose cut is
+   undetermined at cdf_thresh 0.999999 and 0.5 (it must rerun, find the
+   cut by bisection with `lnl_reduce_split`, and agree with the plain
+   composition); one-pass (`lnl_onepass`) joins each of the six cases, and
+   at the batch it is timed beside `lnl_reduce` + `lnl_stack` keeping
+   every weight; one 65,536-object batch through the two-pass threshold
+   route on both routes (the table route in its row chunks), bit for bit,
+   with each route's `lnl_reduce` and `lnl_stack` times;
 6. free scale (K6) and no weight threshold (K4): every free-scale
    instantiation (model errors or not x full or masked x dim prior or
    Normal) against its plain version at B=2,048 on config-8 data
@@ -201,7 +203,7 @@ FLIP = 1.002
 TOL_ULP = 1.0
 P_MISSING = 0.15
 CDF_THRESH = 2e-4
-GENERAL = ("lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_topk",
+GENERAL = ("lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_reduce_topk",
            "lnl_cut_stack")
 # The band stacks (csrc/lnl_band.cuh): the models in band order.
 BAND = ("lnl_cut_stack", "lnl_onepass")
@@ -367,6 +369,12 @@ def lnl_pair_ops(F, flags, sweeps_mean=0.0):
     return ops
 
 
+# `lnl_reduce_topk`'s operations a pair past its lnl: `lnl_reduce`'s max,
+# subtract, exp and add (4) and the list's two compares (the floor, then
+# the list's smallest slot).
+REDUCE_TOPK_OPS = 6
+
+
 def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
                    tie, nkeep, sweeps_mean, lnl):
     """{kernel: (bound ms, bound by)} of one general case: lnl per pair
@@ -410,7 +418,9 @@ def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
     out = {
         "lnl_reduce": bound(pairs * (base + 4), io + 8.0 * B),
         "lnl_reduce_split": bound(pairs * (base + 6), io + 16.0 * B),
-        "lnl_topk": bound(pairs * (base + 8), io + 64.0 * B),
+        # The outputs: 8 bytes a row and 2 T floats (T = 8).
+        "lnl_reduce_topk": bound(pairs * (base + REDUCE_TOPK_OPS),
+                                 io + 72.0 * B),
         "lnl_stack": bound(pairs * (base + 3) + 2.0 * ngrid * kept_stack,
                            io + g_bytes + 8.0 * B),
         "lnl_cut_stack": bound(pairs * (base + 4) + 2.0 * band_cut,
@@ -638,6 +648,7 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
 
     got, want, ms, pms = run(lambda: GK.lnl_reduce(*args, **flags),
                              lambda: GK.lnl_reduce_plain(*args, **flags))
+    reduce_got = got
     a0, u0 = ulp_err(torch, got[0], want[0])
     a1, r1 = levid_err(torch, got[1], want[1])
     check(u0 <= TOL_ULP, f"{name}: lnl_reduce lmap {u0} ulp from plain")
@@ -659,18 +670,30 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
     out["lnl_reduce_split"] = dict(max_abs_err=max(e[0] for e in errs),
                                    sides_err=r1, ms=ms, plain_ms=pms)
 
+    # The cdf mode's one walk: lmap and the top-T values within TOL_ULP of
+    # the plain version, levid TOL_SUM, counts equal, and lmap and levid
+    # the lnl_reduce kernel's bit for bit.
     got, want, ms, pms = run(
-        lambda: GK.lnl_topk(*args, T=8, **flags),
-        lambda: GK.lnl_topk_plain(*args, T=8, **flags))
+        lambda: GK.lnl_reduce_topk(*args, T=8, **flags),
+        lambda: GK.lnl_reduce_topk_plain(*args, T=8, **flags))
     a0, u0 = ulp_err(torch, got[0], want[0])
-    check(u0 <= TOL_ULP, f"{name}: lnl_topk values {u0} ulp from plain")
-    check(torch.equal(got[1], want[1]), f"{name}: lnl_topk tie counts")
-    out["lnl_topk"] = dict(max_abs_err=a0, vals_ulp=u0,
-                           max_ties=float(want[1][:, 0].max()), ms=ms,
-                           plain_ms=pms)
+    a1, r1 = levid_err(torch, got[1], want[1])
+    a2, u2 = ulp_err(torch, got[2], want[2])
+    check(u0 <= TOL_ULP, f"{name}: lnl_reduce_topk lmap {u0} ulp from plain")
+    check(r1 <= TOL_SUM, f"{name}: lnl_reduce_topk levid err {r1}")
+    check(u2 <= TOL_ULP, f"{name}: lnl_reduce_topk values {u2} ulp from "
+                         "plain")
+    check(torch.equal(got[3], want[3]), f"{name}: lnl_reduce_topk tie counts")
+    check(torch.equal(got[0], reduce_got[0])
+          and torch.equal(got[1], reduce_got[1]),
+          f"{name}: lnl_reduce_topk lmap / levid differ from lnl_reduce's")
+    out["lnl_reduce_topk"] = dict(
+        max_abs_err=max(a0, a1, a2), lmap_ulp=u0, levid_err=r1, vals_ulp=u2,
+        max_ties=float(want[3][:, 0].max()), reduce_bit_equal=True, ms=ms,
+        plain_ms=pms)
     if name == "duplicate_models":
-        check(float(want[1].max()) >= 2.0, "duplicate models did not tie")
-    cut, tie, nkeep, _ = TF.cdf_cut(*want, levid, CDF_THRESH)
+        check(float(want[3].max()) >= 2.0, "duplicate models did not tie")
+    cut, tie, nkeep, _ = TF.cdf_cut(*want[2:], levid, CDF_THRESH)
 
     def stack(fn, thr):
         return fn(*args, Gc, lmap, levid, log_thr=thr, **flags)
@@ -765,7 +788,8 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
               + f" (plain {v['plain_ms']:.3f} ms)" for k, v in out.items())
           + f" | lmap {out['lnl_reduce']['lmap_ulp']:.3g} ulp, levid err "
           f"{out['lnl_reduce']['levid_err']:.3g}, top-T "
-          f"{out['lnl_topk']['vals_ulp']:.3g} ulp | table route == "
+          f"{out['lnl_reduce_topk']['vals_ulp']:.3g} ulp (lnl_reduce_topk: "
+          f"lmap, levid == lnl_reduce's) | table route == "
           f"recompute route bit for bit (sweeps, lmap, levid, pdf), lnl "
           f"table {tab['table_ulp']:.3g} ulp from lnl_tile_plain "
           f"({tab['table_ulp_count']} entries differ)"
@@ -783,8 +807,7 @@ def band_kernel_check(torch, np, GK, TF, args, G, flags, what):
     TOL_SUM, PDFs row-normwise TOL_PDF_ROW, the cut stack inside the
     one-ulp flip envelope of the cut); returns {kernel: ms}."""
     bs = GK.band_sort(G, *args[3:6])
-    lmap, levid = GK.lnl_reduce_plain(*args, **flags)
-    vals, cnts = GK.lnl_topk_plain(*args, T=8, **flags)
+    lmap, levid, vals, cnts = GK.lnl_reduce_topk_plain(*args, T=8, **flags)
     cut, tie, nkeep, _ = TF.cdf_cut(vals, cnts, levid, CDF_THRESH)
     inf = torch.full_like(cut, torch.inf)
 
@@ -2524,13 +2547,13 @@ def main():
                                    dmask[:BATCH], zlabels, zerrs, **cdf_kw)
     wall_c = time.perf_counter() - t0
     launches_c = KS.launch_counts()
-    for kname in ("lnl_reduce", "lnl_topk", "lnl_cut_stack"):
+    for kname in ("lnl_reduce_topk", "lnl_cut_stack"):
         check(launches_c[kname] > 0, f"cdf fit_predict did not launch "
                                      f"{kname} ({launches_c})")
-    check(launches_c["lnl_stack"] == launches_c["lnl_reduce_split"] == 0
-          and launches_c["lnl_reduce_table"] == 0,
-          f"cdf fit_predict launched lnl_stack, the bisection or the table "
-          f"route ({launches_c})")
+    check(all(launches_c[k] == 0 for k in (
+        "lnl_reduce", "lnl_topk", "lnl_stack", "lnl_reduce_split")),
+          f"cdf fit_predict launched lnl_reduce, lnl_topk, lnl_stack or the "
+          f"bisection ({launches_c})")
     check(bf.cdf_reruns == 0, f"{bf.cdf_reruns} cdf batches reran")
     off_c = check_vs_plain(np, bf, (pdfs_c[:N_SUBSET],
                                     (gof_c[0][:N_SUBSET],
@@ -2564,10 +2587,13 @@ def main():
         launches_r = KS.launch_counts()
         check(bf.cdf_reruns == 1, f"flat posterior, cdf_thresh {thr}: "
                                   f"{bf.cdf_reruns} reruns")
-        for kname in ("lnl_reduce", "lnl_topk", "lnl_reduce_split",
+        for kname in ("lnl_reduce_topk", "lnl_reduce_split",
                       "lnl_cut_stack"):
             check(launches_r[kname] > 0, f"flat posterior rerun did not "
                                          f"launch {kname} ({launches_r})")
+        check(launches_r["lnl_reduce"] == launches_r["lnl_topk"] == 0,
+              f"flat posterior rerun launched lnl_reduce or lnl_topk "
+              f"({launches_r})")
         off_f = check_vs_plain(np, bf, got_f, (*flat, zlabels, zerrs),
                                flat_kw, f"flat-posterior rerun {thr}",
                                cdf=True)
@@ -2584,7 +2610,7 @@ def main():
                                 np.ones_like(models).T)]
     lm_b, lv_b = GK.lnl_reduce(*args_b)
     split_b = lm_b - 3.0
-    vals_b, cnts_b = GK.lnl_topk(*args_b, T=8)
+    _, _, vals_b, cnts_b = GK.lnl_reduce_topk(*args_b, T=8)
     cut_b, tie_b, nkeep_b, _ = TF.cdf_cut(vals_b, cnts_b, lv_b, CDF_THRESH)
     bs_b = GK.band_sort(G, *args_b[3:6])
     # The two-pass threshold route over the batch on both routes: the
@@ -2617,13 +2643,18 @@ def main():
                                                              split_b)),
             ("lnl_stack", lambda: GK.lnl_stack(*args_b, G, lm_b, lv_b,
                                                log_thr=log_thr)),
-            ("lnl_topk", lambda: GK.lnl_topk(*args_b, T=8)),
+            ("lnl_reduce_topk", lambda: GK.lnl_reduce_topk(*args_b, T=8)),
             ("lnl_cut_stack", lambda: GK.lnl_cut_stack(
                 *args_b[:3], bs_b, cut_b, lv_b, tie_b, nkeep_b))):
         ms_batch[kname] = median_ms(torch, fn, reps=3)
     for kname in ("lnl_reduce", "lnl_stack"):
         table_batch[kname]["recompute_ms"] = ms_batch[kname]
         ms_batch[kname] = table_batch[kname]["ms"]
+    # The cdf mode's one walk over the batch (general_bounds' count).
+    bound_batch["lnl_reduce_topk"] = bound(
+        float(BATCH) * NMODEL
+        * (lnl_pair_ops(NFILT, flags_b) + REDUCE_TOPK_OPS),
+        4.0 * (3 * BATCH * NFILT + 3 * NFILT * NMODEL) + 72.0 * BATCH)
     print(f"kernel_at_batch {BATCH}x{NMODEL} masked: two-pass threshold "
           f"route, table == recompute bit for bit over the batch ({chunks_b} "
           f"chunks, a {bytes_b / 1e9:.4g} GB table buffer): table route "
@@ -2632,7 +2663,7 @@ def main():
               f"{k} {v['recompute_ms']:.3f} ms"
               for k, v in table_batch.items())
           + " | " + ", ".join(f"{k} {ms_batch[k]:.3f} ms" for k in (
-              "lnl_reduce_split", "lnl_topk", "lnl_cut_stack"))
+              "lnl_reduce_split", "lnl_reduce_topk", "lnl_cut_stack"))
           + f" | card {card}", flush=True)
     # K4: one walk against lnl_reduce + lnl_stack keeping every weight.
     ms_batch["lnl_onepass"] = median_ms(
@@ -2785,7 +2816,7 @@ def main():
     for label, extra, expect in (
             ("wt_thresh", {}, ("lnl_reduce", "lnl_stack")),
             ("cdf", dict(wt_thresh=None, cdf_thresh=CDF_THRESH),
-             ("lnl_reduce", "lnl_topk", "lnl_cut_stack")),
+             ("lnl_reduce_topk", "lnl_cut_stack")),
             ("none", dict(wt_thresh=None, cdf_thresh=None),
              ("lnl_onepass",))):
         kw9 = dict(fp_kw, lprob_kwargs=lkw9, **extra)
@@ -2795,7 +2826,8 @@ def main():
         torch.cuda.synchronize()
         out9, walls9[label], l9 = drive(
             call9, kw9, expect, what, absent=("scale_sweeps",) + tuple(
-                k for k in GENERAL + ("lnl_onepass",) if k not in expect))
+                k for k in GENERAL + ("lnl_onepass", "lnl_topk")
+                if k not in expect))
         check((l9["lnl_reduce_table"] == l9["lnl_reduce"]
                == l9["lnl_stack_table"]) if label == "wt_thresh"
               else l9["lnl_reduce_table"] == 0,
@@ -2822,8 +2854,9 @@ def main():
                    lprob_kwargs=dict(lkw9, dim_prior=False))
     got_f, wall_f, l_f = drive(
         (*flat, zlabels, zerrs), flat_kw,
-        ("lnl_reduce", "lnl_topk", "lnl_reduce_split", "lnl_cut_stack"),
-        "free-scale flat-posterior rerun", absent=("scale_sweeps",))
+        ("lnl_reduce_topk", "lnl_reduce_split", "lnl_cut_stack"),
+        "free-scale flat-posterior rerun",
+        absent=("scale_sweeps", "lnl_reduce", "lnl_topk"))
     check(bf.cdf_reruns == 1, f"free-scale flat posterior: {bf.cdf_reruns} "
                               "reruns")
     off_f = check_vs_plain(np, bf, got_f, (*flat, zlabels, zerrs), flat_kw,
@@ -2845,7 +2878,7 @@ def main():
     torch.cuda.synchronize()
     out10, wall10, launches10 = drive(
         call10, kw10, ("lnl_onepass",), "one-pass masked fit_predict",
-        absent=("scale_sweeps",) + GENERAL)
+        absent=("scale_sweeps", "lnl_topk") + GENERAL)
     check_rows(out10[0], out10[1], "one-pass masked fit_predict",
                int((dmask[:BATCH].sum(axis=1) == 0).sum()))
     off10 = check_vs_plain(np, bf, head(out10), sub, kw10,
@@ -2934,7 +2967,7 @@ def main():
                 # No Pallas kernel: the JAX fitter's XLA-sort rerun.
                 "lnl_reduce_split": "frankenz_tpu/models/bruteforce.py:852",
                 "lnl_stack": "frankenz_tpu/ops/fused.py:634",
-                "lnl_topk": "frankenz_tpu/ops/fused.py:721",
+                "lnl_reduce_topk": "frankenz_tpu/ops/fused.py:721",
                 "lnl_cut_stack": "frankenz_tpu/ops/fused.py:779",
                 "lnl_onepass": "frankenz_tpu/ops/fused.py:670"}
     replaces.update({"screen_seed": "frankenz_tpu/ops/fused.py:1249",
@@ -2947,7 +2980,7 @@ def main():
                      "lnl_reduce": launches_m["lnl_reduce"],
                      "lnl_reduce_split": launches_r["lnl_reduce_split"],
                      "lnl_stack": launches_m["lnl_stack"],
-                     "lnl_topk": launches_c["lnl_topk"],
+                     "lnl_reduce_topk": launches_c["lnl_reduce_topk"],
                      "lnl_cut_stack": launches_c["lnl_cut_stack"],
                      "lnl_onepass": launches10["lnl_onepass"],
                      "lnl_reduce_table": launches_m["lnl_reduce_table"],

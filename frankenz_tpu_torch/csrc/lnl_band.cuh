@@ -107,10 +107,6 @@ constexpr int kBWS = kBRows + 4;              // weights' stride, [64][36]
 constexpr int kBRowGroups = kBRows / 4;       // 4-row micro-tile groups
 constexpr int kBWindowMax = 512;              // grid columns a block
 constexpr int kBSmemMax = 232448;             // shared bytes a block
-// The filter count compiled as a constant (the five-band photometry of
-// every bench.py configuration): a thread then keeps its row's and its
-// model's columns in registers.  Other counts take the runtime loops.
-constexpr int kBFilters = 5;
 // Pairs a thread interleaves in the weight phase on the constant-filter
 // path (more independent work for the dependent lnl chains).
 constexpr int kBUnroll = 2;
@@ -118,29 +114,6 @@ static_assert(kBLanes * kBRows == kBThreads && kBLanes <= 32 &&
                   (kBLanes & (kBLanes - 1)) == 0,
               "a row's weight lanes sit in one warp");
 static_assert(kBPairs * kBLanes == kBTile, "the lanes cover the tile");
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
 // Shared-memory layout of a band block, in floats from the (16-byte
 // aligned) base; every region starts on a multiple of 4.
@@ -699,8 +672,8 @@ int launch_band(const float* d, const float* de, const float* dm,
                 const float* nkeep, float* pdf, float* lmap, float* levid,
                 int B, int M, int F, int Ngrid, int ldg, int width,
                 float nd_full, int ng, int tm, cudaStream_t stream) {
-  if (F == kBFilters)
-    return launch_band_f<P, CUT, kBFilters>(
+  if (F == kFixedFilters)
+    return launch_band_f<P, CUT, kFixedFilters>(
         d, de, dm, mT, meT, mmT, gl, sweeps, perm, inv, G, bands, cut,
         levid_in, tie, nkeep, pdf, lmap, levid, B, M, F, Ngrid, ldg, width,
         nd_full, ng, tm, stream);
@@ -718,8 +691,8 @@ int band_blocks_per_sm(int F, int ldg, int width) {
   if (win == 0) return 0;
   const int smem = band_smem(F, win, width < win ? width : win, CUT,
                              P::kSweeps);
-  const auto kernel = (F == kBFilters)
-                          ? lnl_band_kernel<P, CUT, kBFilters>
+  const auto kernel = (F == kFixedFilters)
+                          ? lnl_band_kernel<P, CUT, kFixedFilters>
                           : lnl_band_kernel<P, CUT, 0>;
   if (allow_smem(kernel, smem) != cudaSuccess) return -1;
   int blocks = 0;

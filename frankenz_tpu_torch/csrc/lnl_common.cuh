@@ -37,12 +37,17 @@ namespace fz {
 
 constexpr float kNegInf = -FLT_MAX;          // the lnl floor (float32 min)
 constexpr float kLog2Pi = 1.8378770664093453f;
-constexpr int kRThreads = 128;  // reduce / topk: objects per block
-constexpr int kRTile = 64;      // reduce / topk: models per shared tile
-constexpr int kTRows = 32;      // reduce / topk with a sweep table: objects
+constexpr int kRThreads = 128;  // reduce, reduce_topk: objects a block
+constexpr int kRTile = 64;      // reduce, reduce_topk: models a tile
+constexpr int kTRows = 32;      // the same with a sweep table: objects
 constexpr int kTThreads = 256;  // ... and threads per block (RowShape)
 constexpr int kSObjects = 32;   // stack: objects per block
 constexpr int kSTile = 64;      // stack: models per shared tile
+// The filter count compiled as a constant (the five-band photometry of
+// every bench.py configuration) in lnl_reduce_topk and the band kernels:
+// a thread then keeps its row's and its model's columns in registers.
+// Other counts take the runtime loops.
+constexpr int kFixedFilters = 5;
 // lnl_reduce_store's shape; other values only in the builds that
 // tools/ab_table.py times against the package's (-DFZ_PROWS=...,
 // -DFZ_PTHREADS=...).
@@ -59,6 +64,31 @@ constexpr int kPThreads = FZ_PTHREADS;  // ... and threads per block
 __device__ __forceinline__ float nanmax(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
+
+// 4- and 16-byte asynchronous copies into shared memory (sm_80+), their
+// commit and their wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
 // Stage models [m0, m0 + n) of the (F, M) arrays into [F][tile] shared
 // tiles (me squared on the way when SQUARE_ME); every thread of the block
@@ -87,8 +117,8 @@ __device__ __forceinline__ int sweeps_of(const short* __restrict__ sweeps,
   return P::kSweeps ? (int)sweeps[(size_t)b * ng + j / tm] : 0;
 }
 
-// The one-thread-per-object kernels (reduce, topk) hold R objects per
-// block, thread t < R owning object t.  A pair policy without a sweep
+// The one-thread-per-object reduce holds R objects per block, thread t
+// < R owning object t.  A pair policy without a sweep
 // table computes its pairs in the owner thread (R = threads = 128).  One
 // with a table (free scale with model errors: each pair reruns its k
 // sweeps, k shared by a row's models of one group) has the whole block
@@ -327,25 +357,139 @@ __global__ void lnl_reduce_store_kernel(
   }
 }
 
-template <class P>
-__global__ void lnl_topk_kernel(
+// ---------------------------------------------------------------------
+// lnl_reduce_topk  (the cdf mode's reduce and top-T in one walk)
+//   Replaces: `_make_reduce_kernel` (frankenz_tpu/ops/fused.py:599) and
+//             `_make_topk_kernel` (:721) of the cdf mode, two pallas_calls
+//             over the same lnl tiles (:1903, :1920).
+//   Computes: per object, lmap and levid bit for bit as lnl_reduce (SPLIT
+//             = false), and the T largest DISTINCT lnl values, descending,
+//             with float tie counts; unused slots hold float32 min and
+//             count 0 (float32-min values are never counted, NaN joins
+//             nothing).  Any T >= 1.
+//   Bound on the H100: operations, the lnl chain of each pair (F IEEE
+//   divides and a log, more under free scale), then an exp, a max, a
+//   compare and an add.  The list work is rare: once a row's list is
+//   full, a pair below its smallest value costs one compare (nearly all
+//   of them).  Each Mosaic tile recomputes lnl cheaply on the TPU's VPU,
+//   so JAX runs the reduce and the top-T as two calls; on the H100 the
+//   lnl chain is the scarce part (lnl_reduce and the first top-T kernel
+//   each took ~68 ms a masked 65,536 batch of config 4), so this kernel
+//   computes it once for all four outputs.
+//   Design: the models in the caller's order, 64-model tiles
+//   (kRTile, lnl_reduce's tile, so lmap and levid keep their bits), each
+//   tile's model columns copied with 4-byte `cp.async` into one of two
+//   buffers while the block works on the other (me squared in place once
+//   it lands, as load_model_tile squares it).  The owner thread of a row
+//   walks each tile in model order: every pair's lnl into its own shared
+//   column, the tile maximum and the top-T insertion in the same pass,
+//   then the tile's sum of expf(lnl - new max) and `lse_join`; the max
+//   and the list are order-free, the sum is not, and its order is
+//   lnl_reduce's.  The list, T (value, count) slots a row, lives in the
+//   owner's shared column: a value pools into an equal slot or is
+//   inserted above the first smaller one.
+//     Without a sweep table, one thread a row computes its own pairs
+//   (128 rows and threads a block: 512 blocks at 65,536 rows, four an SM
+//   by shared memory).  With five filters (every bench.py configuration)
+//   the filter count is a compile-time constant: the row's columns stay
+//   in registers and a thread runs two pairs at once (models j and j + 1,
+//   two independent chains), bit for bit the runtime-F loop (64
+//   registers, no spill).  Against the other candidates, each a build of
+//   this source with a switch since taken out, in turns on a masked
+//   65,536 batch of config 4 (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+//   section 6): 54.8 ms; the runtime-F loop
+//   70.8; lnl_reduce_store's cooperative shape (64 rows, 256 threads,
+//   each thread one model's columns in registers for 16 rows, owners
+//   walking a padded tile) 57.5, but 18.0 against 42.0 at 2,048 rows,
+//   where one thread a row fills 16 SMs; synchronous tile loads 55.1.
+//     With a sweep table (free scale with model errors: a pair reruns its
+//   k sweeps, k shared by a row's models of one group) the block computes
+//   each tile's lnl cooperatively into a padded [64][33] tile (32 rows,
+//   256 threads, 32 consecutive threads on 32 models of one row, so a
+//   warp's pairs wait for one sweep count), then 32 owners walk it.
+// ---------------------------------------------------------------------
+
+// Shared layout of lnl_reduce_topk, in floats from the (16-byte aligned)
+// base: the rows' data, error^2 and mask as [F][R] (unless the rows sit
+// in registers), the F + 1 normalizations, two model tiles [3][F][64],
+// the lists [T][R] of values and of counts, the tile's lnl [64][LS].
+struct RtkLayout {
+  int rows, gl, mod, list, lnl, total;
+};
+
+__host__ __device__ inline RtkLayout rtk_layout(int F, int T, int R, int LS,
+                                                bool rows) {
+  RtkLayout L;
+  int o = 0;
+  L.rows = o;
+  if (rows) o += round4(3 * F * R);
+  L.gl = o;
+  o += round4(F + 1);
+  L.mod = o;
+  o += 2 * round4(3 * F * kRTile);
+  L.list = o;
+  o += round4(2 * T * R);
+  L.lnl = o;
+  o += kRTile * LS;
+  L.total = o;
+  return L;
+}
+
+template <class P, int FC, int R, int NT>
+__global__ void __launch_bounds__(NT) lnl_reduce_topk_kernel(
     const float* __restrict__ d, const float* __restrict__ de,
     const float* __restrict__ dm, const float* __restrict__ mT,
     const float* __restrict__ meT, const float* __restrict__ mmT,
     const float* __restrict__ gl, const short* __restrict__ sweeps,
-    float* __restrict__ vals, float* __restrict__ cnts, int B, int M, int F,
-    int T, float nd_full, int ng, int tm) {
-  constexpr int R = RowShape<P>::kRows;
-  extern __shared__ float smem[];
-  const RowSmem s = row_smem(smem, F, R);
-  float* sv = s.sx;         // [T][R] values, descending
-  float* sc = sv + T * R;   // [T][R] tie counts
-  float* slnl = sc + T * R;  // [kRTile][R] (with a sweep table only)
+    float* __restrict__ lmap, float* __restrict__ levid,
+    float* __restrict__ vals, float* __restrict__ cnts, int B, int M,
+    int Fr, int T, float nd_full, int ng, int tm) {
+  // The block computes each tile's lnl together (NT > R: policies with a
+  // sweep table), or each owner its own row's (NT == R).
+  constexpr bool kCoop = NT > R;
+  constexpr int LS = kCoop ? R + 1 : R;  // slnl's column stride
+  // FC > 0: the filter count is FC, a compile-time constant.
+  constexpr int FR = FC > 0 ? FC : 1;
+  constexpr bool kRegRow = FC > 0 && !kCoop;  // the row's columns in regs
+  static_assert(NT % kRTile == 0 || NT == R, "a thread keeps its model");
+  const int F = FC > 0 ? FC : Fr;
+  extern __shared__ __align__(16) float smem[];
+  const RtkLayout L = rtk_layout(F, T, R, LS, !kRegRow);
+  float* sd = smem + L.rows;
+  float* sde2 = sd + F * R;
+  float* sdm = sde2 + F * R;
+  float* sgl = smem + L.gl;
+  float* sv = smem + L.list;   // [T][R] values, descending
+  float* sc = sv + T * R;      // [T][R] tie counts
+  float* slnl = smem + L.lnl;  // [kRTile][LS]: this tile's lnl, per row
   const int t = threadIdx.x;
   const int b0 = blockIdx.x * R;
   const int b = b0 + t;
   const bool live = t < R && b < B;
-  load_rows(s, d, de, dm, gl, b, live, F, R);
+  const int ntiles = (M + kRTile - 1) / kRTile;
+
+  float rd[FR], rde2[FR], rdm[FR];
+  if constexpr (kRegRow) {
+#pragma unroll
+    for (int f = 0; f < FR; ++f) {
+      const size_t src = (size_t)b * FR + f;
+      const float ev = live ? de[src] : 1.0f;
+      rd[f] = live ? d[src] : 0.0f;
+      rde2[f] = __fmul_rn(ev, ev);
+      rdm[f] = live ? dm[src] : 0.0f;
+    }
+  } else {
+    for (int i = t; i < F * R; i += NT) {
+      const int k = i / R, r = i - k * R;
+      const bool lv = b0 + r < B;
+      const size_t src = (size_t)(b0 + r) * F + k;
+      const float ev = lv ? de[src] : 1.0f;
+      sd[i] = lv ? d[src] : 0.0f;
+      sde2[i] = __fmul_rn(ev, ev);
+      sdm[i] = lv ? dm[src] : 0.0f;
+    }
+  }
+  for (int k = t; k <= F; k += NT) sgl[k] = gl[k];
   if (t < R) {
     for (int i = 0; i < T; ++i) {
       sv[i * R + t] = kNegInf;
@@ -353,48 +497,127 @@ __global__ void lnl_topk_kernel(
     }
   }
 
-  float low = kNegInf;  // the list's smallest slot
-  for (int m0 = 0; m0 < M; m0 += kRTile) {
+  // Tile `tile`'s model columns into buffer tile & 1.
+  auto issue = [&](int tile) {
+    const int m0 = tile * kRTile;
     const int n = min(kRTile, M - m0);
-    __syncthreads();
-    load_model_tile<P::kSquareMe>(mT, meT, mmT, s.sm, s.sme, s.smm, F, M, m0,
-                                  n, kRTile);
-    __syncthreads();
-    if (P::kSweeps) {
-      tile_lnl<P, R>(s, slnl, R, sweeps, b0, B, m0, n, F, nd_full, ng, tm);
+    float* mod = smem + L.mod + (tile & 1) * round4(3 * F * kRTile);
+    for (int i = t; i < 3 * F * kRTile; i += NT) {
+      const int a = i / (F * kRTile), rem = i - a * F * kRTile;
+      const int f = rem / kRTile, j = rem - f * kRTile;
+      if (j < n) {
+        const float* src = a == 0 ? mT : (a == 1 ? meT : mmT);
+        cp_async4(mod + i, src + (size_t)f * M + m0 + j);
+      }
+    }
+  };
+
+  // The row's list: v pools into an equal slot or is inserted above the
+  // first smaller one (the last slot drops off a full list); floor
+  // values and NaN join nothing.
+  float low = kNegInf;  // the list's smallest slot
+  auto push = [&](float v) {
+    if (!(v > kNegInf) || v < low) return;
+    for (int i = 0; i < T; ++i) {
+      const float cur = sv[i * R + t];
+      if (cur == v) {
+        sc[i * R + t] += 1.0f;
+        break;
+      }
+      if (cur < v) {
+        for (int q = T - 1; q > i; --q) {
+          sv[q * R + t] = sv[(q - 1) * R + t];
+          sc[q * R + t] = sc[(q - 1) * R + t];
+        }
+        sv[i * R + t] = v;
+        sc[i * R + t] = 1.0f;
+        break;
+      }
+    }
+    low = sv[(T - 1) * R + t];
+  };
+
+  float rm = kNegInf, sum = 0.0f, comp = 0.0f;
+  issue(0);
+  cp_async_commit();
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int m0 = tile * kRTile;
+    const int n = min(kRTile, M - m0);
+    float* sm = smem + L.mod + (tile & 1) * round4(3 * F * kRTile);
+    float* sme = sm + F * kRTile;
+    const float* smm = sme + F * kRTile;
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed; the last one is consumed
+    if (tile + 1 < ntiles) issue(tile + 1);
+    cp_async_commit();
+    if (P::kSquareMe) {
+      for (int i = t; i < F * kRTile; i += NT)
+        if (i % kRTile < n) sme[i] = __fmul_rn(sme[i], sme[i]);
       __syncthreads();
     }
-    if (!live) continue;
-    for (int j = 0; j < n; ++j) {
-      const float v =
-          P::kSweeps ? slnl[j * R + t]
-                     : P::lnl(s.sd + t, s.sde2 + t, s.sdm + t, R, s.sm + j,
-                              s.sme + j, s.smm + j, kRTile, F, s.sgl,
-                              nd_full, 0);
-      // Floor values are never counted; NaN joins nothing.
-      if (!(v > kNegInf) || v < low) continue;
-      // v >= low: it pools into an equal slot or is inserted above the
-      // first smaller one (the last slot drops off a full list).
-      for (int i = 0; i < T; ++i) {
-        const float cur = sv[i * R + t];
-        if (cur == v) {
-          sc[i * R + t] += 1.0f;
-          break;
-        }
-        if (cur < v) {
-          for (int q = T - 1; q > i; --q) {
-            sv[q * R + t] = sv[(q - 1) * R + t];
-            sc[q * R + t] = sc[(q - 1) * R + t];
-          }
-          sv[i * R + t] = v;
-          sc[i * R + t] = 1.0f;
-          break;
+
+    float tmax = kNegInf;
+    if constexpr (kCoop) {
+      // Thread t computes model j = t % 64 for rows t / 64, t / 64 + NT /
+      // 64, ...: a warp's 32 threads share a row and its sweep counts.
+      const int j = t % kRTile;
+      for (int bb = t / kRTile; bb < R; bb += NT / kRTile) {
+        slnl[j * LS + bb] =
+            (b0 + bb < B && j < n)
+                ? P::lnl(sd + bb, sde2 + bb, sdm + bb, R, sm + j, sme + j,
+                         smm + j, kRTile, F, sgl, nd_full,
+                         sweeps_of<P>(sweeps, b0 + bb, m0 + j, ng, tm))
+                : 0.0f;
+      }
+      __syncthreads();
+      if (live) {
+        for (int jj = 0; jj < n; ++jj) {
+          const float v = slnl[jj * LS + t];
+          tmax = nanmax(tmax, v);
+          push(v);
         }
       }
-      low = sv[(T - 1) * R + t];
+    } else if (live) {
+      if constexpr (kRegRow) {
+        // Models j and j + 1 at once (j + 1 may lie past n: computed on
+        // whatever the buffer holds there, then dropped).
+        for (int j = 0; j < n; j += 2) {
+          const float v0 = P::lnl(rd, rde2, rdm, 1, sm + j, sme + j, smm + j,
+                                  kRTile, FR, sgl, nd_full, 0);
+          const float v1 = P::lnl(rd, rde2, rdm, 1, sm + j + 1, sme + j + 1,
+                                  smm + j + 1, kRTile, FR, sgl, nd_full, 0);
+          slnl[j * LS + t] = v0;
+          tmax = nanmax(tmax, v0);
+          push(v0);
+          if (j + 1 < n) {
+            slnl[(j + 1) * LS + t] = v1;
+            tmax = nanmax(tmax, v1);
+            push(v1);
+          }
+        }
+      } else {
+        for (int j = 0; j < n; ++j) {
+          const float v = P::lnl(sd + t, sde2 + t, sdm + t, R, sm + j,
+                                 sme + j, smm + j, kRTile, F, sgl, nd_full,
+                                 0);
+          slnl[j * LS + t] = v;
+          tmax = nanmax(tmax, v);
+          push(v);
+        }
+      }
+    }
+    if (live) {
+      const float new_m = nanmax(rm, tmax);
+      float tile_sum = 0.0f;
+      for (int j = 0; j < n; ++j)
+        tile_sum =
+            __fadd_rn(tile_sum, expf(__fsub_rn(slnl[j * LS + t], new_m)));
+      lse_join(rm, sum, comp, new_m, tile_sum);
     }
   }
   if (live) {
+    lmap[b] = rm;
+    levid[b] = __fadd_rn(logf(sum), rm);
     for (int i = 0; i < T; ++i) {
       vals[(size_t)b * T + i] = sv[i * R + t];
       cnts[(size_t)b * T + i] = sc[i * R + t];
@@ -569,11 +792,6 @@ inline int reduce_store_smem(int F) {
                                kRTile * (kPRows + 1));
 }
 
-inline int topk_smem(int F, int T, int R, bool tile) {
-  return (int)sizeof(float) * (3 * F * R + 3 * F * kRTile + (F + 1) +
-                               2 * T * R + (tile ? kRTile * R : 0));
-}
-
 inline int col_smem_bytes(int F) {
   return (int)sizeof(float) * (3 * kSObjects * F + 2 * kSObjects + (F + 1) +
                                3 * F * kSTile + kSObjects * kSTile) +
@@ -627,21 +845,55 @@ int launch_reduce_store(const float* d, const float* de, const float* dm,
   }
 }
 
-template <class P>
-int launch_topk(const float* d, const float* de, const float* dm,
-                const float* mT, const float* meT, const float* mmT,
-                const float* gl, const short* sweeps, float* vals,
-                float* cnts, int B, int M, int F, int T, float nd_full,
-                int ng, int tm, cudaStream_t stream) {
-  constexpr int R = RowShape<P>::kRows;
-  const int smem = topk_smem(F, T, R, P::kSweeps);
-  cudaError_t err = allow_smem(lnl_topk_kernel<P>, smem);
+template <class P, int FC, int R, int NT>
+int launch_rtk_shape(const float* d, const float* de, const float* dm,
+                     const float* mT, const float* meT, const float* mmT,
+                     const float* gl, const short* sweeps, float* lmap,
+                     float* levid, float* vals, float* cnts, int B, int M,
+                     int F, int T, float nd_full, int ng, int tm,
+                     cudaStream_t stream) {
+  const int smem = (int)sizeof(float) *
+                   rtk_layout(F, T, R, NT > R ? R + 1 : R,
+                              !(FC > 0 && NT == R))
+                       .total;
+  auto kernel = lnl_reduce_topk_kernel<P, FC, R, NT>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + R - 1) / R);
-  lnl_topk_kernel<P><<<grid, RowShape<P>::kThreads, smem, stream>>>(
-      d, de, dm, mT, meT, mmT, gl, sweeps, vals, cnts, B, M, F, T, nd_full,
-      ng, tm);
+  kernel<<<(B + R - 1) / R, NT, smem, stream>>>(
+      d, de, dm, mT, meT, mmT, gl, sweeps, lmap, levid, vals, cnts, B, M, F,
+      T, nd_full, ng, tm);
   return (int)cudaGetLastError();
+}
+
+template <class P>
+int launch_reduce_topk(const float* d, const float* de, const float* dm,
+                       const float* mT, const float* meT, const float* mmT,
+                       const float* gl, const short* sweeps, float* lmap,
+                       float* levid, float* vals, float* cnts, int B, int M,
+                       int F, int T, float nd_full, int ng, int tm,
+                       cudaStream_t stream) {
+  if constexpr (P::kSweeps) {
+    return launch_rtk_shape<P, 0, kTRows, kTThreads>(
+        d, de, dm, mT, meT, mmT, gl, sweeps, lmap, levid, vals, cnts, B, M,
+        F, T, nd_full, ng, tm, stream);
+  } else {
+    if (F == kFixedFilters)
+      return launch_rtk_shape<P, kFixedFilters, kRThreads, kRThreads>(
+          d, de, dm, mT, meT, mmT, gl, sweeps, lmap, levid, vals, cnts, B, M,
+          F, T, nd_full, ng, tm, stream);
+    return launch_rtk_shape<P, 0, kRThreads, kRThreads>(
+        d, de, dm, mT, meT, mmT, gl, sweeps, lmap, levid, vals, cnts, B, M,
+        F, T, nd_full, ng, tm, stream);
+  }
+}
+
+// Shared-memory bytes of lnl_reduce_topk at F filters and T slots (the
+// launch's; `sweeps`: a pair policy with a sweep table).
+inline int reduce_topk_smem(int F, int T, bool sweeps) {
+  const RtkLayout L =
+      sweeps ? rtk_layout(F, T, kTRows, kTRows + 1, true)
+             : rtk_layout(F, T, kRThreads, kRThreads, F != kFixedFilters);
+  return (int)sizeof(float) * L.total;
 }
 
 template <class P>
@@ -721,15 +973,15 @@ int launch_stack(const float* d, const float* de, const float* dm,
                 gl, sweeps, split, nullptr, levid, levid_le, count, B, M, F,  \
                 nd_full, ng, tm, (cudaStream_t)stream)                        \
   }                                                                           \
-  int fz_lnl_topk##SUFFIX(                                                    \
+  int fz_lnl_reduce_topk##SUFFIX(                                             \
       const float* d, const float* de, const float* dm, const float* mT,      \
-      const float* meT, const float* mmT, const float* gl, float* vals,       \
-      float* cnts, int B, int M, int F, int T, int full_mask, int dim_prior,  \
-      int ignore_model_err, float nd_full, const short* sweeps, int ng,       \
-      int tm, void* stream) {                                                 \
-    FZ_DISPATCH(PAIR, fz::launch_topk, FZ_NOEXTRA, d, de, dm, mT, meT, mmT,   \
-                gl, sweeps, vals, cnts, B, M, F, T, nd_full, ng, tm,          \
-                (cudaStream_t)stream)                                         \
+      const float* meT, const float* mmT, const float* gl, float* lmap,       \
+      float* levid, float* vals, float* cnts, int B, int M, int F, int T,     \
+      int full_mask, int dim_prior, int ignore_model_err, float nd_full,      \
+      const short* sweeps, int ng, int tm, void* stream) {                    \
+    FZ_DISPATCH(PAIR, fz::launch_reduce_topk, FZ_NOEXTRA, d, de, dm, mT, meT, \
+                mmT, gl, sweeps, lmap, levid, vals, cnts, B, M, F, T,         \
+                nd_full, ng, tm, (cudaStream_t)stream)                        \
   }                                                                           \
   int fz_lnl_stack##SUFFIX(                                                   \
       const float* d, const float* de, const float* dm, const float* mT,      \

@@ -85,9 +85,9 @@
 // `lnl_cut_stack_fs`, whose band order reads sweeps[b, perm[j] / tm])
 // instantiated with FreePair; the model tiles hold me,
 // not me^2.  With model errors (a sweep table) the one-thread-per-object
-// kernels, reduce and topk, compute each model tile's lnl with the whole
-// block, 32 consecutive threads on 32 models of one object (one sweep
-// count per warp), and then reduce per object as before.  With one
+// kernels, the reduce and lnl_reduce_topk, compute each model tile's lnl
+// with the whole block, 32 consecutive threads on 32 models of one object
+// (one sweep count per warp), and then reduce per object as before.  With one
 // thread per object each warp waited for the largest sweep count of its
 // 32 objects (2,588 against 166 ms at B = 2,048 on an H100).  Without
 // model errors `lnl_reduce_store` is the table route's producer; with

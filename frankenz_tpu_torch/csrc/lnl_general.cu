@@ -31,8 +31,8 @@
 //   __fsub_rn, __fdiv_rn, IEEE logf) so nvcc cannot contract a*b+c into
 //   an FMA: the kernels, instantiated with the same template
 //   arguments, compute bit-identical lnl for a pair.  That matters:
-//   `cut` comes out of lnl_topk and lnl_cut_stack compares each pair's
-//   lnl with it by <=, and lmap from lnl_reduce sits in lnl_stack's
+//   `cut` comes out of lnl_reduce_topk and lnl_cut_stack compares each
+//   pair's lnl with it by <=, and lmap from lnl_reduce sits in lnl_stack's
 //   threshold.  The plain PyTorch version mirrors the same order.
 //
 // lnl_reduce
@@ -64,8 +64,8 @@
 //
 // lnl_reduce_split  (a second entry point of the lnl_reduce template)
 //   Replaces: no Pallas kernel.  The JAX fitter finds the cdf cut of a
-//             batch that lnl_topk leaves undetermined with an XLA sort of
-//             the (B, M) grid (frankenz_tpu/models/bruteforce.py:852-880);
+//             batch that the top-T table leaves undetermined with an XLA
+//             sort of the (B, M) grid (frankenz_tpu/models/bruteforce.py:852-880);
 //             the port finds it by bisection on lnl instead
 //             (ops/fused.py `cdf_cut_exact`), one pass of this kernel per
 //             step.
@@ -79,16 +79,17 @@
 //   near 0 and near 1 alike.  The count is a float sum of ones, exact
 //   below 2^24 models.
 //
-// lnl_topk
-//   Replaces: `_make_topk_kernel` (ops/fused.py:721; pallas_call :1920).
-//   Computes: the T largest DISTINCT lnl values per object, descending,
-//             with float tie counts; unused slots hold float32 min and
-//             count 0 (float32-min values themselves are never counted).
-//   Design: one thread per object keeps a sorted list of T (value,
-//   count) slots in its own shared column.  A pair below the list's
-//   smallest value (nearly all of them once the list is full) costs one
-//   compare; otherwise it pools into an equal value or is inserted.  The
-//   result is a set, so it does not depend on the model order.
+// lnl_reduce_topk  (lnl_common.cuh)
+//   Replaces: `_make_reduce_kernel` (ops/fused.py:599) and
+//             `_make_topk_kernel` (:721) of the cdf mode (pallas_calls
+//             :1903 and :1920).
+//   Computes: lnl_reduce's lmap and levid, bit for bit, and the T largest
+//             DISTINCT lnl values per object, descending, with float tie
+//             counts; unused slots hold float32 min and count 0
+//             (float32-min values themselves are never counted).
+//   Design: one walk over the models computes each pair's lnl once for
+//   the four outputs (design notes in lnl_common.cuh).  The top-T set
+//   does not depend on the model order.
 //
 // lnl_stack
 //   Replaces: `_make_stack_kernel` (ops/fused.py:634; pallas_call :1998).
@@ -193,9 +194,8 @@ extern "C" {
 int fz_lnl_reduce_smem(int F, int sweeps) {
   return fz::reduce_smem(F, sweeps ? fz::kTRows : fz::kRThreads);
 }
-int fz_lnl_topk_smem(int F, int T, int sweeps) {
-  return fz::topk_smem(F, T, sweeps ? fz::kTRows : fz::kRThreads,
-                      sweeps != 0);
+int fz_lnl_reduce_topk_smem(int F, int T, int sweeps) {
+  return fz::reduce_topk_smem(F, T, sweeps != 0);
 }
 int fz_lnl_stack_smem(int F) { return fz::col_smem_bytes(F); }
 int fz_lnl_reduce_store_smem(int F) { return fz::reduce_store_smem(F); }

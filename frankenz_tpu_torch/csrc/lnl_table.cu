@@ -61,6 +61,10 @@ using fz::kNegInf;
 using fz::kRTile;
 using fz::kSObjects;
 using fz::kSTile;
+using fz::cp_async16;
+using fz::cp_async4;
+using fz::cp_async_commit;
+using fz::cp_async_wait_all;
 
 constexpr int kReadRows = 128;  // lnl_reduce_read: rows (threads) a block
 
@@ -120,30 +124,9 @@ __global__ void lnl_reduce_read_kernel(const float* __restrict__ table,
   levid[b] = __fadd_rn(logf(sum), rm);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
 // Every group but the newest is complete (this thread's copies).
 __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 // The tile's weights are kept model-major, [kSTile][kWStride]: a model's

@@ -175,7 +175,8 @@ def _bind(lib):
     lib.fz_chi2_stack_screened.restype = I
     lib.fz_expf_probe.argtypes = [P, P, I, P]
     lib.fz_expf_probe.restype = I
-    for name, nargs in (("fz_lnl_reduce_smem", 2), ("fz_lnl_topk_smem", 3),
+    for name, nargs in (("fz_lnl_reduce_smem", 2),
+                        ("fz_lnl_reduce_topk_smem", 3),
                         ("fz_lnl_stack_smem", 1), ("fz_scale_sweeps_smem", 4),
                         ("fz_scale_sweeps_occupancy", 4),
                         ("fz_lnl_reduce_store_smem", 1),
@@ -191,7 +192,8 @@ def _bind(lib):
     general = {
         "fz_lnl_reduce": [P] * 9 + [I] * 6 + tail + [P],
         "fz_lnl_reduce_split": [P] * 11 + [I] * 6 + tail + [P],
-        "fz_lnl_topk": [P] * 9 + [I] * 7 + tail + [P],
+        # The cdf mode's reduce and top-T: lmap, levid, vals, cnts.
+        "fz_lnl_reduce_topk": [P] * 11 + [I] * 7 + tail + [P],
         "fz_lnl_stack": [P] * 11 + [I] * 4 + [F] + [I] * 3 + tail + [I, P],
         # The band kernels (csrc/lnl_band.cuh): G, perm (, inv), bands,
         # the rows and outputs, sizes with G's stride and the widest band.

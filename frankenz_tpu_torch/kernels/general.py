@@ -1,21 +1,23 @@
 """Wrappers and plain versions of the general (masked) lnl kernels.
 
-`lnl_reduce`, `lnl_stack`, `lnl_onepass`, `lnl_topk` and
-`lnl_cut_stack` replace the Pallas kernels `_make_reduce_kernel`
-(frankenz_tpu/ops/fused.py:599), `_make_stack_kernel` (:634),
-`_make_onepass_kernel` (:670), `_make_topk_kernel` (:721) and
-`_make_cut_stack_kernel` (:779), with both branches of their shared
-`_lnl_tile` (:316): fixed scale and free scale (:325-411, and
-`_lnl_tile_freescale_me`, :452-596).  `lnl_reduce_split`, the reduce on
-either side of a per-object value, serves the bisection that finds a cdf
-cut the top-T table leaves undetermined (`ops.fused.cdf_cut_exact`).
-`scale_sweeps` counts the free-scale fixed point's sweeps per (object,
-model group), the table the other kernels read under free scale with
-model errors.  The CUDA sources, with the design notes, are
-``csrc/lnl_general.cu`` (fixed scale), ``csrc/lnl_freescale.cu`` (free
-scale), ``csrc/lnl_common.cuh`` (the kernel templates) and
-``csrc/lnl_table.cu`` (the lnl table's readers) and ``csrc/lnl_band.cuh``
-(`lnl_onepass` and `lnl_cut_stack`).
+`lnl_reduce`, `lnl_stack`, `lnl_onepass` and `lnl_cut_stack` replace the
+Pallas kernels `_make_reduce_kernel` (frankenz_tpu/ops/fused.py:599),
+`_make_stack_kernel` (:634), `_make_onepass_kernel` (:670) and
+`_make_cut_stack_kernel` (:779), and `lnl_reduce_topk` the cdf mode's
+`_make_reduce_kernel` and `_make_topk_kernel` (:721) in one walk over
+the models (lmap, levid and the top-T table from each pair's lnl
+computed once; `lnl_topk` launches the same kernel and keeps the table),
+with both branches of their shared `_lnl_tile` (:316): fixed scale and
+free scale (:325-411, and `_lnl_tile_freescale_me`, :452-596).
+`lnl_reduce_split`, the reduce on either side of a per-object value,
+serves the bisection that finds a cdf cut the top-T table leaves
+undetermined (`ops.fused.cdf_cut_exact`).  `scale_sweeps` counts the
+free-scale fixed point's sweeps per (object, model group), the table the
+other kernels read under free scale with model errors.  The CUDA
+sources, with the design notes, are ``csrc/lnl_general.cu`` (fixed
+scale), ``csrc/lnl_freescale.cu`` (free scale), ``csrc/lnl_common.cuh``
+(the kernel templates), ``csrc/lnl_table.cu`` (the lnl table's readers)
+and ``csrc/lnl_band.cuh`` (`lnl_onepass` and `lnl_cut_stack`).
 
 `lnl_onepass` and `lnl_cut_stack` take the models in band order
 (`band_sort`, the port of JAX's `_band_sort`, K7): sorted by the centre
@@ -83,7 +85,8 @@ from .fullmask import _SMEM_MAX, _STACK_MAX_THREADS, _check
 __all__ = ["lnl_tile_plain", "lnl_reduce", "lnl_reduce_plain",
            "lnl_reduce_split", "lnl_reduce_split_plain", "lnl_stack",
            "lnl_stack_plain", "lnl_onepass", "lnl_onepass_plain",
-           "lnl_topk", "lnl_topk_plain", "lnl_cut_stack",
+           "lnl_topk", "lnl_topk_plain", "lnl_reduce_topk",
+           "lnl_reduce_topk_plain", "lnl_cut_stack",
            "lnl_cut_stack_plain", "scale_sweeps", "scale_sweeps_plain",
            "gl_table", "table_width", "table_rows", "TABLE_BYTES_MAX",
            "BandSort", "band_sort", "NEG_INF", "reset_launch_counts",
@@ -560,6 +563,13 @@ def lnl_tile_plain(d, de, dm, mT, meT, mmT, *, full_mask=False,
     return torch.where(lnl < NEG_INF, NEG_INF, lnl)
 
 
+def _reduce_of(lnl):
+    """(lmap, levid) of a (B, M) lnl grid."""
+    lmap = lnl.amax(dim=1)
+    levid = torch.log(torch.exp(lnl - lmap[:, None]).sum(dim=1)) + lmap
+    return lmap, levid
+
+
 def lnl_reduce_plain(d, de, dm, mT, meT, mmT, *, table=None, **flags):
     """Plain version of `lnl_reduce`: (lmap, levid), each (B,).  With
     `table`: the lnl read from it under free scale with model errors,
@@ -571,9 +581,7 @@ def lnl_reduce_plain(d, de, dm, mT, meT, mmT, *, table=None, **flags):
         lnl = lnl_tile_plain(d, de, dm, mT, meT, mmT, **flags)
         if table is not None:
             table[:, :M] = lnl
-    lmap = lnl.amax(dim=1)
-    levid = torch.log(torch.exp(lnl - lmap[:, None]).sum(dim=1)) + lmap
-    return lmap, levid
+    return _reduce_of(lnl)
 
 
 def _lse(lnl, keep):
@@ -592,9 +600,9 @@ def lnl_reduce_split_plain(d, de, dm, mT, meT, mmT, split, **flags):
             gt.to(d.dtype).sum(dim=1))
 
 
-def lnl_topk_plain(d, de, dm, mT, meT, mmT, *, T, **flags):
-    """Plain version of `lnl_topk`: (vals, cnts), each (B, T)."""
-    lnl = lnl_tile_plain(d, de, dm, mT, meT, mmT, **flags)
+def _topk_of(lnl, T):
+    """(vals, cnts), each (B, T): the T largest distinct values of each
+    row of a (B, M) lnl grid, descending, with their counts."""
     lnl = torch.where(torch.isnan(lnl), NEG_INF, lnl)
     s = torch.sort(lnl, dim=1, descending=True).values
     new = torch.ones_like(s, dtype=torch.bool)
@@ -609,6 +617,18 @@ def lnl_topk_plain(d, de, dm, mT, meT, mmT, *, T, **flags):
     vals.scatter_(1, idx, torch.where(keep, s, NEG_INF))
     cnts.scatter_add_(1, idx, keep.to(s.dtype))
     return vals[:, :T].contiguous(), cnts[:, :T].contiguous()
+
+
+def lnl_topk_plain(d, de, dm, mT, meT, mmT, *, T, **flags):
+    """Plain version of `lnl_topk`: (vals, cnts), each (B, T)."""
+    return _topk_of(lnl_tile_plain(d, de, dm, mT, meT, mmT, **flags), T)
+
+
+def lnl_reduce_topk_plain(d, de, dm, mT, meT, mmT, *, T, **flags):
+    """Plain version of `lnl_reduce_topk`: `lnl_reduce_plain` and
+    `lnl_topk_plain` over one lnl grid; (lmap, levid, vals, cnts)."""
+    lnl = lnl_tile_plain(d, de, dm, mT, meT, mmT, **flags)
+    return (*_reduce_of(lnl), *_topk_of(lnl, T))
 
 
 def lnl_stack_plain(d, de, dm, mT, meT, mmT, G, lmap, levid, *, log_thr,
@@ -800,34 +820,68 @@ def lnl_reduce_split(d, de, dm, mT, meT, mmT, split, *, full_mask=False,
     return gt, le, count
 
 
+def _reduce_topk_launch(d, de, dm, mT, meT, mmT, T, flags):
+    """Check the inputs and T; on a CPU tensor return None, on a CUDA
+    tensor launch `lnl_reduce_topk`'s kernel and return (lmap, levid,
+    vals, cnts)."""
+    B, F, M = _check_inputs(d, de, dm, mT, meT, mmT)
+    if T < 1:
+        raise ValueError(f"T={T}: need at least one slot")
+    sweep = _sweep_args(B, M, d.device, **flags)
+    if d.device.type == "cpu":
+        return None
+    lmap = torch.empty(B, dtype=torch.float32, device=d.device)
+    levid = torch.empty_like(lmap)
+    vals = torch.empty((B, T), dtype=torch.float32, device=d.device)
+    cnts = torch.empty_like(vals)
+    if B == 0:
+        return lmap, levid, vals, cnts
+    lib = _load_checked("lnl_reduce_topk",
+                        lambda lib: lib.fz_lnl_reduce_topk_smem(
+                            F, T, sweep[0] is not None))
+    gl = gl_table(F, d.device)
+    with torch.cuda.device(d.device):
+        rc = _entry(lib, "fz_lnl_reduce_topk", **flags)(
+            *_ptrs(d, de, dm, mT, meT, mmT, gl, lmap, levid, vals, cnts), B,
+            M, F, T, *_flags(**flags), _nd_full(F), *sweep, _stream(d.device))
+    _check_rc("lnl_reduce_topk", rc)
+    return lmap, levid, vals, cnts
+
+
+def lnl_reduce_topk(d, de, dm, mT, meT, mmT, *, T, full_mask=False,
+                    dim_prior=True, ignore_model_err=False, free_scale=False,
+                    sweeps=None, tm=None):
+    """The cdf mode's reduce and top-T in one walk over the models:
+    `lnl_reduce`'s (lmap, levid), bit for bit, and `lnl_topk`'s (vals,
+    cnts).  Returns (lmap, levid, vals, cnts), float32 (B,), (B,), (B,
+    T), (B, T)."""
+    T = int(T)
+    flags = _flag_dict(full_mask, dim_prior, ignore_model_err, free_scale,
+                       sweeps, tm)
+    out = _reduce_topk_launch(d, de, dm, mT, meT, mmT, T, flags)
+    if out is None:
+        return lnl_reduce_topk_plain(d, de, dm, mT, meT, mmT, T=T, **flags)
+    lnl_reduce_topk.launches += d.shape[0] > 0
+    return out
+
+
 def lnl_topk(d, de, dm, mT, meT, mmT, *, T, full_mask=False, dim_prior=True,
              ignore_model_err=False, free_scale=False, sweeps=None, tm=None):
     """Per object, the T largest distinct lnl values (descending) and
     their tie counts; unused slots hold float32 min and count 0.
-    Returns (vals, cnts), float32 (B, T)."""
-    B, F, M = _check_inputs(d, de, dm, mT, meT, mmT)
+    Returns (vals, cnts), float32 (B, T).  On the card it launches
+    `lnl_reduce_topk`'s kernel and drops lmap and levid.  No route calls
+    it (the cdf route calls `lnl_reduce_topk`); it stays for the tests
+    written against it, and its counter counts that kernel's launches
+    made here."""
     T = int(T)
-    if T < 1:
-        raise ValueError(f"T={T}: need at least one slot")
     flags = _flag_dict(full_mask, dim_prior, ignore_model_err, free_scale,
                        sweeps, tm)
-    sweep = _sweep_args(B, M, d.device, **flags)
-    if d.device.type == "cpu":
+    out = _reduce_topk_launch(d, de, dm, mT, meT, mmT, T, flags)
+    if out is None:
         return lnl_topk_plain(d, de, dm, mT, meT, mmT, T=T, **flags)
-    vals = torch.empty((B, T), dtype=torch.float32, device=d.device)
-    cnts = torch.empty_like(vals)
-    if B == 0:
-        return vals, cnts
-    lib = _load_checked("lnl_topk", lambda lib: lib.fz_lnl_topk_smem(
-        F, T, sweep[0] is not None))
-    gl = gl_table(F, d.device)
-    with torch.cuda.device(d.device):
-        rc = _entry(lib, "fz_lnl_topk", **flags)(
-            *_ptrs(d, de, dm, mT, meT, mmT, gl, vals, cnts), B, M, F, T,
-            *_flags(**flags), _nd_full(F), *sweep, _stream(d.device))
-    _check_rc("lnl_topk", rc)
-    lnl_topk.launches += 1
-    return vals, cnts
+    lnl_topk.launches += d.shape[0] > 0
+    return out[2:]
 
 
 def _check_stack_inputs(d, G, M, rows):
@@ -986,7 +1040,7 @@ def lnl_cut_stack(d, de, dm, bs, cut, levid, tie, nkeep, *, full_mask=False,
 
 
 _WRAPPERS = (lnl_reduce, lnl_reduce_split, lnl_stack, lnl_topk,
-             lnl_cut_stack, lnl_onepass, scale_sweeps)
+             lnl_reduce_topk, lnl_cut_stack, lnl_onepass, scale_sweeps)
 # The wrappers with a table route also count its launches apart.
 _TABLE_WRAPPERS = (lnl_reduce, lnl_stack, scale_sweeps)
 

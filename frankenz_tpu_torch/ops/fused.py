@@ -43,13 +43,14 @@ serve every configuration of it:
         (keeps lnl > ln(wt_thresh) + lmap) reading it, per row chunk of
         at most `kernels.general.TABLE_BYTES_MAX` bytes of table, in
         one buffer; bit for bit the wrappers' recompute route (no table);
-    cdf mode: `lnl_reduce` (lmap, levid), `lnl_topk` (the T heaviest
-        distinct lnl values and tie
-        counts), `cdf_cut` (the exact per-object cut, plain torch) and
+    cdf mode: `lnl_reduce_topk` (lmap, levid and the T heaviest
+        distinct lnl values with their tie counts, from one walk over
+        the models: JAX's reduce and top-T calls in one kernel),
+        `cdf_cut` (the exact per-object cut, plain torch) and
         `lnl_cut_stack` (keeps lnl <= cut, and the reference's share of
-        a tie group that straddles it) over the models in band order;
-        with ``cdf_exact=True``, rows
-        whose cut the top-T table leaves undetermined find it by
+        a tie group that straddles it) over the models in band order:
+        each pair's lnl computed twice a call; with ``cdf_exact=True``,
+        rows whose cut the top-T table leaves undetermined find it by
         bisection (`cdf_cut_exact`, `lnl_reduce_split` per step).
 
 * "onepass", both thresholds None off the full-mask routes: the
@@ -318,12 +319,14 @@ def _table_route(d, de, dm, mT, meT, mmT, G, *, flags, log_thr, sweep_kw):
 def _cdf_route(d, de, dm, mT, meT, mmT, bs, *, flags, cdf_thresh, cdf_topk,
                cdf_exact=False):
     """Glue of `_fused_call`'s general body in the cdf mode around the
-    general kernels; returns (pdf, lmap, levid, ok), pdf in the exp(lnl -
-    levid) scale and `ok` the per-row cdf flag.  `flags` are the kernels'
-    flags, with the sweep table under free scale and model errors; `bs`
-    the models in band order, which only the stack reads."""
-    lmap, levid = _gen.lnl_reduce(d, de, dm, mT, meT, mmT, **flags)
-    vals, cnts = _gen.lnl_topk(d, de, dm, mT, meT, mmT, T=cdf_topk, **flags)
+    general kernels: `lnl_reduce_topk` (JAX's reduce and top-T calls,
+    ops/fused.py:1903 and :1920, in one kernel), `cdf_cut`, and the band
+    stack `lnl_cut_stack`.  Returns (pdf, lmap, levid, ok), pdf in the
+    exp(lnl - levid) scale and `ok` the per-row cdf flag.  `flags` are
+    the kernels' flags, with the sweep table under free scale and model
+    errors; `bs` the models in band order, which only the stack reads."""
+    lmap, levid, vals, cnts = _gen.lnl_reduce_topk(d, de, dm, mT, meT, mmT,
+                                                   T=cdf_topk, **flags)
     cut, tie, nkeep, ok = cdf_cut(vals, cnts, levid, float(cdf_thresh))
     # A degenerate row (every model at the floor) tracks no mass, so its
     # cut is undetermined; its PDF is zeroed below whatever the cut, so

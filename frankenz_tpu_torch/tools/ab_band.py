@@ -1,8 +1,9 @@
 """The band stacks (`lnl_onepass`, `lnl_cut_stack`) against an earlier
-tree's dense kernels, in turns.
+tree's dense kernels, or (``--topk``) `lnl_reduce_topk` against an
+earlier tree's `lnl_reduce` + `lnl_topk`, in turns.
 
     python -m frankenz_tpu_torch.tools.ab_band --ref-tree DIR [--out DIR]
-        [--reps N] [--no-walls] [--stamps]
+        [--reps N] [--no-walls] [--stamps | --topk]
 
 Run from the root of a checkout on a machine with a CUDA card and
 `nvcc`.  DIR holds an earlier commit's `frankenz_tpu_torch/` (e.g.
@@ -16,7 +17,7 @@ the data bands missing from ``default_rng(2)``) it times, CUDA events,
 the earlier kernel and the package's in turns (earlier, package, package,
 earlier; median of `--reps` turns):
 - `lnl_onepass` and `lnl_cut_stack` over the masked 65,536-object batch
-  (the cut from the package's `lnl_reduce`, `lnl_topk` and `cdf_cut` at
+  (the cut from the package's `lnl_reduce_topk` and `cdf_cut` at
   cdf_thresh 2e-4), each pair's PDFs compared row-normwise;
 - `lnl_onepass_fs` over config 8's 16,384-object batch (bench.py:612-699:
   free scale with model errors, full masks; the sweep table from
@@ -37,10 +38,26 @@ fixed-scale band kernels over the masked batch, the cycles a tile of the
 copy wait and barriers, the weights, the products, and a block's prologue
 and epilogue.  It prints one JSON line and writes it to
 ``DIR/ab_band.json`` (`--out`).
+
+With ``--topk`` the earlier tree's sources export `fz_lnl_reduce` and
+`fz_lnl_topk` (the cdf mode's two walks over the models, before they
+became one kernel).  On the same data it times the earlier pair and the
+package's `lnl_reduce_topk` in turns, T = 8, and checks lmap, levid, the
+top-T values and counts bit for bit:
+- fixed scale, masked, the dim prior: the 65,536-object batch and its
+  first 2,048 rows;
+- free scale without model errors, the same rows;
+- free scale with model errors on config 8's first 2,048 rows, the sweep
+  table from `scale_sweeps` at group width 512.
+It reports both trees' registers and spills, then (unless
+``--no-walls``) times the cdf mode's walls alone, as above, and checks
+that both trees' PDFs, lmap and levid are equal bit for bit (SHA-256 of
+the arrays); the JSON line goes to ``DIR/ab_topk.json``.
 """
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import statistics
@@ -50,12 +67,13 @@ from pathlib import Path
 
 NMODEL, NFILT, NGRID, BATCH, N_E2E, N8 = 100_000, 5, 301, 65_536, 131_072, \
     16_384
-TM, CDF_THRESH, CHUNK = 512, 2e-4, 32_768
+TM, CDF_THRESH, CHUNK, N_SMALL, T = 512, 2e-4, 32_768, 2_048, 8
+MODES = ("onepass", "cdf", "table")
 
 # One process of the wall comparison: it imports whichever
 # `frankenz_tpu_torch` its working directory holds.
 _WALLS = r"""
-import json, time
+import hashlib, json, time
 import numpy as np, torch
 from frankenz_tpu_torch.models import BruteForce
 from frankenz_tpu_torch.ops import kde as TK
@@ -73,20 +91,26 @@ bf = BruteForce(models, (0.05 * models).astype(f32), np.ones_like(models),
                 device="cuda")
 de = np.full((N, F), 0.25, f32)
 zerr = np.full(M, 0.1)
-out = {}
-for mode, kw in (("onepass", dict(wt_thresh=None, cdf_thresh=None)),
-                 ("cdf", dict(wt_thresh=None, cdf_thresh=%r)),
-                 ("table", dict(wt_thresh=1e-3))):
-    kw = dict(kw, label_dict=pdict, verbose=False, return_gof=True)
+out = {"walls": {}, "sha256": {}}
+modes = {"onepass": dict(wt_thresh=None, cdf_thresh=None),
+         "cdf": dict(wt_thresh=None, cdf_thresh=%r),
+         "table": dict(wt_thresh=1e-3)}
+for mode in %r:
+    kw = dict(modes[mode], label_dict=pdict, verbose=False, return_gof=True)
     bf.fit_predict(data[:4096], de[:4096], dmask[:4096], zl, zerr, **kw)
     torch.cuda.synchronize()
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        bf.fit_predict(data, de, dmask, zl, zerr, **kw)
+        pdfs, gof = bf.fit_predict(data, de, dmask, zl, zerr, **kw)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    out[mode] = walls
+    digest = hashlib.sha256()
+    for x in (pdfs, gof[0], gof[1]):
+        digest.update(np.ascontiguousarray(x).tobytes())
+    out["walls"][mode] = walls
+    out["sha256"][mode] = digest.hexdigest()
+out["cdf_reruns"] = getattr(bf, "cdf_reruns", None)
 print("WALLS " + json.dumps(out), flush=True)
 """
 
@@ -101,40 +125,46 @@ def _card():
         return "nvidia-smi unavailable"
 
 
-def _compile_ref(build, csrc, out):
-    """Build the earlier tree's fixed- and free-scale sources into one
-    library (-Xptxas -v); returns (library path, ptxas text)."""
+def _start_nvcc(build, csrc, out, sources):
+    """Start nvcc (-Xptxas -v) on `sources` of `csrc`, one process each;
+    returns [(process, object path)]."""
     out.mkdir(parents=True, exist_ok=True)
-    objs, text = [], ""
-    procs = []
-    for src in ("lnl_general.cu", "lnl_freescale.cu"):
-        obj = out / (src + ".o")
-        procs.append(subprocess.Popen(
-            [build.nvcc_path(), *build._NVCC_FLAGS, "-Xptxas", "-v", "-I",
-             str(csrc), "-c", "-o", str(obj), str(csrc / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        objs.append(str(obj))
-    for p in procs:
+    return [(subprocess.Popen(
+        [build.nvcc_path(), *build._NVCC_FLAGS, "-Xptxas", "-v", "-I",
+         str(csrc), "-c", "-o", str(out / (src + ".o")), str(csrc / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+        str(out / (src + ".o"))) for src in sources]
+
+
+def _finish_nvcc(build, procs, lib=None):
+    """Wait for `_start_nvcc`'s processes and, given a path, link their
+    objects into that library; returns their ptxas text."""
+    text = ""
+    for p, _ in procs:
         text += p.communicate()[0]
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the earlier tree:\n{text}")
-    lib = out / "libfz_ab_ref.so"
-    subprocess.run([build.nvcc_path(), "-shared", "-o", str(lib), *objs],
-                   check=True)
-    return lib, text
+            raise RuntimeError(f"nvcc failed:\n{text}")
+    if lib is not None:
+        subprocess.run([build.nvcc_path(), "-shared", "-o", str(lib),
+                        *(o for _, o in procs)], check=True)
+    return text
 
 
-def _bind_ref(path):
+def _bind_ref(path, topk):
+    """The earlier tree's dense band-stack entry points, or with `topk` its
+    `fz_lnl_reduce` and `fz_lnl_topk`."""
     lib = ctypes.CDLL(str(path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [F, P, I, I, I, P]
-    for suffix in ("", "_fs"):
-        getattr(lib, "fz_lnl_onepass" + suffix).argtypes = \
-            [P] * 11 + [I] * 7 + tail
-        getattr(lib, "fz_lnl_cut_stack" + suffix).argtypes = \
-            [P] * 13 + [I] * 7 + tail
-        getattr(lib, "fz_lnl_onepass" + suffix).restype = I
-        getattr(lib, "fz_lnl_cut_stack" + suffix).restype = I
+    if topk:
+        sigs = {"fz_lnl_reduce": [P] * 9 + [I] * 6 + [F, P, I, I, P],
+                "fz_lnl_topk": [P] * 9 + [I] * 7 + [F, P, I, I, P]}
+    else:
+        sigs = {"fz_lnl_onepass": [P] * 11 + [I] * 7 + [F, P, I, I, I, P],
+                "fz_lnl_cut_stack": [P] * 13 + [I] * 7 + [F, P, I, I, I, P]}
+    for name, argtypes in sigs.items():
+        for suffix in ("", "_fs"):
+            getattr(lib, name + suffix).argtypes = argtypes
+            getattr(lib, name + suffix).restype = I
     return lib
 
 
@@ -168,12 +198,13 @@ def _with_lib(build, lib, call):
         build.load = load
 
 
-def _walls(tree, reps_note):
-    """fit_predict walls of the tree at `tree` (its own process)."""
+def _walls(tree, reps_note, modes):
+    """fit_predict walls and output digests of the tree at `tree` in
+    `modes` (its own process)."""
     env = dict(os.environ, PYTHONPATH=str(tree))
     run = subprocess.run(
         [sys.executable, "-c", _WALLS % (N_E2E, NMODEL, NFILT, NGRID,
-                                         CDF_THRESH)],
+                                         CDF_THRESH, tuple(modes))],
         cwd=str(tree), env=env, capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"walls in {tree} ({reps_note}) failed:\n"
@@ -182,15 +213,64 @@ def _walls(tree, reps_note):
     return json.loads(line[-1][len("WALLS "):])
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--ref-tree", required=True)
-    ap.add_argument("--out", default="build/ab_band")
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--no-walls", action="store_true")
-    ap.add_argument("--stamps", action="store_true")
-    args = ap.parse_args(argv)
+def _inputs(np, torch, GK, dev):
+    """chip_smoke.py's data on the card: config 4's masked 65,536-object
+    batch and config 8's 16,384 rows as (data, err, mask, mT, meT, mmT)
+    argument lists, the two label sets, the Gauss-Legendre table and the
+    full-mask normalization: (args4, args8, zl, zl8, gl, nd_full)."""
+    f32 = np.float32
+    rng = np.random.default_rng(0)
+    models = rng.uniform(1, 10, (NMODEL, NFILT)).astype(f32)
+    zl = rng.uniform(0, 3.5, NMODEL)
+    data = rng.uniform(1, 10, (N_E2E, NFILT)).astype(f32)[:BATCH]
+    dmask = (np.random.default_rng(2).uniform(size=(N_E2E, NFILT))
+             >= 0.15).astype(f32)[:BATCH]
+    rng8 = np.random.default_rng(0)
+    rng8.uniform(1, 10, (NMODEL, NFILT))
+    scales = rng8.uniform(0.5, 2.0, (N8, 1))
+    data8 = (scales * models[rng8.integers(0, NMODEL, N8)]
+             + rng8.normal(0, 0.3, (N8, NFILT))).astype(f32)
+    zl8 = rng8.uniform(0, 3.5, NMODEL)
 
+    def tens(x):
+        return torch.tensor(np.ascontiguousarray(x), device=dev)
+
+    mods = [tens(models.T), tens((0.05 * models).astype(f32).T),
+            tens(np.ones((NFILT, NMODEL), f32))]
+    args4 = [tens(data), tens(np.full((BATCH, NFILT), 0.25, f32)),
+             tens(dmask)] + mods
+    args8 = [tens(data8), tens(np.full((N8, NFILT), 0.25, f32)),
+             tens(np.ones((N8, NFILT), f32))] + mods
+    return (args4, args8, zl, zl8, GK.gl_table(NFILT, dev),
+            float(np.float32(NFILT * 1.8378770664093453)))
+
+
+def _timed(torch, fn):
+    """Milliseconds of `fn()` on the current stream (CUDA events)."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def _turns(torch, reps, old_fn, new_fn):
+    """Median ms of `old_fn` and `new_fn`, after one warm call each, over
+    `reps` turns of old, new, new, old."""
+    old_fn(), new_fn()
+    old, new = [], []
+    for _ in range(reps):
+        old.append(_timed(torch, old_fn))
+        new.append(_timed(torch, new_fn))
+        new.append(_timed(torch, new_fn))
+        old.append(_timed(torch, old_fn))
+    return statistics.median(old), statistics.median(new)
+
+
+def _ab_band(args, report, card, tree, out_dir):
+    """The band stacks against the earlier tree's dense kernels."""
     import numpy as np
     import torch
 
@@ -199,15 +279,7 @@ def main(argv=None):
     from ..ops import fused as TF
     from ..ops import kde as TK
 
-    if not torch.cuda.is_available():
-        raise SystemExit("ab_band needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    card = _card()
-    print(card, flush=True)
     dev = torch.device("cuda")
-    tree = Path(args.ref_tree).resolve()
-    out_dir = Path(args.out)
     extra, libs_paths = {}, []
     if args.stamps:
         extra["stamps"] = ["-DFZ_STAMPS"]
@@ -221,44 +293,25 @@ def main(argv=None):
              str(build._SRC_DIR / "lnl_general.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             path, flags)
-    ref_path, ref_text = _compile_ref(build, tree / "frankenz_tpu_torch" /
-                                      "csrc", out_dir / "ref")
+    ref_procs = _start_nvcc(build, tree / "frankenz_tpu_torch" / "csrc",
+                            out_dir / "ref", ("lnl_general.cu",
+                                              "lnl_freescale.cu"))
+    pkg_procs = _start_nvcc(build, build._SRC_DIR, out_dir / "package",
+                            ("lnl_general.cu",))
     build.build()
     pkg = build.load()
-    ref = _bind_ref(ref_path)
-    pkg_ptxas = build.ptxas_report("lnl_general.cu")
+    ref_text = _finish_nvcc(build, ref_procs, out_dir / "ref" /
+                            "libfz_ab_ref.so")
+    ref = _bind_ref(out_dir / "ref" / "libfz_ab_ref.so", topk=False)
+    pkg_ptxas = build.parse_ptxas(_finish_nvcc(build, pkg_procs))
 
-    f32 = np.float32
-    rng = np.random.default_rng(0)
-    models = rng.uniform(1, 10, (NMODEL, NFILT)).astype(f32)
-    zl = rng.uniform(0, 3.5, NMODEL)
-    data = rng.uniform(1, 10, (N_E2E, NFILT)).astype(f32)[:BATCH]
-    dmask = (np.random.default_rng(2).uniform(size=(N_E2E, NFILT))
-             >= 0.15).astype(f32)[:BATCH]
+    args4, args8, zl, zl8, gl, nd_full = _inputs(np, torch, GK, dev)
     pdict = TK.PDFDict(np.linspace(0.0, 4.0, NGRID),
                        np.linspace(0.01, 0.5, 100))
     G = TK.kernel_matrix_dict(pdict, *pdict.fit(zl, np.full(NMODEL, 0.1)),
                               device=dev).to(torch.float32).contiguous()
-    rng8 = np.random.default_rng(0)
-    rng8.uniform(1, 10, (NMODEL, NFILT))
-    scales = rng8.uniform(0.5, 2.0, (N8, 1))
-    data8 = (scales * models[rng8.integers(0, NMODEL, N8)]
-             + rng8.normal(0, 0.3, (N8, NFILT))).astype(f32)
-    zl8 = rng8.uniform(0, 3.5, NMODEL)
     G8 = TK.kernel_matrix_dict(pdict, *pdict.fit(zl8, np.full(NMODEL, 0.1)),
                                device=dev).to(torch.float32).contiguous()
-
-    def tens(x):
-        return torch.tensor(np.ascontiguousarray(x), device=dev)
-
-    mods = [tens(models.T), tens((0.05 * models).astype(f32).T),
-            tens(np.ones((NFILT, NMODEL), f32))]
-    args4 = [tens(data), tens(np.full((BATCH, NFILT), 0.25, f32)),
-             tens(dmask)] + mods
-    args8 = [tens(data8), tens(np.full((N8, NFILT), 0.25, f32)),
-             tens(np.ones((N8, NFILT), f32))] + mods
-    gl = GK.gl_table(NFILT, dev)
-    nd_full = float(np.float32(NFILT * 1.8378770664093453))
     threads = min(-(-NGRID // 32) * 32, 512)
 
     def stream():
@@ -268,30 +321,13 @@ def main(argv=None):
         if rc != 0:
             raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
-    def timed(fn):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        return t0.elapsed_time(t1)
-
-    def turns(old_fn, new_fn):
-        old_fn(), new_fn()
-        old, new = [], []
-        for _ in range(args.reps):
-            old.append(timed(old_fn))
-            new.append(timed(new_fn))
-            new.append(timed(new_fn))
-            old.append(timed(old_fn))
-        return statistics.median(old), statistics.median(new)
+    timed = functools.partial(_timed, torch)
+    turns = functools.partial(_turns, torch, args.reps)
 
     def row_err(got, want):
         scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
         return float(((got - want).abs() / scale).max())
 
-    report = {"card": card, "reps": args.reps, "ref_tree": str(tree)}
     # band_sort of config 4's G, and the band layout.
     bs = GK.band_sort(G, *args4[3:6])
     torch.cuda.synchronize()
@@ -345,8 +381,7 @@ def main(argv=None):
     del got
 
     # The cut stack at cdf_thresh 2e-4.
-    lmap, levid = GK.lnl_reduce(*args4)
-    vals, cnts = GK.lnl_topk(*args4, T=8)
+    lmap, levid, vals, cnts = GK.lnl_reduce_topk(*args4, T=8)
     cut, tie, nkeep, _ = TF.cdf_cut(vals, cnts, levid, CDF_THRESH)
     cut, tie, nkeep = cut.contiguous(), tie.contiguous(), nkeep.contiguous()
 
@@ -438,23 +473,155 @@ def main(argv=None):
     del w
     torch.cuda.empty_cache()
 
+
+
+def _ab_topk(args, report, card, tree, out_dir):
+    """`lnl_reduce_topk` against the earlier tree's `lnl_reduce` +
+    `lnl_topk`, bit for bit."""
+    import numpy as np
+    import torch
+
+    from ..kernels import build
+    from ..kernels import general as GK
+    from ..ops import fused as TF
+
+    dev = torch.device("cuda")
+    sources = ("lnl_general.cu", "lnl_freescale.cu")
+    ref_procs = _start_nvcc(build, tree / "frankenz_tpu_torch" / "csrc",
+                            out_dir / "ref", sources)
+    pkg_procs = _start_nvcc(build, build._SRC_DIR, out_dir / "package",
+                            sources)
+    report["build_s"] = build.build()
+    lib = out_dir / "ref" / "libfz_ab_ref.so"
+    ref_text = _finish_nvcc(build, ref_procs, lib)
+    ref = _bind_ref(lib, topk=True)
+    pkg_text = _finish_nvcc(build, pkg_procs)
+
+    def masked_dim_prior(text, *names):
+        # The named kernels' masked dim-prior instantiations, with model
+        # errors and without.
+        return {k: v for k, v in build.parse_ptxas(text).items()
+                if any(n in k for n in names)
+                and ("PairILb0ELb1ELb0E" in k or "PairILb0ELb1ELb1E" in k)}
+
+    report["ptxas"] = {
+        "ref": masked_dim_prior(ref_text, "lnl_reduce_kernel",
+                                "lnl_topk_kernel"),
+        "package": masked_dim_prior(pkg_text, "lnl_reduce_topk_kernel")}
+    print(f"ab_band --topk ptxas: {report['ptxas']}", flush=True)
+
+    args4, args8, _, _, gl, nd_full = _inputs(np, torch, GK, dev)
+    args8 = [x[:N_SMALL] for x in args8[:3]] + args8[3:]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def old_pair(a, fl, outs):
+        """The earlier tree's lnl_reduce then lnl_topk into `outs`."""
+        B = a[0].shape[0]
+        sw = fl.get("sweeps")
+        sweep = ((sw.data_ptr(), sw.shape[1], fl["tm"]) if sw is not None
+                 else (None, 1, 1))
+        flags = (int(fl.get("full_mask", False)), 1,
+                 int(fl.get("ignore_model_err", False)))
+        sfx = "_fs" if fl.get("free_scale") else ""
+        ptrs = [x.data_ptr() for x in a] + [gl.data_ptr()]
+        rc = getattr(ref, "fz_lnl_reduce" + sfx)(
+            *ptrs, outs[0].data_ptr(), outs[1].data_ptr(), B, NMODEL, NFILT,
+            *flags, nd_full, *sweep, stream)
+        rc = rc or getattr(ref, "fz_lnl_topk" + sfx)(
+            *ptrs, outs[2].data_ptr(), outs[3].data_ptr(), B, NMODEL, NFILT,
+            T, *flags, nd_full, *sweep, stream)
+        if rc:
+            raise RuntimeError(f"earlier lnl_reduce / lnl_topk: CUDA error "
+                               f"{rc}")
+
+    def compare(name, a, fl):
+        B = a[0].shape[0]
+        outs = [torch.empty(B, device=dev), torch.empty(B, device=dev),
+                torch.empty((B, T), device=dev),
+                torch.empty((B, T), device=dev)]
+        ms_old, ms_new = _turns(torch, args.reps,
+                                lambda: old_pair(a, fl, outs),
+                                lambda: GK.lnl_reduce_topk(*a, T=T, **fl))
+        got = GK.lnl_reduce_topk(*a, T=T, **fl)
+        old_pair(a, fl, outs)
+        torch.cuda.synchronize()
+        equal = {k: bool(torch.equal(g, w)) for k, g, w in zip(
+            ("lmap", "levid", "vals", "cnts"), got, outs)}
+        if not all(equal.values()):
+            raise SystemExit(f"{name}: lnl_reduce_topk differs from the "
+                             f"earlier lnl_reduce + lnl_topk ({equal})")
+        report[name] = dict(ref_ms=ms_old, reduce_topk_ms=ms_new,
+                            bit_equal=True)
+        print(f"ab_band --topk {name}: earlier lnl_reduce + lnl_topk "
+              f"{ms_old:.3f} ms, lnl_reduce_topk {ms_new:.3f} ms, bit for "
+              f"bit | card {card}", flush=True)
+
+    fixed = dict(full_mask=False)
+    small4 = [x[:N_SMALL] for x in args4[:3]] + args4[3:]
+    compare("fixed_masked_65536", args4, fixed)
+    compare("fixed_masked_2048", small4, fixed)
+    ime = dict(full_mask=False, free_scale=True, ignore_model_err=True)
+    compare("free_ime_masked_65536", args4, ime)
+    compare("free_ime_masked_2048", small4, ime)
+    tm = TF.group_width(NMODEL, TM)
+    sw8 = GK.scale_sweeps(*args8, tm=tm, full_mask=True)
+    compare("free_me_config8_2048", args8,
+            dict(full_mask=True, free_scale=True, sweeps=sw8, tm=tm))
+    del args4, args8, small4, sw8
+    torch.cuda.empty_cache()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ref-tree", required=True)
+    ap.add_argument("--out", default=None,
+                    help="default build/ab_band, build/ab_topk with --topk")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--no-walls", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--stamps", action="store_true")
+    mode.add_argument("--topk", action="store_true")
+    args = ap.parse_args(argv)
+    name = "ab_topk" if args.topk else "ab_band"
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_band needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    card = _card()
+    print(card, flush=True)
+    tree = Path(args.ref_tree).resolve()
+    out_dir = Path(args.out or f"build/{name}")
+    report = {"card": card, "reps": args.reps, "ref_tree": str(tree)}
+    (_ab_topk if args.topk else _ab_band)(args, report, card, tree, out_dir)
+
     if not args.no_walls:
+        modes = ("cdf",) if args.topk else MODES
         here = Path.cwd()
-        walls = {"ref": [], "band": []}
-        for who in ("ref", "band", "band", "ref"):
-            walls[who].append(_walls(tree if who == "ref" else here, who))
+        walls = {"ref": [], "package": []}
+        for who in ("ref", "package", "package", "ref"):
+            walls[who].append(_walls(tree if who == "ref" else here, who,
+                                     modes))
         report["fit_predict_131072"] = {
             who: {mode: statistics.median(
-                w for run in runs for w in run[mode])
-                for mode in ("onepass", "cdf", "table")}
+                w for run in runs for w in run["walls"][mode])
+                for mode in modes}
             for who, runs in walls.items()}
         report["fit_predict_walls"] = walls
-        print(f"ab_band fit_predict {N_E2E} masked (median walls, s): "
+        print(f"{name} fit_predict {N_E2E} masked (median walls, s): "
               f"{report['fit_predict_131072']} | card {card}", flush=True)
+        if args.topk:
+            digests = {run["sha256"]["cdf"] for runs in walls.values()
+                       for run in runs}
+            report["fit_predict_cdf_bit_equal"] = len(digests) == 1
+            if len(digests) != 1:
+                raise SystemExit("the trees' cdf fit_predict outputs differ")
 
     out_dir.mkdir(parents=True, exist_ok=True)
     line = json.dumps(report)
-    (out_dir / "ab_band.json").write_text(line + "\n")
+    (out_dir / f"{name}.json").write_text(line + "\n")
     print(line, flush=True)
     return 0
 

@@ -15,8 +15,8 @@ route and on the K1 pair (``screen=False``; BruteForce takes no
 `fit_predict` over 131,072 masked objects (wt_thresh 1e-3: the table
 route, `lnl_reduce` writing the lnl table and `lnl_stack` reading it, two
 row chunks a batch),
-over 65,536 in the cdf mode (cdf_thresh 2e-4: `lnl_reduce` + `lnl_topk`
-+ `lnl_cut_stack`) and over 65,536 with no weight threshold (one pass:
+over 65,536 in the cdf mode (cdf_thresh 2e-4: `lnl_reduce_topk` +
+`lnl_cut_stack`) and over 65,536 with no weight threshold (one pass:
 `lnl_onepass`), and config 8 (bench.py:612-699: 16,384 noisy scaled
 model copies on full masks, free scale with model errors, wt_thresh
 1e-3, ltol 1e-4: the table route, `scale_sweeps` writing the lnl

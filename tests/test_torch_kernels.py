@@ -118,7 +118,7 @@ def test_brackets_and_weights_follow_the_pallas_definitions():
 
 
 GENERAL = ["lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_topk",
-           "lnl_cut_stack"]
+           "lnl_reduce_topk", "lnl_cut_stack"]
 
 
 def _general_problem(F=5, B=19, M=251, Ngrid=77, seed=29, masked=True):
@@ -168,7 +168,7 @@ def _general_call(name, t, plain=False, bad=None, **flags):
         return fn(*call, **flags)
     if name == "lnl_onepass":
         return fn(*call[:3], bs, **flags)
-    if name == "lnl_topk":
+    if name in ("lnl_topk", "lnl_reduce_topk"):
         return fn(*call, T=8, **flags)
     lmap, levid = GK.lnl_reduce_plain(*args, **flags)
     if name == "lnl_reduce_split":
@@ -380,6 +380,18 @@ def _assert_within_ulp(got, want):
     assert bool(((got[fin] - w).abs() <= ulp).all())
 
 
+def _assert_reduce_topk(got, want, t, flags):
+    """`lnl_reduce_topk` on the card against its plain version (lmap and
+    the top-T values 1 ulp, levid 1e-5, counts exact) and its lmap and
+    levid against the `lnl_reduce` kernel's bit for bit."""
+    _assert_within_ulp(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+    _assert_within_ulp(got[2], want[2])
+    assert torch.equal(got[3], want[3])
+    lmap, levid = GK.lnl_reduce(*t[:6], **flags)
+    assert torch.equal(got[0], lmap) and torch.equal(got[1], levid)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -510,12 +522,16 @@ def test_general_kernels_match_plain_on_card(cuda_device, flags, F, B, M,
         elif name == "lnl_topk":
             _assert_within_ulp(got[0], want[0])
             assert torch.equal(got[1], want[1])
+        elif name == "lnl_reduce_topk":
+            _assert_reduce_topk(got, want, t, flags)
         else:
             scale = want[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
             torch.testing.assert_close(got[0] / scale, want[0] / scale,
                                        rtol=0, atol=1e-5)
     counts = K.launch_counts()
-    assert all(counts[name] == 1 for name in GENERAL)
+    # lnl_reduce: its own case and the check of lnl_reduce_topk's bits.
+    assert all(counts[name] == (2 if name == "lnl_reduce" else 1)
+               for name in GENERAL)
     assert counts["chi2_brackets"] == counts["chi2_stack"] == 0
 
 
@@ -559,13 +575,49 @@ def test_free_scale_kernels_match_plain_on_card(cuda_device, flags, F, B, M,
         elif name == "lnl_topk":
             _assert_within_ulp(got[0], want[0])
             assert torch.equal(got[1], want[1])
+        elif name == "lnl_reduce_topk":
+            _assert_reduce_topk(got, want, t, flags)
         else:
             scale = want[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
             torch.testing.assert_close(got[0] / scale, want[0] / scale,
                                        rtol=0, atol=1e-5)
     counts = K.launch_counts()
-    assert all(counts[name] == 1 for name in GENERAL + ["lnl_onepass"])
+    assert all(counts[name] == (2 if name == "lnl_reduce" else 1)
+               for name in GENERAL + ["lnl_onepass"])
     assert counts["scale_sweeps"] == (0 if ignore_model_err else 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2, 8, 40])
+@pytest.mark.parametrize("flags,F,B,M", [
+    (dict(), 5, 19, 251),
+    (dict(), 5, 300, 1_000),
+    (dict(dim_prior=False), 5, 130, 3_001),
+    (dict(full_mask=True), 20, 33, 700),
+    (dict(free_scale=True, ignore_model_err=True), 5, 70, 999),
+    (dict(free_scale=True), 5, 45, 700),
+])
+def test_reduce_topk_equals_reduce_and_topk_on_card(cuda_device, flags, F,
+                                                     B, M, T):
+    """The cdf mode's one walk: lmap and levid bit for bit the
+    `lnl_reduce` kernel's, the top-T table that of the plain version
+    (values 1 ulp, counts exact; models 40-59 duplicate 0-19, so values
+    tie), and `lnl_topk` on the card the same table bit for bit (it
+    launches this kernel).  Ragged B and M against the blocks and tiles;
+    F = 20 takes the runtime filter loop, F = 5 the compile-time one."""
+    t = [x.to(cuda_device) for x in _general_problem(
+        F, B=B, M=M, masked=not flags.get("full_mask"))]
+    if flags.get("free_scale") and not flags.get("ignore_model_err"):
+        flags = _free_flags(t, False, **flags)
+    K.reset_launch_counts()
+    got = GK.lnl_reduce_topk(*t[:6], T=T, **flags)
+    want = GK.lnl_reduce_topk_plain(*t[:6], T=T, **flags)
+    topk = GK.lnl_topk(*t[:6], T=T, **flags)
+    torch.cuda.synchronize()
+    _assert_reduce_topk(got, want, t, flags)
+    assert torch.equal(topk[0], got[2]) and torch.equal(topk[1], got[3])
+    counts = K.launch_counts()
+    assert counts["lnl_reduce_topk"] == counts["lnl_topk"] == 1
 
 
 @pytest.mark.gpu
