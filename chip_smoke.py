@@ -140,7 +140,24 @@ port, numpy and scipy, and:
    loop on CPU tensors (50 steps at a time from the CPU's carry), and
    under the flat prior beside the kernel route until the two part; `hierarchical_sampler.run_mcmc(200, thin=5, seed=0)` cold and
    warm, and once with a reference sample;
-11. prints one JSON line of kernel results (fixed-scale entry points by
+11. config 2 (bench.py:112-160), which runs no kernel of its own (the
+   kNN search, union, posterior and KDE are torch on the card):
+   `make_sdss_mock(113,000, seed=13)` with the synthesis on the card
+   (timed; 4,096 (z, template) pairs held against the CPU at 1e-10 in
+   float64), `NearestNeighbors(K=25, seed=1)` over the first 100,000
+   (features against the CPU's at 1e-6), the 4,096-object warm call,
+   then `fit_predict` over the next 10,000 with a 701-point grid and
+   k=20, three walls from ``default_rng(7)`` (bit-equal to each other and
+   to ``approx=True``), sigma_NMAD and the outlier fraction as bench.py
+   computes them; 512 of those objects against the CPU with the same
+   draws, the card's ensembles and query features, on every row
+   (neighbour lists equal on 99% of rows, the rest only among near ties,
+   `knn._near_ties`; union sizes equal; PDFs, lmap, levid at rtol 2e-3 /
+   atol 2e-5 and 2e-5 within the threshold-flip envelope), and, as a
+   printed statistic, the rows each device's own inputs move; `fit_summarize` against `pdfs_summarize`
+   of the PDFs; the tie case (64 models x 4 copies, zero errors: the
+   lowest index first);
+12. prints one JSON line of kernel results (fixed-scale entry points by
    their wrapper's name, the screened trio with its run fractions,
    free-scale ones with the suffix ``_fs``; `lnl_reduce`, `lnl_stack` and
    `scale_sweeps` with their table route (``lnl_route``, the table's
@@ -241,6 +258,11 @@ NITER_P, THIN_P, MH_P, SEED_P = 100, 400, 3, 0
 PREFIX_P, MID_P, TAIL_P, PLAIN_BUDGET_P = 10_000, 30_000, 2_000, 60.0
 BLOCK_P, NCHAINS_P, NITER_P4, NITER_PG, SEG64_P = 7, 4, 10, 5, 50
 NITER_H, THIN_H = 200, 5
+# Config 2 (bench.py:112-160): mock objects, train / test split, label
+# grid points, ensembles and neighbours; synthesis pairs held against the
+# CPU, objects of fit_predict held against the CPU.
+N2_MOCK, N2_TRAIN, N2_TEST, N2_GRID = 113_000, 100_000, 10_000, 701
+N2_K, N2_KNN, N2_SYNTH, N2_CHECK = 25, 20, 4_096, 512
 # The card's peaks for the bounds (H100 SXM datasheet: dense float32
 # outside the tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -2073,6 +2095,227 @@ def screened_phase(torch, np, tens, card, cases, batch_case):
     return results, expf, fractions
 
 
+def neighbor_check(np, what, got, want, ties, cands):
+    """Neighbour lists `got` against `want` (host (B, J) arrays): equal
+    row for row, except rows that `knn._near_ties` flags (`ties` (B,),
+    `cands` (B, M), host bools), where only models of near-equal pairs
+    may differ or swap.  Fewer than 1% of the rows may need that.
+    Returns the rows that differ."""
+    diff = np.nonzero((got != want).any(axis=1))[0]
+    for b in diff:
+        check(ties[b], f"{what}: row {b}'s neighbours differ without a "
+                       "near tie")
+        a, w = set(got[b][got[b] >= 0]), set(want[b][want[b] >= 0])
+        check(all(cands[b][m] for m in a ^ w),
+              f"{what}: row {b}'s neighbours differ outside its near ties")
+    check(len(diff) < 0.01 * len(got),
+          f"{what}: {len(diff)} of {len(got)} rows differ by near ties")
+    return diff
+
+
+def knn_phase(torch, np, card):
+    """Phase 11: config 2 (bench.py:112-160) at full width on the port:
+    the mock catalog, the NearestNeighbors fitter and its calls, each
+    held against the port on the CPU; returns nothing (no kernel of its
+    own: the search, union, posterior and KDE are torch)."""
+    from frankenz_tpu_torch.models import NearestNeighbors
+    from frankenz_tpu_torch.models import knn as TKNN
+    from frankenz_tpu_torch.ops import summarize as TS
+    from frankenz_tpu_torch.sim import MockSurvey, make_sdss_mock
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    cat = make_sdss_mock(nobj=N2_MOCK, seed=13, cache=False)
+    torch.cuda.synchronize()
+    cat_s = time.perf_counter() - t0
+    ncat = len(cat["phot"])
+    check(ncat >= N2_TRAIN + N2_TEST, f"config 2 mock has {ncat} objects")
+    check(all(np.isfinite(cat[k]).all() for k in ("phot", "phot_err",
+                                                   "redshifts")),
+          "config 2 mock: non-finite columns")
+    # The synthesis on the card against the port on the CPU, float64.
+    zs = cat["redshifts"][:N2_SYNTH].astype(float)
+    ts = cat["templates"][:N2_SYNTH]
+    got = MockSurvey("sdss", "cww+", "bpz").synthesize_objects(zs, ts)
+    want = MockSurvey("sdss", "cww+", "bpz",
+                      device="cpu").synthesize_objects(zs, ts)
+    synth_err = float(np.max(np.abs(got - want)
+                             / np.maximum(np.abs(want), 1e-300)))
+    check(synth_err <= 1e-10, f"config 2 synthesis on the card differs "
+                              f"from the CPU ({synth_err} relative)")
+    print(f"config 2 mock: make_sdss_mock({N2_MOCK}, seed=13) {ncat} "
+          f"objects in {cat_s:.4f} s; synthesize_objects of {N2_SYNTH} "
+          f"pairs on the card vs the CPU: max relative error "
+          f"{synth_err:.3g} (tol 1e-10) | card {card}", flush=True)
+
+    sl_m = slice(0, N2_TRAIN)
+    sl_d = slice(N2_TRAIN, N2_TRAIN + N2_TEST)
+    m, me, mmask = (cat[k][sl_m] for k in ("phot", "phot_err", "phot_mask"))
+    z = cat["redshifts"][sl_m]
+    zerr = 0.02 * (1.0 + z)
+    d, de, dmask = (cat[k][sl_d] for k in ("phot", "phot_err", "phot_mask"))
+    ztrue = cat["redshifts"][sl_d]
+    grid = np.linspace(0, 7.0, N2_GRID)
+
+    t0 = time.perf_counter()
+    nn = NearestNeighbors(m, me, mmask, K=N2_K, seed=1, verbose=False)
+    torch.cuda.synchronize()
+    ctor_s = time.perf_counter() - t0
+    nn_cpu = NearestNeighbors(m, me, mmask, K=N2_K, seed=1, verbose=False,
+                              device="cpu")
+    f_abs, f_rel = rel_err(torch, nn.features.cpu(), nn_cpu.features)
+    check(f_rel <= 1e-6, f"config 2 features differ from the CPU's "
+                         f"({f_rel} relative)")
+    print(f"config 2 NearestNeighbors(K={N2_K}, seed=1) over {N2_TRAIN} "
+          f"models: {ctor_s:.4f} s; features vs the CPU: max abs "
+          f"{f_abs:.3g}, max relative {f_rel:.3g} (tol 1e-6) | card {card}",
+          flush=True)
+
+    kw = dict(label_grid=grid, k=N2_KNN, verbose=False, return_gof=True)
+    nn.fit_predict(d[:4096], de[:4096], dmask[:4096], z, zerr, **kw)
+    walls, outs = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(nn.fit_predict(d, de, dmask, z, zerr,
+                                   rng=np.random.default_rng(7), **kw))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    pdfs, (lmap, levid) = outs[0]
+    check(pdfs.shape == (N2_TEST, N2_GRID) and np.isfinite(pdfs).all()
+          and np.isfinite(lmap).all() and np.isfinite(levid).all(),
+          "config 2 fit_predict: shape or non-finite values")
+    check(np.allclose(pdfs.sum(axis=1), 1.0, atol=1e-4),
+          "config 2 fit_predict: PDFs are not normalized")
+    check(all(np.array_equal(o[0], pdfs) and np.array_equal(o[1][0], lmap)
+              and np.array_equal(o[1][1], levid) for o in outs[1:]),
+          "config 2 fit_predict: repeated calls differ")
+    wall = statistics.median(walls)
+    approx = nn.fit_predict(d, de, dmask, z, zerr, approx=True,
+                            rng=np.random.default_rng(7), **kw)
+    check(np.array_equal(approx[0], pdfs)
+          and np.array_equal(approx[1][0], lmap)
+          and np.array_equal(approx[1][1], levid),
+          "config 2 fit_predict(approx=True) differs from the exact search")
+    zhat = grid[np.argmax(pdfs, axis=1)]
+    dz = (zhat - ztrue) / (1 + ztrue)
+    nmad = float(1.48 * np.median(np.abs(dz - np.median(dz))))
+    outl = float(np.mean(np.abs(dz) > 0.15))
+    print(f"config 2 fit_predict: {N2_TEST} objects x {N2_TRAIN} models, "
+          f"K={N2_K}, k={N2_KNN}, {N2_GRID}-point grid: walls "
+          + ", ".join(f"{w:.4f}" for w in walls)
+          + f" s, median {wall:.4f} s ({N2_TEST / wall:.6g} objects/s); "
+          f"sigma_NMAD {nmad:.6g}, outlier fraction {outl:.6g}; "
+          f"approx=True bit-equal | card {card}", flush=True)
+
+    # 512 of those objects against the port on the CPU, the same draws
+    # (the first batch's first rows).  The expanded distance cancels
+    # (|q|^2 ~ 300 against neighbour gaps of ~1e-4 here), so inputs that
+    # differ in an ulp move near-equal distances: the CPU fitter is held
+    # on every row with the card's inputs, its ensembles (as
+    # `utils.knn_from_jax` carries JAX's) and its query features.  Each
+    # device's own inputs are compared as a printed statistic only.
+    n = N2_CHECK
+    sub = (d[:n], de[:n], dmask[:n], z, zerr)
+    fkw = dict(kw, save_fits=True)
+    got = nn.fit_predict(*sub, rng=np.random.default_rng(7), **fkw)
+    own = {}
+    nn_cpu.fit_predict(*sub, rng=np.random.default_rng(7), **fkw)
+    own["own ensembles and query features"] = nn_cpu.neighbors
+    nn_cpu.features = nn.features.cpu()
+    nn_cpu.features_sqnorm = nn.features_sqnorm.cpu()
+    nn_cpu.fit_predict(*sub, rng=np.random.default_rng(7), **fkw)
+    own["the card's ensembles, own query features"] = nn_cpu.neighbors
+    jq = np.random.default_rng(7).normal(np.asarray(d[:n], float),
+                                         np.abs(np.asarray(de[:n], float)))
+    q = nn._query_features(jq, de[:n])
+    q_c = nn_cpu._query_features(jq, de[:n])
+    nn_cpu._query_features = lambda jq, de: nn._query_features(jq, de).cpu()
+    want = nn_cpu.fit_predict(*sub, rng=np.random.default_rng(7), **fkw)
+    ties, cands = TKNN._near_ties(q, nn.features, N2_KNN)
+    ties, cands = ties.cpu().numpy(), cands.cpu().numpy()
+    diff = neighbor_check(np, "config 2 fit_predict (card vs CPU, the "
+                          "card's inputs)", nn.neighbors, nn_cpu.neighbors,
+                          ties, cands)
+    check(np.array_equal(nn.Nneighbors, nn_cpu.Nneighbors),
+          "config 2: union sizes differ from the CPU's")
+    for k, nm in ((0, "lmap"), (1, "levid")):
+        a, b = got[1][k], want[1][k]
+        err = float(np.max(np.abs(a - b) / (2e-5 + 2e-5 * np.abs(b))))
+        check(err <= 1.0, f"config 2 {nm} differs from the CPU's "
+                          f"({err} x tol)")
+    close = np.isclose(got[0], want[0], rtol=2e-3, atol=2e-5)
+    if not close.all():
+        # A weight within FLIP of the cut may land on either side.
+        env = [nn_cpu.predict(z, zerr, label_grid=grid,
+                              wt_thresh=WT_THRESH * f)
+               for f in (FLIP, 1 / FLIP)]
+        tol = 2e-5 + 2e-3 * np.abs(want[0])
+        check(((got[0] >= np.minimum(*env) - tol)
+               & (got[0] <= np.maximum(*env) + tol)).all(),
+              "config 2 PDFs differ from the CPU's beyond the "
+              "threshold-flip envelope")
+    check(np.allclose(got[0], pdfs[:n], rtol=2e-3, atol=2e-5),
+          "config 2: 512 objects alone differ from the same rows of the "
+          "whole call")
+    moved = "; ".join(
+        f"{what}: {int((nb != nn.neighbors).any(axis=1).sum())} rows"
+        for what, nb in own.items())
+    print(f"config 2 vs the CPU ({n} objects, the same draws, the card's "
+          f"ensembles and query features): neighbour lists differ on "
+          f"{len(diff)} rows (bar: below 1%, only among near ties; "
+          f"{int(ties.sum())} rows have a pair within 1e-5 of |q|^2 + "
+          f"|Y|^2), union sizes equal, PDFs {int((~close).sum())} cells "
+          f"outside rtol 2e-3 / atol 2e-5, lmap and levid within 2e-5, on "
+          f"every row | statistic, rows whose lists differ with the CPU's "
+          f"own inputs: {moved} (query features differ by up to "
+          f"{float((q.cpu() - q_c).abs().max()):.3g}) | card {card}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    summ, gof = nn.fit_summarize(d, de, dmask, z, zerr, label_grid=grid,
+                                 k=N2_KNN, verbose=False,
+                                 rng=np.random.default_rng(7))
+    torch.cuda.synchronize()
+    summ_s = time.perf_counter() - t0
+    cols = np.stack([np.asarray(c) for est in summ[:4] for c in est]
+                    + [np.asarray(c) for c in summ[4:]], axis=1)
+    u = np.random.default_rng(0).random(N2_TEST)
+    want_cols = TS._pack_summary(TS.pdfs_summarize(
+        torch.tensor(pdfs, device="cuda"), grid, u=u)).cpu().numpy()
+    s_err = float(np.max(np.abs(cols - want_cols)
+                         / (2e-6 + 2e-5 * np.abs(want_cols))))
+    check(s_err <= 1.0, f"config 2 fit_summarize differs from "
+                        f"pdfs_summarize(fit_predict) ({s_err} x tol)")
+    check(np.array_equal(gof[0], lmap), "config 2 fit_summarize lmap")
+    print(f"config 2 fit_summarize: {N2_TEST} objects, wall {summ_s:.4f} s "
+          f"({N2_TEST / summ_s:.6g} objects/s), 21 columns match "
+          f"pdfs_summarize(fit_predict) (worst {s_err:.3g} x tol) | card "
+          f"{card}", flush=True)
+
+    # Exact ties: 64 models repeated 4 times with zero errors; each query
+    # sits on a model, so its group ties at distance 0 and the next
+    # group ties across the k-th place.
+    rng = np.random.default_rng(3)
+    base = rng.uniform(5.0, 50.0, (64, 5))
+    mt = np.tile(base, (4, 1))
+    nt = NearestNeighbors(mt, np.zeros_like(mt), np.ones_like(mt), K=3,
+                          seed=0, verbose=False)
+    q = nt.features[0][:16]
+    idx = nt._search_fn(k=6, lp_norm=2, dbound=np.inf)(q)[0].cpu().numpy()
+    f64 = nt.features[0].cpu().numpy().astype(float)
+    for b in range(16):
+        dist = ((f64 - f64[b]) ** 2).sum(axis=1)
+        check(idx[b][:6].tolist()
+              == np.argsort(dist, kind="stable")[:6].tolist()
+              and (idx[b][6:] == -99).all(),
+              f"tie case: row {b} does not take the lowest index first")
+    print(f"config 2 tie case: 64 models x 4 copies, zero errors, k=6 "
+          f"across K=3: lowest index first on every row; phase 11 "
+          f"{time.perf_counter() - t_phase:.1f} s | card {card}",
+          flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -2960,7 +3203,14 @@ def main():
     # 10. the samplers (config 5)
     pop_entry = sampler_phase(torch, np, KS, tens, card)
 
-    # 11. results
+    # 11. config 2: the mock catalog and NearestNeighbors (torch only:
+    # no kernel of the table may launch)
+    KS.reset_launch_counts()
+    knn_phase(torch, np, card)
+    launches11 = {k: v for k, v in KS.launch_counts().items() if v}
+    check(not launches11, f"config 2 launched kernels: {launches11}")
+
+    # 12. results
     replaces = {"chi2_brackets": "frankenz_tpu/ops/fused.py:918",
                 "chi2_stack": "frankenz_tpu/ops/fused.py:980",
                 "lnl_reduce": "frankenz_tpu/ops/fused.py:599",

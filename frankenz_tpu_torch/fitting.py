@@ -1,7 +1,8 @@
-"""Fitter facade (reference `frankenz/fitting.py`).  Ported so far:
-BruteForce, SelfOrganizingMap, GrowingNeuralGas."""
+"""Fitter facade (reference `frankenz/fitting.py`): BruteForce,
+NearestNeighbors, SelfOrganizingMap, GrowingNeuralGas."""
 
 from .models import (BruteForce, GrowingNeuralGas,  # noqa: F401
-                     SelfOrganizingMap)
+                     NearestNeighbors, SelfOrganizingMap)
 
-__all__ = ["BruteForce", "SelfOrganizingMap", "GrowingNeuralGas"]
+__all__ = ["BruteForce", "NearestNeighbors", "SelfOrganizingMap",
+           "GrowingNeuralGas"]

@@ -1,9 +1,10 @@
-"""Fitters.  Ported so far: BruteForce, SelfOrganizingMap and
+"""Fitters: BruteForce, NearestNeighbors, SelfOrganizingMap and
 GrowingNeuralGas (with the shared `_Network` machinery and the learning /
 neighbourhood schedules).
 """
 
 from .bruteforce import BruteForce  # noqa: F401
+from .knn import NearestNeighbors  # noqa: F401
 from .networks import (  # noqa: F401
     GrowingNeuralGas,
     SelfOrganizingMap,

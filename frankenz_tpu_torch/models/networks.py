@@ -235,19 +235,6 @@ def _nodes_only_fp(x, xe, xm, nodes_occ, node_pdfs_occ, *, lpnet_spec,
                             node_pdfs_occ)
 
 
-def _gathered_pdf(use_dict, lab, ngrid, idx, wt):
-    """The gathered KDE of weights `wt` over model indices `idx`."""
-    safe = idx.clamp_min(0)
-    if use_dict:
-        sigmas, widths, delta, full_pos, full_sig = lab
-        return _kde._kde_stack_gathered(sigmas, widths, delta,
-                                        full_pos[safe], full_sig[safe], wt,
-                                        ngrid)
-    labels, label_errs, grid, dx, sig_thresh = lab
-    return _kde._kde_stack_gathered_grid(labels[safe], label_errs[safe], wt,
-                                         grid, dx, sig_thresh)
-
-
 def _union_fp(x, xe, xm, nodes_occ, members, models, models_err,
               models_mask, lab, *, lpnet_spec, lprob_spec, wt_thresh,
               cdf_thresh, cap_sel, max_neighbors, kde_wt_thresh,
@@ -266,7 +253,7 @@ def _union_fp(x, xe, xm, nodes_occ, members, models, models_err,
     lmap, levid, wt = _knn._gof_weights(res[2])
     w = min(max_neighbors, -(-max(int(nuniq.max()), 1) // 128) * 128)
     wt = _kde.threshold_weights(wt[:, :w], kde_wt_thresh, kde_cdf_thresh)
-    pdf = _gathered_pdf(use_dict, lab, ngrid, idx[:, :w], wt)
+    pdf = _knn._gathered_pdf(use_dict, lab, ngrid, idx[:, :w], wt)
     return _kde.norm_rows(pdf), lmap, levid, nuniq
 
 
@@ -559,7 +546,8 @@ class _Network:
             lm, lv, wt = _node_pdf_weights(lw_all[sl])
             wt = _kde.threshold_weights(wt, wt_thresh, cdf_thresh)
             pdf = _density_scale(
-                _gathered_pdf(use_dict, lab, ngrid, idx_all[sl], wt), lv)
+                _knn._gathered_pdf(use_dict, lab, ngrid, idx_all[sl], wt),
+                lv)
             pdfs[sl] = pdf.cpu().numpy()
             lmap[sl] = lm.cpu().numpy()
             levid[sl] = lv.cpu().numpy()

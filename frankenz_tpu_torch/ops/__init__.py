@@ -1,4 +1,5 @@
-"""Numerical operations: likelihood, KDE, summaries and the fused route."""
+"""Numerical operations: likelihood, KDE, summaries, the fused route and
+the photometry transforms."""
 
 from .fused import (  # noqa: F401
     FusedCdfFallback,
@@ -36,7 +37,14 @@ from .summarize import (  # noqa: F401
     PDFSummary,
     PointEstimate,
     loss_kernel_matrix,
+    pdfs_resample,
     pdfs_summarize,
     summary_stream_step,
     unpack_summary,
+)
+from .transforms import (  # noqa: F401
+    inv_luptitude,
+    inv_magnitude,
+    luptitude,
+    magnitude,
 )

@@ -1,7 +1,7 @@
 """
 PDF summary statistics: point estimates, credible bounds, MC draws.
 
-Port of `frankenz_tpu.ops.summarize` (reference `frankenz/pdf.py:899-1074`).
+Port of `frankenz_tpu.ops.summarize` (reference `frankenz/pdf.py:855-1074`).
 Everything is batched over objects: quantiles and the confidence / risk
 lookups are one batched linear interpolation (`_interp`, the exact
 `jnp.interp` rule written with `torch.searchsorted`), the risk map is one
@@ -16,11 +16,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .kde import fp32_matmul
+from .kde import _input_device, fp32_matmul
 
-__all__ = ["pdfs_summarize", "PDFSummary", "PointEstimate", "SUMMARY_NCOLS",
-           "loss_kernel_matrix", "summary_stream_step", "unpack_summary",
-           "label_grid_of", "stream_summary_setup"]
+__all__ = ["pdfs_resample", "pdfs_summarize", "PDFSummary", "PointEstimate",
+           "SUMMARY_NCOLS", "loss_kernel_matrix", "summary_stream_step",
+           "unpack_summary", "label_grid_of", "stream_summary_setup"]
 
 
 class PointEstimate(NamedTuple):
@@ -47,13 +47,13 @@ class PDFSummary(NamedTuple):
     mc: torch.Tensor
 
 
-def _interp(x, xp, fp):
-    """Row-batched `jnp.interp(x, xp, fp)` with end-value clamping.
+def _interp(x, xp, fp, left=None, right=None):
+    """Row-batched `jnp.interp(x, xp, fp, left, right)`.
 
     `x` is (N, Q); `xp` and `fp` are each (K,) or (N, K).  Same rule as
     JAX: i = clip(searchsorted(xp, x, right), 1, K-1), a zero-width
-    interval takes fp[i-1], and x outside [xp[0], xp[-1]] takes the end
-    values.
+    interval takes fp[i-1], and x below xp[0] (above xp[-1]) takes `left`
+    (`right`), the end values when None.
     """
     n, k = x.shape[0], xp.shape[-1]
     xp2 = xp.expand(n, k).contiguous()
@@ -69,8 +69,27 @@ def _interp(x, xp, fp):
     f = torch.where(dx0, fp_lo,
                     fp_lo + (delta / torch.where(dx0, 1.0, dx))
                     * (fp_hi - fp_lo))
-    f = torch.where(x < xp2[:, :1], fp2[:, :1], f)
-    return torch.where(x > xp2[:, -1:], fp2[:, -1:], f)
+    f = torch.where(x < xp2[:, :1], fp2[:, :1] if left is None else left, f)
+    return torch.where(x > xp2[:, -1:], fp2[:, -1:] if right is None
+                       else right, f)
+
+
+def pdfs_resample(pdfs, old_grid, new_grid, renormalize=True, left=0.0,
+                  right=0.0):
+    """Linearly resample PDFs onto a new grid (pdf.py:855-896); points
+    outside `old_grid` take `left` / `right`.  Tensors stay on their
+    device, host arrays go where `ops.kde._input_device` puts them."""
+    dev = _input_device(pdfs, old_grid, new_grid)
+    pdfs = torch.atleast_2d(torch.as_tensor(pdfs, device=dev))
+    old_grid = torch.as_tensor(old_grid, device=dev)
+    new_grid = torch.as_tensor(new_grid, device=dev)
+    dt = torch.promote_types(pdfs.dtype, old_grid.dtype)
+    x = new_grid.to(dt).expand(pdfs.shape[0], -1)
+    new_pdfs = _interp(x, old_grid.to(dt), pdfs.to(dt), left=left,
+                       right=right)
+    if renormalize:
+        new_pdfs = new_pdfs / new_pdfs.sum(dim=1, keepdim=True)
+    return new_pdfs
 
 
 def _default_photoz_kern_grid(pgrid):

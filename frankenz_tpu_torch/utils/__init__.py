@@ -3,6 +3,7 @@
 from .convert import (  # noqa: F401
     bruteforce_from_arrays,
     from_jax_bruteforce,
+    knn_from_jax,
     network_from_jax,
     pdfdict_from,
     sampler_from_jax,

@@ -3,7 +3,8 @@
 The state of a `BruteForce` is its model set (photometry, errors, mask),
 the full-mask flag and the saved fits of its last `fit` (the
 (Ndata, Nmodel) grids, with the free-scale `fit_scale` / `fit_scale_err`
-under ``track_scale``); that of a trained `SelfOrganizingMap` or
+under ``track_scale``); that of a `NearestNeighbors` its model set,
+feature ensembles and saved fits; that of a trained `SelfOrganizingMap` or
 `GrowingNeuralGas` its model set, nodes and node positions (the GNG's
 node errors and edge ages too) and, once populated, its member tables;
 the
@@ -15,9 +16,11 @@ so `np.asarray` reads it without importing JAX.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 
-__all__ = ["bruteforce_from_arrays", "from_jax_bruteforce",
+__all__ = ["bruteforce_from_arrays", "from_jax_bruteforce", "knn_from_jax",
            "network_from_jax", "pdfdict_from", "sampler_from_jax"]
 
 
@@ -52,6 +55,38 @@ def from_jax_bruteforce(obj, device):
         if value is not None:
             setattr(bf, name, np.array(value))
     return bf
+
+
+_KNN_FITS = ("neighbors", "Nneighbors") + _SAVED_FITS
+
+
+def knn_from_jax(obj, device):
+    """Port `NearestNeighbors` holding the state of a `frankenz_tpu` one:
+    its model set (dtypes kept), `K`, the feature-map spec, the feature
+    ensembles `features` / `features_sqnorm`, a copy of its generator
+    (`rng`, so both continue one stream) and, where present, the saved
+    fits (`NDATA`, `k`, `neighbors`, `Nneighbors`, `fit_*`).  The port
+    object's own ensembles, drawn from a throwaway generator, are
+    replaced by JAX's."""
+    from ..models.knn import NearestNeighbors
+
+    name, args, kw_items = obj.fmap_spec
+    nn = NearestNeighbors(np.asarray(obj.models), np.asarray(obj.models_err),
+                          np.asarray(obj.models_mask), K=obj.K,
+                          feature_map=name, fmap_args=args,
+                          fmap_kwargs=dict(kw_items),
+                          rng=np.random.default_rng(0), verbose=False,
+                          device=device)
+    nn.rng = copy.deepcopy(obj.rng)
+    nn.features = nn._tensor(np.asarray(obj.features))
+    nn.features_sqnorm = nn._tensor(np.asarray(obj.features_sqnorm))
+    nn.NDATA = getattr(obj, "NDATA", None)
+    nn.k = getattr(obj, "k", None)
+    for name in _KNN_FITS:
+        value = getattr(obj, name, None)
+        if value is not None:
+            setattr(nn, name, np.array(value))
+    return nn
 
 
 _NETWORK_STATE = ("NSIDE", "NNODE", "NPROJ", "NITER", "NBATCH")
