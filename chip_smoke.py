@@ -19,7 +19,12 @@ port, numpy and scipy, and:
    card, at the config-4 widths (F=5, 100,000 models, a 301-point
    PDFDict grid, 2,048 objects) and three edge shapes (ragged M=99,937
    with B=1,000; F=20, the log-form weight; an all-clamped outlier row),
-   with times of both (CUDA events, median of 5);
+   with times of both (CUDA events, median of 5); pass B as the K1 route
+   runs it, over the models in band order (`band_sort`, each 64-model
+   tile multiplying only its band of G), against its plain version and
+   bit for bit the dense kernel on the same order, timed beside the
+   caller order's, the brackets in band order bit-equal to the caller
+   order's;
 3b. the screened full-mask trio (K2: `screen_seed`,
    `chi2_brackets_screened`, `chi2_stack_screened`), the default
    full-mask route: first where the card's expf flushes to 0 (every
@@ -39,8 +44,9 @@ port, numpy and scipy, and:
    the card, and checks `fit_summarize` against
    `pdfs_summarize(fit_predict(...))` under the same uniforms; then one
    65,536-object batch through `fused_fit_pdf(screen=False)`, the K1
-   pair, beside the screened route on the same batch (both walls), and
-   every full-mask kernel's time at that batch, with the screened trio's
+   pair in band order, beside the screened route on the same batch (both
+   walls), and every full-mask kernel's time at that batch (`chi2_stack`
+   in band order, the caller order's beside), with the screened trio's
    bounds from that batch's run fractions and kept weights;
 5. masked photometry (each data band missing with probability 0.15, from
    ``default_rng(2)``: about 10 of the 131,072 rows lose every band):
@@ -54,14 +60,19 @@ port, numpy and scipy, and:
    0, 1 and 2; duplicate models, whose lnl ties; the cdf mode's
    `lnl_reduce_topk` also with lmap and levid bit-equal to the
    `lnl_reduce` kernel's), on each the two-pass threshold route on its lnl
-   table against the recompute route bit for bit (lmap, levid, pdf; the
-   table against `lnl_tile_plain` in ulps), also on the four fixed-scale
-   two-pass instantiations the cases do not hold, and the band stacks
+   table over the models in band order (the producer on the sorted
+   models, the band reader `lnl_stack_band`) against the recompute route
+   on the same order bit for bit (lmap, levid, pdf; the table against
+   `lnl_tile_plain` in ulps), the band reader against its plain version,
+   timed beside the dense reader `lnl_stack_read` on a caller-order table,
+   also on the four fixed-scale two-pass instantiations the cases do not
+   hold, and the band stacks
    (`lnl_cut_stack`, `lnl_onepass`, over the models in band order) on the
    six fixed-scale instantiations the cases do not hold, then drives
    masked `fit_predict` over the 131,072 objects (the general route's
-   table route: `lnl_reduce` writing the lnl table + `lnl_stack` reading
-   it, two row chunks a batch, and not the full-mask pair),
+   table route: `lnl_reduce` writing the lnl table over the models in
+   band order + `lnl_stack_band` reading it, two row chunks a batch, and
+   neither the dense `lnl_stack` nor the full-mask pair),
    `fit_summarize`, the cdf mode over one 65,536-object batch
    (`lnl_reduce_topk` + `lnl_cut_stack`, and no `lnl_reduce` or
    `lnl_topk`; no batch rerun), and a flat-posterior batch whose cut is
@@ -70,8 +81,10 @@ port, numpy and scipy, and:
    composition); one-pass (`lnl_onepass`) joins each of the six cases, and
    at the batch it is timed beside `lnl_reduce` + `lnl_stack` keeping
    every weight; one 65,536-object batch through the two-pass threshold
-   route on both routes (the table route in its row chunks), bit for bit,
-   with each route's `lnl_reduce` and `lnl_stack` times;
+   route on both routes (the table route in its row chunks, band order),
+   bit for bit, with each route's times, the dense reader on the caller
+   order's table beside, and the product alone (`fp32_matmul` of dense
+   weights by G) as a yardstick;
 6. free scale (K6) and no weight threshold (K4): every free-scale
    instantiation (model errors or not x full or masked x dim prior or
    Normal) against its plain version at B=2,048 on config-8 data
@@ -159,10 +172,12 @@ port, numpy and scipy, and:
    lowest index first);
 12. prints one JSON line of kernel results (fixed-scale entry points by
    their wrapper's name, the screened trio with its run fractions,
-   free-scale ones with the suffix ``_fs``; `lnl_reduce`, `lnl_stack` and
-   `scale_sweeps` with their table route (``lnl_route``, the table's
-   source file, table launches, chunks and bytes at the batch, the
-   recompute route's times and bounds beside),
+   free-scale ones with the suffix ``_fs``; `lnl_reduce`,
+   `lnl_stack_band`, `lnl_stack_fs` and `scale_sweeps` with their table
+   route (``lnl_route``, the table's source file, table launches, chunks
+   and bytes at the batch, the recompute route's times and bounds beside;
+   the fixed-scale dense `lnl_stack` runs on no main path and has no entry:
+   it stands as ``dense_ms`` beside `lnl_stack_band`),
    `scale_sweeps`, `som_train`, `som_train_cluster` (the route
    train_network takes, with its CTA and the step's floor), `gng_train`
    and `pop_chain`, the chain kernels with their cluster size, us a step
@@ -171,7 +186,8 @@ port, numpy and scipy, and:
    (the larger of its bytes over 3.35 TB/s and its operations over 67
    TFLOP/s, counted from this run's shapes and data, see `bound`; the
    band stacks `lnl_cut_stack` and `lnl_onepass`, source
-   ``csrc/lnl_band.cuh``, count 2 operations per nonzero G entry of each
+   ``csrc/lnl_band.cuh``, the band reader `lnl_stack_band` and the K1
+   pair's `chi2_stack` count 2 operations per nonzero G entry of each
    kept model, the dense count of 2 Ngrid a kept pair beside it as
    ``dense_bound_ms``, and carry the band statistics), the
    card line again, and last ``{"ok": true, "device": {...}}``.
@@ -220,8 +236,8 @@ FLIP = 1.002
 TOL_ULP = 1.0
 P_MISSING = 0.15
 CDF_THRESH = 2e-4
-GENERAL = ("lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_reduce_topk",
-           "lnl_cut_stack")
+GENERAL = ("lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_stack_band",
+           "lnl_reduce_topk", "lnl_cut_stack")
 # The band stacks (csrc/lnl_band.cuh): the models in band order.
 BAND = ("lnl_cut_stack", "lnl_onepass")
 K1_PAIR = ("chi2_brackets", "chi2_stack")
@@ -272,7 +288,8 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # readers are in lnl_table.cu.
 TABLE_SOURCES = {
     "lnl_reduce": "frankenz_tpu_torch/csrc/lnl_general.cu",
-    "lnl_stack": "frankenz_tpu_torch/csrc/lnl_table.cu",
+    "lnl_stack_band": "frankenz_tpu_torch/csrc/lnl_table.cu",
+    "lnl_stack_band_fs": "frankenz_tpu_torch/csrc/lnl_table.cu",
     "lnl_reduce_fs": "frankenz_tpu_torch/csrc/lnl_table.cu",
     "lnl_stack_fs": "frankenz_tpu_torch/csrc/lnl_table.cu",
     "scale_sweeps": "frankenz_tpu_torch/csrc/lnl_freescale.cu"}
@@ -406,8 +423,9 @@ def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
     `lnl_reduce`, `lnl_stack` and `scale_sweeps` on the table route (the
     two-pass threshold route's): the producer also writes 4 bytes a
     pair, the readers read them and compute no lnl (`table_bounds`).  The
-    band stacks (`lnl_cut_stack`, `lnl_onepass`): 2 operations per
-    nonzero G entry of each kept model; ``*_dense`` the dense count."""
+    band stacks (`lnl_cut_stack`, `lnl_onepass`) and the band reader
+    `lnl_stack_band`: 2 operations per nonzero G entry of each kept
+    model; ``*_dense`` the dense count."""
     d, mT = args[0], args[3]
     B, F = d.shape
     M = mT.shape[1]
@@ -423,6 +441,10 @@ def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
     # A pair counts only where its weight is nonzero: a kept weight
     # exp(lnl - levid) that underflows to 0 adds nothing.
     nnz = (G != 0).sum(dim=1).to(torch.float32)
+    keep_stack = ((lnl > (lmap + float(np.float32(log_thr)))[:, None])
+                  & (torch.exp(lnl - levid[:, None]) > 0))
+    band_stack = float((keep_stack.to(torch.float32) @ nnz).sum())
+    del keep_stack
     keep_cut = (((lnl <= cut[:, None]) | (is_tie & (rank < nkeep[:, None])))
                 & (torch.exp(lnl - levid[:, None]) > 0))
     kept_cut = float(keep_cut.sum())
@@ -459,26 +481,39 @@ def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
         # The counting sweeps also take each pair's F logs.
         out["scale_sweeps"] = bound(pairs * sweeps_mean * (9 * F + 4),
                                     io + 2.0 * flags["sweeps"].numel())
-    for k, v in table_bounds(F, B, M, ngrid, flags, kept_stack,
-                             sweeps_mean).items():
-        out[k + "_table"] = v
+    for k, v in table_bounds(F, B, M, ngrid, flags, kept_stack, sweeps_mean,
+                             band_stack, float(nnz.sum())).items():
+        out[k if k.startswith("lnl_stack_band") else k + "_table"] = v
     return out
 
 
-def table_bounds(F, B, M, ngrid, flags, kept, sweeps_mean):
+def table_bounds(F, B, M, ngrid, flags, kept, sweeps_mean, kept_nnz=None,
+                 g_nnz=None):
     """{kernel: (bound ms, bound by)} on the table route for B x M pairs,
     `kept` of them above the weight threshold: the producer (`lnl_reduce`,
     or `scale_sweeps` under free scale with model errors, whose pairs
     also take the residual pass) writes 4 bytes a pair; the reduce reader
     reads them (a max, an exp and two adds a pair); the stack reads them
-    (a compare a pair; an exp and 2 Ngrid operations a kept pair)."""
+    (a compare a pair; an exp and 2 Ngrid operations a kept pair).  Off
+    free scale with model errors, given `kept_nnz` (the nonzero G entries
+    of the kept pairs' models) and `g_nnz` (G's nonzero entries, each read
+    once), also the band reader `lnl_stack_band`: 2 operations per
+    nonzero G entry of each kept model, and the dense count beside
+    (``lnl_stack_band_dense``)."""
     pairs = float(B) * M
     io = 4.0 * (3 * B * F + 3 * F * M)
     table = 4.0 * pairs
     out = {"lnl_stack": bound(pairs + kept * (2.0 + 2.0 * ngrid),
                               table + 4.0 * (M * ngrid + B * ngrid)
                               + 8.0 * B)}
-    if flags.get("free_scale") and not flags.get("ignore_model_err"):
+    sweep_policy = flags.get("free_scale") and not flags.get(
+        "ignore_model_err")
+    if kept_nnz is not None and not sweep_policy:
+        out["lnl_stack_band"] = bound(pairs + 2.0 * kept + 2.0 * kept_nnz,
+                                      table + 4.0 * (g_nnz + B * ngrid)
+                                      + 8.0 * B)
+        out["lnl_stack_band_dense"] = out["lnl_stack"]
+    if sweep_policy:
         ng = -(-M // int(flags["tm"]))
         out["scale_sweeps"] = bound(
             pairs * (sweeps_mean * (9 * F + 4) + lnl_pair_ops(
@@ -491,11 +526,12 @@ def table_bounds(F, B, M, ngrid, flags, kept, sweeps_mean):
     return out
 
 
-def table_route(torch, GK, args, G, flags, log_thr, sweep_kw=None):
+def table_route(torch, GK, args, G, flags, log_thr, sweep_kw=None, bs=None):
     """The two-pass threshold route on one lnl table (NaN-filled first):
     the producer (`lnl_reduce`, or `scale_sweeps` under free scale with
-    model errors), `lnl_reduce`, `lnl_stack`.  Returns (sweeps or None,
-    lmap, levid, pdf, table)."""
+    model errors), `lnl_reduce`, then `lnl_stack`, or with `bs` (the
+    models of `args` in band order) `lnl_stack_band`.  Returns (sweeps or
+    None, lmap, levid, pdf, table)."""
     B, M = args[0].shape[0], args[3].shape[1]
     table = torch.full((B, GK.table_width(M)), float("nan"),
                        device=args[0].device)
@@ -506,26 +542,48 @@ def table_route(torch, GK, args, G, flags, log_thr, sweep_kw=None):
                              **sweep_kw)
         fl.update(sweeps=sw, tm=sweep_kw["tm"])
     lmap, levid = GK.lnl_reduce(*args, table=table, **fl)
-    pdf = GK.lnl_stack(*args, G, lmap, levid, log_thr=log_thr, table=table,
-                       **fl)
+    if bs is None:
+        pdf = GK.lnl_stack(*args, G, lmap, levid, log_thr=log_thr,
+                           table=table, **fl)
+    else:
+        pdf = GK.lnl_stack_band(table, bs, lmap, levid, log_thr=log_thr)
     return sw, lmap, levid, pdf, table
+
+
+def band_args(GK, args, G):
+    """`args`' models in band order: (the argument list with the sorted
+    model arrays, G's sorted rows contiguous (M, Ngrid), the BandSort)."""
+    bs = GK.band_sort(G, *args[3:6])
+    M = args[3].shape[1]
+    return (list(args[:3]) + [bs.mT, bs.meT, bs.mmT],
+            bs.G[:M, :bs.ngrid].contiguous(), bs)
 
 
 def table_route_check(torch, np, GK, args, G, flags, log_thr, what,
                       sweep_kw=None, lnl_plain=None):
     """The table route against the recompute route (the same wrappers
-    without a table) bit for bit: sweep table, lmap, levid, pdf; the
-    table untouched past M and, against `lnl_plain` (or
-    `lnl_tile_plain`), within TOL_ULP (the entries that differ
-    counted).  Returns (route outputs, {"table_ulp", "table_ulp_count"})."""
+    without a table, on the same model order) bit for bit: sweep table,
+    lmap, levid, pdf; the table untouched past M and, against `lnl_plain`
+    (or `lnl_tile_plain`), within TOL_ULP (the entries that differ
+    counted).  Off free scale with model errors both run over the models
+    in band order, the route reading with `lnl_stack_band`, as
+    `fused_fit_pdf` does.  Returns (route outputs, {"table_ulp",
+    "table_ulp_count"}, band-order (args, G, BandSort) or None)."""
     fl = dict(flags)
+    band = None
+    if sweep_kw is None:
+        band = band_args(GK, args, G)
+        args, G = band[:2]
+        if lnl_plain is not None:
+            lnl_plain = lnl_plain[:, band[2].perm.long()]
     sw_r = None
     if sweep_kw is not None:
         sw_r = GK.scale_sweeps(*args, **sweep_kw)
         fl.update(sweeps=sw_r, tm=sweep_kw["tm"])
     lm_r, lv_r = GK.lnl_reduce(*args, **fl)
     pdf_r = GK.lnl_stack(*args, G, lm_r, lv_r, log_thr=log_thr, **fl)
-    out = table_route(torch, GK, args, G, flags, log_thr, sweep_kw)
+    out = table_route(torch, GK, args, G, flags, log_thr, sweep_kw,
+                      None if band is None else band[2])
     sw, lmap, levid, pdf, table = out
     torch.cuda.synchronize()
     if sweep_kw is not None:
@@ -544,24 +602,28 @@ def table_route_check(torch, np, GK, args, G, flags, log_thr, what,
     check(ulp <= TOL_ULP, f"{what}: the lnl table is {ulp} ulp from "
                           "lnl_tile_plain")
     n_ulp = int((table[:, :M] != lnl_plain).sum())
-    return out, {"table_ulp": ulp, "table_ulp_count": n_ulp}
+    return out, {"table_ulp": ulp, "table_ulp_count": n_ulp}, band
 
 
 def chunk_times(torch, np, GK, args, G, flags, log_thr, sweep_kw=None,
-                reps=3):
+                reps=3, bs=None):
     """The table route's kernels over a batch as the route runs them (row
     chunks of at most TABLE_BYTES_MAX bytes of table, one buffer), each
     kernel's time summed over the chunks (CUDA events), median of `reps`
     after one warm run, which also counts the pairs above the weight
-    threshold.  Returns ({kernel: ms}, chunks, table bytes of the buffer,
-    kept pairs)."""
+    threshold and the nonzero G entries of their models.  With `bs` (the
+    models of `args` in band order) the reader is `lnl_stack_band`.
+    Returns ({kernel: ms}, chunks, table bytes of the buffer, kept pairs,
+    their nonzero G entries)."""
     B, M = args[0].shape[0], args[3].shape[1]
     rows = GK.table_rows(B, M)
     buf = torch.empty((min(rows, B), GK.table_width(M)),
                       dtype=torch.float32, device=args[0].device)
-    names = (["scale_sweeps"] if sweep_kw else []) + ["lnl_reduce",
-                                                      "lnl_stack"]
-    runs, kept = [], 0.0
+    stack = "lnl_stack" if bs is None else "lnl_stack_band"
+    names = (["scale_sweeps"] if sweep_kw else []) + ["lnl_reduce", stack]
+    nnz = ((G if bs is None else bs.G[:M]) != 0).sum(dim=1).to(
+        torch.float32)
+    runs, kept, kept_nnz = [], 0.0, 0.0
     for rep in range(reps + 1):
         tot = dict.fromkeys(names, 0.0)
         for r0 in range(0, B, rows):
@@ -578,19 +640,26 @@ def chunk_times(torch, np, GK, args, G, flags, log_thr, sweep_kw=None,
                 ev[1].record()
             lm, lv = GK.lnl_reduce(*part, table=table, **fl)
             ev[-2].record()
-            GK.lnl_stack(*part, G, lm, lv, log_thr=log_thr, table=table, **fl)
+            if bs is None:
+                GK.lnl_stack(*part, G, lm, lv, log_thr=log_thr, table=table,
+                             **fl)
+            else:
+                GK.lnl_stack_band(table, bs, lm, lv, log_thr=log_thr)
             ev[-1].record()
             ev[-1].synchronize()
             if rep == 0:
                 thr = lm + float(np.float32(log_thr))
-                kept += float((table[:, :M] > thr[:, None]).sum())
+                keep = (table[:, :M] > thr[:, None]).to(torch.float32)
+                kept += float(keep.sum())
+                kept_nnz += float((keep @ nnz).sum())
+                del keep
             for i, nm in enumerate(names):
                 tot[nm] += ev[i].elapsed_time(ev[i + 1])
         runs.append(tot)
     nbytes = buf.numel() * 4
     del buf
     return ({nm: statistics.median(r[nm] for r in runs[1:]) for nm in names},
-            -(-B // rows), nbytes, kept)
+            -(-B // rows), nbytes, kept, kept_nnz)
 
 
 def general_cases(np, rng, data, models, dmask):
@@ -762,23 +831,58 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
         lmap_ulp=u0, levid_err=r1, max_rel_err=p_row, ms=ms, plain_ms=pms)
 
     # The two-pass threshold route on the lnl table: bit for bit the
-    # recompute route; then each of its kernels timed on the table.
+    # recompute route (in band order off free scale with model errors);
+    # then each of its kernels timed on the table.
     base = {k: v for k, v in flags.items() if k not in ("sweeps", "tm")}
-    (_, lm_t, lv_t, _, table), tab = table_route_check(
+    (_, lm_t, lv_t, _, table), tab, band = table_route_check(
         torch, np, GK, args, Gc, base, log_thr, name, sweep_kw, lnl_plain)
     reps = 5 if plain_reps > 1 else 3
-    timed = {"lnl_reduce": lambda: GK.lnl_reduce(*args, table=table,
-                                                  **flags),
-             "lnl_stack": lambda: GK.lnl_stack(*args, Gc, lm_t, lv_t,
-                                                log_thr=log_thr, table=table,
-                                                **flags)}
+    targs = args if band is None else band[0]
+    timed = {"lnl_reduce": lambda: GK.lnl_reduce(*targs, table=table,
+                                                  **flags)}
     if sweep_kw is not None:
+        timed["lnl_stack"] = lambda: GK.lnl_stack(
+            *args, Gc, lm_t, lv_t, log_thr=log_thr, table=table, **flags)
         timed["scale_sweeps"] = lambda: GK.scale_sweeps(
             *args, table=table, dim_prior=flags.get("dim_prior", True),
             **sweep_kw)
+    else:
+        # The band reader against its plain version (the flip envelope
+        # moves the lnl cut by log(FLIP)); the dense reader `lnl_stack`
+        # timed beside it on a caller-order table of the same pairs.
+        bs_t = band[2]
+        table_c = torch.empty_like(table)
+        lm_c, lv_c = GK.lnl_reduce(*args, table=table_c, **flags)
+        timed["lnl_stack"] = lambda: GK.lnl_stack(
+            *args, Gc, lm_c, lv_c, log_thr=log_thr, table=table_c, **flags)
+
+        def band_stack(fn, thr):
+            return fn(table, bs_t, lm_t, lv_t, log_thr=thr)
+
+        got, want, ms, pms = run(
+            lambda: band_stack(GK.lnl_stack_band, log_thr),
+            lambda: band_stack(GK.lnl_stack_band_plain, log_thr))
+        p_row, ok = pdf_rows_close(
+            torch, got, want,
+            lambda: band_stack(GK.lnl_stack_band_plain,
+                               log_thr + np.log(FLIP)),
+            lambda: band_stack(GK.lnl_stack_band_plain,
+                               log_thr - np.log(FLIP)), TOL_PDF_ROW)
+        check(ok, f"{name}: lnl_stack_band PDFs differ beyond the "
+                  f"threshold-flip envelope (row-normwise {p_row})")
+        out["lnl_stack_band"] = dict(
+            max_abs_err=float((got - want).abs().max()), max_rel_err=p_row,
+            ms=ms, plain_ms=pms, recompute_ms=median_ms(
+                torch, lambda: GK.lnl_stack(*band[0], band[1], lm_t, lv_t,
+                                            log_thr=log_thr, **flags),
+                reps=reps))
+        del got, want
     for kname, fn in timed.items():
         out[kname]["recompute_ms"] = out[kname]["ms"]
         out[kname]["ms"] = median_ms(torch, fn, reps=reps)
+    if band is not None:
+        out["lnl_stack_band"]["dense_ms"] = out["lnl_stack"]["ms"]
+        del table_c, band
     out["lnl_reduce"].update(tab)
     del table
     if bounds:
@@ -2469,16 +2573,61 @@ def main():
         check(ok, f"{name}: chi2_stack PDFs differ beyond the "
                   f"threshold-flip envelope (row-normwise {p_row})")
         p_abs = float((pk - pp).abs().max())
+        # The route's pass B (K7): the models in band order, each 64-model
+        # tile multiplying only its band of G; bit for bit the dense kernel
+        # on the same order, against its plain version (a matmul over every
+        # column); the brackets in band order equal the caller order's.
+        M_c = mT.shape[1]
+        bs = GK.band_sort(Gc, mT, meT)
+        Gb = bs.G[:M_c, :bs.ngrid]
+        bb = FM.chi2_brackets(d, de, bs.mT, bs.meT, c0=2 * a1)
+
+        def bstack_k(thr=wthr):
+            return FM.chi2_stack(d, de, bs.mT, bs.meT, Gb, shift, a1=a1,
+                                 wthr=thr, bands=bs.bands)
+
+        def bstack_p(thr=wthr):
+            return FM.chi2_stack_plain(d, de, bs.mT, bs.meT, Gb, shift,
+                                       a1=a1, wthr=thr, bands=bs.bands)
+
+        (qk, rk), (qp, rp) = bstack_k(), bstack_p()
+        twin = FM.chi2_stack(d, de, bs.mT, bs.meT, Gb.contiguous(), shift,
+                             a1=a1, wthr=wthr)
+        torch.cuda.synchronize()
+        check(torch.equal(bb[0], bk[0]) and torch.equal(bb[1], bk[1]),
+              f"{name}: chi2_brackets in band order differ from the "
+              f"caller order's")
+        check(torch.equal(qk, twin[0]) and torch.equal(rk, twin[1]),
+              f"{name}: banded chi2_stack differs from the dense kernel on "
+              f"the band order")
+        r_abs, r_rel = rel_err(torch, rk, rp)
+        check(r_rel <= TOL_SUM,
+              f"{name}: banded chi2_stack weight sums differ (rel {r_rel})")
+        q_row, ok = pdf_rows_close(torch, qk, qp,
+                                   lambda: bstack_p(wthr * FLIP)[0],
+                                   lambda: bstack_p(wthr / FLIP)[0],
+                                   TOL_PDF_ROW)
+        check(ok, f"{name}: banded chi2_stack PDFs differ beyond the "
+                  f"threshold-flip envelope (row-normwise {q_row})")
+        q_abs = float((qk - qp).abs().max())
         t = {"brackets": (median_ms(torch, brackets_k),
                           median_ms(torch, brackets_p)),
-             "stack": (median_ms(torch, stack_k),
-                       median_ms(torch, stack_p))}
+             "stack": (median_ms(torch, bstack_k),
+                       median_ms(torch, bstack_p, reps=3)),
+             "caller": (median_ms(torch, stack_k),
+                        median_ms(torch, stack_p))}
         for kname, ab, rl, key in (("chi2_brackets", b_abs, b_rel,
                                     "brackets"),
-                                   ("chi2_stack", max(p_abs, s_abs),
-                                    max(p_row, s_rel), "stack")):
+                                   ("chi2_stack", max(q_abs, r_abs),
+                                    max(q_row, r_rel), "stack")):
             results[kname][name] = dict(max_abs_err=ab, max_rel_err=rl,
                                         ms=t[key][0], plain_ms=t[key][1])
+        results["chi2_stack"][name].update(
+            caller_order_ms=t["caller"][0], caller_order_plain_ms=t[
+                "caller"][1], caller_order_max_abs_err=max(p_abs, s_abs),
+            caller_order_max_rel_err=max(p_row, s_rel),
+            band_cols_mean=float((bs.bands[:, 1] - bs.bands[:, 0]).float()
+                                 .mean()))
         if name == "config4":
             # Operations per pair: chi^2 6 per filter (variance 2,
             # residual, square, divide, sum) + 2 compares (pass A) or
@@ -2493,8 +2642,21 @@ def main():
             results["chi2_brackets"][name].update(zip(
                 ("bound_ms", "bound_by"),
                 bound(float(B) * M * (6 * F + 2), io + 8.0 * B)))
+            # Band order: 2 operations per nonzero G entry of each kept
+            # model (the dense count, 2 Ngrid a kept pair, beside).
+            keep = (FM._weights_plain(FM._chi2_plain(d, de, mT, meT, False),
+                                      shift[:, None], a1) > wthr).to(
+                torch.float32)
+            nnz = (Gc != 0).sum(dim=1).to(torch.float32)
+            kept_nnz = float((keep @ nnz).sum())
+            del keep
             results["chi2_stack"][name].update(zip(
                 ("bound_ms", "bound_by"),
+                bound(float(B) * M * (6 * F + 10) + 2.0 * kept_nnz,
+                      io + 4.0 * (float(nnz.sum()) + B * Gc.shape[1]
+                                  + 2 * B))))
+            results["chi2_stack"][name].update(zip(
+                ("dense_bound_ms", "dense_bound_by"),
                 bound(float(B) * M * (6 * F + 10) + 2.0 * Gc.shape[1] * kept,
                       io + 4.0 * (M * Gc.shape[1] + B * Gc.shape[1]
                                   + 2 * B))))
@@ -2502,10 +2664,15 @@ def main():
               f"M={m_np.shape[0]} F={F} Ngrid={Gc.shape[1]} | "
               f"chi2_brackets abs {b_abs:.3g} rel {b_rel:.3g} "
               f"{t['brackets'][0]:.3f} ms (plain {t['brackets'][1]:.3f} "
-              f"ms) | chi2_stack pdf abs {p_abs:.3g} row-rel {p_row:.3g} "
-              f"s rel {s_rel:.3g} {t['stack'][0]:.3f} ms (plain "
-              f"{t['stack'][1]:.3f} ms) | card {card}", flush=True)
-        del d, de, mT, meT, bk, bp, pk, pp
+              f"ms), band order bit-equal | chi2_stack in band order (band "
+              f"{results['chi2_stack'][name]['band_cols_mean']:.4g} columns "
+              f"a tile) pdf abs {q_abs:.3g} row-rel {q_row:.3g} s rel "
+              f"{r_rel:.3g} {t['stack'][0]:.3f} ms (plain "
+              f"{t['stack'][1]:.3f} ms), == the dense kernel on band order "
+              f"bit for bit | caller order pdf abs {p_abs:.3g} row-rel "
+              f"{p_row:.3g} s rel {s_rel:.3g} {t['caller'][0]:.3f} ms "
+              f"(plain {t['caller'][1]:.3f} ms) | card {card}", flush=True)
+        del d, de, mT, meT, bk, bp, pk, pp, bs, Gb, bb, qk, qp, twin
         torch.cuda.empty_cache()
 
     # 3b. the screened trio (K2), kernels and route
@@ -2625,9 +2792,16 @@ def main():
     _, shift_b = TF.lmap_and_shift(below, above, NFILT)
     ms_a = median_ms(torch, lambda: FM.chi2_brackets(
         d_b, de_b, mT, meT, c0=NFILT - 2.0), reps=3)
+    # Pass B as the K1 route runs it (band order), and in the caller's
+    # order beside it.
+    bs_k1 = GK.band_sort(G, mT, meT)
     ms_b = median_ms(torch, lambda: FM.chi2_stack(
+        d_b, de_b, bs_k1.mT, bs_k1.meT, bs_k1.G[:NMODEL, :NGRID], shift_b,
+        a1=0.5 * NFILT - 1.0, wthr=wthr, bands=bs_k1.bands), reps=3)
+    ms_b_caller = median_ms(torch, lambda: FM.chi2_stack(
         d_b, de_b, mT, meT, G, shift_b, a1=0.5 * NFILT - 1.0, wthr=wthr),
         reps=3)
+    del bs_k1
     ms_batch = {"chi2_brackets": ms_a, "chi2_stack": ms_b}
     srt = SC.sort_and_bound(d_b, de_b, mT, meT, G, sm=512, tm=512,
                             tb=SCK.TB, ignore_model_err=False)
@@ -2652,6 +2826,7 @@ def main():
                                               stats_b, 512, wthr)
     print(f"kernel_at_batch {BATCH}x{NMODEL}: " + ", ".join(
         f"{k} {ms_batch[k]:.3f} ms" for k in K1_PAIR + SCREENED)
+        + f" (chi2_stack in band order; caller order {ms_b_caller:.3f} ms)"
         + " | screened bounds " + ", ".join(
             f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bound_batch.items())
         + f" at run fractions A {stats_b[0]:.4f} B {stats_b[1]:.4f} dot "
@@ -2689,12 +2864,13 @@ def main():
         args_k = [tens(x) for x in (
             data[:N_KERNEL], np.full((N_KERNEL, NFILT), 0.25, f32), dm_k,
             models.T, (0.05 * models).T, np.ones_like(models).T)]
-        _, tab = table_route_check(torch, np, GK, args_k, G, fl, log_thr,
-                                   f"table route {fl}")
+        _, tab, _ = table_route_check(torch, np, GK, args_k, G, fl, log_thr,
+                                      f"table route {fl}")
         results["lnl_reduce"]["masked_dimprior"].setdefault(
             "table_ulp_other", {})[str(fl)] = tab
-        print(f"table_route {fl}: B={N_KERNEL} M={NMODEL} == recompute "
-              f"route bit for bit (lmap, levid, pdf); lnl table "
+        print(f"table_route {fl}: B={N_KERNEL} M={NMODEL}, band order "
+              f"(lnl_stack_band) == recompute route on band order bit for "
+              f"bit (lmap, levid, pdf); lnl table "
               f"{tab['table_ulp']:.3g} ulp from lnl_tile_plain "
               f"({tab['table_ulp_count']} entries differ) | card {card}",
               flush=True)
@@ -2734,16 +2910,18 @@ def main():
                                    **fp_kw)
     wall_m = time.perf_counter() - t0
     launches_m = KS.launch_counts()
-    check(launches_m["lnl_reduce"] > 0 and launches_m["lnl_stack"] > 0,
+    check(launches_m["lnl_reduce"] > 0 and launches_m["lnl_stack_band"] > 0,
           f"masked fit_predict did not launch the general kernels "
           f"({launches_m})")
-    # The table route alone: every reduce and stack launch on the table,
+    # The table route alone, in band order: every reduce launch on the
+    # table and every stack launch the band reader, never the dense one;
     # two chunks a 65,536-object batch.
     chunks_m = -(-BATCH // GK.table_rows(BATCH, NMODEL))
     check(launches_m["lnl_reduce_table"] == launches_m["lnl_reduce"]
-          == launches_m["lnl_stack_table"] == launches_m["lnl_stack"]
-          == chunks_m * -(-N_E2E // BATCH),
-          f"masked fit_predict left the table route ({launches_m})")
+          == launches_m["lnl_stack_band"] == chunks_m * -(-N_E2E // BATCH)
+          and launches_m["lnl_stack"] == 0,
+          f"masked fit_predict left the band-order table route "
+          f"({launches_m})")
     check(all(launches_m[k] == 0 for k in K1_PAIR + SCREENED),
           f"masked fit_predict launched a full-mask kernel ({launches_m})")
     dead = ~np.isfinite(gof_m[0])
@@ -2794,9 +2972,10 @@ def main():
         check(launches_c[kname] > 0, f"cdf fit_predict did not launch "
                                      f"{kname} ({launches_c})")
     check(all(launches_c[k] == 0 for k in (
-        "lnl_reduce", "lnl_topk", "lnl_stack", "lnl_reduce_split")),
-          f"cdf fit_predict launched lnl_reduce, lnl_topk, lnl_stack or the "
-          f"bisection ({launches_c})")
+        "lnl_reduce", "lnl_topk", "lnl_stack", "lnl_stack_band",
+        "lnl_reduce_split")),
+          f"cdf fit_predict launched lnl_reduce, lnl_topk, a table stack or "
+          f"the bisection ({launches_c})")
     check(bf.cdf_reruns == 0, f"{bf.cdf_reruns} cdf batches reran")
     off_c = check_vs_plain(np, bf, (pdfs_c[:N_SUBSET],
                                     (gof_c[0][:N_SUBSET],
@@ -2857,29 +3036,57 @@ def main():
     cut_b, tie_b, nkeep_b, _ = TF.cdf_cut(vals_b, cnts_b, lv_b, CDF_THRESH)
     bs_b = GK.band_sort(G, *args_b[3:6])
     # The two-pass threshold route over the batch on both routes: the
-    # table route (row chunks under TABLE_BYTES_MAX, one buffer) bit for
-    # bit the recompute route; each route's lnl_reduce and lnl_stack time
-    # over the batch.
+    # table route (row chunks under TABLE_BYTES_MAX, one buffer, the models
+    # in band order, `lnl_stack_band`) bit for bit the recompute route on
+    # the same order; each route's kernels timed over the batch, and the
+    # table route in the caller's order (the dense reader) beside.
     flags_b = dict(full_mask=False, dim_prior=True, ignore_model_err=False,
                    free_scale=False, sweeps=None, tm=None)
-    pdf_r = GK.lnl_stack(*args_b, G, lm_b, lv_b, log_thr=log_thr)
+    argsb_b = list(args_b[:3]) + [bs_b.mT, bs_b.meT, bs_b.mmT]
+    Gb_b = bs_b.G[:NMODEL, :NGRID].contiguous()
+    lm_r, lv_r = GK.lnl_reduce(*argsb_b)
+    pdf_r = GK.lnl_stack(*argsb_b, Gb_b, lm_r, lv_r, log_thr=log_thr)
     pdf_t, lm_t, lv_t = TF._table_route(*args_b, G, flags=flags_b,
                                         log_thr=log_thr, sweep_kw=None)
     torch.cuda.synchronize()
-    for nm, g, w in (("lmap", lm_t, lm_b), ("levid", lv_t, lv_b),
+    for nm, g, w in (("lmap", lm_t, lm_r), ("levid", lv_t, lv_r),
                      ("pdf", pdf_t, pdf_r)):
         check(torch.equal(g, w), f"masked {BATCH} batch: table route {nm} "
-                                 "differs from the recompute route")
-    del pdf_r, pdf_t, lm_t, lv_t
-    ms_table_b, chunks_b, bytes_b, kept_b = chunk_times(
-        torch, np, GK, args_b, G, flags_b, log_thr)
-    bounds_b = table_bounds(NFILT, BATCH, NMODEL, NGRID, flags_b, kept_b, 0.0)
+                                 "differs from the recompute route on the "
+                                 "band order")
+    check(torch.equal(lm_t, lm_b), f"masked {BATCH} batch: lmap moved with "
+                                   "the band order")
+    lv_moved = float((lv_t - lv_b).abs().max())
+    del pdf_r, pdf_t, lm_t, lv_t, lm_r, lv_r
+    ms_recompute_band = median_ms(torch, lambda: GK.lnl_stack(
+        *argsb_b, Gb_b, lm_b, lv_b, log_thr=log_thr), reps=3)
+    del Gb_b
+    ms_table_b, chunks_b, bytes_b, kept_b, kept_nnz_b = chunk_times(
+        torch, np, GK, argsb_b, G, flags_b, log_thr, bs=bs_b)
+    ms_caller_b = chunk_times(torch, np, GK, args_b, G, flags_b, log_thr)[0]
+    ms_table_b["lnl_stack"] = ms_caller_b["lnl_stack"]
+    bounds_b = table_bounds(NFILT, BATCH, NMODEL, NGRID, flags_b, kept_b, 0.0,
+                            kept_nnz_b, float((G != 0).sum()))
     table_batch = {k: dict(ms=v, chunks=chunks_b, table_bytes=bytes_b,
                            batch_table_bytes=4 * BATCH
                            * GK.table_width(NMODEL),
                            kept_pairs=kept_b, bound_ms=bounds_b[k][0],
                            bound_by=bounds_b[k][1])
                    for k, v in ms_table_b.items()}
+    table_batch["lnl_stack_band"].update(
+        kept_nnz=kept_nnz_b, recompute_ms=ms_recompute_band,
+        dense_ms=ms_caller_b["lnl_stack"],
+        dense_bound_ms=bounds_b["lnl_stack_band_dense"][0],
+        dense_bound_by=bounds_b["lnl_stack_band_dense"][1],
+        producer_caller_order_ms=ms_caller_b["lnl_reduce"],
+        levid_moved_by=lv_moved)
+    # The product alone as one library call, a yardstick used nowhere in
+    # the port: fp32_matmul of a dense (32,768 x 100,000) float32 weight
+    # chunk by G, twice for the batch.
+    w_dense = torch.rand((BATCH // 2, NMODEL), device=dev)
+    table_batch["lnl_stack_band"]["matmul_ms"] = 2 * median_ms(
+        torch, lambda: TK.fp32_matmul(w_dense, G), reps=3)
+    del w_dense
     for kname, fn in (
             ("lnl_reduce", lambda: GK.lnl_reduce(*args_b)),
             ("lnl_reduce_split", lambda: GK.lnl_reduce_split(*args_b,
@@ -2893,18 +3100,30 @@ def main():
     for kname in ("lnl_reduce", "lnl_stack"):
         table_batch[kname]["recompute_ms"] = ms_batch[kname]
         ms_batch[kname] = table_batch[kname]["ms"]
+    ms_batch["lnl_stack_band"] = table_batch["lnl_stack_band"]["ms"]
     # The cdf mode's one walk over the batch (general_bounds' count).
     bound_batch["lnl_reduce_topk"] = bound(
         float(BATCH) * NMODEL
         * (lnl_pair_ops(NFILT, flags_b) + REDUCE_TOPK_OPS),
         4.0 * (3 * BATCH * NFILT + 3 * NFILT * NMODEL) + 72.0 * BATCH)
     print(f"kernel_at_batch {BATCH}x{NMODEL} masked: two-pass threshold "
-          f"route, table == recompute bit for bit over the batch ({chunks_b} "
-          f"chunks, a {bytes_b / 1e9:.4g} GB table buffer): table route "
-          + ", ".join(f"{k} {v['ms']:.3f} ms" for k, v in table_batch.items())
-          + ", recompute route " + ", ".join(
-              f"{k} {v['recompute_ms']:.3f} ms"
-              for k, v in table_batch.items())
+          f"route in band order, table == recompute bit for bit over the "
+          f"batch ({chunks_b} chunks, a {bytes_b / 1e9:.4g} GB table "
+          f"buffer; lmap equal to the caller order's, levid moved by "
+          f"{lv_moved:.3g}): table route "
+          + ", ".join(f"{k} {v['ms']:.3f} ms" for k, v in table_batch.items()
+                      if k != "lnl_stack")
+          + f", the caller order's dense reader lnl_stack "
+          f"{table_batch['lnl_stack']['ms']:.3f} ms; recompute route "
+          + ", ".join(f"{k} {v['recompute_ms']:.3f} ms"
+                      for k, v in table_batch.items())
+          + f"; kept pairs {kept_b:.6g}, their nonzero G entries "
+          f"{kept_nnz_b:.6g}; band reader bound "
+          f"{table_batch['lnl_stack_band']['bound_ms']:.4f} ms "
+          f"({table_batch['lnl_stack_band']['bound_by']}), dense "
+          f"{table_batch['lnl_stack_band']['dense_bound_ms']:.4f} ms; the "
+          f"product alone as fp32_matmul of dense weights by G "
+          f"{table_batch['lnl_stack_band']['matmul_ms']:.3f} ms"
           + " | " + ", ".join(f"{k} {ms_batch[k]:.3f} ms" for k in (
               "lnl_reduce_split", "lnl_reduce_topk", "lnl_cut_stack"))
           + f" | card {card}", flush=True)
@@ -2922,7 +3141,7 @@ def main():
           f"lnl_stack keeping every weight {ms_two:.3f} ms | card {card}",
           flush=True)
     del args_b, lm_b, lv_b, split_b, vals_b, cnts_b, cut_b, tie_b, nkeep_b
-    del bs_b
+    del bs_b, argsb_b
     torch.cuda.empty_cache()
 
     # 6. free scale (K6) and the one-pass kernel (K4): every free-scale
@@ -2955,7 +3174,8 @@ def main():
                                      ignore_model_err=ime, free_scale=True))
                 per = general_kernel_case(
                     torch, np, GK, TF, tens, card, G8, case, plain_reps=1,
-                    bounds=cname == "fs_me_full_dimprior")
+                    bounds=cname in ("fs_me_full_dimprior",
+                                     "fs_ime_masked_dimprior"))
                 for kname, r in per.items():
                     key = kname if kname == "scale_sweeps" else kname + "_fs"
                     results[key][cname] = r
@@ -3004,7 +3224,7 @@ def main():
     torch.cuda.synchronize()
     out8, wall8, launches8 = drive(
         call8, kw8, ("scale_sweeps", "lnl_reduce", "lnl_stack"),
-        "config 8 fit_predict", absent=("lnl_onepass",))
+        "config 8 fit_predict", absent=("lnl_onepass", "lnl_stack_band"))
     # The table route alone: `scale_sweeps` writes the lnl table, which
     # `lnl_reduce` and `lnl_stack` read.
     check(all(launches8[k + "_table"] == launches8[k] for k in (
@@ -3057,7 +3277,7 @@ def main():
     lkw9 = dict(free_scale=True, ignore_model_err=True)
     walls9 = {}
     for label, extra, expect in (
-            ("wt_thresh", {}, ("lnl_reduce", "lnl_stack")),
+            ("wt_thresh", {}, ("lnl_reduce", "lnl_stack_band")),
             ("cdf", dict(wt_thresh=None, cdf_thresh=CDF_THRESH),
              ("lnl_reduce_topk", "lnl_cut_stack")),
             ("none", dict(wt_thresh=None, cdf_thresh=None),
@@ -3072,7 +3292,7 @@ def main():
                 k for k in GENERAL + ("lnl_onepass", "lnl_topk")
                 if k not in expect))
         check((l9["lnl_reduce_table"] == l9["lnl_reduce"]
-               == l9["lnl_stack_table"]) if label == "wt_thresh"
+               == l9["lnl_stack_band"]) if label == "wt_thresh"
               else l9["lnl_reduce_table"] == 0,
               f"{what}: the reduce ran on the wrong route ({l9})")
         check(bf.cdf_reruns == 0, f"{what}: {bf.cdf_reruns} batches reran")
@@ -3099,7 +3319,7 @@ def main():
         (*flat, zlabels, zerrs), flat_kw,
         ("lnl_reduce_topk", "lnl_reduce_split", "lnl_cut_stack"),
         "free-scale flat-posterior rerun",
-        absent=("scale_sweeps", "lnl_reduce", "lnl_topk"))
+        absent=("scale_sweeps", "lnl_reduce", "lnl_topk", "lnl_stack_band"))
     check(bf.cdf_reruns == 1, f"free-scale flat posterior: {bf.cdf_reruns} "
                               "reruns")
     off_f = check_vs_plain(np, bf, got_f, (*flat, zlabels, zerrs), flat_kw,
@@ -3158,7 +3378,7 @@ def main():
           "config 8: the table was written past M")
     del sw_t, lm_t, lv_t, pdf_t, tab8, pdf8
     torch.cuda.empty_cache()
-    ms_table8, chunks8, bytes8, kept8 = chunk_times(
+    ms_table8, chunks8, bytes8, kept8, _ = chunk_times(
         torch, np, GK, args8, G8, flags8, log_thr, sk8)
     bounds8 = table_bounds(NFILT, N8, NMODEL, NGRID, dict(flags8, tm=sk8["tm"]),
                            kept8, float(sw8.float().mean()))
@@ -3217,6 +3437,8 @@ def main():
                 # No Pallas kernel: the JAX fitter's XLA-sort rerun.
                 "lnl_reduce_split": "frankenz_tpu/models/bruteforce.py:852",
                 "lnl_stack": "frankenz_tpu/ops/fused.py:634",
+                # The same kernel with its band skip (:190-240, K7).
+                "lnl_stack_band": "frankenz_tpu/ops/fused.py:634",
                 "lnl_reduce_topk": "frankenz_tpu/ops/fused.py:721",
                 "lnl_cut_stack": "frankenz_tpu/ops/fused.py:779",
                 "lnl_onepass": "frankenz_tpu/ops/fused.py:670"}
@@ -3229,12 +3451,11 @@ def main():
                      **{k: launches[k] for k in SCREENED},
                      "lnl_reduce": launches_m["lnl_reduce"],
                      "lnl_reduce_split": launches_r["lnl_reduce_split"],
-                     "lnl_stack": launches_m["lnl_stack"],
+                     "lnl_stack_band": launches_m["lnl_stack_band"],
                      "lnl_reduce_topk": launches_c["lnl_reduce_topk"],
                      "lnl_cut_stack": launches_c["lnl_cut_stack"],
                      "lnl_onepass": launches10["lnl_onepass"],
-                     "lnl_reduce_table": launches_m["lnl_reduce_table"],
-                     "lnl_stack_table": launches_m["lnl_stack_table"]}
+                     "lnl_reduce_table": launches_m["lnl_reduce_table"]}
     # The free-scale instantiations (csrc/lnl_freescale.cu: the `_fs`
     # entry points and the sweep counts) replace the same Pallas kernels
     # with `_lnl_tile`'s free-scale branch (ops/fused.py:316-596); their
@@ -3248,12 +3469,19 @@ def main():
         main_launches[kname + "_fs"] = launches_fs[kname]
     for kname in ("lnl_reduce", "lnl_stack"):
         main_launches[kname + "_fs_table"] = launches_fs[kname + "_table"]
+    # The fixed-scale dense stack (recompute, or `lnl_stack_read` on a
+    # caller-order table) runs on no main path: the table route reads in
+    # band order.  It is the twin phases 5-7 hold the band reader to, timed
+    # there as `lnl_stack_band`'s `dense_ms`; the caller-order reader that
+    # config 8 runs is `lnl_stack_fs`.
+    del replaces["lnl_stack"]
     kernels = []
     for kname in replaces:
         per = results[kname]
         free = kname == "scale_sweeps" or kname.endswith("_fs")
         ref = per["config4" if kname in K1_PAIR + SCREENED else
-                  "fs_me_full_dimprior" if free else "masked_dimprior"]
+                  "fs_ime_masked_dimprior" if kname == "lnl_stack_band_fs"
+                  else "fs_me_full_dimprior" if free else "masked_dimprior"]
         check(main_launches[kname] > 0,
               f"{kname} was launched no time by the end-to-end runs")
         entry = {
@@ -3285,7 +3513,8 @@ def main():
             entry.update({
                 "lnl_route": "table",
                 "source": TABLE_SOURCES[kname],
-                "table_launches": main_launches[kname + "_table"],
+                "table_launches": main_launches[
+                    kname if kname == "lnl_stack_band" else kname + "_table"],
                 "recompute_ms": ref["recompute_ms"],
                 "recompute_bound_ms": ref.get("recompute_bound_ms"),
                 f"chunks_batch_{n}": tb["chunks"],
@@ -3298,6 +3527,25 @@ def main():
         if kname in bound_batch:
             entry[f"bound_ms_batch_{BATCH}"] = bound_batch[kname][0]
             entry[f"bound_by_batch_{BATCH}"] = bound_batch[kname][1]
+        if kname.startswith("lnl_stack_band") or kname == "chi2_stack":
+            # Rows 7 and 2 in band order (K7): bound_ms counts each kept
+            # model's nonzero G entries, dense_bound_ms 2 Ngrid a kept pair;
+            # the dense reader's (caller order) time beside.
+            entry.update(band=band, dense_bound_ms=ref["dense_bound_ms"],
+                         dense_bound_by=ref["dense_bound_by"])
+        if kname.startswith("lnl_stack_band"):
+            entry.update(source=TABLE_SOURCES[kname],
+                         dense_reader_ms=ref["dense_ms"],
+                         recompute_band_order_ms=ref["recompute_ms"])
+            if kname in table_batch:
+                entry.update({f"{k}_batch_{BATCH}": table_batch[kname][k]
+                              for k in ("dense_ms", "dense_bound_ms",
+                                        "dense_bound_by", "kept_nnz",
+                                        "levid_moved_by", "matmul_ms")})
+        if kname == "chi2_stack":
+            entry.update(caller_order_ms=ref["caller_order_ms"],
+                         caller_order_plain_ms=ref["caller_order_plain_ms"],
+                         **{f"caller_order_ms_batch_{BATCH}": ms_b_caller})
         if kname.replace("_fs", "") in BAND:
             # Rows 8 and 10: the band kernels (K7) over the models in band
             # order; bound_ms counts each kept model's nonzero G entries,

@@ -42,9 +42,18 @@
 //   accumulators (a per-tile partial, then the running total), models in
 //   a fixed order: no atomics, results are bitwise stable run to run.
 //   A model whose 32 kept weights are all exactly 0.0 skips its G row
-//   (adding zeros is exact); nothing else is skipped.  s is summed in
-//   model order, compensated, by column chunk 0 only.  The stack
-//   product is fp32 FMA on the CUDA cores, not TF32.
+//   (adding zeros is exact).  s is summed in model order, compensated, by
+//   column chunk 0 only.  The stack product is fp32 FMA on the CUDA
+//   cores, not TF32.
+//   Band order (K7, JAX's `_band_sort` and `_stack_accum_blocks`,
+//   ops/fused.py:190-267, as at :1701-1704): the route passes the models
+//   sorted by the centre of their kernel-matrix support, G in that order
+//   with row stride ldg, and each 64-model tile's nonzero columns
+//   [lo, hi) (`bands`); a thread whose column lies outside its tile's band
+//   skips the tile's G loads and FMAs (a warp whose 32 columns all miss
+//   skips whole).  Each of those products multiplies an exact zero, so
+//   the PDF is the dense product's bit for bit; s then sums in band
+//   order, as JAX's does.
 //
 // Both kernels mask the ragged object and model edges themselves: there
 // are no sentinel-padded models, so the JAX glue's pad-weight
@@ -123,7 +132,8 @@ __global__ void chi2_stack_kernel(const float* __restrict__ d,
                                   const float* __restrict__ de,
                                   const float* __restrict__ mT,
                                   const float* __restrict__ meT,
-                                  const float* __restrict__ G,
+                                  const float* __restrict__ G, int ldg,
+                                  const int* __restrict__ bands,
                                   const float* __restrict__ shift,
                                   float* __restrict__ pdf,
                                   float* __restrict__ s, int B, int M, int F,
@@ -203,7 +213,11 @@ __global__ void chi2_stack_kernel(const float* __restrict__ d,
     }
     __syncthreads();
 
-    if (g < Ngrid) {
+    // Outside the tile's band (bands given) G is zero: nothing to add.
+    const bool in_band = bands == nullptr ||
+                         (g >= bands[2 * (m0 / kBTile)] &&
+                          g < bands[2 * (m0 / kBTile) + 1]);
+    if (g < Ngrid && in_band) {
       // Two-level sum: the tile's <= 64 products go into `part`, which is
       // then added to `acc` -- ~(64 + M/64) roundings on a row instead of
       // ~M when every weight is kept (an all-clamped row).
@@ -214,7 +228,7 @@ __global__ void chi2_stack_kernel(const float* __restrict__ d,
       for (int j = 0; j < n; ++j) {
         if (!nz[j]) continue;  // every kept weight is 0.0: exact skip
         any = true;
-        const float gv = G[(size_t)(m0 + j) * Ngrid + g];
+        const float gv = G[(size_t)(m0 + j) * ldg + g];
 #pragma unroll
         for (int bb = 0; bb < kBObjects; ++bb)
           part[bb] = fmaf(wkeep[bb * kBTile + j], gv, part[bb]);
@@ -265,11 +279,13 @@ int fz_chi2_brackets(const float* d, const float* de, const float* mT,
   return (int)cudaGetLastError();
 }
 
+// G has row stride ldg (>= Ngrid); `bands` is NULL (every column) or each
+// 64-model tile's nonzero columns [lo, hi) of G.
 int fz_chi2_stack(const float* d, const float* de, const float* mT,
-                  const float* meT, const float* G, const float* shift,
-                  float* pdf, float* s, int B, int M, int F, int Ngrid,
-                  float a1, int has_thr, float wthr, int ignore_model_err,
-                  int threads, void* stream) {
+                  const float* meT, const float* G, int ldg, const int* bands,
+                  const float* shift, float* pdf, float* s, int B, int M,
+                  int F, int Ngrid, float a1, int has_thr, float wthr,
+                  int ignore_model_err, int threads, void* stream) {
   const int smem = fz_chi2_stack_smem(F);
   cudaError_t err = cudaFuncSetAttribute(
       chi2_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -278,8 +294,8 @@ int fz_chi2_stack(const float* d, const float* de, const float* mT,
   const dim3 grid((B + kBObjects - 1) / kBObjects,
                   (Ngrid + threads - 1) / threads);
   chi2_stack_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      d, de, mT, meT, G, shift, pdf, s, B, M, F, Ngrid, ws, has_thr, wthr,
-      ignore_model_err);
+      d, de, mT, meT, G, ldg, bands, shift, pdf, s, B, M, F, Ngrid, ws,
+      has_thr, wthr, ignore_model_err);
   return (int)cudaGetLastError();
 }
 

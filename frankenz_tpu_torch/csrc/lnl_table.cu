@@ -48,7 +48,39 @@
 //   cycles of weights, ~2,800 of G wait and ~3,300 of products.  Tried
 //   and dropped, no faster (tools/ab_table.py --stamps): two blocks an
 //   SM (launch bounds, 96 registers), and summing each row's nonzero
-//   weights alone (exact when G is finite and >= 0).
+//   weights alone (exact when G is finite and >= 0).  It serves free scale
+//   with model errors, whose table `scale_sweeps` writes in the caller's
+//   model order (its convergence groups are the caller's models, and a
+//   table in band order would need scattered stores or a gathered read).
+//
+// lnl_stack_band
+//   Replaces: `_make_stack_kernel` (ops/fused.py:634; pallas_call :1998)
+//             with its band skip (`_stack_accum_blocks`, :190-240; K7):
+//             the reader of every other instantiation of the table route.
+//   Computes: lnl_stack_read's pdf over a table whose columns are the
+//             models in band order (`band_sort`: sorted by the centre of
+//             their kernel-matrix support; the producer ran on the sorted
+//             model arrays), with G in band order, (M rounded up to 64,
+//             ldg), and each 64-model tile's nonzero columns [lo, hi) of G
+//             (`bands`).  Bit for bit lnl_stack on the same inputs: a
+//             product outside [lo, hi) multiplies an exact zero.
+//   Bound on the H100: bytes, the table read once, plus 2 operations a
+//   nonzero G entry of each kept model.
+//   Design: 32 rows and a window of up to 512 grid columns a block, 256
+//   threads, the accumulator [32][win + 4] in shared memory (two blocks an
+//   SM at config 4).  Per tile: the table tile by 16-byte `cp.async`,
+//   double-buffered, the weights and the ballot of kept models as
+//   lnl_stack_read's; then the list of kept models, their band rows of G
+//   (16-byte `cp.async`, after the ballot), and 4 x 4 outputs a thread (4
+//   rows x 4 band columns), each one fmaf chain over the kept models in
+//   order into a partial that its one owner adds to the accumulator.  A
+//   tile's band is ~74 of config 4's 301 columns, so every warp shares
+//   the band's products.  Tried and dropped: lnl_stack_read's own kernel
+//   restricted to the band (a thread a column, only the in-band threads
+//   copying G and multiplying), bit-equal but slower, in turns on a masked
+//   32,768-row chunk of config 4 (NVIDIA H100 80GB HBM3, 700 W;
+//   tools/ab_table.py): 21.745 ms against 30.045; it leaves three of its
+//   ten warps the products.
 //
 // No fast math anywhere.
 // ---------------------------------------------------------------------
@@ -70,10 +102,11 @@ constexpr int kReadRows = 128;  // lnl_reduce_read: rows (threads) a block
 
 #ifdef FZ_STAMPS
 // Debug builds only (nvcc -DFZ_STAMPS; tools/ab_table.py --stamps): each
-// lnl_stack_read block's thread 0 adds the clock64 cycles of the parts of
-// a tile to [0] the table tile's wait and barrier, [1] the weights, [2]
-// the barrier and the mask, [3] the G entries' copies and wait, [4] the
-// products; [5] counts the tiles with products, [6] all tiles.
+// lnl_stack_read or lnl_stack_band block's thread 0 adds the clock64
+// cycles of the parts of a tile to [0] the table tile's wait and barrier,
+// [1] the weights, [2] the barrier and the mask, [3] the G entries' copies
+// and wait, [4] the products; [5] counts the tiles with products, [6] all
+// tiles.
 __device__ unsigned long long fz_stack_stamps[8];
 #define FZ_STAMP(i)                             \
   do {                                          \
@@ -269,6 +302,176 @@ __global__ void lnl_stack_read_kernel(
   }
 }
 
+// lnl_stack_band (see the head of the file).
+constexpr int kBandThreads = 256;
+constexpr int kBandWindow = 512;
+#ifdef FZ_STAMPS
+// FZ_STAMP's parts for lnl_stack_band, the clock kept in c0s (c0 is the
+// column window here).
+#define BAND_STAMP(i)                           \
+  do {                                          \
+    if (t == 0) {                               \
+      const long long c1 = clock64();           \
+      stamp[i] += c1 - c0s;                     \
+      c0s = c1;                                 \
+    }                                           \
+  } while (0)
+#else
+#define BAND_STAMP(i) \
+  do {                \
+  } while (0)
+#endif
+
+// Dynamic shared memory in floats: the accumulator, then the kept models'
+// band rows of G, [kSTile][bw].
+__host__ __device__ inline int band_acc_stride(int win) { return win + 4; }
+__host__ __device__ inline int band_smem_floats(int win, int bw) {
+  return kSObjects * band_acc_stride(win) + kSTile * bw;
+}
+
+__global__ void __launch_bounds__(kBandThreads) lnl_stack_band_kernel(
+    const float* __restrict__ table, int ldm, const float* __restrict__ G,
+    int ldg, const int* __restrict__ bands, const float* __restrict__ lmap,
+    const float* __restrict__ levid, float* __restrict__ pdf, int B, int M,
+    int Ngrid, float log_thr, int win, int bw) {
+  __shared__ __align__(16) float sbuf[2][kSObjects * kSTile];
+  __shared__ __align__(16) float sw[kSTile * kWStride];
+  __shared__ float sthr[kSObjects], slev[kSObjects];
+  __shared__ unsigned smask[2][2];
+  __shared__ int sidx[kSTile];
+  extern __shared__ __align__(16) float smem[];
+  const int as = band_acc_stride(win);
+  float* sacc = smem;
+  float* sg = smem + kSObjects * as;
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int b0 = blockIdx.x * kSObjects;
+  const int nb = min(kSObjects, B - b0);
+  const int c0 = blockIdx.y * win;
+  const int ncols = min(win, ldg - c0);  // a multiple of 4
+  const int ntiles = (M + kSTile - 1) / kSTile;
+
+  auto fetch = [&](int tile) {
+    float* dst = sbuf[tile & 1];
+    const float* src = table + (size_t)b0 * ldm + tile * kSTile;
+    for (int c = t; c < nb * (kSTile / 4); c += kBandThreads) {
+      const int bb = c / (kSTile / 4), q = c - bb * (kSTile / 4);
+      cp_async16(dst + bb * kSTile + 4 * q, src + (size_t)bb * ldm + 4 * q);
+    }
+    cp_async_commit();
+  };
+  fetch(0);
+  for (int i = t; i < kSObjects; i += kBandThreads) {
+    sthr[i] = i < nb ? __fadd_rn(log_thr, lmap[b0 + i]) : INFINITY;
+    slev[i] = i < nb ? levid[b0 + i] : 0.0f;
+  }
+  if (t < 2) smask[0][t] = 0u;
+  for (int i = t; i < kSObjects * as; i += kBandThreads) sacc[i] = 0.0f;
+#ifdef FZ_STAMPS
+  long long stamp[5] = {0, 0, 0, 0, 0}, c0s = clock64();
+  int nprod = 0;
+#endif
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int m0 = tile * kSTile;
+    const int n = min(kSTile, M - m0);
+    unsigned* mask = smask[tile & 1];
+    if (tile + 1 < ntiles)
+      fetch(tile + 1);
+    else
+      cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // this tile's rows have landed; the last products ended
+    BAND_STAMP(0);
+    const float* cur = sbuf[tile & 1];
+    for (int p = t; p < kSObjects * kSTile; p += kBandThreads) {
+      const int bb = p / kSTile, j = p - bb * kSTile;
+      float w = 0.0f;
+      if (bb < nb && j < n) {
+        const float v = cur[p];
+        if (v > sthr[bb]) w = expf(__fsub_rn(v, slev[bb]));
+      }
+      sw[j * kWStride + bb] = w;
+      const unsigned nonzero = __ballot_sync(0xffffffffu, w != 0.0f);
+      if (lane == 0 && nonzero) atomicOr(&mask[j >> 5], nonzero);
+    }
+    BAND_STAMP(1);
+    __syncthreads();
+    const unsigned long long mk =
+        ((unsigned long long)mask[1] << 32) | mask[0];
+    if (t < 2) smask[(tile + 1) & 1][t] = 0u;
+    const int lo4 = max(bands[2 * tile] & ~3, c0);
+    const int hi4 = min(fz::round4(bands[2 * tile + 1]), c0 + ncols);
+    BAND_STAMP(2);
+    if (mk == 0ull || hi4 <= lo4) continue;  // the same for the whole block
+    if (t < kSTile && ((mk >> t) & 1ull))
+      sidx[__popcll(mk & ((1ull << t) - 1ull))] = t;
+    const int k = __popcll(mk);
+    const int nq = (hi4 - lo4) >> 2;
+    __syncthreads();  // the list is set
+    for (int c = t; c < k * nq; c += kBandThreads) {
+      const int kk = c / nq, q = c - kk * nq;
+      cp_async16(sg + kk * bw + 4 * q,
+                 G + (size_t)(m0 + sidx[kk]) * ldg + lo4 + 4 * q);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();  // every thread's band rows have landed
+    BAND_STAMP(3);
+    for (int p = t; p < (kSObjects / 4) * nq; p += kBandThreads) {
+      const int rg = p % (kSObjects / 4), cg = p / (kSObjects / 4);
+      float part[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[r][c] = 0.0f;
+      for (int kk = 0; kk < k; ++kk) {
+        const float4 w4 = *reinterpret_cast<const float4*>(
+            sw + sidx[kk] * kWStride + 4 * rg);
+        const float4 g4 =
+            *reinterpret_cast<const float4*>(sg + kk * bw + 4 * cg);
+        const float wr[4] = {w4.x, w4.y, w4.z, w4.w};
+        const float gc[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            part[r][c] = fmaf(wr[r], gc[c], part[r][c]);
+      }
+      const int col = lo4 - c0 + 4 * cg;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float4* a = reinterpret_cast<float4*>(sacc + (4 * rg + r) * as + col);
+        float4 x = *a;
+        x.x = __fadd_rn(x.x, part[r][0]);
+        x.y = __fadd_rn(x.y, part[r][1]);
+        x.z = __fadd_rn(x.z, part[r][2]);
+        x.w = __fadd_rn(x.w, part[r][3]);
+        *a = x;
+      }
+    }
+    BAND_STAMP(4);
+#ifdef FZ_STAMPS
+    ++nprod;
+#endif
+  }
+  cp_async_wait_all();
+  __syncthreads();  // the last tile's products ended
+#ifdef FZ_STAMPS
+  if (t == 0) {
+    for (int i = 0; i < 5; ++i)
+      atomicAdd(&fz_stack_stamps[i], (unsigned long long)stamp[i]);
+    atomicAdd(&fz_stack_stamps[5], (unsigned long long)nprod);
+    atomicAdd(&fz_stack_stamps[6], (unsigned long long)ntiles);
+  }
+#endif
+  for (int i = t; i < nb * ncols; i += kBandThreads) {
+    const int r = i / ncols, c = i - r * ncols;
+    if (c0 + c < Ngrid) pdf[(size_t)(b0 + r) * Ngrid + c0 + c] = sacc[r * as + c];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -298,6 +501,25 @@ int fz_lnl_stack_read(const float* table, int ldm, const float* G,
                   (Ngrid + threads - 1) / threads);
   lnl_stack_read_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       table, ldm, G, lmap, levid, pdf, B, M, Ngrid, log_thr);
+  return (int)cudaGetLastError();
+}
+
+// The table and G (rows padded to ldm, stride ldg, a multiple of 4) in
+// band order, `bands` each 64-model tile's [lo, hi); `width` the widest
+// band rounded out to 4 columns (the G buffer).
+int fz_lnl_stack_band(const float* table, int ldm, const float* G, int ldg,
+                      const int* bands, int width, const float* lmap,
+                      const float* levid, float* pdf, int B, int M,
+                      int Ngrid, float log_thr, void* stream) {
+  const int win = ldg < kBandWindow ? ldg : kBandWindow;
+  const int bw = width < win ? width : win;
+  const int smem = (int)sizeof(float) * band_smem_floats(win, bw);
+  cudaError_t err = fz::allow_smem(lnl_stack_band_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + kSObjects - 1) / kSObjects, (ldg + win - 1) / win);
+  lnl_stack_band_kernel<<<grid, kBandThreads, smem, (cudaStream_t)stream>>>(
+      table, ldm, G, ldg, bands, lmap, levid, pdf, B, M, Ngrid, log_thr, win,
+      bw);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,9 @@ wrappers, plain PyTorch versions and launch counters.
 ``screened``: the screened full-mask trio (`screen_seed`,
 `chi2_brackets_screened`, `chi2_stack_screened`);
 ``general``: the lnl kernels of every other configuration (`lnl_reduce`,
-`lnl_reduce_split`, `lnl_stack`, `lnl_reduce_topk`, `lnl_topk`,
-`lnl_cut_stack`, `lnl_onepass`), in fixed and free scale, and the free-scale sweep counts
+`lnl_reduce_split`, `lnl_stack`, `lnl_stack_band`, `lnl_reduce_topk`,
+`lnl_topk`, `lnl_cut_stack`, `lnl_onepass`), in fixed and free scale, and
+the free-scale sweep counts
 (`scale_sweeps`); ``som``: the whole SOM training run (`som_train`);
 ``gng``: the whole GrowingNeuralGas training run (`gng_train`); ``pop``:
 whole flat-prior population MH-in-Gibbs chains (`pop_chain`).  The three
@@ -36,6 +37,8 @@ from .general import (  # noqa: F401
     lnl_reduce_topk,
     lnl_reduce_topk_plain,
     lnl_stack,
+    lnl_stack_band,
+    lnl_stack_band_plain,
     lnl_stack_plain,
     lnl_tile_plain,
     lnl_topk,

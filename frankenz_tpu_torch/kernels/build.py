@@ -153,8 +153,9 @@ def _bind(lib):
     lib.fz_chi2_stack_smem.restype = I
     lib.fz_chi2_brackets.argtypes = [P, P, P, P, P, P, I, I, I, F, I, P]
     lib.fz_chi2_brackets.restype = I
-    lib.fz_chi2_stack.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, F, I,
-                                  F, I, I, P]
+    # G with its row stride and the tiles' bands (NULL: every column).
+    lib.fz_chi2_stack.argtypes = [P, P, P, P, P, I, P, P, P, P, I, I, I, I,
+                                  F, I, F, I, I, P]
     lib.fz_chi2_stack.restype = I
     # csrc/chi2_screened.cu: the object block, shared-memory sizes, the
     # screened trio (pointers, sizes with the model rows' stride after M,
@@ -216,6 +217,10 @@ def _bind(lib):
     lib.fz_lnl_reduce_read.restype = I
     lib.fz_lnl_stack_read.argtypes = [P, I] + [P] * 4 + [I] * 3 + [F, I, P]
     lib.fz_lnl_stack_read.restype = I
+    # The band-order reader: G with its stride, the bands, the widest band.
+    lib.fz_lnl_stack_band.argtypes = ([P, I, P, I, P, I] + [P] * 3
+                                      + [I] * 3 + [F, P])
+    lib.fz_lnl_stack_band.restype = I
     lib.fz_lnl_stack_read_smem.argtypes = [I]
     lib.fz_lnl_stack_read_smem.restype = I
     # csrc/som_train.cu: pointers, sizes, off, nsteps_total, nside,

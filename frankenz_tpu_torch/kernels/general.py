@@ -19,11 +19,11 @@ scale), ``csrc/lnl_freescale.cu`` (free scale), ``csrc/lnl_common.cuh``
 (the kernel templates), ``csrc/lnl_table.cu`` (the lnl table's readers)
 and ``csrc/lnl_band.cuh`` (`lnl_onepass` and `lnl_cut_stack`).
 
-`lnl_onepass` and `lnl_cut_stack` take the models in band order
-(`band_sort`, the port of JAX's `_band_sort`, K7): sorted by the centre
-of their kernel-matrix support, so each 64-model tile's G rows are
-nonzero only in a narrow band of grid columns, and only that band gets
-products.  A product is skipped only where G is exactly zero.
+`lnl_onepass`, `lnl_cut_stack` and `lnl_stack_band` take the models in
+band order (`band_sort`, the port of JAX's `_band_sort`, K7): sorted by
+the centre of their kernel-matrix support, so each 64-model tile's G rows
+are nonzero only in a narrow band of grid columns, and only that band
+gets products.  A product is skipped only where G is exactly zero.
 
 The two-pass threshold route (`lnl_reduce`, then `lnl_stack`) computes
 each pair's lnl once per call into an lnl table: float32 (B,
@@ -32,9 +32,11 @@ j (the columns past M are never written).  `lnl_reduce(..., table=t)`
 computes, stores and reduces, except under free scale with model errors,
 where `scale_sweeps(..., table=t)` stores each pair's lnl as its fixed
 point ends and `lnl_reduce` reads it; `lnl_stack(..., table=t)` reads it
-on every instantiation.  The values are the recompute route's (the same
-wrappers without ``table``) bit for bit, and so are lmap, levid and the
-PDF.  `table_rows` cuts a batch into row chunks of at most
+(`lnl_stack_read`), and `lnl_stack_band` reads a table written over the
+models in band order (the route's reader off free scale with model
+errors).  The values are the recompute route's (the same wrappers
+without ``table``, on the same model order) bit for bit, and so are lmap,
+levid and the PDF.  `table_rows` cuts a batch into row chunks of at most
 `TABLE_BYTES_MAX` bytes of table, and of at most a byte budget when one
 is given (`ops.fused` runs the route per chunk, its budget the card's
 free memory less a margin).
@@ -66,8 +68,11 @@ The plain versions compute the (B, M) lnl grid with `lnl_tile_plain`,
 in the kernels' order (filters k = 0..F-1, ``iv = 1/var``, ``term =
 (mask * r^2) * iv``, the same normalization table), so on the card lnl
 agrees with the kernels' bit for bit up to the last ulp of `log`, and
-`scale_sweeps_plain`'s table equals the kernel's; the sums and the
-stack product run in another order.
+`scale_sweeps_plain`'s table equals the kernel's; the sums run in another
+order.  The two table readers' plain versions sum their products tile by
+tile (`stack_tiles`, products and sums rounded apart), so the band
+reader's plain version equals the dense one's on the same model order
+bit for bit.
 """
 
 from __future__ import annotations
@@ -84,7 +89,9 @@ from .fullmask import _SMEM_MAX, _STACK_MAX_THREADS, _check
 
 __all__ = ["lnl_tile_plain", "lnl_reduce", "lnl_reduce_plain",
            "lnl_reduce_split", "lnl_reduce_split_plain", "lnl_stack",
-           "lnl_stack_plain", "lnl_onepass", "lnl_onepass_plain",
+           "lnl_stack_plain", "lnl_stack_band", "lnl_stack_band_plain",
+           "stack_tiles",
+           "lnl_onepass", "lnl_onepass_plain",
            "lnl_topk", "lnl_topk_plain", "lnl_reduce_topk",
            "lnl_reduce_topk_plain", "lnl_cut_stack",
            "lnl_cut_stack_plain", "scale_sweeps", "scale_sweeps_plain",
@@ -108,6 +115,8 @@ _SENTINEL = (float(np.float32(1e15)), 1.0, 0.0)
 # tile of a row is whole and 16-byte aligned for the readers' copies; a
 # batch is cut into row chunks of at most TABLE_BYTES_MAX bytes of table.
 _TABLE_TILE = 64
+# Elements of `stack_tiles`' temporaries at once.
+_STACK_TILES_ELEMS = 2 ** 26
 TABLE_BYTES_MAX = 16 * 2 ** 30
 
 # Built once per (F, device): a host-to-device copy from pageable memory
@@ -152,11 +161,13 @@ def table_rows(nobj, nmodel, budget=None):
 
 
 class BandSort(NamedTuple):
-    """The models in band order (`band_sort`), as `lnl_onepass` and
-    `lnl_cut_stack` read them.
+    """The models in band order (`band_sort`), as `lnl_onepass`,
+    `lnl_cut_stack`, `lnl_stack_band` and the banded `chi2_stack` read
+    them.
 
     perm, inv: int32 (M,): band position -> caller index, and back;
-    mT, meT, mmT: float32 (F, M), the model columns in band order;
+    mT, meT, mmT: float32 (F, M), the model columns in band order (mmT
+        None when the sort was given none);
     G: float32 (table_width(M), ldg), the kernel matrix's rows in band
         order, ldg = Ngrid rounded up to 4, zeros past M rows and Ngrid
         columns (16-byte rows for the kernels' copies);
@@ -175,14 +186,15 @@ class BandSort(NamedTuple):
     width: int
 
 
-def band_sort(G, mT, meT, mmT):
+def band_sort(G, mT, meT, mmT=None):
     """The models in band order (JAX's `_band_sort`,
     frankenz_tpu/ops/fused.py:243-267): a stable sort by lo + hi, the first
     and last nonzero columns of each G row, all-zero rows last.  Returns a
     `BandSort`: the permuted model arrays, the padded G, and each
     64-model tile's exact nonzero band (JAX flags 128-column blocks
     instead).  One argsort and one gather of G; reading `width` is one
-    synchronization with the device."""
+    synchronization with the device.  The full-mask pair has no model
+    mask: `mmT` None stays None."""
     M, ngrid = G.shape
     dev = G.device
     cols = torch.arange(ngrid, dtype=torch.int32, device=dev)
@@ -210,7 +222,8 @@ def band_sort(G, mT, meT, mmT):
                          torch.where(empty, 0, hi_t)], dim=1).contiguous()
     span = torch.where(empty, 0, ((hi_t + 3) // 4 - lo_t // 4) * 4)
     width = int(span.max()) if ntiles else 0
-    return BandSort(perm, inv, *(x[:, order].contiguous()
+    return BandSort(perm, inv, *(None if x is None else
+                                 x[:, order].contiguous()
                                  for x in (mT, meT, mmT)),
                     Gs, bands, int(ngrid), width)
 
@@ -631,15 +644,74 @@ def lnl_reduce_topk_plain(d, de, dm, mT, meT, mmT, *, T, **flags):
     return (*_reduce_of(lnl), *_topk_of(lnl, T))
 
 
+def stack_tiles(w, G, bands=None):
+    """sum over models m of w[:, m] G[m], in the stack kernels' order of
+    tiles: per 64-model tile a partial from +0, one product and one sum
+    per model in model order (each rounded on its own), then the partial
+    into the total, tile by tile.  With ``bands`` (int32 (tiles, 2), each
+    tile's nonzero columns [lo, hi) of G) a tile's products cover only a
+    window of the widest band's width around its band, bit for bit the
+    dense sum (G is zero outside the bands, and adding +0 changes
+    nothing).  The per-entry order is the same at every column, so the
+    result does not depend on which columns a product covers."""
+    B, M = w.shape
+    N = G.shape[1]
+    T = -(-M // _TABLE_TILE)
+    pdf = torch.zeros((B, N), dtype=w.dtype, device=w.device)
+    if T == 0 or B == 0 or N == 0:
+        return pdf
+    if bands is None:
+        lo, width = [0] * T, N
+    else:
+        los, his = bands[:, 0].tolist(), bands[:, 1].tolist()
+        width = max(max(h - l for l, h in zip(los, his)), 0)
+        if width == 0:
+            return pdf
+        lo = [min(l, N - width) if h > l else 0 for l, h in zip(los, his)]
+    wt = torch.zeros((B, T * _TABLE_TILE), dtype=w.dtype, device=w.device)
+    wt[:, :M] = w
+    wt = wt.view(B, T, _TABLE_TILE)
+    Gt = torch.zeros((T * _TABLE_TILE, N), dtype=G.dtype, device=G.device)
+    Gt[:M] = G
+    Gt = Gt.view(T, _TABLE_TILE, N)
+    cols = (torch.tensor(lo, device=w.device)[:, None]
+            + torch.arange(width, device=w.device))
+    step = max(1, _STACK_TILES_ELEMS // (B * width))
+    for t0 in range(0, T, step):
+        t1 = min(T, t0 + step)
+        Gw = torch.gather(Gt[t0:t1], 2,
+                          cols[t0:t1, None, :].expand(-1, _TABLE_TILE, -1))
+        part = torch.zeros((t1 - t0, B, width), dtype=w.dtype,
+                           device=w.device)
+        for j in range(_TABLE_TILE):
+            part = part + wt[:, t0:t1, j].T[:, :, None] * Gw[:, j, None, :]
+        for i in range(t1 - t0):
+            pdf[:, lo[t0 + i]:lo[t0 + i] + width] += part[i]
+    return pdf
+
+
 def lnl_stack_plain(d, de, dm, mT, meT, mmT, G, lmap, levid, *, log_thr,
                     table=None, **flags):
     """Plain version of `lnl_stack`: pdf (B, Ngrid); the lnl read from
     `table` when given."""
     lnl = (lnl_tile_plain(d, de, dm, mT, meT, mmT, **flags) if table is None
            else table[:, :mT.shape[1]])
+    return stack_tiles(_kept_weights(lnl, lmap, levid, log_thr), G)
+
+
+def _kept_weights(lnl, lmap, levid, log_thr):
+    """exp(lnl - levid) where lnl > float32(log_thr) + lmap, else 0."""
     thr = lmap + float(np.float32(log_thr))
-    w = torch.where(lnl > thr[:, None], torch.exp(lnl - levid[:, None]), 0.0)
-    return fp32_matmul(w, G)
+    return torch.where(lnl > thr[:, None], torch.exp(lnl - levid[:, None]),
+                       0.0)
+
+
+def lnl_stack_band_plain(table, bs, lmap, levid, *, log_thr):
+    """Plain version of `lnl_stack_band`: pdf (B, Ngrid), tile by tile
+    over the bands (`stack_tiles`)."""
+    M = bs.perm.shape[0]
+    w = _kept_weights(table[:, :M], lmap, levid, log_thr)
+    return stack_tiles(w, bs.G[:M, :bs.ngrid], bs.bands)
 
 
 def _band_lnl(d, de, dm, bs, flags):
@@ -941,16 +1013,48 @@ def lnl_stack(d, de, dm, mT, meT, mmT, G, lmap, levid, *, log_thr,
     return pdf
 
 
+def lnl_stack_band(table, bs, lmap, levid, *, log_thr):
+    """The table route's stack over the models in band order: pdf = sum
+    over models of exp(lnl - levid) * G[m], keeping pairs with lnl >
+    float32(log_thr) + lmap, where `table` holds the lnl of the models in
+    band order (`lnl_reduce(..., table=)` on bs.mT, bs.meT, bs.mmT) and
+    `bs` is their `band_sort`; a 64-model tile multiplies only its band of
+    G.  Returns pdf (B, Ngrid), float32, in the exp(lnl - levid) scale: bit
+    for bit `lnl_stack` on the band-ordered model arrays and G."""
+    if not isinstance(table, torch.Tensor) or table.ndim != 2:
+        raise ValueError("table must be a (B, table_width(M)) tensor")
+    B, dev = table.shape[0], table.device
+    M = _check_band(bs, None, dev)
+    _check_table(table, B, M, dev)
+    for name, t in (("lmap", lmap), ("levid", levid)):
+        _check(name, t, (B,), dev)
+    if dev.type == "cpu":
+        return lnl_stack_band_plain(table, bs, lmap, levid, log_thr=log_thr)
+    pdf = torch.empty((B, bs.ngrid), dtype=torch.float32, device=dev)
+    if B == 0:
+        return pdf
+    with torch.cuda.device(dev):
+        rc = _build.load().fz_lnl_stack_band(
+            table.data_ptr(), table_width(M), bs.G.data_ptr(), bs.G.shape[1],
+            bs.bands.data_ptr(), int(bs.width), lmap.data_ptr(),
+            levid.data_ptr(), pdf.data_ptr(), B, M, bs.ngrid,
+            float(np.float32(log_thr)), _stream(dev))
+    _check_rc("lnl_stack_band", rc)
+    lnl_stack_band.launches += 1
+    return pdf
+
+
 def _check_band(bs, F, device):
-    """The models in band order (`band_sort`) for F filters on `device`;
-    returns M."""
+    """The models in band order (`band_sort`) for F filters on `device`
+    (F None: the model arrays are not read); returns M."""
     if not isinstance(bs, BandSort):
         raise TypeError("bs must be the BandSort of `band_sort`")
     M = bs.perm.shape[0] if bs.perm.ndim == 1 else -1
     if M < 1:
         raise ValueError("need at least one model")
-    for name, t in (("mT", bs.mT), ("meT", bs.meT), ("mmT", bs.mmT)):
-        _check(name, t, (F, M), device)
+    if F is not None:
+        for name, t in (("mT", bs.mT), ("meT", bs.meT), ("mmT", bs.mmT)):
+            _check(name, t, (F, M), device)
     _check("G", bs.G, (table_width(M), -(-int(bs.ngrid) // 4) * 4), device)
     for name, t, shape in (("perm", bs.perm, (M,)), ("inv", bs.inv, (M,)),
                            ("bands", bs.bands,
@@ -1039,8 +1143,9 @@ def lnl_cut_stack(d, de, dm, bs, cut, levid, tie, nkeep, *, full_mask=False,
     return pdf
 
 
-_WRAPPERS = (lnl_reduce, lnl_reduce_split, lnl_stack, lnl_topk,
-             lnl_reduce_topk, lnl_cut_stack, lnl_onepass, scale_sweeps)
+_WRAPPERS = (lnl_reduce, lnl_reduce_split, lnl_stack, lnl_stack_band,
+             lnl_topk, lnl_reduce_topk, lnl_cut_stack, lnl_onepass,
+             scale_sweeps)
 # The wrappers with a table route also count its launches apart.
 _TABLE_WRAPPERS = (lnl_reduce, lnl_stack, scale_sweeps)
 

@@ -23,14 +23,18 @@ serve every configuration of it:
     glue (plain torch, as it was XLA): lmap from the brackets, the shift
         floored at lnl(clamp);
     pass B (`kernels.fullmask.chi2_stack`): w = exp(lnl - lmap), the
-        unthresholded sum s, pdf += (w > wt_thresh) @ G;
+        unthresholded sum s, pdf += (w > wt_thresh) @ G, each 64-model
+        tile multiplying only its band of G;
     glue: levid = log s + lmap, the PDF rescale, the degenerate-row rule.
+    Both passes read the models in band order, sorted once per call, as
+    JAX's pair does (ops/fused.py:1701-1704): the brackets are a max and
+    a min, so they do not move; s sums in band order.
 
 * "general", every other configuration with a threshold: masked
   photometry, the Normal likelihood (``dim_prior=False``), free scale
   and the cdf mode (``wt_thresh=None`` with ``cdf_thresh``).  The
   counterpart of `_fused_call`'s general body (ops/fused.py:1851-2011),
-  without the Mosaic-only padding, band sort and G split:
+  without the Mosaic-only padding and G split:
 
     free scale with model errors: `kernels.general.scale_sweeps` first,
         the per-(object, model group) sweep counts of the scale fixed
@@ -39,10 +43,16 @@ serve every configuration of it:
     wt_thresh, the table route (`_table_route`): each pair's lnl is
         computed once per call into a float32 lnl table, `lnl_reduce`
         (lmap, levid; under free scale with model errors `scale_sweeps`
-        writes the table and `lnl_reduce` reads it) then `lnl_stack`
-        (keeps lnl > ln(wt_thresh) + lmap) reading it, per row chunk of
-        at most `kernels.general.TABLE_BYTES_MAX` bytes of table, in
-        one buffer; bit for bit the wrappers' recompute route (no table);
+        writes the table and `lnl_reduce` reads it) then the stack (keeps
+        lnl > ln(wt_thresh) + lmap) reading it, per row chunk of at most
+        `kernels.general.TABLE_BYTES_MAX` bytes of table, in one buffer.
+        The table's columns are the models in band order and its reader
+        `lnl_stack_band`, as JAX's masked route sorts them
+        (ops/fused.py:1863-1872), except under free scale with model
+        errors: `scale_sweeps` converges the caller's model groups and
+        writes the table in the caller's order, which `lnl_stack` reads
+        (`lnl_stack_read`).  Bit for bit the wrappers' recompute route (no
+        table) on the same model order;
     cdf mode: `lnl_reduce_topk` (lmap, levid and the T heaviest
         distinct lnl values with their tie counts, from one walk over
         the models: JAX's reduce and top-T calls in one kernel),
@@ -58,14 +68,18 @@ serve every configuration of it:
   `scale_sweeps` under free scale with model errors) over the models in
   band order, and the glue's rescale pdf * exp(lmap - levid).
 
-The two band stacks (`lnl_cut_stack`, `lnl_onepass`) read the models in
-band order (`band_sort`, JAX's `_band_sort`, ops/fused.py:243-267): sorted
-by the centre of their kernel-matrix support, computed once per call, so
-each 64-model tile's G rows are nonzero only in a narrow band of grid
-columns, the only columns that get products (JAX's band skip, K7, flags
-128-column blocks and runs only past 128 padded columns; the port takes
-each tile's exact band at every Ngrid).  Every other kernel keeps the
-caller's order, so lmap, levid and the cdf cut are what they were.
+Every stack reads the models in band order (`band_sort`, JAX's
+`_band_sort`, ops/fused.py:243-267): sorted by the centre of their
+kernel-matrix support, computed once per call, so each 64-model tile's G
+rows are nonzero only in a narrow band of grid columns, the only columns
+that get products (JAX's band skip, K7, flags 128-column blocks and runs
+only past 128 padded columns; the port takes each tile's exact band at
+every Ngrid): the band stacks (`lnl_cut_stack`, `lnl_onepass`), the
+table route's reader `lnl_stack_band` (with its producer), and the K1
+pair.  The one exception is the table route under free scale with model
+errors, above.  The cdf route's reduce and top-T keep the caller's
+order; the band order moves lmap by nothing (a max) and levid by float32
+reassociation.
 
 On CUDA tensors the routes launch their kernels; on CPU tensors the same
 glue runs the kernels' plain versions.  Nothing catches a failed build
@@ -147,10 +161,12 @@ def group_width(nmodel, tm):
 
 def _fullmask_dimprior(d, de, mT, meT, G, *, ignore_model_err, wt_thresh):
     """Glue of `_fused_call_fullmask_dimprior` (ops/fused.py:1742-1815)
-    around the two kernels; returns (pdf, lmap, levid), pdf in the
-    exp(lnl - levid) scale."""
-    F = d.shape[1]
+    around the two kernels, over the models in band order; returns (pdf,
+    lmap, levid), pdf in the exp(lnl - levid) scale."""
+    F, M = d.shape[1], mT.shape[1]
     a1 = 0.5 * F - 1.0
+    bs = band_sort(G, mT, meT)
+    mT, meT = bs.mT, bs.meT
     below, above = _fm.chi2_brackets(d, de, mT, meT, c0=2.0 * a1,
                                      ignore_model_err=ignore_model_err)
     lmap, shift = lmap_and_shift(below, above, F)
@@ -160,8 +176,10 @@ def _fullmask_dimprior(d, de, mT, meT, G, *, ignore_model_err, wt_thresh):
             else float(np.exp(np.log(wt_thresh))))
     # The kernels mask the ragged model edge themselves: no sentinel
     # models, so nothing to subtract from s (ops/fused.py:1798-1808).
-    pdf, s = _fm.chi2_stack(d, de, mT, meT, G, shift, a1=a1,
-                            wthr=wthr, ignore_model_err=ignore_model_err)
+    pdf, s = _fm.chi2_stack(d, de, mT, meT, bs.G[:M, :bs.ngrid], shift,
+                            a1=a1, wthr=wthr,
+                            ignore_model_err=ignore_model_err,
+                            bands=bs.bands)
     pos = s > 0
     levid = torch.where(pos, torch.log(torch.clamp_min(s, 1e-30)) + lmap,
                         -torch.inf)
@@ -290,10 +308,18 @@ def _table_route(d, de, dm, mT, meT, mmT, G, *, flags, log_thr, sweep_kw):
     most `TABLE_BYTES_MAX` bytes of table and at most the memory free
     (`table_rows`, `_free_table_bytes`), the producer (`lnl_reduce`, or
     `scale_sweeps` under free scale with model errors, `sweep_kw` its
-    keywords), `lnl_reduce` and `lnl_stack`, in one buffer.  Rows are
-    independent, so chunking changes no bit.  Returns (pdf, lmap,
-    levid), pdf in the exp(lnl - levid) scale.  Raises MemoryError when
-    one row of the table does not fit: there is no recompute fallback."""
+    keywords), `lnl_reduce` and the stack, in one buffer.  The models go
+    in band order (`band_sort`, once per call) and the stack is
+    `lnl_stack_band`, except under free scale with model errors, whose
+    sweeps converge the caller's model groups: there the table stays in
+    the caller's order and `lnl_stack` reads it.  Rows are independent,
+    so chunking changes no bit.  Returns (pdf, lmap, levid), pdf in the
+    exp(lnl - levid) scale.  Raises MemoryError when one row of the table
+    does not fit: there is no recompute fallback."""
+    bs = None
+    if sweep_kw is None:
+        bs = band_sort(G, mT, meT, mmT)
+        mT, meT, mmT = bs.mT, bs.meT, bs.mmT
     B, M = d.shape[0], mT.shape[1]
     rows = _gen.table_rows(B, M, budget=_free_table_bytes(d.device))
     buf = torch.empty((min(rows, B), _gen.table_width(M)),
@@ -308,8 +334,12 @@ def _table_route(d, de, dm, mT, meT, mmT, G, *, flags, log_thr, sweep_kw):
                 *part, mT, meT, mmT, table=table,
                 dim_prior=flags["dim_prior"], **sweep_kw)
         lmap, levid = _gen.lnl_reduce(*part, mT, meT, mmT, table=table, **fl)
-        pdf = _gen.lnl_stack(*part, mT, meT, mmT, G, lmap, levid,
-                             log_thr=log_thr, table=table, **fl)
+        if bs is None:
+            pdf = _gen.lnl_stack(*part, mT, meT, mmT, G, lmap, levid,
+                                 log_thr=log_thr, table=table, **fl)
+        else:
+            pdf = _gen.lnl_stack_band(table, bs, lmap, levid,
+                                      log_thr=log_thr)
         outs.append((pdf, lmap, levid))
     if len(outs) == 1:
         return outs[0]

@@ -1,6 +1,6 @@
-"""Port parity: the band order of the general route's two dense stacks
-(`lnl_onepass`, `lnl_cut_stack`; K7, JAX's band skip) against the JAX
-package on the CPU.
+"""Port parity: the band order of the port's stacks (`lnl_onepass`,
+`lnl_cut_stack`, the table route's `lnl_stack_band`, the K1 pair's
+`chi2_stack`; K7, JAX's band skip) against the JAX package on the CPU.
 
 `kernels.general.band_sort` is held against JAX's `_band_sort`
 (frankenz_tpu/ops/fused.py:243-267) on the same G: the same permutation,
@@ -15,7 +15,11 @@ scale at Ngrid = 101, where JAX keeps the caller's convergence groups
 members sort apart keeps its caller-order members; the free-scale stacks
 read caller-order sweep groups under a non-identity band order; and the
 table route's row chunks follow the free device memory (a monkeypatched
-budget) without changing a bit.
+budget) without changing a bit.  The `wt_thresh` table route (band order,
+`lnl_stack_band`) on masked and full masks, dim prior and Normal, model
+errors kept or ignored, and free scale, and the K1 pair (``screen=False``)
+are held against JAX's band-skip routes at the same tolerances; free
+scale with model errors keeps the caller-order table.
 """
 
 import jax
@@ -294,3 +298,108 @@ def test_free_table_bytes_reads_the_card(monkeypatch):
     rows = GK.table_rows(65_536, 100_000, budget=5 * gib)
     assert rows * 4 * GK.table_width(100_000) <= 5 * gib
     assert -(-65_536 // rows) == 5
+
+
+TABLE_CASES = [(mask, dp, ime) for mask in ("masked", "full")
+               for dp in (True, False) for ime in (False, True)
+               # full masks + dim prior + fixed scale: the screened route
+               if not (mask == "full" and dp)]
+
+
+def _spy(monkeypatch, module, name):
+    """Record the calls of `module.name` (their keywords) and pass them
+    on."""
+    calls = []
+    orig = getattr(module, name)
+
+    def spy(*a, **k):
+        calls.append(k)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("mask,dim_prior,ignore_model_err", TABLE_CASES)
+def test_table_route_matches_jax_band_skip(problem, monkeypatch, mask,
+                                           dim_prior, ignore_model_err):
+    """The `wt_thresh` table route over the models in band order (the
+    producer on the sorted models, `lnl_stack_band` reading the table)
+    against JAX's route with its band skip at Ngrid = 301, where JAX
+    band-sorts the masked route's models (ops/fused.py:1863-1872)."""
+    prob = problem if mask == "masked" else _full(problem)
+    kw = dict(wt_thresh=1e-3, dim_prior=dim_prior,
+              ignore_model_err=ignore_model_err)
+    assert TF.fused_route(full_mask=mask == "full", dim_prior=dim_prior,
+                          wt_thresh=1e-3) == "general"
+    band = _spy(monkeypatch, GK, "lnl_stack_band")
+    dense = _spy(monkeypatch, GK, "lnl_stack")
+    _assert_close(_port(*prob, **kw), _jax(*prob, **kw))
+    assert len(band) == 1 and not dense
+
+
+@pytest.mark.parametrize("ignore_model_err", [True, False])
+def test_table_route_matches_jax_free_scale(monkeypatch, ignore_model_err):
+    """Free scale on the table route: without model errors in band order
+    at Ngrid = 301, as JAX sorts; with model errors at Ngrid = 101, where
+    JAX keeps the caller's convergence groups, as the port's table does.
+    tests/test_torch_onepass.py's free-scale tolerances."""
+    prob = _problem(Ngrid=301 if ignore_model_err else 101)
+    kw = dict(wt_thresh=1e-3, free_scale=True,
+              ignore_model_err=ignore_model_err)
+    band = _spy(monkeypatch, GK, "lnl_stack_band")
+    tol = IME_TOL if ignore_model_err else ME_TOL
+    _assert_close(_port(*prob, **kw), _jax(*prob, **kw), **tol)
+    assert len(band) == int(ignore_model_err)
+
+
+def test_free_scale_with_model_errors_keeps_the_caller_order_table(
+        problem, monkeypatch):
+    """Under free scale with model errors `scale_sweeps` writes the lnl
+    table over the caller's convergence groups: no band sort, and
+    `lnl_stack` reads the table in the caller's order, bit for bit the
+    recompute route on the caller's models.  Without model errors the
+    same call sorts once and reads the table with `lnl_stack_band`."""
+    d, de, dm, m, me, mm, G = problem
+    tm = 128
+    sorts = _spy(monkeypatch, TF, "band_sort")
+    band = _spy(monkeypatch, GK, "lnl_stack_band")
+    dense = _spy(monkeypatch, GK, "lnl_stack")
+    got = TF.fused_fit_pdf(d, de, dm, m, me, mm, G, free_scale=True,
+                           wt_thresh=1e-3, tm=tm)
+    assert not sorts and not band
+    assert len(dense) == 1 and dense[0]["table"] is not None
+    t = [torch.from_numpy(np.ascontiguousarray(x))
+         for x in (d, de, dm, m.T, me.T, mm.T)]
+    sw = GK.scale_sweeps(*t, tm=tm, full_mask=False)
+    flags = dict(free_scale=True, sweeps=sw, tm=tm)
+    lmap, levid = GK.lnl_reduce_plain(*t, **flags)
+    pdf = GK.lnl_stack_plain(*t, torch.from_numpy(G), lmap, levid,
+                             log_thr=float(np.log(1e-3)), **flags)
+    good = lmap > GK.NEG_INF / 2
+    for g, w in zip(got, (torch.where(good[:, None], pdf, 0.0), lmap,
+                          levid)):
+        assert torch.equal(g, w)
+    TF.fused_fit_pdf(d, de, dm, m, me, mm, G, free_scale=True,
+                     ignore_model_err=True, wt_thresh=1e-3)
+    assert len(sorts) == 1 and len(band) == 1 and len(dense) == 1
+
+
+@pytest.mark.parametrize("wt_thresh", [1e-3, None])
+@pytest.mark.parametrize("ignore_model_err", [False, True])
+def test_k1_pair_matches_jax_band_skip(problem, monkeypatch, wt_thresh,
+                                       ignore_model_err):
+    """The K1 pair (``screen=False``, full masks, dim prior, fixed scale)
+    over the models in band order, `chi2_stack` given the tiles' bands,
+    against JAX's pair with its band skip at Ngrid = 301
+    (ops/fused.py:1701-1704)."""
+    from frankenz_tpu_torch.kernels import fullmask as FM
+
+    prob = _full(problem)
+    kw = dict(wt_thresh=wt_thresh, cdf_thresh=None,
+              ignore_model_err=ignore_model_err)
+    assert TF.fused_route(full_mask=True, wt_thresh=wt_thresh,
+                          screen=False) == "fullmask"
+    stacks = _spy(monkeypatch, FM, "chi2_stack")
+    _assert_close(_port(*prob, screen=False, **kw), _jax(*prob, **kw))
+    assert len(stacks) == 1 and stacks[0]["bands"] is not None

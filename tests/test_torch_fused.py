@@ -121,11 +121,12 @@ def test_cpu_masked_and_free_scale_configurations(monkeypatch):
     from frankenz_tpu_torch.ops import likelihood as TL
 
     calls = []
-    for name in ("lnl_reduce_plain", "lnl_stack_plain"):
+    for name in ("lnl_reduce_plain", "lnl_stack_plain",
+                 "lnl_stack_band_plain"):
         orig = getattr(GK, name)
 
         def spy(*a, _orig=orig, _name=name, **k):
-            calls.append((_name, k["free_scale"]))
+            calls.append((_name, k.get("free_scale")))
             return _orig(*a, **k)
 
         monkeypatch.setattr(GK, name, spy)
@@ -135,7 +136,9 @@ def test_cpu_masked_and_free_scale_configurations(monkeypatch):
     want, got = run_both(_jax, TF.fused_fit_pdf, *prob,
                          jax_kw=dict(screen=False, band_skip=False))
     _assert_fused_close(want, got)
-    assert calls == [("lnl_reduce_plain", False), ("lnl_stack_plain", False)]
+    # Fixed scale reads its table in band order (`lnl_stack_band`).
+    assert calls == [("lnl_reduce_plain", False),
+                     ("lnl_stack_band_plain", None)]
     out = TF.fused_fit_pdf(*prob, free_scale=True)
     assert calls[2:] == [("lnl_reduce_plain", True),
                          ("lnl_stack_plain", True)]

@@ -198,6 +198,7 @@ def test_cpu_general_wrappers_run_plain_versions_without_launching(name):
                                       "screen_seed", "chi2_brackets_screened",
                                       "chi2_stack_screened", *GENERAL,
                                       "lnl_onepass", "scale_sweeps",
+                                      "lnl_stack_band",
                                       "lnl_reduce_table", "lnl_stack_table",
                                       "scale_sweeps_table",
                                       "som_train", "som_train_cluster",
@@ -469,7 +470,9 @@ def test_bruteforce_on_card_matches_cpu_and_counts_launches(cuda_device):
     K.reset_launch_counts()
     gpu = gpu_bf.fit_predict(*margs, **kw)
     counts = K.launch_counts()
-    assert counts["lnl_reduce"] > 0 and counts["lnl_stack"] > 0
+    # Masked photometry under wt_thresh: the table route in band order.
+    assert counts["lnl_reduce"] > 0 and counts["lnl_stack_band"] > 0
+    assert counts["lnl_stack"] == 0
     assert counts["chi2_brackets"] == counts["chi2_stack"] == 0
     assert all(counts[n] == 0 for n in SCK.launch_counts())
     np.testing.assert_allclose(gpu[1][0], cpu[1][0], rtol=2e-5, atol=2e-5)
@@ -761,6 +764,214 @@ def test_band_stacks_match_plain_on_card(cuda_device, flags, F, B, M, Ngrid,
     assert counts["lnl_cut_stack"] == counts["lnl_onepass"] == 1
 
 
+def _band_table_case(t, G, **flags):
+    """The table route's inputs on problem `t` with kernel matrix `G`, in
+    band order: (band-ordered problem with G's first M rows and Ngrid
+    columns, bs, table, lmap, levid) from the producer `lnl_reduce`."""
+    bs = GK.band_sort(G, *t[3:6])
+    M = t[3].shape[1]
+    tb = t[:3] + [bs.mT, bs.meT, bs.mmT, bs.G[:M, :bs.ngrid].contiguous()]
+    table = torch.full((t[0].shape[0], GK.table_width(M)), torch.nan,
+                       device=G.device)
+    lmap, levid = GK.lnl_reduce(*tb[:6], table=table, **flags)
+    return tb, bs, table, lmap, levid
+
+
+def _grid_problem(M, Ngrid):
+    """`_general_problem` at M models and Ngrid grid points (one point:
+    a column of U(0.1, 1) entries)."""
+    t = _general_problem(M=M, Ngrid=max(Ngrid, 2))
+    if Ngrid == 1:
+        t[6] = torch.from_numpy(np.random.default_rng(4).uniform(
+            0.1, 1.0, (M, 1)).astype(np.float32))
+    return t
+
+
+def _zero_tile_signed(G, signed):
+    """G with its last 71 rows zero (in band order the last 64-model tile
+    of M = 251 is all zero, its band empty) and, when `signed`, every
+    seventh row negated and every eleventh from the third at -0.0."""
+    G = G.clone()
+    G[-71:] = 0.0
+    if signed:
+        G[::7] *= -1.0
+        G[3::11] = -0.0
+    return G
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("Ngrid", [1, 77, 301, 513])
+def test_band_reader_plain_equals_dense_products_in_band_order(Ngrid,
+                                                               signed):
+    """`lnl_stack_band`'s plain version (tile by tile over the bands)
+    equals `lnl_stack_plain` (every column) on the band-ordered models
+    and G bit for bit: ragged M = 251, an all-zero last tile, a signed G
+    with -0.0 rows; and the float64 product of the same weights."""
+    t = _grid_problem(251, Ngrid)
+    G = _zero_tile_signed(t[6], signed)
+    tb, bs, table, lmap, levid = _band_table_case(t, G)
+    assert bs.bands[-1].tolist() == [0, 0]
+    if Ngrid >= 77:
+        assert bs.width < Ngrid
+    log_thr = float(np.log(1e-3))
+    K.reset_launch_counts()
+    got = GK.lnl_stack_band(table, bs, lmap, levid, log_thr=log_thr)
+    assert torch.equal(got, GK.lnl_stack_band_plain(table, bs, lmap, levid,
+                                                    log_thr=log_thr))
+    want = GK.lnl_stack_plain(*tb[:6], tb[6], lmap, levid, log_thr=log_thr)
+    assert torch.equal(got, want)
+    assert (got != 0).any()
+    assert all(n == 0 for n in K.launch_counts().values())
+    lnl = table[:, :251].double()
+    thr = lmap.double() + float(np.float32(log_thr))
+    w = torch.where(lnl > thr[:, None], torch.exp(lnl - levid.double()[:,
+                                                                     None]),
+                    0.0)
+    np.testing.assert_allclose(got.numpy(), (w @ tb[6].double()).numpy(),
+                               rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("Ngrid", [1, 77, 301, 513])
+def test_stack_tiles_band_windows_equal_every_column(Ngrid):
+    """`general.stack_tiles` over each tile's band window equals the
+    same sum over every column bit for bit (signed G, an all-zero tile,
+    ragged M), and a float64 product to float32 roundoff."""
+    t = _grid_problem(251, Ngrid)
+    bs = GK.band_sort(_zero_tile_signed(t[6], True), *t[3:6])
+    w = torch.rand((19, 251), generator=torch.Generator().manual_seed(1))
+    w[w < 0.6] = 0.0
+    Gb = bs.G[:251, :Ngrid]
+    got = GK.stack_tiles(w, Gb, bs.bands)
+    assert torch.equal(got, GK.stack_tiles(w, Gb.contiguous()))
+    np.testing.assert_allclose(got.numpy(), (w.double() @ Gb.double())
+                               .numpy(), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("ignore_model_err", [False, True])
+def test_banded_chi2_stack_plain_follows_the_dense_pair(ignore_model_err):
+    """The K1 pass B on the models in band order with the tiles' bands
+    (G a row-strided view of the sorted G): its PDF and s equal the dense
+    pass's on a contiguous G bit for bit, and its PDF the float64 product
+    of the same kept weights to float32 roundoff."""
+    d, de, mT, meT, G = _problem(5, B=19, M=251, Ngrid=301)
+    bs = GK.band_sort(_zero_tile_signed(G, False), mT, meT)
+    assert bs.mmT is None
+    Gb = bs.G[:251, :301]
+    assert not Gb.is_contiguous()
+    shift = torch.zeros(19)
+    kw = dict(a1=1.5, wthr=1e-3, ignore_model_err=ignore_model_err)
+    FM.reset_launch_counts()
+    pdf, s = FM.chi2_stack(d, de, bs.mT, bs.meT, Gb, shift, bands=bs.bands,
+                           **kw)
+    dense, s_d = FM.chi2_stack_plain(d, de, bs.mT, bs.meT, Gb.contiguous(),
+                                     shift, **kw)
+    assert torch.equal(s, s_d)
+    assert torch.equal(pdf, dense)
+    w = FM._weights_plain(FM._chi2_plain(d, de, bs.mT, bs.meT,
+                                         ignore_model_err), shift[:, None],
+                          1.5)
+    w = torch.where(w > 1e-3, w, 0.0)
+    np.testing.assert_allclose(pdf.numpy(), (w.double() @ Gb.double())
+                               .numpy(), rtol=1e-5, atol=1e-9)
+    assert FM.launch_counts() == {"chi2_brackets": 0, "chi2_stack": 0}
+
+
+@pytest.mark.parametrize("bad", ["table", "bands", "G", "rows"])
+def test_band_readers_check_their_inputs(bad):
+    """`lnl_stack_band` refuses a table of another width and per-row
+    inputs of another length; the banded `chi2_stack` refuses bands of
+    another shape and a G whose rows are not contiguous."""
+    t = _general_problem(M=251, Ngrid=77)
+    tb, bs, table, lmap, levid = _band_table_case(t, t[6])
+    d, de, mT, meT = t[0], t[1], bs.mT, bs.meT
+    Gb, bands, shift = bs.G[:251, :77], bs.bands, torch.zeros(19)
+    if bad == "table":
+        with pytest.raises(ValueError):
+            GK.lnl_stack_band(table[:, :-64], bs, lmap, levid, log_thr=-7.0)
+        return
+    if bad == "rows":
+        with pytest.raises(ValueError):
+            GK.lnl_stack_band(table, bs, lmap[:-1].contiguous(), levid,
+                              log_thr=-7.0)
+        return
+    if bad == "bands":
+        bands = bands[:-1].contiguous()
+    else:
+        Gb = bs.G[:251, :77].T.contiguous().T
+    with pytest.raises(ValueError):
+        FM.chi2_stack(d, de, mT, meT, Gb, shift, a1=1.5, bands=bands)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("flags,B,M,Ngrid", [
+    (dict(), 19, 251, 77),
+    (dict(dim_prior=False), 40, 99_937, 301),
+    (dict(full_mask=True, ignore_model_err=True), 40, 99_937, 301),
+    (dict(), 33, 251, 1030),
+])
+def test_stack_band_matches_plain_on_card(cuda_device, flags, B, M, Ngrid,
+                                          signed):
+    """`lnl_stack_band` against its plain version (PDFs row-normwise 1e-5)
+    and bit for bit against the recompute `lnl_stack` on the band-ordered
+    models and G (the table route's contract), on a table that
+    `lnl_reduce` wrote over the band order; M = 99,937 leaves a ragged
+    last tile, M = 251 an all-zero one; Ngrid 1030 takes three column
+    blocks."""
+    t = [x.to(cuda_device) for x in _general_problem(
+        5, B=B, M=M, Ngrid=Ngrid, masked=not flags.get("full_mask"))]
+    G = _zero_tile_signed(t[6], signed) if M == 251 else t[6].clone()
+    if signed and M != 251:
+        G[::7] *= -1.0
+    tb, bs, table, lmap, levid = _band_table_case(t, G, **flags)
+    log_thr = float(np.log(1e-3))
+    K.reset_launch_counts()
+    got = GK.lnl_stack_band(table, bs, lmap, levid, log_thr=log_thr)
+    want = GK.lnl_stack_band_plain(table, bs, lmap, levid, log_thr=log_thr)
+    twin = GK.lnl_stack(*tb[:6], tb[6], lmap, levid, log_thr=log_thr,
+                        **flags)
+    torch.cuda.synchronize()
+    assert torch.equal(got, twin)
+    scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=1e-5)
+    assert (got != 0).any()
+    counts = K.launch_counts()
+    assert counts["lnl_stack_band"] == 1 and counts["lnl_stack_table"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wthr", [1e-3, None])
+@pytest.mark.parametrize("B,M,Ngrid", [(19, 251, 77), (40, 99_937, 301),
+                                       (33, 700, 1030)])
+def test_banded_chi2_stack_matches_plain_on_card(cuda_device, B, M, Ngrid,
+                                                 wthr):
+    """The K1 pass B in band order against its plain version (s 1e-5,
+    PDFs row-normwise 1e-5) and bit for bit against the dense kernel on
+    the same band-ordered models and G; the brackets in band order equal
+    the caller order's bit for bit."""
+    t = [x.to(cuda_device) for x in _problem(5, B=B, M=M, Ngrid=Ngrid)]
+    bs = GK.band_sort(t[4], t[2], t[3])
+    below, above = FM.chi2_brackets(*t[:4], c0=3.0)
+    got_b = FM.chi2_brackets(t[0], t[1], bs.mT, bs.meT, c0=3.0)
+    assert torch.equal(got_b[0], below) and torch.equal(got_b[1], above)
+    _, shift = TF.lmap_and_shift(below, above, 5)
+    Gb = bs.G[:M, :Ngrid]
+    FM.reset_launch_counts()
+    got = FM.chi2_stack(t[0], t[1], bs.mT, bs.meT, Gb, shift, a1=1.5,
+                        wthr=wthr, bands=bs.bands)
+    twin = FM.chi2_stack(t[0], t[1], bs.mT, bs.meT, Gb.contiguous(), shift,
+                         a1=1.5, wthr=wthr)
+    want = FM.chi2_stack_plain(t[0], t[1], bs.mT, bs.meT, Gb, shift, a1=1.5,
+                               wthr=wthr, bands=bs.bands)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], twin[0]) and torch.equal(got[1], twin[1])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    scale = want[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    torch.testing.assert_close(got[0] / scale, want[0] / scale, rtol=0,
+                               atol=1e-5)
+    assert FM.launch_counts() == {"chi2_brackets": 0, "chi2_stack": 2}
+
+
 # The lnl table of the two-pass threshold route: every instantiation
 # (fixed or free scale x full or masked x dim prior or Normal x model
 # errors kept or ignored).
@@ -858,8 +1069,13 @@ def test_table_route_in_chunks_on_card(cuda_device, inst, monkeypatch):
     chunked = TF.fused_fit_pdf(*args, **inst)
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    assert counts["lnl_reduce_table"] == counts["lnl_stack_table"] == 5
-    assert counts["lnl_reduce"] == counts["lnl_stack"] == 5
+    # The reader: `lnl_stack` on the caller-order table under free scale
+    # with model errors, `lnl_stack_band` otherwise.
+    dense = inst["free_scale"] and not inst["ignore_model_err"]
+    stack = "lnl_stack_table" if dense else "lnl_stack_band"
+    assert counts["lnl_reduce_table"] == counts[stack] == 5
+    assert counts["lnl_reduce"] == 5
+    assert counts["lnl_stack"] == counts["lnl_stack_table"] == 5 * dense
     for got, want in zip(chunked, whole):
         assert torch.equal(got, want)
 

@@ -98,15 +98,35 @@ def test_table_equals_lnl_tile_plain(inst):
         assert (want[1] == GK.NEG_INF).all()  # Ndim 0: the floor
 
 
+def _band_problem(t):
+    """Problem `t` with its models in band order (`band_sort`): the model
+    arrays and G (its first M rows and Ngrid columns) sorted, and the
+    `BandSort`."""
+    bs = GK.band_sort(t[6], *t[3:6])
+    M = t[3].shape[1]
+    return (t[:3] + [bs.mT, bs.meT, bs.mmT]
+            + [bs.G[:M, :bs.ngrid].contiguous()]), bs
+
+
 @pytest.mark.parametrize("inst", INSTANTIATIONS, ids=IDS)
 def test_table_route_equals_recompute_route(inst):
+    """The route's order: the models in band order and `lnl_stack_band`,
+    except under free scale with model errors (the caller's order and
+    `lnl_stack` on the table); the recompute route gets the same models
+    in the same order."""
     t = _problem(masked=not inst["full_mask"])
+    bs = None
+    if not _sweeps(inst):
+        t, bs = _band_problem(t)
     table = _table(t)
     flags = _produce(t, inst, table)
     GK.reset_launch_counts()
     lmap, levid = GK.lnl_reduce(*t[:6], table=table, **flags)
-    pdf = GK.lnl_stack(*t[:6], t[6], lmap, levid, log_thr=LOG_THR,
-                       table=table, **flags)
+    if bs is None:
+        pdf = GK.lnl_stack(*t[:6], t[6], lmap, levid, log_thr=LOG_THR,
+                           table=table, **flags)
+    else:
+        pdf = GK.lnl_stack_band(table, bs, lmap, levid, log_thr=LOG_THR)
     want_lmap, want_levid = GK.lnl_reduce(*t[:6], **flags)
     want_pdf = GK.lnl_stack(*t[:6], t[6], want_lmap, want_levid,
                             log_thr=LOG_THR, **flags)
