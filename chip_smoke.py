@@ -8,9 +8,12 @@ sm_90a card), `nvcc` and PyTorch built for CUDA.  It imports only the
 port, numpy and scipy, and:
 
 1. prints the card (`nvidia-smi` name and power limit) and versions;
-2. builds the CUDA kernels from ``frankenz_tpu_torch/csrc`` (timed), and
-   prints `nvcc -Xptxas -v`'s registers, spills and stack for the
-   screened passes A and B, with their dynamic shared memory; then the
+2. builds the CUDA kernels from ``frankenz_tpu_torch/csrc`` (timed) and,
+   beside them, ``csrc/scale_sweeps.cu`` alone with ``-Xptxas -v`` and
+   with ``-DFZ_REST`` (the counting build of phase 7), and prints `nvcc
+   -Xptxas -v`'s registers, spills and stack for the screened passes A
+   and B, with their dynamic shared memory (`scale_sweeps`' go into its
+   entry of the kernels line); then the
    cluster probe (`kernels.probe`): one cluster barrier round, one DSMEM
    load and the two in a dependent loop of 40,000 rounds at cluster sizes
    2, 4, 8 and 16, and the clusters the card holds at once at the launch
@@ -88,8 +91,10 @@ port, numpy and scipy, and:
 6. free scale (K6) and no weight threshold (K4): every free-scale
    instantiation (model errors or not x full or masked x dim prior or
    Normal) against its plain version at B=2,048 on config-8 data
-   (bench.py:628-649: scaled noisy model copies), the sweep tables equal,
-   and the table route against the recompute route as in phase 5;
+   (bench.py:628-649: scaled noisy model copies), the sweep tables equal
+   and, with model errors, `scale_sweeps`' lnl table bit for bit the
+   plain version's, and the table route against the recompute route as
+   in phase 5;
    config 8 end to end (16,384 objects, free scale with model errors,
    wt_thresh 1e-3, ltol 1e-4: the table route, `scale_sweeps` writing the
    lnl table + `lnl_reduce` + `lnl_stack` reading it), every row against
@@ -102,7 +107,11 @@ port, numpy and scipy, and:
 7. config 8's batch (16,384 rows, one chunk) through the two-pass
    threshold route on both routes, bit for bit (the sweep table too),
    with each route's `scale_sweeps`, `lnl_reduce` and `lnl_stack` times;
-   `lnl_onepass` timed;
+   `lnl_onepass` timed; `scale_sweeps`' launch shape read from the card,
+   its pairs at rest on that batch (the -DFZ_REST build, its tables
+   equal to the package's), the SASS instructions of one list iteration
+   (`cuobjdump -sass`) and the issue floor they give
+   (`tools/sweep_stats.py`), which the run fails without;
 8. SOM (config 3 without GNG, bench.py:164-215: 100,000 models over 5
    filters, a 50 x 50 lattice, 100,000 training steps, seed 1):
    `SelfOrganizingMap.train_network` on the `som_train` kernel's cluster
@@ -178,7 +187,8 @@ port, numpy and scipy, and:
    and bytes at the batch, the recompute route's times and bounds beside;
    the fixed-scale dense `lnl_stack` runs on no main path and has no entry:
    it stands as ``dense_ms`` beside `lnl_stack_band`),
-   `scale_sweeps`, `som_train`, `som_train_cluster` (the route
+   `scale_sweeps` (with its design, rest share and issue floor),
+   `som_train`, `som_train_cluster` (the route
    train_network takes, with its CTA and the step's floor), `gng_train`
    and `pop_chain`, the chain kernels with their cluster size, us a step
    and the block route's time), each
@@ -189,7 +199,11 @@ port, numpy and scipy, and:
    ``csrc/lnl_band.cuh``, the band reader `lnl_stack_band` and the K1
    pair's `chi2_stack` count 2 operations per nonzero G entry of each
    kept model, the dense count of 2 Ngrid a kept pair beside it as
-   ``dense_bound_ms``, and carry the band statistics), the
+   ``dense_bound_ms``, and carry the band statistics; `scale_sweeps`
+   counts the pair-sweeps this run's data needs, sweep 0 for every pair
+   and then each sweep's live list (the -DFZ_REST build's counts on the
+   same inputs), and every pair on every sweep of its (object, group) as
+   ``dense_bound_ms``), the
    card line again, and last ``{"ok": true, "device": {...}}``.
 
 Matmul precision: TF32 is switched off and float32 matmul precision set
@@ -292,7 +306,7 @@ TABLE_SOURCES = {
     "lnl_stack_band_fs": "frankenz_tpu_torch/csrc/lnl_table.cu",
     "lnl_reduce_fs": "frankenz_tpu_torch/csrc/lnl_table.cu",
     "lnl_stack_fs": "frankenz_tpu_torch/csrc/lnl_table.cu",
-    "scale_sweeps": "frankenz_tpu_torch/csrc/lnl_freescale.cu"}
+    "scale_sweeps": "frankenz_tpu_torch/csrc/scale_sweeps.cu"}
 
 
 def fail(msg):
@@ -356,6 +370,52 @@ def pdf_rows_close(torch, got, want, lo_fn, hi_fn, tol):
     return float(err.max()), inside
 
 
+def sweep_design(torch, SS, kbuild, rest_lib, args, tm, card):
+    """`scale_sweeps` on config 8's batch beyond its time: its launch shape
+    read from the card, the pairs at rest and in 2-cycles counted by the
+    -DFZ_REST build (whose sweep and lnl tables must equal the
+    package's), the SASS instructions of one list iteration and the issue
+    floor they give (`sweep_stats.report`, which raises when it cannot
+    read them)."""
+    from frankenz_tpu_torch.kernels import general as GK
+
+    lib = kbuild.load()
+    B, F = args[0].shape
+    M = args[3].shape[1]
+    ng, width = -(-M // tm), GK.table_width(M)
+    tabs = [torch.full((B, width), float("nan"), device=args[0].device)
+            for _ in range(2)]
+    sws = [torch.empty((B, ng), dtype=torch.int16, device=args[0].device)
+           for _ in range(2)]
+
+    def call(which, i):
+        SS.launch(which, args, sws[i], tabs[i], tm=tm, full_mask=True,
+                  dim_prior=True)
+        torch.cuda.synchronize()
+
+    call(lib, 0)
+    st, sass, floor = SS.report(kbuild, rest_lib, lambda: call(rest_lib, 1))
+    check(torch.equal(sws[0], sws[1]) and SS.same_bits(tabs[1], tabs[0]),
+          "scale_sweeps: the counting build's tables differ")
+    design = {
+        "shape": ("one warp an (object, 512-model group); "
+                  f"{lib.fz_scale_sweeps_warps(F, tm, 1, 1)} warps a block "
+                  "take rows from a shared counter; no block barrier in "
+                  "the sweep loop; pairs at rest or in a 2-cycle leave the "
+                  "live list"),
+        "warps_per_block": lib.fz_scale_sweeps_warps(F, tm, 1, 1),
+        "blocks_per_sm": lib.fz_scale_sweeps_occupancy(F, tm, 1, 1),
+        "dynamic_smem": lib.fz_scale_sweeps_smem(F, tm, 1, 1)}
+    print(f"scale_sweeps at config 8's {B} rows: {json.dumps(design)}; "
+          "left out " + json.dumps({k: v for k, v in st.items()
+                                    if k not in ("k_hist",
+                                                 "rest_share_by_sweep",
+                                                 "cycle_share_by_sweep")})
+          + f"; SASS list iteration {json.dumps(sass)}; issue floor "
+          f"{floor} ms | card {card}", flush=True)
+    return design, st, sass, floor
+
+
 def ulp_err(torch, got, want):
     """(max abs, max distance in float32 ulps of `want`) over entries
     finite in `want`; infinities must sit in the same places."""
@@ -415,7 +475,7 @@ REDUCE_TOPK_OPS = 6
 
 
 def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
-                   tie, nkeep, sweeps_mean, lnl):
+                   tie, nkeep, sweeps_mean, lnl, sweep_run=None):
     """{kernel: (bound ms, bound by)} of one general case: lnl per pair
     plus each kernel's own work, the stacks' 2 Ngrid operations for each
     pair whose weight they keep and is nonzero (counted from the plain lnl
@@ -425,7 +485,10 @@ def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
     pair, the readers read them and compute no lnl (`table_bounds`).  The
     band stacks (`lnl_cut_stack`, `lnl_onepass`) and the band reader
     `lnl_stack_band`: 2 operations per nonzero G entry of each kept
-    model; ``*_dense`` the dense count."""
+    model; ``*_dense`` the dense count.  `scale_sweeps`: `sweep_run`
+    pair-sweeps (sweep 0 for every pair, then each sweep's live list, as
+    the -DFZ_REST build counts them on these inputs); ``_dense`` every
+    pair on every sweep of its (object, group) (`table_bounds`)."""
     d, mT = args[0], args[3]
     B, F = d.shape
     M = mT.shape[1]
@@ -479,16 +542,20 @@ def general_bounds(torch, np, GK, TF, args, G, flags, want, log_thr, cut,
     }
     if sweeps_mean:
         # The counting sweeps also take each pair's F logs.
-        out["scale_sweeps"] = bound(pairs * sweeps_mean * (9 * F + 4),
+        check(sweep_run is not None,
+              "scale_sweeps' bound needs the pair-sweeps it runs")
+        out["scale_sweeps"] = bound(sweep_run * (9 * F + 4),
                                     io + 2.0 * flags["sweeps"].numel())
     for k, v in table_bounds(F, B, M, ngrid, flags, kept_stack, sweeps_mean,
-                             band_stack, float(nnz.sum())).items():
-        out[k if k.startswith("lnl_stack_band") else k + "_table"] = v
+                             band_stack, float(nnz.sum()),
+                             sweep_run).items():
+        out[k if k.startswith("lnl_stack_band") or k.endswith("_dense")
+            else k + "_table"] = v
     return out
 
 
 def table_bounds(F, B, M, ngrid, flags, kept, sweeps_mean, kept_nnz=None,
-                 g_nnz=None):
+                 g_nnz=None, sweep_run=None):
     """{kernel: (bound ms, bound by)} on the table route for B x M pairs,
     `kept` of them above the weight threshold: the producer (`lnl_reduce`,
     or `scale_sweeps` under free scale with model errors, whose pairs
@@ -499,7 +566,11 @@ def table_bounds(F, B, M, ngrid, flags, kept, sweeps_mean, kept_nnz=None,
     of the kept pairs' models) and `g_nnz` (G's nonzero entries, each read
     once), also the band reader `lnl_stack_band`: 2 operations per
     nonzero G entry of each kept model, and the dense count beside
-    (``lnl_stack_band_dense``)."""
+    (``lnl_stack_band_dense``).  `scale_sweeps` counts `sweep_run`
+    pair-sweeps, those this run's data needs (sweep 0 for every pair,
+    then each sweep's live list: the -DFZ_REST build's counts), and
+    ``scale_sweeps_dense`` `sweeps_mean` sweeps for every pair (every
+    pair on every sweep of its (object, group))."""
     pairs = float(B) * M
     io = 4.0 * (3 * B * F + 3 * F * M)
     table = 4.0 * pairs
@@ -514,11 +585,14 @@ def table_bounds(F, B, M, ngrid, flags, kept, sweeps_mean, kept_nnz=None,
                                       + 8.0 * B)
         out["lnl_stack_band_dense"] = out["lnl_stack"]
     if sweep_policy:
+        if sweep_run is None:
+            fail("scale_sweeps' bound needs the pair-sweeps it runs")
         ng = -(-M // int(flags["tm"]))
-        out["scale_sweeps"] = bound(
-            pairs * (sweeps_mean * (9 * F + 4) + lnl_pair_ops(
-                F, dict(flags, ignore_model_err=True))),
-            io + 2.0 * B * ng + table)
+        resid = pairs * lnl_pair_ops(F, dict(flags, ignore_model_err=True))
+        nbytes = io + 2.0 * B * ng + table
+        out["scale_sweeps"] = bound(sweep_run * (9 * F + 4) + resid, nbytes)
+        out["scale_sweeps_dense"] = bound(
+            pairs * sweeps_mean * (9 * F + 4) + resid, nbytes)
         out["lnl_reduce"] = bound(pairs * 4, table + 8.0 * B)
     else:
         out["lnl_reduce"] = bound(pairs * (lnl_pair_ops(F, flags) + 4),
@@ -692,7 +766,7 @@ def general_cases(np, rng, data, models, dmask):
 
 
 def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
-                        plain_reps=5, bounds=False):
+                        plain_reps=5, bounds=False, rest=None):
     """Hold the general kernels (with `lnl_onepass`, and `scale_sweeps`
     under free scale with model errors) against their plain versions on
     one case, and the two-pass threshold route on its lnl table against
@@ -702,7 +776,12 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
     ``recompute_ms``.  `plain_reps` = 1 times the plain version by the
     call that is compared (free scale with model errors: seconds per
     call).  With `bounds`, each result also holds its bound
-    (`general_bounds`)."""
+    (`general_bounds`); under free scale with model errors that needs
+    `rest`, the -DFZ_REST build of `scale_sweeps`, whose counts on the
+    case give the pair-sweeps run (its tables held to the plain
+    version's)."""
+    from frankenz_tpu_torch.tools import sweep_stats as SS
+
     name, d_np, dm_np, m_np, mm_np, flags = case
     Gc = G[:m_np.shape[0]].contiguous()
     args = [tens(x) for x in (d_np, np.full(d_np.shape, 0.25, np.float32),
@@ -727,12 +806,46 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
     if flags.get("free_scale") and not flags.get("ignore_model_err"):
         kw = dict(tm=TF.group_width(m_np.shape[0], 512),
                   full_mask=flags.get("full_mask", False))
-        got, want, ms, pms = run(lambda: GK.scale_sweeps(*args, **kw),
-                                 lambda: GK.scale_sweeps_plain(*args, **kw))
-        check(torch.equal(got, want), f"{name}: scale_sweeps tables differ")
+        # The plain version also writes its lnl table (the residual pass
+        # after the sweeps), which the kernel's equals bit for bit.
+        dp = flags.get("dim_prior", True)
+        width = GK.table_width(m_np.shape[0])
+        tab_p = torch.full((d_np.shape[0], width), float("nan"),
+                           device=args[0].device)
+        tab_k = torch.full_like(tab_p, float("nan"))
+        got, want, ms, pms = run(
+            lambda: GK.scale_sweeps(*args, **kw),
+            lambda: GK.scale_sweeps_plain(*args, table=tab_p, dim_prior=dp,
+                                          **kw))
+        sw_k = GK.scale_sweeps(*args, table=tab_k, dim_prior=dp, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and torch.equal(sw_k, want),
+              f"{name}: scale_sweeps tables differ")
+        check(SS.same_bits(tab_k, tab_p),
+              f"{name}: scale_sweeps' lnl table differs from the plain "
+              "version's")
         out["scale_sweeps"] = dict(
             max_abs_err=0.0, mean_sweeps=float(want.float().mean()),
-            max_sweeps=int(want.max()), ms=ms, plain_ms=pms)
+            max_sweeps=int(want.max()), ms=ms, plain_ms=pms,
+            lnl_table_vs_plain="bit-equal")
+        if bounds:
+            check(rest is not None, f"{name}: no -DFZ_REST build for "
+                                    "scale_sweeps' bound")
+            sw_r, tab_r = torch.empty_like(want), tab_k.fill_(float("nan"))
+
+            def counted():
+                SS.launch(rest, args, sw_r, tab_r, dim_prior=dp, **kw)
+                torch.cuda.synchronize()
+
+            st = SS.rest_stats(SS.rest_counts(rest, counted))
+            check(torch.equal(sw_r, want) and SS.same_bits(tab_r, tab_p),
+                  f"{name}: the counting build's tables differ from the "
+                  "plain version's")
+            out["scale_sweeps"].update(
+                pair_sweeps_run=st["pair_sweeps_run"],
+                left_out_share=st["left_out_share"])
+            del sw_r, tab_r
+        del tab_p, tab_k
         flags = dict(flags, sweeps=got, tm=kw["tm"])
         sweep_kw = kw
     lnl_plain = GK.lnl_tile_plain(*args, **flags)
@@ -890,7 +1003,8 @@ def general_kernel_case(torch, np, GK, TF, tens, card, G, case,
                    if flags.get("sweeps") is not None else 0.0)
         for kname, (bms, by) in general_bounds(
                 torch, np, GK, TF, args, Gc, flags, (lmap, levid), log_thr,
-                cut, tie, nkeep, sw_mean, lnl_plain).items():
+                cut, tie, nkeep, sw_mean, lnl_plain,
+                out.get("scale_sweeps", {}).get("pair_sweeps_run")).items():
             if kname.endswith("_table"):
                 # The table route's kernel: its bound is the entry's.
                 res = out[kname[:-len("_table")]]
@@ -2457,11 +2571,16 @@ def main():
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
 
-    # 2. build
+    # 2. build; after it (outside build_s) and beside phases 3-5,
+    # csrc/scale_sweeps.cu alone twice: with -Xptxas -v (its registers) and
+    # with -DFZ_REST (the rest counts of phases 6-7)
     build_s = kbuild.build(force=True)
     kbuild.load()
     print(f"build: nvcc {kbuild.nvcc_path()} -> {kbuild.library_path()} "
           f"in {build_s:.2f} s", flush=True)
+    from frankenz_tpu_torch.tools import sweep_stats as SS
+    sweep_builds = {name: SS.start(kbuild, name, flags) for name, flags in (
+        ("sweeps_ptxas", []), ("sweeps_rest", ["-DFZ_REST"]))}
     # Registers, spills and shared memory of the two redesigned passes
     # (nvcc -Xptxas -v on their source alone; dynamic shared memory at
     # config 4's widths).
@@ -3144,6 +3263,20 @@ def main():
     del bs_b, argsb_b
     torch.cuda.empty_cache()
 
+    # scale_sweeps' two builds of phase 2.  Its registers at config 8's
+    # shape (F = 5 compiled, full masks, with the lnl table), into its entry
+    # of the kernels line.
+    sweep_text = {name: SS.finish(proc, name)
+                  for name, (proc, _) in sweep_builds.items()}
+    rest_lib = SS.bind(sweep_builds["sweeps_rest"][1])
+    found = [v for k, v in kbuild.parse_ptxas(
+        sweep_text["sweeps_ptxas"]).items()
+        if "scale_sweeps_kernel" in k and "ILb1ELb1ELb1ELi5EE" in k]
+    check(len(found) == 1, "no ptxas report for scale_sweeps")
+    ptxas["scale_sweeps"] = dict(
+        found[0], dynamic_smem=kbuild.load().fz_scale_sweeps_smem(
+            NFILT, 512, 1, 1))
+
     # 6. free scale (K6) and the one-pass kernel (K4): every free-scale
     # instantiation against its plain version on config-8 data
     # (bench.py:628-649: noisy copies of the models scaled by U(0.5, 2),
@@ -3175,7 +3308,8 @@ def main():
                 per = general_kernel_case(
                     torch, np, GK, TF, tens, card, G8, case, plain_reps=1,
                     bounds=cname in ("fs_me_full_dimprior",
-                                     "fs_ime_masked_dimprior"))
+                                     "fs_ime_masked_dimprior"),
+                    rest=rest_lib)
                 for kname, r in per.items():
                     key = kname if kname == "scale_sweeps" else kname + "_fs"
                     results[key][cname] = r
@@ -3380,8 +3514,11 @@ def main():
     torch.cuda.empty_cache()
     ms_table8, chunks8, bytes8, kept8, _ = chunk_times(
         torch, np, GK, args8, G8, flags8, log_thr, sk8)
+    sweeps8 = sweep_design(torch, SS, kbuild, rest_lib, args8, fl8["tm"],
+                           card)
     bounds8 = table_bounds(NFILT, N8, NMODEL, NGRID, dict(flags8, tm=sk8["tm"]),
-                           kept8, float(sw8.float().mean()))
+                           kept8, float(sw8.float().mean()),
+                           sweep_run=sweeps8[1]["pair_sweeps_run"])
     for kname, fn in (
             ("scale_sweeps", lambda: GK.scale_sweeps(
                 *args8, tm=fl8["tm"], full_mask=True)),
@@ -3402,6 +3539,9 @@ def main():
                                bound_ms=bounds8[kname][0],
                                bound_by=bounds8[kname][1])
         ms_batch[k8] = ms_table8[kname]
+    table_batch["scale_sweeps"].update(
+        dense_bound_ms=bounds8["scale_sweeps_dense"][0],
+        dense_bound_by=bounds8["scale_sweeps_dense"][1])
     print(f"kernel_at_batch {N8}x{NMODEL} config 8: two-pass threshold "
           f"route, table == recompute bit for bit ({chunks8} chunk(s), a "
           f"{bytes8 / 1e9:.4g} GB table): table route " + ", ".join(
@@ -3556,6 +3696,23 @@ def main():
         if kname == "chi2_stack_screened":
             entry.update({f"{k}_batch_{BATCH}": v
                           for k, v in kept_batch.items()})
+        if kname == "scale_sweeps":
+            # The design's shape, the pairs at rest on config 8's batch
+            # and the issue floor of its SASS (phase 7); bound_ms counts
+            # the pair-sweeps run (sweep 0 for every pair, then the live
+            # lists), dense_bound_ms every pair on every sweep of its
+            # (object, group).
+            design, st, sass, floor = sweeps8
+            entry.update(design=design, rest_share=st["rest_share"],
+                         cycle_share=st["cycle_share"],
+                         rest={k: v for k, v in st.items()
+                               if k not in ("k_hist",)},
+                         sass_list_iteration=sass, issue_floor_ms=floor,
+                         pair_sweeps_run=ref["pair_sweeps_run"],
+                         dense_bound_ms=ref["dense_bound_ms"],
+                         dense_bound_by=ref["dense_bound_by"],
+                         **{f"{k}_batch_{N8}": table_batch[kname][k]
+                            for k in ("dense_bound_ms", "dense_bound_by")})
         if kname in ptxas:
             entry["ptxas"] = ptxas[kname]
         kernels.append(entry)

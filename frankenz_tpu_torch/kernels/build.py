@@ -73,8 +73,8 @@ def build(force=False):
     # One nvcc per source, all started together (lnl_general.cu and
     # lnl_freescale.cu, with their many template instantiations, take
     # tens of seconds each; chi2_fullmask.cu, chi2_screened.cu,
-    # lnl_table.cu, som_train.cu, gng_train.cu, pop_chain.cu and
-    # cluster_probe.cu seconds),
+    # lnl_table.cu, scale_sweeps.cu, som_train.cu, gng_train.cu,
+    # pop_chain.cu and cluster_probe.cu seconds),
     # then one link.  The library is written to a temporary name and
     # renamed: a concurrent loader never sees a half-written one.
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
@@ -180,6 +180,7 @@ def _bind(lib):
                         ("fz_lnl_reduce_topk_smem", 3),
                         ("fz_lnl_stack_smem", 1), ("fz_scale_sweeps_smem", 4),
                         ("fz_scale_sweeps_occupancy", 4),
+                        ("fz_scale_sweeps_warps", 4),
                         ("fz_lnl_reduce_store_smem", 1),
                         ("fz_lnl_band_smem", 4), ("fz_lnl_band_blocks", 4)):
         getattr(lib, name).argtypes = [I] * nargs

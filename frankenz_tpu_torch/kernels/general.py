@@ -15,9 +15,11 @@ undetermined (`ops.fused.cdf_cut_exact`).  `scale_sweeps` counts the
 free-scale fixed point's sweeps per (object, model group), the table the
 other kernels read under free scale with model errors.  The CUDA
 sources, with the design notes, are ``csrc/lnl_general.cu`` (fixed
-scale), ``csrc/lnl_freescale.cu`` (free scale), ``csrc/lnl_common.cuh``
-(the kernel templates), ``csrc/lnl_table.cu`` (the lnl table's readers)
-and ``csrc/lnl_band.cuh`` (`lnl_onepass` and `lnl_cut_stack`).
+scale), ``csrc/lnl_freescale.cu`` (free scale), ``csrc/scale_sweeps.cu``
+(the sweep counts: one warp an (object, model group), pairs at an exact
+fixed point left out), ``csrc/lnl_common.cuh`` (the kernel templates),
+``csrc/lnl_table.cu`` (the lnl table's readers) and ``csrc/lnl_band.cuh``
+(`lnl_onepass` and `lnl_cut_stack`).
 
 `lnl_onepass`, `lnl_cut_stack` and `lnl_stack_band` take the models in
 band order (`band_sort`, the port of JAX's `_band_sort`, K7): sorted by

@@ -17,8 +17,8 @@ composition, which stores the grids.
 has nothing to train, so it is not an `nn.Module`.
 
 Not ported yet: ``mesh=`` sharding and ``checkpoint_every`` / ``resume``
-(they raise `NotImplementedError`), the gathered-KDE paths, and the
-TPU-specific dispatch crossovers of the JAX fitter.
+(they raise `NotImplementedError`), and the TPU-specific dispatch
+crossovers of the JAX fitter.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 of them, in turns.
 
     python -m frankenz_tpu_torch.tools.ab_table [--out DIR] [--reps N]
-        [--variants sweeps_rows4 store_rows16 ...] [--stamps]
+        [--variants sweeps_norest store_rows16 ...] [--stamps] [--rest]
         [--ref-tree DIR [--no-walls]]
 
 Run from the root of a checkout on a machine with a CUDA card and
@@ -12,8 +12,8 @@ Run from the root of a checkout on a machine with a CUDA card and
   100,000 models x 5 filters from ``default_rng(0)``, scaled by U(0.5, 2)
   plus N(0, 0.3) noise, data errors 0.25, model errors 5%, full masks;
   group width 512, ltol 1e-4, max_iter 100).  Variants compile
-  ``csrc/lnl_freescale.cu``: ``sweeps_rowsN`` (-DFZ_WROWS=N objects a
-  block), ``sweeps_threadsN`` (-DFZ_WTHREADS=N threads a block);
+  ``csrc/scale_sweeps.cu``: ``sweeps_warpsN`` (-DFZ_SWEEP_WARPS=N warps
+  a block), ``sweeps_rowsN`` (-DFZ_SWEEP_ROWS=N rows a warp);
 - `lnl_reduce_store` (fixed scale, masked, dim prior) on one 32,768-row
   chunk of the masked config-4 batch (chip_smoke.py's data: 15% of the
   bands missing).  Variants compile ``csrc/lnl_general.cu``:
@@ -25,47 +25,58 @@ Run from the root of a checkout on a machine with a CUDA card and
 Every build starts at once.  For each variant it times the package's
 kernel and the variant in turns (package, variant, variant, package;
 CUDA events, median of `--reps` turns), checks the variant's outputs (the
-sweep table, lmap, levid and the lnl table, or the band reader's PDF)
+sweep table and the lnl table, lmap and levid, or the band reader's PDF)
 equal to the package's bit for bit, and reports its registers and spills
-(`nvcc -Xptxas -v`) and, for `scale_sweeps`, the blocks an SM holds.
-With ``--stamps`` it also builds ``csrc/lnl_freescale.cu`` and
-``csrc/lnl_table.cu`` with -DFZ_STAMPS (debug builds: each block's
-thread 0 adds the clock64 cycles of each part of `scale_sweeps`, and of a
+(`nvcc -Xptxas -v`) and, for `scale_sweeps`, the blocks an SM holds and
+its warps a block.  With ``--stamps`` it also builds
+``csrc/scale_sweeps.cu`` and ``csrc/lnl_table.cu`` with -DFZ_STAMPS
+(debug builds: lane 0 of each sweep warp, or thread 0 of each reader
+block, adds the clock64 cycles of each part to a device array) and prints
+the cycles a warp sweep or a row of each part of `scale_sweeps`, and a
 tile of `lnl_stack_read` on the masked chunk's table and of
-`lnl_stack_band` on its band-order table, to a device array) and prints
-the cycles a block sweep or a tile of each part, and the package's reader
-times there.
+`lnl_stack_band` on its band-order table, with the package's reader
+times there.  With ``--rest`` it builds ``csrc/scale_sweeps.cu`` with
+-DFZ_REST and prints, on config 8's batch, the pair-sweeps left out, at
+rest and in 2-cycles (`tools/sweep_stats.py`: overall and by sweep
+index), the fixed 32-slot chunks whose pairs had all left, the list
+iterations run, k per (object, group), the
+first design's 2-row blocks that held a frozen row, the SASS
+instructions of one list iteration (`cuobjdump -sass`) and the issue
+floor they give at the card's maximum SM clock.
 
 With ``--ref-tree DIR`` (an earlier commit's `frankenz_tpu_torch/`, e.g.
 ``git archive <commit> frankenz_tpu_torch | tar -x -C build/ab/ref``,
-whose ``csrc/lnl_table.cu`` exports `fz_lnl_stack_read`) it also times that tree's `lnl_stack_read` on the caller-order
-table against the package's `lnl_stack_band` on the band-order table, in
-turns, and (unless ``--no-walls``) `BruteForce.fit_predict` over the
-131,072 masked objects under wt_thresh 1e-3 in each tree, each in its own
+whose ``csrc/scale_sweeps.cu``, or before it ``csrc/lnl_freescale.cu``,
+exports `fz_scale_sweeps`) it also times that tree's `scale_sweeps` with
+an lnl table against the package's on config 8's batch, in turns,
+requires both trees' sweep tables and lnl tables equal bit for bit, and
+(unless ``--no-walls``) times config 8's `BruteForce.fit_predict` (free
+scale with model errors, wt_thresh 1e-3) in each tree, each in its own
 process, in turns (earlier, package, package, earlier; a warm-up and 3
-walls a process), with a SHA-256 of each run's PDFs, lmap and levid: one
-digest a tree (the band order sums levid and the PDFs in another order,
-so the trees' digests may differ).  It prints one JSON line and writes it
-to ``DIR/ab_table.json``.
+walls a process), with a SHA-256 of each run's PDFs, lmap and levid,
+which must be one digest for both trees.  It prints one JSON line and
+writes it to ``DIR/ab_table.json``.
 """
 
 import argparse
 import ctypes
 import json
+import os
 import statistics
 import subprocess
+import sys
 from pathlib import Path
 
-from .ab_band import _walls
+from . import sweep_stats as SS
 
 NMODEL, NFILT, N8, TM, LTOL, MAX_ITER = 100_000, 5, 16_384, 512, 1e-4, 100
 NCHUNK, N_E2E, NGRID = 32_768, 131_072, 301
 VARIANTS = {
-    "sweeps_rows2": ("lnl_freescale.cu", ["-DFZ_WROWS=2"]),
-    "sweeps_rows4": ("lnl_freescale.cu", ["-DFZ_WROWS=4"]),
-    "sweeps_rows16": ("lnl_freescale.cu", ["-DFZ_WROWS=16"]),
-    "sweeps_threads128": ("lnl_freescale.cu", ["-DFZ_WTHREADS=128"]),
-    "sweeps_threads512": ("lnl_freescale.cu", ["-DFZ_WTHREADS=512"]),
+    "sweeps_warps8": ("scale_sweeps.cu", ["-DFZ_SWEEP_WARPS=8"]),
+    "sweeps_warps4": ("scale_sweeps.cu", ["-DFZ_SWEEP_WARPS=4"]),
+    "sweeps_warps16": ("scale_sweeps.cu", ["-DFZ_SWEEP_WARPS=16"]),
+    "sweeps_rows4": ("scale_sweeps.cu", ["-DFZ_SWEEP_ROWS=4"]),
+    "sweeps_rows32": ("scale_sweeps.cu", ["-DFZ_SWEEP_ROWS=32"]),
     "store_rows16": ("lnl_general.cu", ["-DFZ_PROWS=16", "-DFZ_PTHREADS=128"]),
     "store_rows64": ("lnl_general.cu", ["-DFZ_PROWS=64"]),
     "store_threads128": ("lnl_general.cu", ["-DFZ_PTHREADS=128"]),
@@ -74,15 +85,51 @@ VARIANTS = {
     "store_rows128": ("lnl_general.cu", ["-DFZ_PROWS=128"]),
     "store_rows64_threads128": ("lnl_general.cu", ["-DFZ_PROWS=64",
                                                    "-DFZ_PTHREADS=128"]),
-    "sweeps_rows1": ("lnl_freescale.cu", ["-DFZ_WROWS=1"]),
-    "sweeps_rows8": ("lnl_freescale.cu", ["-DFZ_WROWS=8"]),
 }
-KINDS = {"lnl_freescale.cu": "sweeps", "lnl_general.cu": "store",
+KINDS = {"scale_sweeps.cu": "sweeps", "lnl_general.cu": "store",
          "lnl_table.cu": "band"}
 STACK_PARTS = ("table wait and barrier", "weights", "barrier and mask",
                "G copies and wait", "products")
-PARTS = ("staging and sweep 0", "pair updates", "warp maxima and barrier",
-         "freeze and barriers", "table pass")
+PARTS = ("row fetch and staging", "pair updates", "warp maxima and freeze",
+         "table pass", "block staging")
+# Config 8's walls in one tree (its own process): a warm-up on 2,048 rows,
+# then 3 walls of the 16,384-row call, and a SHA-256 of PDFs, lmap, levid.
+_WALLS8 = r"""
+import hashlib, json, time
+import numpy as np, torch
+from frankenz_tpu_torch.models import BruteForce
+from frankenz_tpu_torch.ops import kde as TK
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+N8, M, F, NG = %d, %d, %d, %d
+f32 = np.float32
+models = np.random.default_rng(0).uniform(1, 10, (M, F)).astype(f32)
+rng8 = np.random.default_rng(0)
+rng8.uniform(1, 10, (M, F))
+scales = rng8.uniform(0.5, 2.0, (N8, 1))
+data8 = (scales * models[rng8.integers(0, M, N8)]
+         + rng8.normal(0, 0.3, (N8, F))).astype(f32)
+zl8 = rng8.uniform(0, 3.5, M)
+pdict = TK.PDFDict(np.linspace(0.0, 4.0, NG), np.linspace(0.01, 0.5, 100))
+bf = BruteForce(models, (0.05 * models).astype(f32), np.ones_like(models),
+                device="cuda")
+de, ones, zerr = np.full((N8, F), 0.25, f32), np.ones((N8, F), f32), np.full(M, 0.1)
+kw = dict(label_dict=pdict, verbose=False, return_gof=True,
+          lprob_kwargs=dict(free_scale=True, ltol=1e-4))
+bf.fit_predict(data8[:2048], de[:2048], ones[:2048], zl8, zerr, **kw)
+torch.cuda.synchronize()
+walls = []
+for _ in range(3):
+    t0 = time.perf_counter()
+    pdfs, gof = bf.fit_predict(data8, de, ones, zl8, zerr, **kw)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+digest = hashlib.sha256()
+for x in (pdfs, gof[0], gof[1]):
+    digest.update(np.ascontiguousarray(x).tobytes())
+print("WALLS " + json.dumps({"walls": walls, "sha256": digest.hexdigest()}),
+      flush=True)
+"""
 
 
 def _card():
@@ -95,34 +142,18 @@ def _card():
         return "nvidia-smi unavailable"
 
 
-def _compile(build, name, source, flags):
-    """Start nvcc (-Xptxas -v) on `source` with `flags` into its own
-    library; returns (process, library path)."""
-    out = build.library_path().parent / f"libfz_ab_{name}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [build.nvcc_path(), *build._NVCC_FLAGS, *flags, "-Xptxas", "-v",
-           "-I", str(build._SRC_DIR), "-shared", "-o", str(out),
-           str(build._SRC_DIR / source)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), out
+# The other kernels' entry points (`sweep_stats.bind` types the sweeps').
+_ENTRIES = (
+    ("fz_lnl_reduce_store", ["P"] * 10 + ["I"] * 7 + ["F", "P"]),
+    ("fz_lnl_stack_read", ["P", "I"] + ["P"] * 4 + ["I"] * 3
+     + ["F", "I", "P"]),
+    ("fz_lnl_stack_band", ["P", "I", "P", "I", "P", "I"] + ["P"] * 3
+     + ["I"] * 3 + ["F", "P"]),
+    ("fz_lnl_stack_read_stamps", ["P"]))
 
 
 def _bind(path):
-    lib = ctypes.CDLL(str(path))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, argtypes in (
-            ("fz_scale_sweeps", [P] * 9 + [I] * 8 + [F, I, F, P]),
-            ("fz_scale_sweeps_occupancy", [I] * 4),
-            ("fz_scale_sweeps_stamps", [P]),
-            ("fz_lnl_reduce_store", [P] * 10 + [I] * 7 + [F, P]),
-            ("fz_lnl_stack_read", [P, I] + [P] * 4 + [I] * 3 + [F, I, P]),
-            ("fz_lnl_stack_band", [P, I, P, I, P, I] + [P] * 3 + [I] * 3
-             + [F, P]),
-            ("fz_lnl_stack_read_stamps", [P])):
-        if hasattr(lib, name):
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = I
-    return lib
+    return SS.bind(path, _ENTRIES)
 
 
 def _ptxas(build, text, kernel):
@@ -131,7 +162,7 @@ def _ptxas(build, text, kernel):
     found = build.parse_ptxas(text)
     if kernel == "band":
         return {k: v for k, v in found.items() if "lnl_stack_" in k}
-    key = {"sweeps": ("scale_sweeps_kernel", "ILb1ELb1ELb1E"),
+    key = {"sweeps": ("scale_sweeps_kernel", "ILb1ELb1ELb1ELi5EE"),
            "store": ("lnl_reduce_store_kernel", "FixedPairILb0ELb1ELb0E")}
     name, inst = key[kernel]
     hits = [v for k, v in found.items() if name in k and inst in k]
@@ -150,12 +181,27 @@ def _stack_cycles(cyc):
                 if i >= 3}}
 
 
+def _walls8(tree, who):
+    """Config 8's fit_predict walls and output digest in the tree at
+    `tree` (its own process)."""
+    env = dict(os.environ, PYTHONPATH=str(tree))
+    run = subprocess.run(
+        [sys.executable, "-c", _WALLS8 % (N8, NMODEL, NFILT, NGRID)],
+        cwd=str(tree), env=env, capture_output=True, text=True)
+    if run.returncode != 0:
+        raise RuntimeError(f"config 8 walls in {tree} ({who}) failed:\n"
+                           f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    line = [x for x in run.stdout.splitlines() if x.startswith("WALLS ")]
+    return json.loads(line[-1][len("WALLS "):])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/ab_table")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--variants", nargs="*", default=list(VARIANTS))
     ap.add_argument("--stamps", action="store_true")
+    ap.add_argument("--rest", action="store_true")
     ap.add_argument("--ref-tree", default=None)
     ap.add_argument("--no-walls", action="store_true")
     args = ap.parse_args(argv)
@@ -173,22 +219,25 @@ def main(argv=None):
     card = _card()
     dev = torch.device("cuda")
     builds = {name: VARIANTS[name] for name in args.variants}
-    builds["package_sweeps"] = ("lnl_freescale.cu", [])
+    builds["package_sweeps"] = ("scale_sweeps.cu", [])
     builds["package_store"] = ("lnl_general.cu", [])
     builds["package_band"] = ("lnl_table.cu", [])
     if args.stamps:
-        builds["stamps"] = ("lnl_freescale.cu", ["-DFZ_STAMPS"])
+        builds["stamps"] = ("scale_sweeps.cu", ["-DFZ_STAMPS"])
         builds["stack_stamps"] = ("lnl_table.cu", ["-DFZ_STAMPS"])
-    procs = {name: _compile(build, name, *spec)
-             for name, spec in builds.items()}
+    if args.rest:
+        builds["rest"] = ("scale_sweeps.cu", ["-DFZ_REST"])
+    procs = {name: SS.start(build, name, flags, build._SRC_DIR / source)
+             for name, (source, flags) in builds.items()}
     ref_proc = None
     if args.ref_tree:
+        # The earlier tree's scale_sweeps: its own source from this design
+        # on, lnl_freescale.cu before it.
         ref_src = Path(args.ref_tree) / "frankenz_tpu_torch" / "csrc"
-        ref_out = build.library_path().parent / "libfz_ab_ref_table.so"
-        ref_proc = subprocess.Popen(
-            [build.nvcc_path(), *build._NVCC_FLAGS, "-I", str(ref_src),
-             "-shared", "-o", str(ref_out), str(ref_src / "lnl_table.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        src = ref_src / "scale_sweeps.cu"
+        if not src.exists():
+            src = ref_src / "lnl_freescale.cu"
+        ref_proc, ref_out = SS.start(build, "ref_sweeps", [], src)
     build.build()
     pkg = build.load()
     ptxas = {}
@@ -201,6 +250,10 @@ def main(argv=None):
         out = ref_proc.communicate()[0]
         if ref_proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the earlier tree:\n{out}")
+        found = build.parse_ptxas(out)
+        ptxas["ref_sweeps"] = [v for k, v in found.items()
+                               if "scale_sweeps_kernel" in k
+                               and "ILb1ELb1ELb1E" in k]
 
     f32 = np.float32
     rng = np.random.default_rng(0)
@@ -249,11 +302,8 @@ def main(argv=None):
             raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
     def sweeps(lib, out):
-        sw, tab = out
-        check(lib.fz_scale_sweeps(
-            *[t.data_ptr() for t in args8], gl.data_ptr(), sw.data_ptr(),
-            tab.data_ptr(), width, N8, NMODEL, NFILT, TM, ng, 1, 1, LTOL,
-            MAX_ITER, nd_full, stream()), "scale_sweeps")
+        SS.launch(lib, args8, *out, tm=TM, full_mask=True, dim_prior=True,
+                  ltol=LTOL, max_iter=MAX_ITER)
 
     def store(lib, out):
         lm, lv, tab = out
@@ -279,18 +329,31 @@ def main(argv=None):
         return t0.elapsed_time(t1)
 
     def equal(a, b):
-        return all(torch.equal(x[..., :NMODEL], y[..., :NMODEL])
-                   for x, y in zip(a, b))
+        """Two builds' outputs equal in every bit over the first NMODEL
+        columns (NaN payloads too)."""
+        bits = {torch.float32: torch.int32}
+        return all(torch.equal(*(t[..., :NMODEL].view(bits.get(t.dtype,
+                                                               t.dtype))
+                                 for t in (x, y))) for x, y in zip(a, b))
 
     def outputs(kind):
         if kind == "sweeps":
             return (torch.empty((N8, ng), dtype=torch.int16, device=dev),
-                    torch.empty((N8, width), device=dev))
+                    torch.full((N8, width), float("nan"), device=dev))
         if kind == "band":
             return (torch.empty((NCHUNK, NGRID), device=dev),)
         return (torch.empty(NCHUNK, device=dev),
                 torch.empty(NCHUNK, device=dev),
                 torch.empty((NCHUNK, width), device=dev))
+
+    def turns(fn, old_lib, new_lib, got, reps):
+        old, new = [], []
+        for _ in range(reps):
+            old.append(timed(fn, old_lib, got))
+            new.append(timed(fn, new_lib, got))
+            new.append(timed(fn, new_lib, got))
+            old.append(timed(fn, old_lib, got))
+        return statistics.median(old), statistics.median(new)
 
     fns = {"sweeps": sweeps, "store": store, "band": band}
     want = {kind: outputs(kind) for kind in fns}
@@ -307,6 +370,8 @@ def main(argv=None):
                   "store_ptxas": ptxas["package_store"],
                   "band_ptxas": ptxas["package_band"],
                   "sweeps_blocks_per_sm": pkg.fz_scale_sweeps_occupancy(
+                      NFILT, TM, 1, 1),
+                  "sweeps_warps_per_block": pkg.fz_scale_sweeps_warps(
                       NFILT, TM, 1, 1)},
               "variants": {}}
     for name in args.variants:
@@ -316,18 +381,13 @@ def main(argv=None):
         fn(lib, got)
         torch.cuda.synchronize()
         same = equal(got, want[kind])
-        old, new = [], []
-        for _ in range(args.reps):
-            old.append(timed(fn, pkg, got))
-            new.append(timed(fn, lib, got))
-            new.append(timed(fn, lib, got))
-            old.append(timed(fn, pkg, got))
-        v = {"flags": builds[name][1], "equal": same,
-             "package_ms": statistics.median(old),
-             "variant_ms": statistics.median(new), "ptxas": ptxas[name]}
+        pkg_ms, var_ms = turns(fn, pkg, lib, got, args.reps)
+        v = {"flags": builds[name][1], "equal": same, "package_ms": pkg_ms,
+             "variant_ms": var_ms, "ptxas": ptxas[name]}
         if kind == "sweeps":
             v["blocks_per_sm"] = lib.fz_scale_sweeps_occupancy(NFILT, TM, 1,
                                                                1)
+            v["warps_per_block"] = lib.fz_scale_sweeps_warps(NFILT, TM, 1, 1)
         report["variants"][name] = v
         del got
         print(f"ab_table {name} {v['flags']}: package {v['package_ms']:.3f}"
@@ -350,15 +410,14 @@ def main(argv=None):
         sweeps(lib, outputs("sweeps"))
         torch.cuda.synchronize()
         check(lib.fz_scale_sweeps_stamps(cyc), "stamps")
-        nsweeps, nblocks = max(1, cyc[5]), max(1, cyc[6])
+        nsweeps, nrows, nblocks = (max(1, cyc[i]) for i in (5, 6, 7))
         report["stamps"] = {
-            "block_sweeps": cyc[5], "blocks": cyc[6],
-            "cycles_per_block_sweep": {
-                part: cyc[i] / nsweeps for i, part in enumerate(PARTS)
-                if i in (1, 2, 3)},
-            "cycles_per_block": {part: cyc[i] / nblocks
-                                 for i, part in enumerate(PARTS)
-                                 if i in (0, 4)}}
+            "warp_sweeps": cyc[5], "warp_rows": cyc[6], "blocks": cyc[7],
+            "cycles_per_warp_sweep": {PARTS[i]: cyc[i] / nsweeps
+                                      for i in (1, 2)},
+            "cycles_per_warp_row": {PARTS[i]: cyc[i] / nrows
+                                    for i in (0, 1, 2, 3)},
+            "cycles_per_block": {PARTS[4]: cyc[4] / nblocks}}
         print(f"ab_table stamps: {report['stamps']} | card {card}",
               flush=True)
         # The readers on the masked chunk's tables: the caller-order
@@ -377,31 +436,46 @@ def main(argv=None):
                                    for _ in range(2 * args.reps)))
             print(f"ab_table {key} (masked chunk): {report[key]} | card "
                   f"{card}", flush=True)
-    if args.ref_tree:
-        # The earlier tree's caller-order reader against the package's
-        # band reader on the same chunk, in turns.
-        ref = _bind(ref_out)
-        got = outputs("band")
-        old, new = [], []
-        for _ in range(args.reps):
-            old.append(timed(stack, ref, None))
-            new.append(timed(band, pkg, got))
-            new.append(timed(band, pkg, got))
-            old.append(timed(stack, ref, None))
-        err = float(((got[0] - pdf).abs().amax(dim=1)
-                     / pdf.abs().amax(dim=1).clamp_min(1e-30)).max())
-        report["ref_reader"] = {
-            "ref_tree": str(Path(args.ref_tree).resolve()),
-            "ref_lnl_stack_read_ms": statistics.median(old),
-            "package_lnl_stack_band_ms": statistics.median(new),
-            "pdf_row_normwise_diff": err}
-        print(f"ab_table earlier tree's lnl_stack_read (caller order) "
-              f"{report['ref_reader']['ref_lnl_stack_read_ms']:.3f} ms, "
-              f"package lnl_stack_band "
-              f"{report['ref_reader']['package_lnl_stack_band_ms']:.3f} ms "
-              f"over {NCHUNK} rows, PDFs row-normwise {err:.3g} apart | card "
-              f"{card}", flush=True)
+    if args.rest:
+        lib = _bind(procs["rest"][1])
+        got = outputs("sweeps")
+
+        def run():
+            sweeps(lib, got)
+            torch.cuda.synchronize()
+
+        st, sass, _ = SS.report(build, lib, run)
+        st["counting_build_equal"] = equal(got, want["sweeps"])
+        st["first_design_2row_blocks"] = SS.pair_waits(want["sweeps"][0])
+        st["sass"] = sass
+        report["rest"] = st
         del got
+        print(f"ab_table rest (config 8's {N8} rows): " + json.dumps(
+            {k: v for k, v in st.items()
+             if k not in ("k_hist", "rest_share_by_sweep",
+                          "cycle_share_by_sweep")})
+            + f" | card {card}", flush=True)
+    if args.ref_tree:
+        # The earlier tree's scale_sweeps against the package's on config
+        # 8's batch with an lnl table, in turns; both tables bit for bit.
+        ref = _bind(ref_out)
+        got = outputs("sweeps")
+        sweeps(ref, got)
+        torch.cuda.synchronize()
+        same = equal(got, want["sweeps"])
+        ref_ms, pkg_ms = turns(sweeps, ref, pkg, got, args.reps)
+        report["ref_sweeps"] = {
+            "ref_tree": str(Path(args.ref_tree).resolve()),
+            "ref_source": src.name, "ref_ptxas": ptxas["ref_sweeps"],
+            "ref_ms": ref_ms, "package_ms": pkg_ms,
+            "tables_equal": same}
+        print(f"ab_table earlier tree's scale_sweeps ({src.name}) "
+              f"{ref_ms:.3f} ms, package {pkg_ms:.3f} ms over config 8's "
+              f"{N8} rows with an lnl table, sweep and lnl tables bit-equal "
+              f"{same} | card {card}", flush=True)
+        del got
+        if not same:
+            raise SystemExit("the trees' sweep or lnl tables differ")
     print(f"ab_table package: {report['package']}, mean sweeps "
           f"{report['mean_sweeps']:.4f} | card {card}", flush=True)
     del args4, args8, mods, tab_b, bs, want, pdf
@@ -410,26 +484,25 @@ def main(argv=None):
         tree, here = Path(args.ref_tree).resolve(), Path.cwd()
         walls = {"ref": [], "package": []}
         for who in ("ref", "package", "package", "ref"):
-            walls[who].append(_walls(tree if who == "ref" else here, who,
-                                     ("table",)))
-        digests = {who: sorted({r["sha256"]["table"] for r in runs})
-                   for who, runs in walls.items()}
-        report["fit_predict_131072_table"] = {
-            who: statistics.median(w for r in runs for w in
-                                   r["walls"]["table"])
+            walls[who].append(_walls8(tree if who == "ref" else here, who))
+        digests = sorted({r["sha256"] for runs in walls.values()
+                          for r in runs})
+        report["fit_predict_config8"] = {
+            who: statistics.median(w for r in runs for w in r["walls"])
             for who, runs in walls.items()}
         report["fit_predict_walls"] = walls
         report["fit_predict_sha256"] = digests
-        print(f"ab_table fit_predict {N_E2E} masked, wt_thresh 1e-3 (median "
-              f"walls, s): {report['fit_predict_131072_table']}, SHA-256 "
-              f"{digests} | card {card}", flush=True)
-        if any(len(d) != 1 for d in digests.values()):
-            raise SystemExit("a tree's fit_predict outputs differ run to run")
+        print(f"ab_table config 8 fit_predict, {N8} objects (median walls, "
+              f"s): {report['fit_predict_config8']}, SHA-256 {digests} | "
+              f"card {card}", flush=True)
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     line = json.dumps(report)
     (out_dir / "ab_table.json").write_text(line + "\n")
     print(line, flush=True)
+    if args.ref_tree and not args.no_walls and len(digests) != 1:
+        raise SystemExit("config 8's fit_predict outputs differ between "
+                         "runs or trees")
     return 0
 
 

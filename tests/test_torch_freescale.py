@@ -282,6 +282,181 @@ def test_scale_sweeps_follow_ltol_and_max_iter(problem):
         GK.lnl_reduce(*t, free_scale=True)
 
 
+def _rest_problem(masked, B=12, M=300, F=5, seed=5):
+    """Config-8-like inputs (bench.py:612-699: scaled copies of the models
+    plus noise, data errors 0.25, model errors 5%) as tensors (d, de, dm,
+    mT, meT, mmT): models 0-9 without model errors (their pairs rest from
+    sweep 1), row 0 with a NaN band, 10% of the bands masked when
+    `masked`; M = 300 leaves a ragged last group of 128."""
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(1, 10, (M, F)).astype(np.float32)
+    me = (0.05 * m).astype(np.float32)
+    me[:10] = 0.0
+    d = (rng.uniform(0.5, 2.0, (B, 1)) * m[rng.integers(0, M, B)]
+         + rng.normal(0, 0.3, (B, F))).astype(np.float32)
+    d[0, 3] = np.nan
+    de = np.full((B, F), 0.25, np.float32)
+    dm, mm = np.ones((B, F), np.float32), np.ones((M, F), np.float32)
+    if masked:
+        dm = (rng.uniform(size=(B, F)) > 0.1).astype(np.float32)
+        mm = (rng.uniform(size=(M, F)) > 0.1).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(x))
+            for x in (d, de, dm, m.T, me.T, mm.T)]
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+def _ndt(d, dm, mmT, full_mask):
+    """The in-loop lnl's Ndim log 2 pi, as `scale_sweeps_plain` forms it."""
+    if full_mask:
+        return GK._nd_full(d.shape[1])
+    ndim = torch.zeros((d.shape[0], mmT.shape[1]))
+    for k in range(d.shape[1]):
+        ndim = ndim + dm[:, k:k + 1] * mmT[k]
+    return ndim * GK._LOG_2PI
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_a_pair_at_a_fixed_point_of_one_or_two_sweeps_stays_there(masked):
+    """The rules that `scale_sweeps` (csrc/scale_sweeps.cu) leans on, on
+    the plain recurrence, at every sweep of 60 over every pair (the NaN
+    row and the models without errors among them): once a pair's sweep
+    returns s_new with the bits of s_old, the next sweep returns the same
+    (s, lnl, A) bit for bit; once sweep t returns the bits of s_{t-2} (a
+    2-cycle), sweep t + 1 returns sweep t - 1's (s, lnl, A) bit for bit.
+    Many pairs come to rest, and many cycle."""
+    t = _rest_problem(masked)
+    d, de, dm, mT, meT, mmT = t
+    de2 = de * de
+    ndt = _ndt(d, dm, mmT, not masked)
+
+    def sweep(s):
+        return GK._fs_count_sweep_plain(d, de2, dm, mT, meT, mmT, s, ndt,
+                                        not masked)
+
+    # The outputs of sweeps t - 2, t - 1 and t (sweep -1's scale: 1).
+    s_in = torch.ones((d.shape[0], mT.shape[1]))
+    before2, before, cur = None, (s_in,), sweep(None)
+    n_rest = n_cyc = 0
+    for _ in range(60):
+        nxt = sweep(cur[0])
+        rest = _bits(cur[0]) == _bits(before[0])
+        for a, b in zip(nxt, cur):
+            assert torch.equal(_bits(a)[rest], _bits(b)[rest])
+        n_rest += int(rest.sum())
+        if before2 is not None:
+            cyc = (_bits(cur[0]) == _bits(before2[0])) & ~rest
+            for a, b in zip(nxt, before):
+                assert torch.equal(_bits(a)[cyc], _bits(b)[cyc])
+            n_cyc += int(cyc.sum())
+        before2, before, cur = before, cur, nxt
+    assert bool(rest[:, :10].all())  # no model errors: at rest from sweep 1
+    assert n_rest > 0.3 * 60 * rest.numel()
+    assert n_cyc > 0.05 * 60 * rest.numel()
+
+
+def _rest_sweeps(d, de, dm, mT, meT, mmT, *, tm, full_mask, ltol, max_iter,
+                 table, dim_prior):
+    """`scale_sweeps_plain` with the updates of pairs at a fixed point of
+    one or two sweeps skipped, as `scale_sweeps` skips them.  A pair
+    whose sweep returns its scale's bits (sweep 0: the bits of 1.0) keeps
+    (s, lnl); its |delta lnl| is |lnl - lnl| and its A the one it came to
+    rest with; its scale before the last sweep is its scale.  A pair whose
+    sweep t returns the bits of s_{t-2} (not s_{t-1}) counts |delta lnl_t|
+    from then on, runs sweep t + 1, then keeps (s_{t+1}, s_t); its A is
+    A_t on the sweeps of t's parity and A_{t+1} on the others, and its
+    final scales swap when k - (t + 1) is odd."""
+    B, F = d.shape
+    M = mT.shape[1]
+    real = (mT, meT, mmT)
+    ng = -(-M // tm)
+    pad = ng * tm - M
+    if pad:
+        mT, meT, mmT = (torch.cat([x, torch.full((F, pad), v)], dim=1)
+                        for x, v in zip((mT, meT, mmT), GK._SENTINEL))
+    de2 = de * de
+    ndt = _ndt(d, dm, mmT, full_mask)
+    s, lnl, A = GK._fs_count_sweep_plain(d, de2, dm, mT, meT, mmT, None, ndt,
+                                         full_mask)
+    prev = s
+    rest = _bits(s) == _bits(torch.ones_like(s))
+    gone = rest.clone()                  # left the work
+    pend = torch.zeros_like(rest)        # in a 2-cycle, one sweep to run
+    d_fix = torch.where(rest, (lnl - lnl).abs(), 0.0)
+    a_par = [torch.where(rest, A, 0.0), torch.where(rest, A, 0.0)]
+    a_t = torch.zeros_like(A)
+    c_par = torch.full_like(s, -1, dtype=torch.int64)  # 2-cycles: u & 1
+    count = torch.zeros((B, ng), dtype=torch.int16)
+    done = torch.zeros((B, ng), dtype=torch.bool)
+    ltol = float(np.float32(ltol))
+    it = 0
+    while it < int(max_iter) and not bool(done.all()):
+        it += 1
+        par = it & 1
+        s_n, lnl_n, A_n = GK._fs_count_sweep_plain(d, de2, dm, mT, meT, mmT,
+                                                   s, ndt, full_mask)
+        dl = torch.where(gone | pend, d_fix, (lnl_n - lnl).abs())
+        a = torch.where(gone, a_par[par], A_n)
+        delta = dl.view(B, ng, tm).amax(dim=2)
+        thr = torch.clamp_min(GK._EPS4 * a.view(B, ng, tm).amax(dim=2), ltol)
+        upd = (~done).repeat_interleave(tm, dim=1) & ~gone
+        now = upd & ~pend & (_bits(s_n) == _bits(s))
+        cyc = upd & ~pend & ~now & (_bits(s_n) == _bits(prev))
+        dep = upd & pend
+        a_par[par] = torch.where(dep, A_n, a_par[par])
+        a_par[1 - par] = torch.where(dep, a_t, a_par[1 - par])
+        c_par = torch.where(dep, par, c_par)
+        for q in (0, 1):
+            a_par[q] = torch.where(now, A_n, a_par[q])
+        d_fix = torch.where(now, (lnl_n - lnl_n).abs(), d_fix)
+        d_fix = torch.where(cyc, (lnl_n - lnl).abs(), d_fix)
+        a_t = torch.where(cyc, A_n, a_t)
+        prev = torch.where(upd, s, prev)
+        s = torch.where(upd, s_n, s)
+        lnl = torch.where(upd, lnl_n, lnl)
+        gone = gone | now | dep
+        pend = (pend & ~dep) | cyc
+        count = torch.where(~done, it, count).to(torch.int16)
+        done = done | (delta <= thr)
+    k = count.long().repeat_interleave(tm, dim=1)
+    swap = (c_par >= 0) & (c_par != (k & 1))
+    s, prev = torch.where(swap, prev, s), torch.where(swap, s, prev)
+    table[:, :M] = GK._fs_residual_plain(
+        d, de2, dm, *real, s[:, :M], prev[:, :M], full_mask=full_mask,
+        dim_prior=dim_prior)
+    return count, int((c_par >= 0).sum())
+
+
+@pytest.mark.parametrize("ltol", [0.0, 1e-4])
+@pytest.mark.parametrize("max_iter", [0, 1, 100])
+@pytest.mark.parametrize("masked", [True, False])
+def test_skipping_pairs_at_rest_leaves_both_tables_bit_equal(masked,
+                                                             max_iter, ltol):
+    """The sweep table and the lnl table with the pairs at rest and in
+    2-cycles left out (`_rest_sweeps`, the kernel's rules) equal
+    `scale_sweeps_plain`'s bit for bit: full and masked photometry, a
+    ragged group with its sentinel, a NaN row (which never freezes),
+    models without errors."""
+    t = _rest_problem(masked)
+    B, M = t[0].shape[0], t[3].shape[1]
+    kw = dict(tm=128, full_mask=not masked, ltol=ltol, max_iter=max_iter,
+              dim_prior=masked)
+    want_tab = torch.full((B, GK.table_width(M)), torch.nan)
+    got_tab = torch.full_like(want_tab, torch.nan)
+    want = GK.scale_sweeps_plain(*t, table=want_tab, **kw)
+    got, n_cycles = _rest_sweeps(*t, table=got_tab, **kw)
+    assert torch.equal(got, want)
+    assert n_cycles > 0 or max_iter < 100
+    assert torch.equal(torch.isnan(got_tab), torch.isnan(want_tab))
+    fin = ~torch.isnan(want_tab)
+    assert torch.equal(_bits(got_tab)[fin], _bits(want_tab)[fin])
+    assert bool((want[0] == max_iter).all())  # the NaN row
+    if max_iter == 100 and ltol:
+        assert want[1:].max() < 100
+
+
 @pytest.mark.parametrize("dim_prior", [True, False])
 def test_free_scale_zero_overlap_rows(dim_prior):
     """tests/test_fused.py:282-311 through the port: pairs without a

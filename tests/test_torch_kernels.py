@@ -46,6 +46,7 @@ from frankenz_tpu_torch.kernels import som as SK
 from frankenz_tpu_torch.ops import fused as TF
 from frankenz_tpu_torch.ops import kde as TK
 from frankenz_tpu_torch.ops import screen as SC
+from frankenz_tpu_torch.tools.sweep_stats import same_bits
 
 torch.set_num_threads(1)
 
@@ -588,6 +589,101 @@ def test_free_scale_kernels_match_plain_on_card(cuda_device, flags, F, B, M,
     assert all(counts[name] == (2 if name == "lnl_reduce" else 1)
                for name in GENERAL + ["lnl_onepass"])
     assert counts["scale_sweeps"] == (0 if ignore_model_err else 1)
+
+
+def _sweep_problem(case, F, B, M, masked, seed=31):
+    """Config-8-like inputs for `scale_sweeps` (bench.py:612-699: scaled
+    copies of the models plus noise, data errors 0.25, model errors 5%),
+    (d, de, dm, mT, meT, mmT), with the case's twist: "rest1" no model
+    errors (every pair at rest from sweep 1), "max_iter" as drawn (the
+    caller caps max_iter), "nan" a NaN band in row 1, "overlap" rows 1-3
+    observing only band 0, which models 40-79 lack (zero-overlap pairs:
+    0/0 scales)."""
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(1, 10, (M, F)).astype(np.float32)
+    me = (0.0 if case == "rest1" else 0.05) * m
+    d = (rng.uniform(0.5, 2.0, (B, 1)) * m[rng.integers(0, M, B)]
+         + rng.normal(0, 0.3, (B, F))).astype(np.float32)
+    if case == "nan":
+        d[1, 2] = np.nan
+    de = np.full((B, F), 0.25, np.float32)
+    dm, mm = np.ones((B, F), np.float32), np.ones((M, F), np.float32)
+    if masked:
+        dm = (rng.uniform(size=(B, F)) > 0.15).astype(np.float32)
+        mm = (rng.uniform(size=(M, F)) > 0.1).astype(np.float32)
+    if case == "overlap":
+        dm[1:4] = 0.0
+        dm[1:4, 0] = 1.0
+        mm[40:80, 0] = 0.0
+    return [torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+            for x in (d, de, dm, m.T, me.T, mm.T)]
+
+
+SWEEP_CASES = [("rest1", True), ("rest1", False), ("max_iter", True),
+               ("max_iter", False), ("nan", True), ("nan", False),
+               ("overlap", False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F,B,M", [(5, 37, 251), (5, 45, 99_937),
+                                   (3, 37, 251)])
+@pytest.mark.parametrize("dim_prior", [True, False])
+@pytest.mark.parametrize("case,full_mask", SWEEP_CASES)
+def test_scale_sweeps_bit_equal_to_plain_on_card(cuda_device, case,
+                                                 full_mask, dim_prior, F, B,
+                                                 M):
+    """`scale_sweeps` (one warp an (object, group), pairs at rest left
+    out) against `scale_sweeps_plain` on the card: the sweep table with
+    and without the lnl table, and the lnl table, bit for bit, untouched
+    past M.  B is no multiple of the warps or rows a block; M = 251 at
+    group width 96 and M = 99,937 at 512 leave a ragged last group (the
+    sentinel slot); F = 3 takes the runtime-F instantiation.  Cases: rows
+    at rest from sweep 1, rows that reach max_iter (ltol 0, max_iter 3),
+    a NaN row (never frozen), zero-overlap pairs."""
+    t = [x.to(cuda_device) for x in _sweep_problem(case, F, B, M,
+                                                   not full_mask)]
+    tm = 96 if M < 1_000 else TF.group_width(M, 512)
+    kw = dict(tm=tm, full_mask=full_mask, ltol=1e-4, max_iter=100)
+    if case == "max_iter":
+        kw.update(ltol=0.0, max_iter=3)
+    table = torch.full((B, GK.table_width(M)), torch.nan, device=cuda_device)
+    want_tab = torch.full_like(table, torch.nan)
+    K.reset_launch_counts()
+    got = GK.scale_sweeps(*t, table=table, dim_prior=dim_prior, **kw)
+    alone = GK.scale_sweeps(*t, **kw)
+    want = GK.scale_sweeps_plain(*t, table=want_tab, dim_prior=dim_prior,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(alone, want)
+    assert same_bits(table, want_tab)
+    assert torch.isnan(table[:, M:]).all()
+    counts = K.launch_counts()
+    assert counts["scale_sweeps"] == 2 and counts["scale_sweeps_table"] == 1
+    if case == "rest1":  # the sentinel (me = 1) may move the last group
+        assert bool((want[:, :-1] == 1).all())
+    elif case == "max_iter":
+        assert bool((want == 3).any())
+    elif case == "nan":
+        assert bool((want[1] == 100).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [3, 5, 20])
+@pytest.mark.parametrize("full_mask", [True, False])
+@pytest.mark.parametrize("table", [True, False])
+def test_scale_sweeps_launch_shape_fits_the_card(cuda_device, F, full_mask,
+                                                 table):
+    """The shape the launch takes, read from the card: 1-9 warps a block
+    within the shared memory a block may use, and at least one block an
+    SM, at group width 512."""
+    from frankenz_tpu_torch.kernels import build
+
+    lib = build.load()
+    args = (F, 512, int(full_mask), int(table))
+    warps = lib.fz_scale_sweeps_warps(*args)
+    assert 1 <= warps <= 9
+    assert lib.fz_scale_sweeps_smem(*args) <= 232448
+    assert lib.fz_scale_sweeps_occupancy(*args) >= 1
 
 
 @pytest.mark.gpu
