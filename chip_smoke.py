@@ -12,8 +12,11 @@ port, numpy and scipy, and:
    beside them, ``csrc/scale_sweeps.cu`` alone with ``-Xptxas -v`` and
    with ``-DFZ_REST`` (the counting build of phase 7), and prints `nvcc
    -Xptxas -v`'s registers, spills and stack for the screened passes A
-   and B, with their dynamic shared memory (`scale_sweeps`' go into its
-   entry of the kernels line); then the
+   and B and the K1 pair's F = 5 instantiations, with their dynamic
+   shared memory (`scale_sweeps`' go into its entry of the kernels line),
+   and the K1 pair's SASS instructions a pair (the fast path of the group
+   loop in `cuobjdump -sass`, `tools/ab_fullmask.py`) with the card's
+   maximum SM clock, which give their issue floors; then the
    cluster probe (`kernels.probe`): one cluster barrier round, one DSMEM
    load and the two in a dependent loop of 40,000 rounds at cluster sizes
    2, 4, 8 and 16, and the clusters the card holds at once at the launch
@@ -22,12 +25,16 @@ port, numpy and scipy, and:
    card, at the config-4 widths (F=5, 100,000 models, a 301-point
    PDFDict grid, 2,048 objects) and three edge shapes (ragged M=99,937
    with B=1,000; F=20, the log-form weight; an all-clamped outlier row),
-   with times of both (CUDA events, median of 5); pass B as the K1 route
-   runs it, over the models in band order (`band_sort`, each 64-model
-   tile multiplying only its band of G), against its plain version and
-   bit for bit the dense kernel on the same order, timed beside the
-   caller order's, the brackets in band order bit-equal to the caller
-   order's;
+   with times of both (CUDA events, median of 5), and for the K1 pair
+   alone a fifth (a 700-point grid, past one CTA's 320 columns, at
+   B=2,047); pass B as the K1 route runs it, over the models in band
+   order (`band_sort`, each 64-model tile multiplying only its band of G),
+   against its plain version and bit for bit the dense kernel on the same
+   order, timed beside the caller order's, the brackets in band order
+   bit-equal to the caller order's; pass A's launch shape (object blocks
+   x model splits against the SMs x CTAs an SM) on each case, its
+   brackets bit-equal under the unsplit launch and one chunk a split; at
+   config 4 both kernels' bounds and SASS issue floors;
 3b. the screened full-mask trio (K2: `screen_seed`,
    `chi2_brackets_screened`, `chi2_stack_screened`), the default
    full-mask route: first where the card's expf flushes to 0 (every
@@ -49,8 +56,9 @@ port, numpy and scipy, and:
    65,536-object batch through `fused_fit_pdf(screen=False)`, the K1
    pair in band order, beside the screened route on the same batch (both
    walls), and every full-mask kernel's time at that batch (`chi2_stack`
-   in band order, the caller order's beside), with the screened trio's
-   bounds from that batch's run fractions and kept weights;
+   in band order, the caller order's beside), the K1 pair's with their
+   bounds, issue floors and pass A's launch shape, with the screened
+   trio's bounds from that batch's run fractions and kept weights;
 5. masked photometry (each data band missing with probability 0.15, from
    ``default_rng(2)``: about 10 of the 131,072 rows lose every band):
    first the band order of config 4's G (`band_sort`: its time, the mean
@@ -187,7 +195,9 @@ port, numpy and scipy, and:
    and bytes at the batch, the recompute route's times and bounds beside;
    the fixed-scale dense `lnl_stack` runs on no main path and has no entry:
    it stands as ``dense_ms`` beside `lnl_stack_band`),
-   `scale_sweeps` (with its design, rest share and issue floor),
+   `scale_sweeps` (with its design, rest share and issue floor), the K1
+   pair (with its issue floors, SASS instructions a pair, bounds at the
+   batch and pass A's launch shapes),
    `som_train`, `som_train_cluster` (the route
    train_network takes, with its CTA and the step's floor), `gng_train`
    and `pop_chain`, the chain kernels with their cluster size, us a step
@@ -446,6 +456,72 @@ def bound(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bounds(torch, FM, args, G, shift, a1, wthr, rows=2_048):
+    """Bounds of the K1 pair on these inputs (d, de, mT, meT in the
+    caller's order), {kernel: (ms, by)} with chi2_stack's dense count as
+    "chi2_stack_dense".  Operations a pair: chi^2 6 a filter (variance 2,
+    residual, square, divide, sum) + 2 compares (pass A) or + ~10 for the
+    weight chain (pass B); pass B also 2 a nonzero G entry of each kept
+    model (dense: 2 Ngrid a kept pair).  Kept weights counted `rows` rows
+    at a time."""
+    d, de, mT, meT = args
+    (B, F), M, ngrid = d.shape, mT.shape[1], G.shape[1]
+    nnz = (G != 0).sum(dim=1).to(torch.float32)
+    kept = kept_nnz = 0.0
+    for b0 in range(0, B, rows):
+        w = FM._weights_plain(FM._chi2_plain(d[b0:b0 + rows],
+                                             de[b0:b0 + rows], mT, meT,
+                                             False),
+                              shift[b0:b0 + rows, None], a1)
+        keep = (w > wthr).to(torch.float32)
+        del w
+        kept += float(keep.sum())
+        kept_nnz += float((keep @ nnz).sum())
+        del keep
+    io = 4.0 * (2 * B * F + 2 * F * M)
+    pairs = float(B) * M
+    return {"chi2_brackets": bound(pairs * (6 * F + 2), io + 8.0 * B),
+            "chi2_stack": bound(pairs * (6 * F + 10) + 2.0 * kept_nnz,
+                                io + 4.0 * (float(nnz.sum()) + B * ngrid
+                                            + 2 * B)),
+            "chi2_stack_dense": bound(pairs * (6 * F + 10)
+                                      + 2.0 * ngrid * kept,
+                                      io + 4.0 * (M * ngrid + B * ngrid
+                                                  + 2 * B))}
+
+
+def k1_split_check(torch, FM, args, c0):
+    """Pass A's model splits on these inputs: the wrapper's own choice,
+    the unsplit launch and one chunk a split give one result bit for bit.
+    Returns the launch shape the wrapper takes (grid of object blocks x
+    model splits, CTAs against the card's SMs x CTAs an SM)."""
+    d = args[0]
+    (B, F), M = d.shape, args[2].shape[1]
+    per_sm, sms = FM._per_sm(torch.cuda.current_device(), F)
+    chunk = FM._build.load().fz_chi2_brackets_chunk()
+    want = FM.chi2_brackets(*args, c0=c0)
+    saved = FM._per_sm
+    splits = {}
+    try:
+        for label, fake in (("unsplit", 0), ("a chunk a split", 10 ** 9)):
+            FM._per_sm = lambda index, f, n=fake: (n, sms)
+            got = FM.chi2_brackets(*args, c0=c0)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0])
+                  and torch.equal(got[1], want[1]),
+                  f"chi2_brackets at B={B}: the {label} launch differs "
+                  f"from the wrapper's split")
+            splits[label] = FM.brackets_splits(B, M, sms, fake, chunk)[0]
+    finally:
+        FM._per_sm = saved
+    nsplit, per = FM.brackets_splits(B, M, sms, per_sm, chunk)
+    blocks = -(-B // 32)
+    return {"grid": [blocks, nsplit], "threads": 256,
+            "ctas": blocks * nsplit, "sms": sms, "ctas_per_sm": per_sm,
+            "ctas_held_at_once": sms * per_sm, "models_a_split": per,
+            "bit_equal_splits": splits}
 
 
 def lnl_pair_ops(F, flags, sweeps_mean=0.0):
@@ -2595,11 +2671,36 @@ def main():
              if f"{k}_kernel" in name}
     check(set(ptxas) == {"chi2_brackets_screened", "chi2_stack_screened"},
           f"no ptxas report for the screened passes ({sorted(ptxas)})")
+    # The K1 pair (its F = 5 instantiations, the route's at config 4).
+    ptxas.update({k: dict(v, dynamic_smem=smem)
+                  for name, v in kbuild.ptxas_report("chi2_fullmask.cu")
+                  .items()
+                  for k, smem in (
+                      ("chi2_brackets", lib.fz_chi2_brackets_smem(NFILT)),
+                      ("chi2_stack", lib.fz_chi2_stack_smem(NFILT, NGRID)))
+                  if f"{k}_kernelILi{NFILT}E" in name})
+    check(set(K1_PAIR) <= set(ptxas),
+          f"no ptxas report for the K1 pair ({sorted(ptxas)})")
     print("ptxas -v: " + "; ".join(
         f"{k} {v['registers']} registers, {v['spill_stores']} / "
         f"{v['spill_loads']} bytes spill stores / loads, stack {v['stack']}"
         f", {v['dynamic_smem']} bytes dynamic shared memory at F={NFILT} "
         f"Ngrid={NGRID}" for k, v in ptxas.items()), flush=True)
+    # The K1 pair's SASS instructions a pair (cuobjdump -sass, the F = 5
+    # loops) and the card's clock: their issue floors.
+    from frankenz_tpu_torch.tools import ab_fullmask as ABF
+    k1_sass = ABF.k1_sass(kbuild)
+    k1_clock = SS.max_sm_clock()
+    k1_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check("error" not in k1_sass and k1_clock is not None,
+          f"no SASS issue floor for the K1 pair: {k1_sass}, clock "
+          f"{k1_clock}")
+    print("sass: " + ", ".join(
+        f"{k} {v['per_pair']:.2f} instructions a pair (the fast path's "
+        f"{v['fast_instructions']} of the loop's {v['instructions']}, "
+        f"{v['pairs']} pairs)" for k, v in k1_sass.items())
+        + f"; max SM clock {k1_clock:.0f} MHz, {k1_sms} SMs | card {card}",
+        flush=True)
     # The cluster probe: one cluster barrier, one DSMEM load, and the two
     # in a dependent loop of 40,000 rounds, for K = 2, 4, 8, 16; and the
     # clusters the card holds at once at the two chain kernels' launch
@@ -2650,9 +2751,16 @@ def main():
         ("logform_F20", d20, m20, G),
         ("all_clamped_row", clamped, models, G),
     ]
+    # The K1 pair also past one CTA's 320 columns (a 700-point grid), at
+    # B not a multiple of 32 and on the model-split path of pass A.
+    pdict700 = TK.PDFDict(np.linspace(0.0, 4.0, 700),
+                          np.linspace(0.01, 0.5, 100))
+    G700 = TK.kernel_matrix_dict(pdict700, *pdict700.fit(zlabels, zerrs),
+                                 device=dev).to(torch.float32).contiguous()
+    k1_cases = cases + [("ngrid700_B2047", data[:2_047], models, G700)]
     results = {"chi2_brackets": {}, "chi2_stack": {}}
     wthr = float(np.exp(np.log(WT_THRESH)))
-    for name, d_np, m_np, Gc in cases:
+    for name, d_np, m_np, Gc in k1_cases:
         F = d_np.shape[1]
         a1 = 0.5 * F - 1.0
         d, mT = tens(d_np), tens(m_np.T)
@@ -2747,38 +2855,25 @@ def main():
             caller_order_max_rel_err=max(p_row, s_rel),
             band_cols_mean=float((bs.bands[:, 1] - bs.bands[:, 0]).float()
                                  .mean()))
+        # Pass A's launch shape, bit-equal under every split (the
+        # route's band order).
+        results["chi2_brackets"][name]["shape"] = k1_split_check(
+            torch, FM, (d, de, bs.mT, bs.meT), 2 * a1)
         if name == "config4":
-            # Operations per pair: chi^2 6 per filter (variance 2,
-            # residual, square, divide, sum) + 2 compares (pass A) or
-            # + ~10 for the weight chain (pass B), and pass B's 2 Ngrid
-            # for every kept weight.
+            # Bounds (k1_bounds: band order's 2 operations per nonzero G
+            # entry of each kept model, the dense count beside) and the
+            # SASS issue floors.
             B, M = d_np.shape[0], m_np.shape[0]
-            io = 4.0 * (2 * B * F + 2 * F * M)
-            w = FM._weights_plain(FM._chi2_plain(d, de, mT, meT, False),
-                                  shift[:, None], a1)
-            kept = float((w > wthr).sum())
-            del w
-            results["chi2_brackets"][name].update(zip(
-                ("bound_ms", "bound_by"),
-                bound(float(B) * M * (6 * F + 2), io + 8.0 * B)))
-            # Band order: 2 operations per nonzero G entry of each kept
-            # model (the dense count, 2 Ngrid a kept pair, beside).
-            keep = (FM._weights_plain(FM._chi2_plain(d, de, mT, meT, False),
-                                      shift[:, None], a1) > wthr).to(
-                torch.float32)
-            nnz = (Gc != 0).sum(dim=1).to(torch.float32)
-            kept_nnz = float((keep @ nnz).sum())
-            del keep
-            results["chi2_stack"][name].update(zip(
-                ("bound_ms", "bound_by"),
-                bound(float(B) * M * (6 * F + 10) + 2.0 * kept_nnz,
-                      io + 4.0 * (float(nnz.sum()) + B * Gc.shape[1]
-                                  + 2 * B))))
-            results["chi2_stack"][name].update(zip(
-                ("dense_bound_ms", "dense_bound_by"),
-                bound(float(B) * M * (6 * F + 10) + 2.0 * Gc.shape[1] * kept,
-                      io + 4.0 * (M * Gc.shape[1] + B * Gc.shape[1]
-                                  + 2 * B))))
+            kb = k1_bounds(torch, FM, (d, de, mT, meT), Gc, shift, a1, wthr)
+            floors = ABF.issue_floors(k1_sass, B, M, k1_sms, k1_clock)
+            for kname in K1_PAIR:
+                results[kname][name].update(
+                    bound_ms=kb[kname][0], bound_by=kb[kname][1],
+                    issue_floor_ms=floors[kname],
+                    sass_per_pair=k1_sass[kname]["per_pair"])
+            results["chi2_stack"][name].update(
+                dense_bound_ms=kb["chi2_stack_dense"][0],
+                dense_bound_by=kb["chi2_stack_dense"][1])
         print(f"kernel_vs_plain {name}: B={d_np.shape[0]} "
               f"M={m_np.shape[0]} F={F} Ngrid={Gc.shape[1]} | "
               f"chi2_brackets abs {b_abs:.3g} rel {b_rel:.3g} "
@@ -2790,9 +2885,16 @@ def main():
               f"{t['stack'][1]:.3f} ms), == the dense kernel on band order "
               f"bit for bit | caller order pdf abs {p_abs:.3g} row-rel "
               f"{p_row:.3g} s rel {s_rel:.3g} {t['caller'][0]:.3f} ms "
-              f"(plain {t['caller'][1]:.3f} ms) | card {card}", flush=True)
+              f"(plain {t['caller'][1]:.3f} ms) | chi2_brackets launch "
+              f"{json.dumps(results['chi2_brackets'][name]['shape'])}"
+              + ("" if name != "config4" else " | bounds / issue floors: "
+                 + ", ".join(f"{k} {results[k][name]['bound_ms']:.3f} / "
+                             f"{results[k][name]['issue_floor_ms']:.3f} ms"
+                             for k in K1_PAIR))
+              + f" | card {card}", flush=True)
         del d, de, mT, meT, bk, bp, pk, pp, bs, Gb, bb, qk, qp, twin
         torch.cuda.empty_cache()
+    del k1_cases, G700
 
     # 3b. the screened trio (K2), kernels and route
     scr_results, expf, scr_fractions = screened_phase(
@@ -2920,8 +3022,20 @@ def main():
     ms_b_caller = median_ms(torch, lambda: FM.chi2_stack(
         d_b, de_b, mT, meT, G, shift_b, a1=0.5 * NFILT - 1.0, wthr=wthr),
         reps=3)
+    # The K1 pair at the batch: pass A's launch shape (bit-equal under
+    # every split), both bounds and issue floors.
+    k1_shape_b = k1_split_check(torch, FM, (d_b, de_b, bs_k1.mT, bs_k1.meT),
+                                NFILT - 2.0)
     del bs_k1
+    k1_bound_b = k1_bounds(torch, FM, (d_b, de_b, mT, meT), G, shift_b,
+                           0.5 * NFILT - 1.0, wthr)
+    k1_floor_b = ABF.issue_floors(k1_sass, BATCH, NMODEL, k1_sms, k1_clock)
     ms_batch = {"chi2_brackets": ms_a, "chi2_stack": ms_b}
+    print(f"kernel_at_batch {BATCH}x{NMODEL} K1 pair: " + ", ".join(
+        f"{k} {ms_batch[k]:.3f} ms (bound {k1_bound_b[k][0]:.3f} ms by "
+        f"{k1_bound_b[k][1]}, SASS issue floor {k1_floor_b[k]:.3f} ms)"
+        for k in K1_PAIR) + f"; chi2_brackets launch "
+        f"{json.dumps(k1_shape_b)} | card {card}", flush=True)
     srt = SC.sort_and_bound(d_b, de_b, mT, meT, G, sm=512, tm=512,
                             tb=SCK.TB, ignore_model_err=False)
     sargs = (srt.d, srt.de, srt.mT, srt.meT)
@@ -3682,6 +3796,18 @@ def main():
                               for k in ("dense_ms", "dense_bound_ms",
                                         "dense_bound_by", "kept_nnz",
                                         "levid_moved_by", "matmul_ms")})
+        if kname in K1_PAIR:
+            # The SASS issue floor beside the operation bound, at 2,048
+            # (config4) and at the batch; pass A's launch shapes.
+            entry.update({
+                "issue_floor_ms": ref["issue_floor_ms"],
+                "sass_per_pair": ref["sass_per_pair"],
+                f"issue_floor_ms_batch_{BATCH}": k1_floor_b[kname],
+                f"bound_ms_batch_{BATCH}": k1_bound_b[kname][0],
+                f"bound_by_batch_{BATCH}": k1_bound_b[kname][1]})
+            if kname == "chi2_brackets":
+                entry.update(shape=ref["shape"],
+                             **{f"shape_batch_{BATCH}": k1_shape_b})
         if kname == "chi2_stack":
             entry.update(caller_order_ms=ref["caller_order_ms"],
                          caller_order_plain_ms=ref["caller_order_plain_ms"],

@@ -26,8 +26,9 @@
 //   Design: one warp per object block, a lane per object; the models are
 //   read from device memory at one address per warp (a broadcast).
 //
-// Passes A and B share one pipeline (`Pipe`: a CTA of W warps per object
-// block, model chunks of C = 16 W models; pass A W = 8, pass B W = 16):
+// Passes A and B share one pipeline (`Pipe`, csrc/chi2_pipe.cuh, with the
+// K1 pair of csrc/chi2_fullmask.cu: a CTA of W warps per object block,
+// model chunks of C = 16 W models; pass A W = 8, pass B W = 16):
 //   1. Gates first, compacted.  All warps evaluate a window of up to 32 W
 //      gate positions (a lane per row, __any_sync per position) and write
 //      the admitted ones, in order, to a list in shared memory.  The work
@@ -135,77 +136,32 @@
 // no sentinel-padded models, so nothing is subtracted from s.
 // ---------------------------------------------------------------------
 
-#include <stdint.h>
-
-#include "chi2_common.cuh"
+#include "chi2_pipe.cuh"
 
 namespace {
 
 using fzchi2::chi2_pair;
-using fzchi2::chi2_term;
 using fzchi2::pair_weights;
 using fzchi2::WeightSpec;
+using namespace fzpipe;
 
-constexpr int kTB = 32;      // objects per object block (a warp's lanes)
 constexpr int kAWarps = 4;   // seed: object blocks (warps) per CTA
-constexpr int kG = 4;        // models in flight per lane
-constexpr int kStages = 2;   // chunks in the ring
-constexpr unsigned kFull = 0xffffffffu;
 
-// The shared pipeline's sizes: W warps per CTA, gate windows of 32 W
-// positions; pass A stages chunks of 16 W models (16 per warp: four
-// groups of kG), pass B chunks of up to 16 W (`b_chunk`).
-template <int W>
-struct Pipe {
-  static constexpr int kWarps = W;
-  static constexpr int kThreads = 32 * W;
-  static constexpr int kChunk = 16 * W;
-  static constexpr int kWindow = 32 * W;
-};
+// The shared pipeline (csrc/chi2_pipe.cuh): pass A stages chunks of 16 W
+// models (16 per warp: four groups of kG), pass B chunks of up to 16 W
+// (`b_chunk`).
 using PipeA = Pipe<8>;   // pass A: 256 threads, 128-model chunks
 using PipeB = Pipe<16>;  // pass B: 512 threads, chunks of <= 256 models
 
 // Pass B's dot: warp w owns rows w and w + 16 (kBRows), lane l columns
 // l + 32 i, i < kCols, of the CTA's kBCols columns.
 constexpr int kBRows = kTB / PipeB::kWarps;  // 2
-constexpr int kCols = 10;
-constexpr int kBCols = 32 * kCols;           // 320
 static_assert(kBRows * PipeB::kWarps == kTB, "pass B: whole rows a warp");
-
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
 // Max that keeps a NaN from either side, as jnp.maximum does.
 __device__ __forceinline__ float nanmax(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
-
-// Stage one warp's 32 object rows as [F][kTB] (lane = row) in shared
-// memory: d and de*de.
-__device__ __forceinline__ void load_rows(const float* __restrict__ d,
-                                          const float* __restrict__ de,
-                                          float* sd, float* sde2, int b,
-                                          bool live, int F, int lane) {
-  for (int k = 0; k < F; ++k) {
-    const float dv = live ? d[(size_t)b * F + k] : 0.0f;
-    const float ev = live ? de[(size_t)b * F + k] : 1.0f;
-    sd[k * kTB + lane] = dv;
-    sde2[k * kTB + lane] = __fmul_rn(ev, ev);
-  }
-}
-
-// ---- dynamic shared memory ------------------------------------------
-
-// Carves dynamic shared memory into 16-byte aligned arrays; from base 0
-// it only counts the bytes (the host's launch size).
-struct Carve {
-  uintptr_t p;
-  template <class T>
-  __host__ __device__ T* take(size_t n) {
-    T* out = reinterpret_cast<T*>(p);
-    p += (n * sizeof(T) + 15) & ~uintptr_t(15);
-    return out;
-  }
-};
 
 // Pass A's arrays.
 struct ASmem {
@@ -231,12 +187,6 @@ __host__ __device__ inline size_t a_smem(uintptr_t base, int F, ASmem& s) {
   s.slo = c.take<float>(P::kWarps * kTB);
   s.shi = c.take<float>(P::kWarps * kTB);
   return c.p - base;
-}
-
-// Row width of pass B's running total: the CTA's columns in whole
-// warps' widths.
-__host__ __device__ inline int tot_width(int Ngrid) {
-  return 32 * ((imin(Ngrid, kBCols) + 31) / 32);
 }
 
 // Pass B's arrays, for chunks of `chunk` models.
@@ -279,73 +229,6 @@ __host__ __device__ inline int b_chunk(int F, int Ngrid) {
          b_smem(0, F, tot_width(Ngrid), chunk, s) > 232448)
     chunk /= 2;
   return chunk;
-}
-
-// ---- the model ring: TMA bulk copies onto mbarriers -------------------
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ring_init(uint64_t* full) {
-  for (int i = 0; i < kStages; ++i)
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-                     saddr(full + i))
-                 : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Waits for the ring slot's phase `parity` to complete.  A copy that
-// never lands (a fault upstream) traps after 10 s: the launch fails
-// instead of hanging the card.
-__device__ __forceinline__ void ring_wait(uint64_t* bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(saddr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = global_ns();
-    } else if (global_ns() - t0 > 10000000000ull) {
-      __trap();
-    }
-  }
-}
-
-// Stage models [m0, m0 + n) of the (F, ld) rows mT, meT into one ring
-// slot ([2][F][chunk]): 2F bulk copies of ceil4(n) floats (within the
-// padded row), arriving on `bar`.  One thread calls it.
-__device__ __forceinline__ void ring_issue(const float* mT, const float* meT,
-                                           float* slot, uint64_t* bar, int F,
-                                           int ld, int chunk, int m0, int n) {
-  const uint32_t bytes = (uint32_t)((n + 3) & ~3) * sizeof(float);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   saddr(bar)),
-               "r"(2u * F * bytes)
-               : "memory");
-  for (int k = 0; k < 2 * F; ++k) {
-    const float* src = (k < F ? mT + (size_t)k * ld
-                              : meT + (size_t)(k - F) * ld) + m0;
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(saddr(slot + k * chunk)),
-        "l"(src), "r"(bytes), "r"(saddr(bar))
-        : "memory");
-  }
 }
 
 // The chunks of a window's admitted subtiles, in list order: subtile
@@ -413,28 +296,6 @@ __device__ __forceinline__ int compact(unsigned mask, int val,
     lst[base + __popc(mask & ((1u << lane) - 1u))] = val;
   __syncthreads();
   return n;
-}
-
-// chi^2 of a lane's row against kG consecutive staged models (m, me:
-// [F][chunk] tiles at the group's first model), each in chi2_pair's
-// order.
-__device__ __forceinline__ void chi2_group(const float* sd,
-                                           const float* sde2, int lane,
-                                           const float* m, const float* me,
-                                           int chunk, int F, bool ign,
-                                           float (&chi)[kG]) {
-#pragma unroll
-  for (int g = 0; g < kG; ++g) chi[g] = 0.0f;
-  for (int k = 0; k < F; ++k) {
-    const float dk = sd[k * kTB + lane];
-    const float vk = sde2[k * kTB + lane];
-    const float4 mk = *reinterpret_cast<const float4*>(m + k * chunk);
-    const float4 ek = *reinterpret_cast<const float4*>(me + k * chunk);
-    chi[0] = chi2_term(chi[0], dk, vk, mk.x, ek.x, ign);
-    chi[1] = chi2_term(chi[1], dk, vk, mk.y, ek.y, ign);
-    chi[2] = chi2_term(chi[2], dk, vk, mk.z, ek.z, ign);
-    chi[3] = chi2_term(chi[3], dk, vk, mk.w, ek.w, ign);
-  }
 }
 
 // ---- kernels -----------------------------------------------------------
@@ -804,9 +665,7 @@ int row_blocks(int B) { return (B + kTB - 1) / kTB; }
 // Passes A and B stage 16-byte pieces: the rows' stride and the subtile
 // a multiple of 4 floats, the rows 16-byte aligned.
 bool bulk_ready(const float* mT, const float* meT, int ld, int sm) {
-  return ld % 4 == 0 && sm % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(mT) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(meT) % 16 == 0;
+  return rows_ready(mT, meT, ld) && sm % 4 == 0;
 }
 
 }  // namespace

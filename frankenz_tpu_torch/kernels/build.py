@@ -147,16 +147,25 @@ def parse_ptxas(text):
 
 def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fz_chi2_brackets_smem.argtypes = [I]
-    lib.fz_chi2_brackets_smem.restype = I
-    lib.fz_chi2_stack_smem.argtypes = [I]
-    lib.fz_chi2_stack_smem.restype = I
-    lib.fz_chi2_brackets.argtypes = [P, P, P, P, P, P, I, I, I, F, I, P]
+    # csrc/chi2_fullmask.cu: shared-memory bytes (F; pass B also Ngrid),
+    # chunks, pass A's CTAs an SM, and the launches (pointers, sizes with
+    # the model rows' stride after M; pass A its splits and models a
+    # split, pass B G's row stride and the tiles' bands, NULL: every
+    # column).
+    for name, nargs in (("fz_chi2_brackets_smem", 1),
+                        ("fz_chi2_stack_smem", 2),
+                        ("fz_chi2_brackets_chunk", 0),
+                        ("fz_chi2_stack_chunk", 2),
+                        ("fz_chi2_brackets_occupancy", 1)):
+        getattr(lib, name).argtypes = [I] * nargs
+        getattr(lib, name).restype = I
+    lib.fz_chi2_brackets.argtypes = [P] * 6 + [I] * 6 + [F, I, P]
     lib.fz_chi2_brackets.restype = I
-    # G with its row stride and the tiles' bands (NULL: every column).
-    lib.fz_chi2_stack.argtypes = [P, P, P, P, P, I, P, P, P, P, I, I, I, I,
-                                  F, I, F, I, I, P]
+    lib.fz_chi2_stack.argtypes = ([P] * 5 + [I] + [P] * 4 + [I] * 5
+                                  + [F, I, F, I, P])
     lib.fz_chi2_stack.restype = I
+    lib.fz_fast_probe.argtypes = [P, P, P, P, I, I, P]
+    lib.fz_fast_probe.restype = I
     # csrc/chi2_screened.cu: the object block, shared-memory sizes, the
     # screened trio (pointers, sizes with the model rows' stride after M,
     # constants, flags, stream) and the expf probe.

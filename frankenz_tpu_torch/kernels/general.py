@@ -87,7 +87,10 @@ from scipy.special import gammaln as _sp_gammaln
 
 from ..ops.kde import fp32_matmul
 from . import build as _build
-from .fullmask import _SMEM_MAX, _STACK_MAX_THREADS, _check
+from .fullmask import _SMEM_MAX, _check
+
+# The stack kernels' grid columns per block (one thread each), at most.
+_STACK_MAX_THREADS = 512
 
 __all__ = ["lnl_tile_plain", "lnl_reduce", "lnl_reduce_plain",
            "lnl_reduce_split", "lnl_reduce_split_plain", "lnl_stack",

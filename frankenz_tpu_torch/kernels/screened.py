@@ -52,7 +52,7 @@ import torch
 
 from ..ops.kde import fp32_matmul
 from . import build as _build
-from .fullmask import _check, _check_pair_inputs, _weights_plain
+from .fullmask import _bulk_rows, _check, _check_pair_inputs, _weights_plain
 from .general import _check_rc, _load_checked, _stream
 
 __all__ = ["screen_seed", "screen_seed_plain", "chi2_brackets_screened",
@@ -228,22 +228,6 @@ def _check_blocks(tb, sm, M, device, bulk=False):
         raise ValueError(f"the screened passes take subtiles of a multiple "
                          f"of 4 models on the card, got sm={sm}")
     return -(-int(M) // int(sm))
-
-
-def _bulk_rows(mT, meT):
-    """(mT, meT, ld): the model rows at a stride `ld` that is a multiple
-    of 4 floats, on 16-byte boundaries, as the bulk copies of passes A and
-    B need; zero-padded copies when M is not a multiple of 4."""
-    F, M = mT.shape
-    if M % 4 == 0 and mT.data_ptr() % 16 == 0 and meT.data_ptr() % 16 == 0:
-        return mT, meT, M
-    ld = -(-M // 4) * 4
-    padded = []
-    for x in (mT, meT):
-        buf = x.new_zeros((F, ld))
-        buf[:, :M] = x
-        padded.append(buf)
-    return (*padded, ld)
 
 
 def _lib(name, *sizes):

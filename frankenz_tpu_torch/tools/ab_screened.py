@@ -4,11 +4,14 @@
         [--out DIR] [--reps N]
 
 Run from the root of a checkout on a machine with a CUDA card and
-`nvcc`.  `REF.cu` is another version of ``csrc/chi2_screened.cu`` whose
-``fz_chi2_brackets_screened`` takes no model-row stride and whose
-``fz_chi2_stack_screened`` takes its thread count before the stream (the
-first design of the two passes); it is compiled alone, with ``csrc/`` on
-the include path, into its own library and loaded beside the package's.
+`nvcc`.  `REF.cu` is another version of ``csrc/chi2_screened.cu``: the
+first design of the two passes (``fz_chi2_brackets_screened`` takes no
+model-row stride, ``fz_chi2_stack_screened`` its thread count before the
+stream; it exports ``fz_chi2_stack_screened_max_threads``) or a later one
+with the package's signatures (e.g. an earlier commit's file, from ``git
+archive``); it is compiled alone, with its own directory and then
+``csrc/`` on the include path, into its own library and loaded beside the
+package's.  Against a later design s must be bit-equal too.
 
 At config-4 widths (chip_smoke.py's generator: 5 filters, 100,000
 models, the 301-point `PDFDict` grid; the route's 512-model subtiles and
@@ -21,19 +24,23 @@ models, the 301-point `PDFDict` grid; the route's 512-model subtiles and
   `--reps` launches each), for pass A, pass B, and pass B with its dot
   gate shut (cut_dot at -inf: the same weights and s, no stack dot);
 - prints `nvcc -Xptxas -v`'s registers, spills and stack of both builds'
-  kernels, and each launch's dynamic shared memory.
+  kernels, and each launch's dynamic shared memory;
+- compares the three kernels' SASS in the two builds (`cuobjdump -sass`,
+  every instruction's text) and reports whether each is identical.
 It prints one JSON line and writes it to ``DIR/ab_screened.json``.
 """
 
 import argparse
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 from pathlib import Path
 
 NMODEL, NFILT, NGRID, N_E2E = 100_000, 5, 301, 131_072
 SIZES = (2_048, 65_536)
+KERNELS = ("screen_seed", "chi2_brackets_screened", "chi2_stack_screened")
 
 
 def _card():
@@ -48,22 +55,52 @@ def _card():
 
 def _ref_lib(build, src):
     """Compile `src` alone into build/.../libfz_ref.so and bind its two
-    passes (the first design's signatures)."""
+    passes: the first design's signatures when it exports
+    fz_chi2_stack_screened_max_threads (`first_design` True), else the
+    package's."""
     out = build.library_path().parent / "libfz_ref.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([build.nvcc_path(), *build._NVCC_FLAGS, "-I",
-                    str(build._SRC_DIR), "-shared", "-o", str(out), str(src)],
-                   check=True)
+                    str(src.parent), "-I", str(build._SRC_DIR), "-shared",
+                    "-o", str(out), str(src)], check=True)
     lib = ctypes.CDLL(str(out))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fz_chi2_brackets_screened.argtypes = [P] * 8 + [I] * 5 + [F, I, P]
-    lib.fz_chi2_stack_screened.argtypes = ([P] * 14 + [I] * 6 + [F, I, F]
-                                           + [I] * 3 + [P])
-    lib.fz_chi2_stack_screened_max_threads.argtypes = []
-    for fn in (lib.fz_chi2_brackets_screened, lib.fz_chi2_stack_screened,
-               lib.fz_chi2_stack_screened_max_threads):
+    lib.first_design = hasattr(lib, "fz_chi2_stack_screened_max_threads")
+    if lib.first_design:
+        lib.fz_chi2_brackets_screened.argtypes = [P] * 8 + [I] * 5 + [F, I,
+                                                                       P]
+        lib.fz_chi2_stack_screened.argtypes = ([P] * 14 + [I] * 6
+                                               + [F, I, F] + [I] * 3 + [P])
+        lib.fz_chi2_stack_screened_max_threads.argtypes = []
+        lib.fz_chi2_stack_screened_max_threads.restype = I
+    else:
+        lib.fz_chi2_brackets_screened.argtypes = [P] * 8 + [I] * 6 + [F, I,
+                                                                       P]
+        lib.fz_chi2_stack_screened.argtypes = ([P] * 14 + [I] * 7
+                                               + [F, I, F] + [I] * 2 + [P])
+    for fn in (lib.fz_chi2_brackets_screened, lib.fz_chi2_stack_screened):
         fn.restype = I
     return lib
+
+
+def _sass(build, lib_path):
+    """{kernel: [instruction text]} of the three screened kernels in
+    `cuobjdump -sass` of `lib_path` (addresses and encodings left out)."""
+    from . import sweep_stats as SS
+
+    tool = SS._cuobjdump(build)
+    if tool is None:
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib_path)],
+                          capture_output=True, text=True).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        head = part.split("\n", 1)[0]
+        for k in KERNELS:
+            if f"{k}_kernel" in head:
+                out[k] = [m.group(2).strip()
+                          for m in SS._INSN.finditer(part)]
+    return out
 
 
 def _ptxas(build, source):
@@ -106,8 +143,15 @@ def main(argv=None):
                 NFILT),
             "chi2_stack_screened": lib.fz_chi2_stack_screened_smem(
                 NFILT, NGRID)}
+    sass = {"package": _sass(build, build.library_path()),
+            "reference": _sass(build, build.library_path().parent
+                               / "libfz_ref.so")}
+    sass_identical = {k: k in sass["package"]
+                      and sass["package"][k] == sass["reference"].get(k)
+                      for k in KERNELS}
     print(f"ptxas -v: {json.dumps(ptxas)}; dynamic shared memory "
-          f"{smem} bytes | card {card}", flush=True)
+          f"{smem} bytes; SASS identical to the reference's "
+          f"{sass_identical} | card {card}", flush=True)
 
     rng = np.random.default_rng(0)
     f32 = np.float32
@@ -140,7 +184,10 @@ def main(argv=None):
 
     c0, a1 = NFILT - 2.0, 0.5 * NFILT - 1.0
     wthr = float(np.exp(np.log(1e-3)))
-    results = {"card": card, "ptxas": ptxas, "dynamic_smem": smem}
+    results = {"card": card, "ptxas": ptxas, "dynamic_smem": smem,
+               "sass_identical": sass_identical,
+               "sass_instructions": {k: len(v) for k, v in
+                                     sass["package"].items()}}
     for B in SIZES:
         srt = SC.sort_and_bound(
             tens(data[:B]), tens(np.full((B, NFILT), 0.25, f32)),
@@ -158,11 +205,13 @@ def main(argv=None):
         def a_ref():
             below = torch.full((B,), -1.0, device=dev)
             above = torch.full_like(below, torch.inf)
+            # The model rows' stride after M, from the later design on.
+            ld = () if ref.first_design else (NMODEL,)
             with torch.cuda.device(dev):
                 _check_rc("reference pass A", ref.fz_chi2_brackets_screened(
                     *(t.data_ptr() for t in sa), srt.bounds.data_ptr(),
                     seed.data_ptr(), below.data_ptr(), above.data_ptr(), B,
-                    NMODEL, NFILT, S, 512, c0, 0, _stream(dev)))
+                    NMODEL, *ld, NFILT, S, 512, c0, 0, _stream(dev)))
             return below, above
 
         bn, br = a_new(), a_ref()
@@ -185,13 +234,17 @@ def main(argv=None):
         def b_ref(g=gargs):
             pdf = torch.zeros((B, NGRID), device=dev)
             s = torch.zeros(B, device=dev)
-            threads = min(-(-NGRID // 32) * 32,
-                          ref.fz_chi2_stack_screened_max_threads())
+            if ref.first_design:
+                ld, threads = (), (min(
+                    -(-NGRID // 32) * 32,
+                    ref.fz_chi2_stack_screened_max_threads()),)
+            else:
+                ld, threads = (NMODEL,), ()
             with torch.cuda.device(dev):
                 _check_rc("reference pass B", ref.fz_chi2_stack_screened(
                     *(t.data_ptr() for t in sa + tuple(g)), pdf.data_ptr(),
-                    s.data_ptr(), B, NMODEL, NFILT, NGRID, S, 512, a1, 1,
-                    wthr, 0, 1, threads, _stream(dev)))
+                    s.data_ptr(), B, NMODEL, *ld, NFILT, NGRID, S, 512, a1,
+                    1, wthr, 0, 1, *threads, _stream(dev)))
             return pdf, s
 
         (pn, sn), (pr, sr) = b_new(), b_ref()
@@ -199,6 +252,7 @@ def main(argv=None):
         check["pdf_equal_ref"] = torch.equal(pn, pr)
         check["s_rel_vs_ref"] = float(((sn - sr).abs()
                                        / sr.abs().clamp_min(1e-30)).max())
+        check["s_equal_ref"] = torch.equal(sn, sr)
         if B == SIZES[0]:
             bp = SCK.chi2_brackets_screened_plain(*sa, srt.bounds, seed,
                                                   c0=c0, sm=512)
@@ -214,6 +268,7 @@ def main(argv=None):
             del bp, pp, sp
         ok = (check["a_equal_ref"] and check["pdf_equal_ref"]
               and check["s_rel_vs_ref"] <= 1e-5
+              and (ref.first_design or check["s_equal_ref"])
               and check.get("a_equal_plain", True)
               and check.get("s_rel_vs_plain", 0.0) <= 1e-5
               and check.get("pdf_rowrel_vs_plain", 0.0) <= 1e-5)

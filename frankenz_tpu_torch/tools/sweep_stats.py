@@ -25,8 +25,10 @@ machine with a CUDA card and `nvcc`; nothing here runs at import.
   the share of row-sweeps a frozen row sat out.
 - `sass_loop` counts, in `cuobjdump -sass` of a library, the instructions
   of the sweep loop's list iteration (32 pair-sweeps, one a lane) of one
-  instantiation; `issue_floor` turns a count of iterations into the least
-  time the card's schedulers need to issue them.
+  instantiation (`sass_loops`: every loop of a function in cuobjdump's
+  text, which tools/ab_fullmask.py reads too); `issue_floor` turns a
+  count of iterations into the least time the card's schedulers need to
+  issue them.
 """
 
 import ctypes
@@ -258,17 +260,21 @@ def sass_loop(build, lib_path, inst="ILb1ELb1ELb1ELi5EE", nrcp=6):
     return parse_sass_loop(run.stdout, inst, nrcp)
 
 
-def parse_sass_loop(text, inst, nrcp):
-    """`sass_loop` on cuobjdump's text."""
+def sass_loops(text, kernel, inst):
+    """Every loop (a backward branch and its target) of the function
+    whose mangled name holds `kernel` and `inst` in cuobjdump's text, as
+    its instructions [(address, text, branch target or None)] from head to
+    backward branch, and the function's name; ([], None) when no such
+    function."""
     funcs = re.split(r"\n\s*Function : ", text)
     body = name = None
     for part in funcs[1:]:
         head = part.split("\n", 1)[0].strip()
-        if "scale_sweeps_kernel" in head and inst in head:
+        if kernel in head and inst in head:
             body, name = part, head
             break
     if body is None:
-        return {"error": f"no scale_sweeps_kernel {inst} in the SASS"}
+        return [], None
     insns, labels, pending = [], {}, []
     for line in body.splitlines():
         lab = re.match(r"\s*(\.L_x_\d+):", line)
@@ -281,23 +287,39 @@ def parse_sass_loop(text, inst, nrcp):
             labels.update((k, addr) for k in pending)
             pending = []
             insns.append((addr, m.group(2).strip()))
-    loops = []
-    for addr, text_ in insns:
-        m = _BRA.search(text_)
+
+    def target(txt):
+        m = _BRA.search(txt)
         if not m:
-            continue
+            return None
         tgt = m.group(1)
-        tgt = int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt)
+        return int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt)
+
+    loops = []
+    for addr, txt in insns:
+        tgt = target(txt)
         if tgt is not None and tgt < addr:
-            body_ = [t for a, t in insns if tgt <= a <= addr]
-            rcp = sum("MUFU.RCP" in t for t in body_)
-            lds16 = any(re.search(r"\bLDS\.U16\b", t) for t in body_)
-            if rcp >= nrcp and lds16:
-                loops.append((len(body_), rcp,
-                              sum("MUFU.LG2" in t for t in body_)))
-    if not loops:
+            loops.append([(a, t, target(t)) for a, t in insns
+                          if tgt <= a <= addr])
+    return loops, name
+
+
+def parse_sass_loop(text, inst, nrcp):
+    """`sass_loop` on cuobjdump's text."""
+    loops, name = sass_loops(text, "scale_sweeps_kernel", inst)
+    if name is None:
+        return {"error": f"no scale_sweeps_kernel {inst} in the SASS"}
+    found = []
+    for lp in loops:
+        body_ = [t for _, t, _ in lp]
+        rcp = sum("MUFU.RCP" in t for t in body_)
+        lds16 = any(re.search(r"\bLDS\.U16\b", t) for t in body_)
+        if rcp >= nrcp and lds16:
+            found.append((len(body_), rcp,
+                          sum("MUFU.LG2" in t for t in body_)))
+    if not found:
         return {"error": "no list loop found", "function": name}
-    n, rcp, lg2 = min(loops)
+    n, rcp, lg2 = min(found)
     if rcp != nrcp:
         return {"error": f"the shortest loop holds {rcp} MUFU.RCP, not "
                          f"{nrcp}", "function": name}

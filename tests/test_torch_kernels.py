@@ -29,7 +29,12 @@ flip an accept, after which the chains part for good).  The two chain
 kernels' cluster routes are held against their block routes and plain
 versions bit for bit at every cluster size (`cluster=`) the card
 schedules; on the CPU the route choice and the split identities of
-`tree_sum` are checked in plain Python.
+`tree_sum` are checked in plain Python.  The K1 pair: pass A bit for bit
+its plain version under every model split the wrapper's rule can give,
+pass B in band order bit for bit the kernel on a dense G, and the
+kernels' fast-path divide and square root (`fullmask.fast_probe`) bit
+for bit the card's IEEE operations wherever their range predicates hold
+(its CPU pieces are in tests/test_torch_fullmask.py).
 """
 
 import numpy as np
@@ -1066,6 +1071,189 @@ def test_banded_chi2_stack_matches_plain_on_card(cuda_device, B, M, Ngrid,
     torch.testing.assert_close(got[0] / scale, want[0] / scale, rtol=0,
                                atol=1e-5)
     assert FM.launch_counts() == {"chi2_brackets": 0, "chi2_stack": 2}
+
+
+def _k1_problem(F, B, M, Ngrid, device, seed=43):
+    """A K1 problem made on the card: noisy model copies (row 0 past the
+    clamp), errors 0.25 and 5%, a kernel matrix of Ngrid columns, and
+    pass B's shift from the plain brackets."""
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(1, 10, (M, F)).astype(np.float32)
+    d = (m[rng.integers(0, M, B)]
+         + rng.normal(0, 0.3, (B, F))).astype(np.float32)
+    d[0] = 1e6
+    t = [torch.tensor(np.ascontiguousarray(x), device=device)
+         for x in (d, np.full((B, F), 0.25, np.float32), m.T,
+                   (0.05 * m).T)]
+    G = TK.kernel_matrix(rng.uniform(0, 3, M), np.full(M, 0.1),
+                         np.linspace(0, 3, Ngrid), device=device).to(
+                             torch.float32).contiguous()
+    return t, G
+
+
+def _assert_stack_close(got, want):
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    scale = want[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    torch.testing.assert_close(got[0] / scale, want[0] / scale, rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ignore_model_err", [False, True])
+@pytest.mark.parametrize("F", [5, 20])
+@pytest.mark.parametrize("B,M,Ngrid", [(1_000, 99_937, 7),
+                                       (2_048, 99_937, 301),
+                                       (1_000, 100_000, 700)])
+def test_k1_pair_matches_plain_on_card(cuda_device, B, M, Ngrid, F,
+                                       ignore_model_err):
+    """The K1 pair at the route's sizes (F = 20 the log form; row 0 clamps
+    every chi^2): the brackets bit for bit the plain version's in both
+    model orders, pass B in band order within the plain version's
+    tolerances and bit for bit the kernel on the dense, contiguous G."""
+    t, G = _k1_problem(F, B, M, Ngrid, cuda_device)
+    a1, kw = 0.5 * F - 1.0, dict(ignore_model_err=ignore_model_err)
+    bs = GK.band_sort(G, t[2], t[3])
+    FM.reset_launch_counts()
+    got = FM.chi2_brackets(*t, c0=2 * a1, **kw)
+    got_b = FM.chi2_brackets(t[0], t[1], bs.mT, bs.meT, c0=2 * a1, **kw)
+    want = FM.chi2_brackets_plain(*t, c0=2 * a1, **kw)
+    torch.cuda.synchronize()
+    for g, gb, w in zip(got, got_b, want):
+        assert torch.equal(g, w) and torch.equal(gb, w)
+    _, shift = TF.lmap_and_shift(*want, F)
+    Gb = bs.G[:M, :Ngrid]
+    kw.update(a1=a1, wthr=1e-3)
+    got = FM.chi2_stack(t[0], t[1], bs.mT, bs.meT, Gb, shift,
+                        bands=bs.bands, **kw)
+    dense = FM.chi2_stack(t[0], t[1], bs.mT, bs.meT, Gb.contiguous(), shift,
+                          **kw)
+    want = FM.chi2_stack_plain(t[0], t[1], bs.mT, bs.meT, Gb, shift, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], dense[0]) and torch.equal(got[1], dense[1])
+    _assert_stack_close(got, want)
+    assert FM.launch_counts() == {"chi2_brackets": 2, "chi2_stack": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_sm", [1, 2, 6, 8, 1_000])
+@pytest.mark.parametrize("B", [1_000, 2_048])
+def test_k1_brackets_every_split_equals_plain_on_card(cuda_device,
+                                                      monkeypatch, B,
+                                                      per_sm):
+    """Pass A under every split count the wrapper's rule can give (from 1
+    to one chunk a split, by the CTAs an SM it is told the card holds):
+    one launch, bit for bit the unsplit plain version."""
+    t, _ = _k1_problem(5, B, 99_937, 7, cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    monkeypatch.setattr(FM, "_per_sm", lambda index, F: (per_sm, sms))
+    nsplit, _ = FM.brackets_splits(B, 99_937, sms, per_sm,
+                                   FM._build.load().fz_chi2_brackets_chunk())
+    FM.reset_launch_counts()
+    got = FM.chi2_brackets(*t, c0=3.0)
+    want = FM.chi2_brackets_plain(*t, c0=3.0)
+    torch.cuda.synchronize()
+    assert nsplit >= 1 and FM.chi2_brackets.launches == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Ngrid", [7, 301, 700])
+def test_k1_shared_memory_sizes_follow_the_carve(cuda_device, Ngrid):
+    """The library's shared-memory counts, which the wrappers check before
+    a launch: at config 4's 5 filters the 16-byte rounded arrays of each
+    CTA (pass A's ring of two 128-model slots, rows and the 8 warps'
+    brackets; pass B's ring of two 192-model slots, double-buffered
+    weights, the 12 weight warps' masks and the total, Ngrid in whole
+    warps up to the CTA's 320 columns).  Pass B's chunk drops from 192
+    models to one 64-model tile as filters grow, and fits the per-block
+    limit while it is 192; pass A holds a CTA an SM up to 99 filters."""
+    lib = FM._build.load()
+    assert lib.fz_chi2_brackets_chunk() == 128
+    assert lib.fz_chi2_brackets_smem(5) == (16 + 2 * 2 * 5 * 128 * 4
+                                            + 2 * 5 * 32 * 4
+                                            + 2 * 8 * 32 * 4)
+    tw = 32 * ((min(Ngrid, 320) + 31) // 32)
+    assert lib.fz_chi2_stack_chunk(5, Ngrid) == 192
+    assert lib.fz_chi2_stack_smem(5, Ngrid) == (
+        16 + 2 * 2 * 5 * 192 * 4 + 2 * 192 * 32 * 4 + 2 * 12 * 32 * 4
+        + 32 * tw * 4 + 2 * 5 * 32 * 4)
+    chunks = [lib.fz_chi2_stack_chunk(F, Ngrid) for F in range(1, 200)]
+    assert set(chunks) == {192, 64}
+    assert chunks == sorted(chunks, reverse=True)
+    for F, chunk in zip(range(1, 200), chunks):
+        if chunk > 64:
+            assert lib.fz_chi2_stack_smem(F, Ngrid) <= FM._SMEM_MAX
+    for F in (1, 5, 20, 60, 99):
+        assert lib.fz_chi2_brackets_occupancy(F) >= 1
+
+
+def _random_floats(n, lo, hi, g, device):
+    """n floats with exponents uniform in [lo, hi], random significands
+    and signs."""
+    e = torch.randint(lo + 127, hi + 128, (n,), generator=g, device=device)
+    mant = torch.randint(0, 1 << 23, (n,), generator=g, device=device)
+    sign = torch.randint(0, 2, (n,), generator=g, device=device) * 2 - 1
+    mag = ((e << 23) | mant).to(torch.int32).view(torch.float32)
+    return mag * sign.to(torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["range", "config4"])
+def test_fast_divide_equals_ieee_on_card(cuda_device, case):
+    """The K1 kernels' quotients on div.rn's fast path (`div_fast`) against
+    the card's IEEE divide, bit for bit wherever the range predicate
+    holds: 2^24 operand pairs with exponents uniform over the range and
+    past it (random significands and signs), or config 4's dividends
+    (d - m)^2 and divisors de^2 + me^2."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    n = 1 << 24
+    if case == "range":
+        a = _random_floats(n, -70, 66, g, cuda_device)
+        b = _random_floats(n, -66, 65, g, cuda_device)
+    else:
+        d, m = (torch.rand(n, generator=g, device=cuda_device) * 9 + 1
+                for _ in range(2))
+        a = (d - m) * (d - m)
+        me = 0.05 * torch.rand(n, generator=g, device=cuda_device) * 10
+        b = 0.0625 + me * me
+    q, ok = FM.fast_probe(a, b)
+    want = a / b
+    torch.cuda.synchronize()
+    assert float(ok.float().mean()) > 0.8
+    assert torch.equal(q[ok].view(torch.int32), want[ok].view(torch.int32))
+    aa, ab = a.abs(), b.abs()
+    assert torch.equal(ok, (aa >= 2.0 ** -64) & (aa <= 2.0 ** 60)
+                       & (ab >= 2.0 ** -60) & (ab <= 2.0 ** 59))
+
+
+@pytest.mark.gpu
+def test_fast_sqrt_equals_ieee_on_card(cuda_device):
+    """The weight chain's square root on sqrt.rn's fast path against the
+    card's IEEE square root, bit for bit wherever the compiler's own range
+    check for that path holds: 2^24 random positive floats over every
+    exponent, and [0, 30000] (the clamped chi^2) densely."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    x = torch.cat([_random_floats(1 << 24, -126, 127, g, cuda_device).abs(),
+                   torch.linspace(0.0, 3e4, 1 << 22, device=cuda_device)])
+    y, ok = FM.fast_probe(x)
+    want = torch.sqrt(x)
+    torch.cuda.synchronize()
+    assert float(ok.float().mean()) > 0.4
+    assert torch.equal(y[ok].view(torch.int32), want[ok].view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_k1_refuses_filters_past_shared_memory_on_card(cuda_device):
+    """Past the per-block shared memory a wrapper raises before any
+    launch."""
+    lib = FM._build.load()
+    F = 1 + max(f for f in range(1, 400)
+                if lib.fz_chi2_brackets_smem(f) <= FM._SMEM_MAX)
+    t, _ = _k1_problem(F, 33, 256, 7, cuda_device)
+    FM.reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        FM.chi2_brackets(*t, c0=F - 2.0)
+    assert FM.launch_counts() == {"chi2_brackets": 0, "chi2_stack": 0}
 
 
 # The lnl table of the two-pass threshold route: every instantiation
