@@ -11,12 +11,14 @@ port, numpy and scipy, and:
 2. builds the CUDA kernels from ``frankenz_tpu_torch/csrc`` (timed) and,
    beside them, ``csrc/scale_sweeps.cu`` alone with ``-Xptxas -v`` and
    with ``-DFZ_REST`` (the counting build of phase 7), and prints `nvcc
-   -Xptxas -v`'s registers, spills and stack for the screened passes A
-   and B and the K1 pair's F = 5 instantiations, with their dynamic
-   shared memory (`scale_sweeps`' go into its entry of the kernels line),
-   and the K1 pair's SASS instructions a pair (the fast path of the group
-   loop in `cuobjdump -sass`, `tools/ab_fullmask.py`) with the card's
-   maximum SM clock, which give their issue floors; then the
+   -Xptxas -v`'s registers, spills and stack for the screened trio (the
+   seed stage's F = 5 instantiation) and the K1 pair's F = 5
+   instantiations, with their dynamic shared memory (`scale_sweeps`' go
+   into its entry of the kernels line), and the K1 pair's SASS
+   instructions a pair (the fast path of the group loop in `cuobjdump
+   -sass`, `tools/ab_fullmask.py`) and the seed stage's a pair and a
+   subtile (`tools/ab_screened.py`) with the card's maximum SM clock,
+   which give their issue floors; then the
    cluster probe (`kernels.probe`): one cluster barrier round, one DSMEM
    load and the two in a dependent loop of 40,000 rounds at cluster sizes
    2, 4, 8 and 16, and the clusters the card holds at once at the launch
@@ -35,14 +37,17 @@ port, numpy and scipy, and:
    x model splits against the SMs x CTAs an SM) on each case, its
    brackets bit-equal under the unsplit launch and one chunk a split; at
    config 4 both kernels' bounds and SASS issue floors;
-3b. the screened full-mask trio (K2: `screen_seed`,
-   `chi2_brackets_screened`, `chi2_stack_screened`), the default
+3b. the screened full-mask trio (K2: `screen_bound_seed`, the seed
+   stage, `chi2_brackets_screened`, `chi2_stack_screened`), the default
    full-mask route: first where the card's expf flushes to 0 (every
    float32 in [-110, -100] through the kernels' own expf and torch.exp,
    which must flush everything at or below the underflow cut); each
    kernel against its plain version on phase 3's four cases, sorted and
    bounded by the route's glue (512-model subtiles, 32-object blocks),
-   with times of both, the brackets also equal to the K1 pair's; then
+   with times of both, the seed stage's bounds, block minima, home tiles
+   and seed bit for bit, the brackets also equal to the K1 pair's; the
+   seed stage also bit for bit and timed on one 65,536-object batch and
+   on a ragged 2,045-object batch with a zero error (0/0 bounds); then
    `fused_fit_pdf` on one 65,536-object batch and the edge cases, under
    wt_thresh 1e-3 and None: screened == run-all and absorption on == off
    bit for bit, lmap == the K1 route's bit for bit, levid (2e-5) and PDFs
@@ -58,7 +63,9 @@ port, numpy and scipy, and:
    walls), and every full-mask kernel's time at that batch (`chi2_stack`
    in band order, the caller order's beside), the K1 pair's with their
    bounds, issue floors and pass A's launch shape, with the screened
-   trio's bounds from that batch's run fractions and kept weights;
+   trio's bounds from that batch's run fractions, kept weights and home
+   tiles, the seed stage's issue floor, and the whole `sort_and_bound`
+   (sort, copies, boxes, seed stage) timed;
 5. masked photometry (each data band missing with probability 0.15, from
    ``default_rng(2)``: about 10 of the 131,072 rows lose every band):
    first the band order of config 4's G (`band_sort`: its time, the mean
@@ -195,7 +202,8 @@ port, numpy and scipy, and:
    and bytes at the batch, the recompute route's times and bounds beside;
    the fixed-scale dense `lnl_stack` runs on no main path and has no entry:
    it stands as ``dense_ms`` beside `lnl_stack_band`),
-   `scale_sweeps` (with its design, rest share and issue floor), the K1
+   `scale_sweeps` (with its design, rest share and issue floor), the
+   seed stage (with its issue floors and SASS counts), the K1
    pair (with its issue floors, SASS instructions a pair, bounds at the
    batch and pass A's launch shapes),
    `som_train`, `som_train_cluster` (the route
@@ -265,7 +273,8 @@ GENERAL = ("lnl_reduce", "lnl_reduce_split", "lnl_stack", "lnl_stack_band",
 # The band stacks (csrc/lnl_band.cuh): the models in band order.
 BAND = ("lnl_cut_stack", "lnl_onepass")
 K1_PAIR = ("chi2_brackets", "chi2_stack")
-SCREENED = ("screen_seed", "chi2_brackets_screened", "chi2_stack_screened")
+SCREENED = ("screen_bound_seed", "chi2_brackets_screened",
+            "chi2_stack_screened")
 # Free scale end to end against the plain composition: JAX's own GOF
 # tolerances, tests/test_fused.py:145-150 (datum-only variance, 1e-4)
 # and :182-187 (model errors kept, 1e-3: the kernels converge the scale
@@ -2180,16 +2189,38 @@ def expf_underflow(torch, np, SC, SCK, card):
     return out
 
 
-def screened_bounds(torch, FM, srt, gates, stats, tm, wthr):
+def seed_work(torch, srt, n_anchor):
+    """(pairs, model columns read) of the seed stage on one sorted batch:
+    every row's anchors and its block's home tile (clipped at M), and the
+    distinct model columns those touch."""
+    B = srt.d.shape[0]
+    M = srt.mT.shape[1]
+    A = min(n_anchor, M)
+    start = srt.start.long()
+    home = (M - start).clamp_max(srt.tm)
+    rows = torch.full_like(home, srt.tb)
+    rows[-1] = B - srt.tb * (len(rows) - 1)
+    cols = torch.zeros(M, dtype=torch.bool, device=start.device)
+    cols[torch.arange(A, device=start.device) * (M // A)] = True
+    idx = start[:, None] + torch.arange(srt.tm, device=start.device)
+    cols[idx[idx < M]] = True
+    return float(B * A + (rows * home).sum()), float(cols.sum())
+
+
+def screened_bounds(torch, FM, srt, gates, stats, wthr, n_anchor):
     """({kept weights per row, models kept by some row per 32-row
     block}, {kernel: (bound ms, bound by)}) of the screened trio on one
-    sorted batch, the bounds from the work that this run's gates admit: K1's operations per
-    pair (chi^2 6 per filter + 2 compares, or + ~10 for the weight chain)
-    over the admitted pairs (the run fractions `stats`: pass A's, pass
-    B's weight work), pass B's 2 Ngrid per kept weight (counted from the
-    plain weights, 2,048 rows at a time), the seed's pairs over each
-    block's home tile.  Bytes: every input once (the (S, B) bounds, the
-    visit table and the per-row cuts included), every output once."""
+    sorted batch, the bounds from the work that this run's gates admit:
+    K1's operations per pair (chi^2 6 per filter + 2 compares, or + ~10
+    for the weight chain) over the admitted pairs (the run fractions
+    `stats`: pass A's, pass B's weight work), pass B's 2 Ngrid per kept
+    weight (counted from the plain weights, 2,048 rows at a time); the
+    seed stage's pairs (`seed_work`: each row's anchors and home tile, 6
+    F + 2 each) and 8 F per (subtile, row) of the bounds.  Bytes: every
+    input once (the (S, B) bounds, the visit table and the per-row cuts
+    included; the seed stage's model columns those it reads, and the (F,
+    S) boxes), every output once (the seed stage's bounds, bmin, start
+    and seed)."""
     B, F = srt.d.shape
     M, ngrid = srt.mT.shape[1], srt.G.shape[1]
     a1 = 0.5 * F - 1.0
@@ -2210,10 +2241,12 @@ def screened_bounds(torch, FM, srt, gates, stats, tm, wthr):
     io = 4.0 * (2 * B * F + 2 * F * M)
     kept_stats = {"kept_per_row": kept / B,
                   "kept_models_per_block": kept_models / (B // srt.tb)}
+    seed_pairs, seed_cols = seed_work(torch, srt, n_anchor)
     return kept_stats, {
-        "screen_seed": bound(float(B) * tm * (6 * F + 2),
-                             4.0 * (2 * B * F + 2 * F * min(nb * tm, M)
-                                    + nb + B)),
+        "screen_bound_seed": bound(
+            seed_pairs * (6 * F + 2) + 8.0 * F * S * B,
+            4.0 * (2 * B * F + 2 * F * seed_cols + 3 * F * S + S * B
+                   + S * nb + nb + B)),
         "chi2_brackets_screened": bound(pairs * stats[0] * (6 * F + 2),
                                         io + 4.0 * (S * B + B + 2 * B)),
         "chi2_stack_screened": bound(
@@ -2222,17 +2255,56 @@ def screened_bounds(torch, FM, srt, gates, stats, tm, wthr):
                         + B))}
 
 
+def seed_stage_check(torch, SCK, srt, name, c0, ignore_model_err, card):
+    """The seed stage's kernel (`screen_bound_seed`) against its plain
+    version on one sorted batch (its arrays and subtile boxes): bounds,
+    bmin, start and seed bit for bit (NaN in the same places), both
+    timed.  Returns (result, the plain seed)."""
+    from frankenz_tpu_torch.tools import sweep_stats as SS
+
+    args = (srt.d, srt.de, srt.mT, srt.meT, *srt.boxes)
+    kw = dict(sm=srt.sm, tm=srt.tm, c0=c0,
+              ignore_model_err=ignore_model_err)
+
+    def seed_k():
+        return SCK.screen_bound_seed(*args, **kw)
+
+    def seed_p():
+        return SCK.screen_bound_seed_plain(*args, **kw)
+
+    got, want = seed_k(), seed_p()
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("bounds", "bmin", "start", "seed")):
+        check(SS.same_bits(g, w),
+              f"{name}: screen_bound_seed {what} differs from plain")
+    t = (median_ms(torch, seed_k), median_ms(torch, seed_p, reps=3))
+    nan = int(torch.isnan(want[0]).sum())
+    print(f"kernel_vs_plain seed stage {name}: B={srt.d.shape[0]} "
+          f"M={srt.mT.shape[1]} F={srt.d.shape[1]} S={srt.bmin.shape[0]} "
+          f"sm={srt.sm} tm={srt.tm} ignore_model_err={ignore_model_err} | "
+          f"screen_bound_seed bounds, bmin, start, seed bit for bit "
+          f"({nan} NaN bounds) {t[0]:.3f} ms (plain {t[1]:.3f} ms) | card "
+          f"{card}", flush=True)
+    pairs, _ = seed_work(torch, srt, SCK.N_ANCHOR)
+    return dict(max_abs_err=0.0, max_rel_err=0.0, ms=t[0], plain_ms=t[1],
+                nan_bounds=nan, pairs=pairs,
+                subtile_blocks=srt.bmin.numel()), want[3]
+
+
 def screened_phase(torch, np, tens, card, cases, batch_case):
     """Phase 3b, the screened trio (K2) at config 4's widths: the expf
     underflow; each kernel against its plain version on phase 3's cases
     (config 4 at B=2,048, ragged M=99,937 with B=1,000, F=20, an
     all-clamped row) at the route's own sizes (512-model subtiles and
-    home tiles, 32-object blocks), the brackets also against the K1
-    pair's; then the route: screened == run-all and absorption on == off
-    bit for bit, lmap == the K1 route's bit for bit, levid and PDFs
-    within the end-to-end tolerances, under wt_thresh 1e-3 and None, on
-    one 65,536-object batch and the edge cases.  Returns ({kernel: {case:
-    result}}, expf thresholds, {case: run fractions})."""
+    home tiles, 32-object blocks), the seed stage bit for bit, the
+    brackets also against the K1 pair's; the seed stage also on one
+    65,536-object batch and on a batch with a ragged last block and a
+    zero error in one filter of one row (0/0 bounds, NaN, under
+    ignore_model_err); then the route: screened == run-all and absorption
+    on == off bit for bit, lmap == the K1 route's bit for bit, levid and
+    PDFs within the end-to-end tolerances, under wt_thresh 1e-3 and None,
+    on one 65,536-object batch and the edge cases.  Returns ({kernel:
+    {case: result}}, expf thresholds, {case: run fractions})."""
     from frankenz_tpu_torch.kernels import fullmask as FM
     from frankenz_tpu_torch.kernels import screened as SCK
     from frankenz_tpu_torch.ops import fused as TF
@@ -2241,8 +2313,7 @@ def screened_phase(torch, np, tens, card, cases, batch_case):
     expf = expf_underflow(torch, np, SC, SCK, card)
     f32 = np.float32
     wthr = float(np.exp(np.log(WT_THRESH)))
-    results = {k: {} for k in ("screen_seed", "chi2_brackets_screened",
-                               "chi2_stack_screened")}
+    results = {k: {} for k in SCREENED}
     for name, d_np, m_np, Gc in cases:
         B, F = d_np.shape
         M, ngrid = m_np.shape[0], Gc.shape[1]
@@ -2255,19 +2326,8 @@ def screened_phase(torch, np, tens, card, cases, batch_case):
             tens((0.05 * m_np).astype(f32).T), Gc, sm=sm, tm=tm, tb=SCK.TB,
             ignore_model_err=False)
         args = (srt.d, srt.de, srt.mT, srt.meT)
-
-        def seed_k():
-            return SCK.screen_seed(*args, srt.start, width=tm, c0=c0)
-
-        def seed_p():
-            return SCK.screen_seed_plain(*args, srt.start, width=tm, c0=c0)
-
-        sk, sp = seed_k(), seed_p()
-        torch.cuda.synchronize()
-        sd_abs, sd_rel = rel_err(torch, sk, sp)
-        check(sd_rel <= TOL_BRACKET,
-              f"{name}: screen_seed differs from plain (rel {sd_rel})")
-        seed = torch.minimum(srt.seed, sp)
+        results["screen_bound_seed"][name], seed = seed_stage_check(
+            torch, SCK, srt, name, c0, False, card)
 
         def brackets_k():
             return SCK.chi2_brackets_screened(*args, srt.bounds, seed, c0=c0,
@@ -2308,16 +2368,14 @@ def screened_phase(torch, np, tens, card, cases, batch_case):
         check(ok, f"{name}: chi2_stack_screened PDFs differ beyond the "
                   f"threshold-flip envelope (row-normwise {p_row})")
         p_abs = float((pk - pp).abs().max())
-        t = {"screen_seed": (median_ms(torch, seed_k),
-                             median_ms(torch, seed_p)),
-             "chi2_brackets_screened": (median_ms(torch, brackets_k),
+        t = {"chi2_brackets_screened": (median_ms(torch, brackets_k),
                                         median_ms(torch, brackets_p)),
              "chi2_stack_screened": (
                  median_ms(torch, lambda: stack(SCK.chi2_stack_screened)),
                  median_ms(torch,
                            lambda: stack(SCK.chi2_stack_screened_plain)))}
-        for kname, ab, rl in (("screen_seed", sd_abs, sd_rel),
-                              ("chi2_brackets_screened", b_abs, b_rel),
+        results["screen_bound_seed"][name]["run_fractions"] = stats
+        for kname, ab, rl in (("chi2_brackets_screened", b_abs, b_rel),
                               ("chi2_stack_screened", max(p_abs, s_abs),
                                max(p_row, s_rel))):
             results[kname][name] = dict(
@@ -2325,7 +2383,7 @@ def screened_phase(torch, np, tens, card, cases, batch_case):
                 plain_ms=t[kname][1], run_fractions=stats)
         if name == "config4":
             kept_stats, bds = screened_bounds(torch, FM, srt, gates, stats,
-                                              tm, wthr)
+                                              wthr, SCK.N_ANCHOR)
             for kname, bd in bds.items():
                 results[kname][name].update(zip(("bound_ms", "bound_by"),
                                                 bd))
@@ -2340,7 +2398,31 @@ def screened_phase(torch, np, tens, card, cases, batch_case):
                   f"(plain {t[k][1]:.3f} ms)" for k in t)
               + f" | run fractions A {stats[0]:.4f} B {stats[1]:.4f} dot "
               f"{stats[2]:.4f} | card {card}", flush=True)
-        del srt, args, bk, bp, pk, pp, sk, sp, gates, pair
+        del srt, args, bk, bp, pk, pp, seed, gates, pair
+        torch.cuda.empty_cache()
+
+    # The seed stage alone at the main path's batch, and on a batch with a
+    # ragged last block (2,045 rows) whose row 1,000 has a zero error in
+    # its last filter there, its datum on a model's value: under
+    # ignore_model_err its bounds are 0/0 (NaN) where the model's subtile
+    # box holds the datum, +inf elsewhere.
+    name_b, d_b, m_b, G_b = batch_case
+    d_e = d_b[:2_045].copy()
+    de_e = np.full(d_e.shape, 0.25, f32)
+    d_e[1_000, -1], de_e[1_000, -1] = m_b[7, -1], 0.0
+    for name, d_np, de_np, ign in (
+            (name_b, d_b, np.full(d_b.shape, 0.25, f32), False),
+            ("ragged_B2045_zero_error", d_e, de_e, True)):
+        srt = SC.sort_and_bound(tens(d_np), tens(de_np), tens(m_b.T),
+                                tens((0.05 * m_b).astype(f32).T), G_b,
+                                sm=512, tm=512, tb=SCK.TB,
+                                ignore_model_err=ign)
+        results["screen_bound_seed"][name], _ = seed_stage_check(
+            torch, SCK, srt, name, NFILT - 2.0, ign, card)
+        if ign:
+            check(results["screen_bound_seed"][name]["nan_bounds"] > 0,
+                  f"{name}: no 0/0 bound")
+        del srt
         torch.cuda.empty_cache()
 
     # The route through `fused_fit_pdf`, against its run-all twin, with
@@ -2663,14 +2745,16 @@ def main():
     lib = kbuild.load()
     ptxas = {k: dict(v, dynamic_smem=smem)
              for name, v in kbuild.ptxas_report("chi2_screened.cu").items()
-             for k, smem in (
+             for k, smem, inst in (
+                 ("screen_bound_seed",
+                  lib.fz_screen_bound_seed_smem(NFILT), f"ILi{NFILT}E"),
                  ("chi2_brackets_screened",
-                  lib.fz_chi2_brackets_screened_smem(NFILT)),
+                  lib.fz_chi2_brackets_screened_smem(NFILT), ""),
                  ("chi2_stack_screened",
-                  lib.fz_chi2_stack_screened_smem(NFILT, NGRID)))
-             if f"{k}_kernel" in name}
-    check(set(ptxas) == {"chi2_brackets_screened", "chi2_stack_screened"},
-          f"no ptxas report for the screened passes ({sorted(ptxas)})")
+                  lib.fz_chi2_stack_screened_smem(NFILT, NGRID), ""))
+             if f"{k}_kernel{inst}" in name}
+    check(set(ptxas) == set(SCREENED),
+          f"no ptxas report for the screened trio ({sorted(ptxas)})")
     # The K1 pair (its F = 5 instantiations, the route's at config 4).
     ptxas.update({k: dict(v, dynamic_smem=smem)
                   for name, v in kbuild.ptxas_report("chi2_fullmask.cu")
@@ -2701,6 +2785,16 @@ def main():
         f"{v['pairs']} pairs)" for k, v in k1_sass.items())
         + f"; max SM clock {k1_clock:.0f} MHz, {k1_sms} SMs | card {card}",
         flush=True)
+    # The seed stage's SASS instructions a pair and a warp's a subtile
+    # (its F = 5 instantiation's loops, tools/ab_screened.py): its issue
+    # floor.
+    from frankenz_tpu_torch.tools import ab_screened as ABS
+    seed_sass = ABS.seed_sass(kbuild)
+    check("error" not in seed_sass,
+          f"no SASS issue floor for the seed stage: {seed_sass}")
+    print(f"sass: screen_bound_seed {seed_sass['per_pair']:.2f} "
+          f"instructions a pair, {seed_sass['per_subtile']:.2f} a warp's "
+          f"subtile of bounds | card {card}", flush=True)
     # The cluster probe: one cluster barrier, one DSMEM load, and the two
     # in a dependent loop of 40,000 rounds, for K = 2, 4, 8, 16; and the
     # clusters the card holds at once at the two chain kernels' launch
@@ -2900,6 +2994,9 @@ def main():
     scr_results, expf, scr_fractions = screened_phase(
         torch, np, tens, card, cases, ("config4_batch", data[:BATCH], models,
                                        G))
+    for r in scr_results["screen_bound_seed"].values():
+        r["issue_floor_ms"] = ABS.seed_issue_floor(
+            seed_sass, r["pairs"], r["subtile_blocks"], k1_sms, k1_clock)
     results.update(scr_results)
 
     # 4. end to end through the user entry points: the screened route
@@ -3040,12 +3137,17 @@ def main():
                             tb=SCK.TB, ignore_model_err=False)
     sargs = (srt.d, srt.de, srt.mT, srt.meT)
     c0 = NFILT - 2.0
-    seed_b = torch.minimum(srt.seed, SCK.screen_seed(
-        *sargs, srt.start, width=512, c0=c0))
+    seed_b = srt.seed
     gates_b = SC.stack_gates(srt, *SCK.chi2_brackets_screened(
         *sargs, srt.bounds, seed_b, c0=c0, sm=512), wt_thresh=WT_THRESH)
-    ms_batch["screen_seed"] = median_ms(torch, lambda: SCK.screen_seed(
-        *sargs, srt.start, width=512, c0=c0), reps=3)
+    ms_batch["screen_bound_seed"] = median_ms(
+        torch, lambda: SCK.screen_bound_seed(*sargs, *srt.boxes, sm=512,
+                                             tm=512, c0=c0), reps=3)
+    # The whole seed stage with its torch around the kernel: the locality
+    # sort, the sorted copies, the subtile boxes.
+    ms_sort_and_bound = median_ms(torch, lambda: SC.sort_and_bound(
+        d_b, de_b, mT, meT, G, sm=512, tm=512, tb=SCK.TB,
+        ignore_model_err=False), reps=3)
     ms_batch["chi2_brackets_screened"] = median_ms(
         torch, lambda: SCK.chi2_brackets_screened(
             *sargs, srt.bounds, seed_b, c0=c0, sm=512), reps=3)
@@ -3056,10 +3158,15 @@ def main():
             a1=0.5 * NFILT - 1.0, sm=512, wthr=wthr), reps=3)
     stats_b = [float(x) for x in SC.run_fractions(srt, seed_b, gates_b)]
     kept_batch, bound_batch = screened_bounds(torch, FM, srt, gates_b,
-                                              stats_b, 512, wthr)
+                                              stats_b, wthr, SCK.N_ANCHOR)
+    seed_pairs_b, _ = seed_work(torch, srt, SCK.N_ANCHOR)
+    seed_floor_b = ABS.seed_issue_floor(seed_sass, seed_pairs_b,
+                                        srt.bmin.numel(), k1_sms, k1_clock)
     print(f"kernel_at_batch {BATCH}x{NMODEL}: " + ", ".join(
         f"{k} {ms_batch[k]:.3f} ms" for k in K1_PAIR + SCREENED)
-        + f" (chi2_stack in band order; caller order {ms_b_caller:.3f} ms)"
+        + f" (chi2_stack in band order; caller order {ms_b_caller:.3f} ms;"
+        f" sort_and_bound with screen_bound_seed {ms_sort_and_bound:.3f} "
+        f"ms, the seed stage's SASS issue floor {seed_floor_b:.4f} ms)"
         + " | screened bounds " + ", ".join(
             f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bound_batch.items())
         + f" at run fractions A {stats_b[0]:.4f} B {stats_b[1]:.4f} dot "
@@ -3696,7 +3803,7 @@ def main():
                 "lnl_reduce_topk": "frankenz_tpu/ops/fused.py:721",
                 "lnl_cut_stack": "frankenz_tpu/ops/fused.py:779",
                 "lnl_onepass": "frankenz_tpu/ops/fused.py:670"}
-    replaces.update({"screen_seed": "frankenz_tpu/ops/fused.py:1249",
+    replaces.update({"screen_bound_seed": "frankenz_tpu/ops/fused.py:1249",
                      "chi2_brackets_screened": "frankenz_tpu/ops/fused.py:1272",
                      "chi2_stack_screened": "frankenz_tpu/ops/fused.py:1308"})
     # The pair's launches: the screen=False batch (BruteForce runs K2).
@@ -3758,6 +3865,16 @@ def main():
             # bound_ms counts the pairs that this run's gates admit.
             entry["run_fractions"] = ref["run_fractions"]
             entry["route_run_fractions"] = scr_fractions
+        if kname == "screen_bound_seed":
+            # The seed stage's bound counts each row's anchors and home
+            # tile and the (subtile, row) bounds; its SASS issue floor
+            # beside it, at 2,048 (config4) and at the batch.
+            entry.update({
+                "issue_floor_ms": ref["issue_floor_ms"],
+                "sass_per_pair": seed_sass["per_pair"],
+                "sass_per_subtile": seed_sass["per_subtile"],
+                f"issue_floor_ms_batch_{BATCH}": seed_floor_b,
+                f"sort_and_bound_ms_batch_{BATCH}": ms_sort_and_bound})
         if kname in ms_batch:
             entry[f"ms_batch_{N8 if free else BATCH}"] = ms_batch[kname]
         if kname in table_batch:

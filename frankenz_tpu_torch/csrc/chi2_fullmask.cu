@@ -149,21 +149,6 @@ static_assert(kBChunk / kBWeight <= 32, "pass B: 32-bit masks");
 
 // ---- shared memory ----------------------------------------------------
 
-// Carves the dynamic shared array into 16-byte aligned arrays by pointer
-// arithmetic on it, so the compiler keeps their shared window (shared
-// loads and stores with 32-bit addresses, not generic ones); from a null
-// base it only counts the bytes (the host's launch size).
-struct SCarve {
-  unsigned char* base;
-  size_t off;
-  template <class T>
-  __host__ __device__ T* take(size_t n) {
-    T* out = base ? reinterpret_cast<T*>(base + off) : nullptr;
-    off += (n * sizeof(T) + 15) & ~size_t(15);
-    return out;
-  }
-};
-
 struct ASmem {
   uint64_t* full;   // [kStages] chunk-arrival mbarriers
   float* stage;     // [kStages][2][F][kChunk] model rows m, then me
@@ -306,11 +291,12 @@ __global__ void __launch_bounds__(PipeA::kThreads)
     const int j1 = imin(len, (warp + 1) * wm);
     // The compiled instance's divides on their fast path where this
     // warp's models and the lane's row allow it (every lane takes part:
-    // a dead row's zeros are in range, its brackets never stored).
+    // a dead row's zeros are in range, its brackets never stored; every
+    // lane votes on the models, whatever its row).
     bool fast = false;
     if constexpr (FC > 0)
-      fast = row_fast && models_fast_ok(tm, tme, P::kChunk, F, warp * wm,
-                                        imax(0, j1 - warp * wm), lane);
+      fast = models_fast_ok(tm, tme, P::kChunk, F, warp * wm,
+                            imax(0, j1 - warp * wm), lane) && row_fast;
     for (int j = warp * wm; j < j1; j += kG) {
       float chi[kG];
       bool ok = fast;
@@ -429,11 +415,12 @@ __global__ void __launch_bounds__(kBThreads, 1)
       const int j0 = wi * wm;
       // The compiled instance's chains on their fast paths where the
       // warp's models and the lane's row allow it; a group with any lane
-      // outside takes the IEEE chains again, whole.
+      // outside takes the IEEE chains again, whole.  Every lane votes on
+      // the models, whatever its row.
       bool fast = false;
       if constexpr (FC > 0)
-        fast = row_fast && models_fast_ok(tm, tme, chunk, F, j0,
-                                          imax(0, imin(wm, len - j0)), lane);
+        fast = models_fast_ok(tm, tme, chunk, F, j0,
+                              imax(0, imin(wm, len - j0)), lane) && row_fast;
       for (int g0 = 0; g0 < wm && j0 + g0 < len; g0 += kG) {
         const int j = j0 + g0;
         float chi[kG], wg[kG];

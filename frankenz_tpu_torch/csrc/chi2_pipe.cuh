@@ -79,6 +79,21 @@ struct Carve {
   }
 };
 
+// Carves the dynamic shared array into 16-byte aligned arrays by pointer
+// arithmetic on it, so the compiler keeps their shared window (shared
+// loads and stores with 32-bit addresses, not generic ones); from a null
+// base it only counts the bytes (the host's launch size).
+struct SCarve {
+  unsigned char* base;
+  size_t off;
+  template <class T>
+  __host__ __device__ T* take(size_t n) {
+    T* out = base ? reinterpret_cast<T*>(base + off) : nullptr;
+    off += (n * sizeof(T) + 15) & ~size_t(15);
+    return out;
+  }
+};
+
 // ---- the model ring: TMA bulk copies onto mbarriers -------------------
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {

@@ -3,29 +3,68 @@
 // JAX package.  Built with nvcc into the shared library of
 // frankenz_tpu_torch/kernels/build.py and bound with ctypes
 // (frankenz_tpu_torch/kernels/screened.py).  The glue around them, which
-// sorts objects and models by a shared photometric key, computes the
-// per-(model subtile, object) chi^2 lower bounds and every cut, is plain
-// torch in frankenz_tpu_torch/ops/screen.py.
+// sorts objects and models by a shared photometric key, boxes the model
+// subtiles and computes every cut after pass A, is plain torch in
+// frankenz_tpu_torch/ops/screen.py; the first kernel computes the
+// per-(model subtile, object) chi^2 lower bounds and the seed.
 //
 // Layout shared by the three kernels: objects come in blocks of kTB = 32
 // consecutive (sorted) rows; models in subtiles of `sm` consecutive
 // (sorted) models, S = ceil(M / sm) of them, the last one ragged.
 // bounds is (S, B): bounds[s, b] <= every chi^2 of object b in subtile s.
-// Passes A and B read the model rows (F, M) at a row stride `ld`, a
-// multiple of 4 floats (the wrapper pads a copy when M is not), and take
-// `sm` a multiple of 4, so every staged piece starts on 16 bytes.
+// The kernels read the model rows (F, M) at a row stride `ld`, a
+// multiple of 4 floats (the wrapper pads a copy when M is not); passes A
+// and B take `sm`, the seed stage its home tile `tm`, a multiple of 4, so
+// every staged piece starts on 16 bytes.
 //
 // ---------------------------------------------------------------------
-// screen_seed
+// screen_bound_seed
 //   Replaces: frankenz_tpu/ops/fused.py:1249 `_make_seed_kernel`
-//             (pallas_call at ops/fused.py:1455).
-//   Computes: per object, min{chi2 >= c0} over the `width` models from
-//             start[block] (the block's home tile), times (1 + 1e-6):
-//             a real chi^2 >= c0, so an upper bound of pass A's `above`.
-//   Bound on the H100: the pairs' F divides; it reads one tile per block.
-//   Design: one warp per object block, a lane per object; the models are
-//   read from device memory at one address per warp (a broadcast).
-//
+//             (pallas_call at ops/fused.py:1455), and with it the glue
+//             that feeds it, XLA in JAX: `_screen_prep`'s subtile bounds
+//             and anchor seed (ops/fused.py:1153-1203) and the home tiles
+//             (ops/fused.py:1449-1450).  The locality sort and the
+//             subtile boxes (F x M reductions) stay torch.
+//   Computes, per 32-object block of the sorted rows, from the boxes
+//   blo, bhi, memax (F, S):
+//     bounds[s, b] = (t_0 + ... + t_{F-1}) * defl, t_k = gap^2 / v, gap =
+//             max(blo - d, d - bhi) clamped at 0, v = de^2 (+ memax^2): a
+//             lower bound of every chi^2 of object b in subtile s;
+//     bmin[s, blk] = the least bound over the block's rows (+inf on the
+//             ragged block's dead rows; NaN if any is NaN, as torch.amin);
+//     start[blk] = (the first argmin over s of bmin, NaN first, as
+//             torch.argmin) / (tm / sm) * tm: the block's home tile;
+//     seed[b] = min(the least chi^2 >= c0a over the A anchor models a *
+//             astride, times ainf; the least chi^2 >= c0 over the tm
+//             models from start[blk], times hinf): a real chi^2 >= c0
+//             inflated, so an upper bound of pass A's final `above`.
+//   Each output is the glue's torch composition bit for bit
+//   (`screen_bound_seed_plain`): every sum, product and quotient is an
+//   explicitly rounded intrinsic, and the constants come from the host as
+//   the float32 values torch multiplies and compares by.
+//   Bound on the H100: the pairs' F divides (A + tm = 768 pairs a row at
+//   config 4) and writing the (S, B) bounds once (51.4 MB at config 4).
+//   Design: one CTA of 8 warps per object block, lane = row.
+//   1. The boxes are staged 128 subtiles at a time in shared memory, as
+//      one float4 (blo, bhi, memax^2) a (subtile, filter), their range
+//      checked as they land.  The warps split the subtiles: a warp writes
+//      bounds[s, block] as one 128-byte row, takes the warp minimum for
+//      bmin and keeps the first argmin of its subtiles; the eight fold in
+//      subtile order.  Where the rows and boxes lie in the divide's fast
+//      range (no NaN or infinity can arise), the terms take fmaxf and
+//      div.rn's fast path; else each term takes the IEEE chain with
+//      torch's NaN rules.
+//   2. As soon as start is known, one thread issues the home tile's first
+//      two chunks of up to 256 models (2F rows each) into a two-slot ring
+//      by TMA (`ring_issue`); meanwhile the warps split the anchors, staged
+//      in shared memory before phase 1, then the home tile's chunks as
+//      they land.  Four pairs a lane in flight (`chi2_group`); the F = 5
+//      instantiation on div.rn's fast path where the operands allow it,
+//      else the IEEE chain.
+//   3. Each warp keeps its lanes' two minima; warp 0 folds the eight.  A
+//      min does not depend on order, so the seed is the same under any
+//      split of the models.
+
 // Passes A and B share one pipeline (`Pipe`, csrc/chi2_pipe.cuh, with the
 // K1 pair of csrc/chi2_fullmask.cu: a CTA of W warps per object block,
 // model chunks of C = 16 W models; pass A W = 8, pass B W = 16):
@@ -140,16 +179,15 @@
 
 namespace {
 
-using fzchi2::chi2_pair;
 using fzchi2::pair_weights;
 using fzchi2::WeightSpec;
 using namespace fzpipe;
 
-constexpr int kAWarps = 4;   // seed: object blocks (warps) per CTA
-
 // The shared pipeline (csrc/chi2_pipe.cuh): pass A stages chunks of 16 W
 // models (16 per warp: four groups of kG), pass B chunks of up to 16 W
-// (`b_chunk`).
+// (`b_chunk`); the seed stage takes its chunks by its own rule
+// (`s_chunk`).
+using PipeS = Pipe<8>;   // seed stage: 256 threads
 using PipeA = Pipe<8>;   // pass A: 256 threads, 128-model chunks
 using PipeB = Pipe<16>;  // pass B: 512 threads, chunks of <= 256 models
 
@@ -161,6 +199,124 @@ static_assert(kBRows * PipeB::kWarps == kTB, "pass B: whole rows a warp");
 // Max that keeps a NaN from either side, as jnp.maximum does.
 __device__ __forceinline__ float nanmax(float a, float b) {
   return (a != a || a > b) ? a : b;
+}
+
+// Min that keeps a NaN from either side, as torch.minimum and torch.amin.
+__device__ __forceinline__ float nanmin(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+
+// Whether subtile i of least bound v comes before subtile bi of bv in
+// torch.argmin's order: a NaN first, then the lesser value, ties to the
+// lower index; bi < 0 is no subtile yet.
+__device__ __forceinline__ bool argmin_before(float v, int i, float bv,
+                                              int bi) {
+  if (bi < 0) return true;
+  if (v != v) return bv == bv || i < bi;
+  return bv == bv && (v < bv || (v == bv && i < bi));
+}
+
+// The seed stage's float32 constants, as torch rounds the glue's Python
+// scalars.
+struct SeedSpec {
+  float c0;    // a home-tile chi^2 qualifies at >= c0
+  float c0a;   // an anchor chi^2 at >= c0 (1 + 1e-3)
+  float defl;  // the bounds' deflation, 1 - 1e-4
+  float ainf;  // the anchor seed's inflation, 1 + 1e-4
+  float hinf;  // the home seed's inflation, 1 + 1e-6
+};
+
+// Subtiles whose boxes the seed stage stages at a time.
+constexpr int kSPiece = 128;
+
+// The seed stage's arrays, for chunks of `chunk` models.
+struct SSmem {
+  uint64_t* full;   // [kStages] home-chunk arrival mbarriers
+  float* ring;      // [kStages][2][F][chunk] home tile chunks: m, then me
+  float* anc;       // [2][F][chunk] anchors: m, then me
+  float4* bx;       // [kSPiece][F] boxes (blo, bhi, memax^2, 0)
+  float* sd;        // [F][kTB] object rows, lane = row
+  float* sde2;      // [F][kTB]
+  float* wa;        // [kWarps][kTB] per-warp anchor minima
+  float* wh;        // [kWarps][kTB] per-warp home-tile minima
+  float* wv;        // [kWarps] per-warp least bmin
+  int* wi;          // [kWarps] its subtile (-1: none)
+};
+
+__host__ __device__ inline size_t s_smem(unsigned char* base, int F,
+                                         int chunk, SSmem& s) {
+  using P = PipeS;
+  SCarve c{base, 0};
+  s.full = c.take<uint64_t>(kStages);
+  s.ring = c.take<float>((size_t)kStages * 2 * F * chunk);
+  s.anc = c.take<float>((size_t)2 * F * chunk);
+  s.bx = c.take<float4>((size_t)kSPiece * F);
+  s.sd = c.take<float>(F * kTB);
+  s.sde2 = c.take<float>(F * kTB);
+  s.wa = c.take<float>(P::kWarps * kTB);
+  s.wh = c.take<float>(P::kWarps * kTB);
+  s.wv = c.take<float>(P::kWarps);
+  s.wi = c.take<int>(P::kWarps);
+  return c.off;
+}
+
+// The seed stage's chunk: the largest of 256, 128, 64, 32 models (whole
+// groups of kG for each warp) whose arrays fit half the per-block shared
+// memory at F filters, so two CTAs share an SM; else 32.
+__host__ __device__ inline int s_chunk(int F) {
+  SSmem s;
+  int chunk = 256;
+  while (chunk > 32 && s_smem(nullptr, F, chunk, s) > 232448 / 2)
+    chunk /= 2;
+  return chunk;
+}
+
+// One subtile's bound for the lane's row from its staged boxes (`box`:
+// F entries of (blo, bhi, memax^2, 0)): the filters' terms gap^2 / v
+// added in filter order from the first, deflated.  `fast`, warp-uniform,
+// says every lane's row and the boxes lie in the divide's fast range
+// (|d|, |blo|, |bhi|, memax <= 2^29, de^2 in [2^-60, 2^58]: no NaN or
+// infinity, every divisor in [2^-60, 2^59], every dividend at most
+// 2^60); the quotients then take div.rn's fast path, and fmaxf the
+// NaN-keeping max and clamp, where every dividend is 0 (the fast path
+// gives +0 over a positive normal divisor) or at least 2^-64 in every
+// lane.  Else every term takes the IEEE chain with torch's NaN rules.
+template <int FC>
+__device__ __forceinline__ float subtile_bound(const float* sd,
+                                               const float* sde2, int lane,
+                                               const float4* box, int Frt,
+                                               bool ign, bool fast,
+                                               float defl) {
+  const int F = FC > 0 ? FC : Frt;
+  float acc = 0.0f;
+  if (fast) {
+    bool ok = true;
+#pragma unroll
+    for (int k = 0; k < (FC > 0 ? FC : F); ++k) {
+      const float4 b = box[k];
+      const float dk = sd[k * kTB + lane];
+      const float g = fmaxf(fmaxf(__fsub_rn(b.x, dk), __fsub_rn(dk, b.y)),
+                            0.0f);
+      const float a = __fmul_rn(g, g);
+      const float v = ign ? sde2[k * kTB + lane]
+                          : __fadd_rn(sde2[k * kTB + lane], b.z);
+      ok = ok && (a == 0.0f || a >= 0x1p-64f);
+      const float t = fzchi2::div_fast(a, v);
+      acc = k == 0 ? t : __fadd_rn(acc, t);
+    }
+    if (__all_sync(kFull, ok)) return __fmul_rn(acc, defl);
+  }
+  for (int k = 0; k < F; ++k) {
+    const float4 b = box[k];
+    const float dk = sd[k * kTB + lane];
+    float g = nanmax(__fsub_rn(b.x, dk), __fsub_rn(dk, b.y));
+    g = g < 0.0f ? 0.0f : g;  // clamp_min: a NaN stays
+    const float v = ign ? sde2[k * kTB + lane]
+                        : __fadd_rn(sde2[k * kTB + lane], b.z);
+    const float t = __fdiv_rn(__fmul_rn(g, g), v);
+    acc = k == 0 ? t : __fadd_rn(acc, t);
+  }
+  return __fmul_rn(acc, defl);
 }
 
 // Pass A's arrays.
@@ -300,33 +456,164 @@ __device__ __forceinline__ int compact(unsigned mask, int val,
 
 // ---- kernels -----------------------------------------------------------
 
-__global__ void screen_seed_kernel(const float* __restrict__ d,
-                                   const float* __restrict__ de,
-                                   const float* __restrict__ mT,
-                                   const float* __restrict__ meT,
-                                   const int* __restrict__ start,
-                                   float* __restrict__ seed, int B, int M,
-                                   int F, int width, float c0,
-                                   int ignore_model_err) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int blk = blockIdx.x * kAWarps + warp;
+// FC > 0: the filter count FC compiled in (F == FC); 0: F at run time.
+template <int FC>
+__global__ void __launch_bounds__(PipeS::kThreads)
+    screen_bound_seed_kernel(
+        const float* __restrict__ d, const float* __restrict__ de,
+        const float* __restrict__ mT, const float* __restrict__ meT,
+        const float* __restrict__ blo, const float* __restrict__ bhi,
+        const float* __restrict__ memax, float* __restrict__ bounds,
+        float* __restrict__ bmin, int* __restrict__ start,
+        float* __restrict__ seed, int B, int M, int ld, int Frt, int S,
+        int sm, int tm, int A, int astride, int chunk, SeedSpec sp,
+        int ignore_model_err) {
+  using P = PipeS;
+  const int F = FC > 0 ? FC : Frt;
+  extern __shared__ __align__(16) unsigned char smem_s[];
+  SSmem sh;
+  s_smem(smem_s, F, chunk, sh);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int blk = blockIdx.x, nb = gridDim.x;
   const int b = blk * kTB + lane;
   const bool live = b < B;
-  float* sd = smem + warp * 2 * F * kTB;
-  float* sde2 = sd + F * kTB;
-  load_rows(d, de, sd, sde2, b, live, F, lane);
-  __syncwarp();
-  if (!live) return;
-  const int m0 = start[blk];
-  const int n = min(width, M - m0);
-  float hi = INFINITY;
-  for (int j = 0; j < n; ++j) {
-    const float chi2 = chi2_pair(sd + lane, sde2 + lane, kTB, mT + m0 + j,
-                                 meT + m0 + j, M, F, ignore_model_err != 0);
-    if (chi2 >= c0) hi = fminf(hi, chi2);
+  const bool ign = ignore_model_err != 0;
+  const int wm = chunk / P::kWarps;  // a warp's models of a chunk
+
+  // Anchors [a0, a0 + chunk) (models a * astride) into sh.anc: every
+  // thread takes part.
+  auto gather = [&](int a0) {
+    const int na = imin(chunk, A - a0);
+    for (int i = t; i < 2 * F * na; i += P::kThreads) {
+      const int r = i / na, j = i - r * na;
+      const float* row =
+          r < F ? mT + (size_t)r * ld : meT + (size_t)(r - F) * ld;
+      sh.anc[r * chunk + j] = row[(size_t)(a0 + j) * astride];
+    }
+  };
+  if (warp == 0) load_rows(d, de, sh.sd, sh.sde2, b, live, F, lane);
+  if (t == 0) ring_init(sh.full);
+  gather(0);
+  __syncthreads();
+
+  // 1. Bounds, bmin and this warp's first argmin, subtile by subtile,
+  // the boxes staged kSPiece subtiles at a time (every thread takes part
+  // and checks their range).
+  const bool row_fast = rows_fast_ok(sh.sd, sh.sde2, lane, F);
+  const bool rows_fast = __all_sync(kFull, row_fast);
+  float bv = 0.0f;
+  int bi = -1;
+  for (int s0 = 0; s0 < S; s0 += kSPiece) {
+    const int np = imin(kSPiece, S - s0);
+    if (s0 > 0) __syncthreads();  // every warp is done with the last piece
+    bool in_range = true;
+    for (int i = t; i < F * np; i += P::kThreads) {
+      const int k = i / np, j = i - k * np;
+      const size_t g = (size_t)k * S + s0 + j;
+      const float lo = blo[g], hi = bhi[g], me = memax[g];
+      sh.bx[j * F + k] = make_float4(lo, hi, __fmul_rn(me, me), 0.0f);
+      in_range = in_range && fabsf(lo) <= 0x1p29f && fabsf(hi) <= 0x1p29f &&
+                 fabsf(me) <= 0x1p29f;
+    }
+    const bool fast = __syncthreads_and(in_range) && rows_fast;
+#pragma unroll 1
+    for (int s = s0 + warp; s < s0 + np; s += P::kWarps) {
+      const float bnd = subtile_bound<FC>(sh.sd, sh.sde2, lane,
+                                          sh.bx + (s - s0) * F, F, ign,
+                                          fast, sp.defl);
+      if (live) bounds[(size_t)s * B + b] = bnd;
+      float m = live ? bnd : INFINITY;
+#pragma unroll
+      for (int o = 16; o; o >>= 1)
+        m = nanmin(m, __shfl_xor_sync(kFull, m, o));
+      if (lane == 0) bmin[(size_t)s * nb + blk] = m;
+      if (argmin_before(m, s, bv, bi)) {
+        bv = m;
+        bi = s;
+      }
+    }
   }
-  seed[b] = __fmul_rn(hi, 1.000001f);
+  if (lane == 0) {
+    sh.wv[warp] = bv;
+    sh.wi[warp] = bi;
+  }
+  __syncthreads();
+  // The warps' argmins in subtile order: the block's home tile (every
+  // thread folds the same entries).
+  int si = -1;
+  for (int w = 0; w < P::kWarps; ++w)
+    if (sh.wi[w] >= 0 && argmin_before(sh.wv[w], sh.wi[w], bv, si)) {
+      bv = sh.wv[w];
+      si = sh.wi[w];
+    }
+  const int m0 = si / (tm / sm) * tm;
+  const int n = imin(tm, M - m0);
+  const int nch = (n + chunk - 1) / chunk;
+  auto feed = [&](int q) {  // home chunk q into ring slot q % kStages
+    ring_issue(mT, meT, sh.ring + (size_t)(q % kStages) * 2 * F * chunk,
+               sh.full + q % kStages, F, ld, chunk, m0 + q * chunk,
+               imin(chunk, n - q * chunk));
+  };
+  if (t == 0) {
+    start[blk] = m0;
+    for (int q = 0; q < kStages && q < nch; ++q) feed(q);
+  }
+
+  // 2. Pairs: this warp's share of `len` staged models ([F][chunk] tiles
+  // m, me), the least chi^2 >= thr of the lane's row into mn.
+  auto scan = [&](const float* m, const float* me, int len, float thr,
+                  float& mn) {
+    const int j0 = warp * wm, j1 = imin(len, j0 + wm);
+    // Every lane votes on the models, whatever its row.
+    bool fast = false;
+    if constexpr (FC > 0)
+      fast = models_fast_ok(m, me, chunk, F, j0, j1 > j0 ? j1 - j0 : 0,
+                            lane) && row_fast;
+    for (int j = j0; j < j1; j += kG) {
+      float chi[kG];
+      bool ok = fast;
+      if constexpr (FC > 0)
+        chi2_group_fast<FC>(sh.sd, sh.sde2, lane, m + j, me + j, chunk, ign,
+                            chi, ok);
+      if (!__all_sync(kFull, ok))
+        chi2_group<FC>(sh.sd, sh.sde2, lane, m + j, me + j, chunk, F, ign,
+                       chi);
+#pragma unroll
+      for (int g = 0; g < kG; ++g)
+        if (j + g < j1 && chi[g] >= thr) mn = fminf(mn, chi[g]);
+    }
+  };
+  float amin = INFINITY, hmin = INFINITY;
+  for (int a0 = 0; a0 < A; a0 += chunk) {
+    if (a0 > 0) {
+      __syncthreads();  // every warp is done with the previous anchors
+      gather(a0);
+      __syncthreads();
+    }
+    scan(sh.anc, sh.anc + F * chunk, imin(chunk, A - a0), sp.c0a, amin);
+  }
+  for (int q = 0; q < nch; ++q) {
+    const int slot = q % kStages;
+    ring_wait(sh.full + slot, (q / kStages) & 1u);
+    const float* hm = sh.ring + (size_t)slot * 2 * F * chunk;
+    scan(hm, hm + F * chunk, imin(chunk, n - q * chunk), sp.c0, hmin);
+    if (q + kStages < nch) {
+      __syncthreads();  // every warp is done with the slot
+      if (t == 0) feed(q + kStages);
+    }
+  }
+
+  // 3. The warps' minima, then the two seeds' min (torch.minimum).
+  sh.wa[warp * kTB + lane] = amin;
+  sh.wh[warp * kTB + lane] = hmin;
+  __syncthreads();
+  if (warp == 0 && live) {
+    for (int w = 1; w < P::kWarps; ++w) {
+      amin = fminf(amin, sh.wa[w * kTB + lane]);
+      hmin = fminf(hmin, sh.wh[w * kTB + lane]);
+    }
+    seed[b] = nanmin(__fmul_rn(amin, sp.ainf), __fmul_rn(hmin, sp.hinf));
+  }
 }
 
 __global__ void __launch_bounds__(PipeA::kThreads)
@@ -677,8 +964,9 @@ int fz_screen_tb() { return kTB; }
 
 // Shared-memory bytes per CTA (the wrappers check them against the
 // card's per-block limit before launching).
-int fz_screen_seed_smem(int F) {
-  return (int)sizeof(float) * kAWarps * 2 * F * kTB;
+int fz_screen_bound_seed_smem(int F) {
+  SSmem s;
+  return (int)s_smem(nullptr, F, s_chunk(F), s);
 }
 
 int fz_chi2_brackets_screened_smem(int F) {
@@ -691,17 +979,32 @@ int fz_chi2_stack_screened_smem(int F, int Ngrid) {
   return (int)b_smem(0, F, tot_width(Ngrid), b_chunk(F, Ngrid), s);
 }
 
-int fz_screen_seed(const float* d, const float* de, const float* mT,
-                   const float* meT, const int* start, float* seed, int B,
-                   int M, int F, int width, float c0, int ignore_model_err,
-                   void* stream) {
-  const int smem = fz_screen_seed_smem(F);
+// The seed stage's F = 5 instantiation (config 4): the filters unrolled,
+// the chains on their fast paths.
+constexpr int kSeedFC = 5;
+
+int fz_screen_bound_seed(const float* d, const float* de, const float* mT,
+                         const float* meT, const float* blo, const float* bhi,
+                         const float* memax, float* bounds, float* bmin,
+                         int* start, float* seed, int B, int M, int ld, int F,
+                         int S, int sm, int tm, int A, int astride, float c0,
+                         float c0a, float defl, float ainf, float hinf,
+                         int ignore_model_err, void* stream) {
+  if (!rows_ready(mT, meT, ld) || sm < 1 || tm < 1 || tm % sm != 0 ||
+      tm % 4 != 0 || S != (M + sm - 1) / sm || A < 1 || astride < 1 ||
+      (long long)(A - 1) * astride >= M)
+    return (int)cudaErrorInvalidValue;
+  const int smem = fz_screen_bound_seed_smem(F);
+  const bool fc = F == kSeedFC;
+  auto kernel = fc ? screen_bound_seed_kernel<kSeedFC>
+                   : screen_bound_seed_kernel<0>;
   cudaError_t err = cudaFuncSetAttribute(
-      screen_seed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((row_blocks(B) + kAWarps - 1) / kAWarps);
-  screen_seed_kernel<<<grid, 32 * kAWarps, smem, (cudaStream_t)stream>>>(
-      d, de, mT, meT, start, seed, B, M, F, width, c0, ignore_model_err);
+  const SeedSpec sp{c0, c0a, defl, ainf, hinf};
+  kernel<<<row_blocks(B), PipeS::kThreads, smem, (cudaStream_t)stream>>>(
+      d, de, mT, meT, blo, bhi, memax, bounds, bmin, start, seed, B, M, ld, F,
+      S, sm, tm, A, astride, s_chunk(F), sp, ignore_model_err);
   return (int)cudaGetLastError();
 }
 

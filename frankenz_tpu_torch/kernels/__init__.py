@@ -2,8 +2,8 @@
 wrappers, plain PyTorch versions and launch counters.
 
 ``fullmask``: the full-mask chi^2 pair (`chi2_brackets`, `chi2_stack`);
-``screened``: the screened full-mask trio (`screen_seed`,
-`chi2_brackets_screened`, `chi2_stack_screened`);
+``screened``: the screened full-mask trio (`screen_bound_seed`, the seed
+stage, `chi2_brackets_screened`, `chi2_stack_screened`);
 ``general``: the lnl kernels of every other configuration (`lnl_reduce`,
 `lnl_reduce_split`, `lnl_stack`, `lnl_stack_band`, `lnl_reduce_topk`,
 `lnl_topk`, `lnl_cut_stack`, `lnl_onepass`), in fixed and free scale, and
@@ -53,8 +53,8 @@ from .screened import (  # noqa: F401
     chi2_brackets_screened_plain,
     chi2_stack_screened,
     chi2_stack_screened_plain,
-    screen_seed,
-    screen_seed_plain,
+    screen_bound_seed,
+    screen_bound_seed_plain,
 )
 from .som import som_train, som_train_plain  # noqa: F401
 

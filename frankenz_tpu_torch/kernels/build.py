@@ -171,13 +171,14 @@ def _bind(lib):
     # constants, flags, stream) and the expf probe.
     lib.fz_screen_tb.argtypes = []
     lib.fz_screen_tb.restype = I
-    for name, nargs in (("fz_screen_seed_smem", 1),
+    for name, nargs in (("fz_screen_bound_seed_smem", 1),
                         ("fz_chi2_brackets_screened_smem", 1),
                         ("fz_chi2_stack_screened_smem", 2)):
         getattr(lib, name).argtypes = [I] * nargs
         getattr(lib, name).restype = I
-    lib.fz_screen_seed.argtypes = [P] * 6 + [I] * 4 + [F, I, P]
-    lib.fz_screen_seed.restype = I
+    lib.fz_screen_bound_seed.argtypes = [P] * 11 + [I] * 9 + [F] * 5 + [I,
+                                                                        P]
+    lib.fz_screen_bound_seed.restype = I
     lib.fz_chi2_brackets_screened.argtypes = [P] * 8 + [I] * 6 + [F, I, P]
     lib.fz_chi2_brackets_screened.restype = I
     lib.fz_chi2_stack_screened.argtypes = ([P] * 14 + [I] * 7 + [F, I, F]

@@ -1,16 +1,19 @@
 """Wrappers and plain versions of the screened full-mask kernels (K2).
 
-`screen_seed`, `chi2_brackets_screened` (pass A) and
-`chi2_stack_screened` (pass B) replace the Pallas kernels
-`_make_seed_kernel` (frankenz_tpu/ops/fused.py:1249),
-`_make_chi2max_screened_kernel` (:1272) and
+`screen_bound_seed` (the seed stage), `chi2_brackets_screened` (pass A)
+and `chi2_stack_screened` (pass B) replace the Pallas kernels
+`_make_seed_kernel` (frankenz_tpu/ops/fused.py:1249) with the glue that
+feeds it (`_screen_prep`'s subtile bounds and anchor seed, the home
+tiles), `_make_chi2max_screened_kernel` (:1272) and
 `_make_chi2stack_screened_kernel` (:1308); the CUDA sources, with the
 design notes and the two skip proofs, are in ``csrc/chi2_screened.cu``,
-and the glue that sorts, bounds and cuts is ``ops/screen.py``.  Passes A
-and B compact each object block's admitted subtiles first, then stream
-them in chunks of models (pass A 128 to 8 warps, pass B up to 256 to 16)
-through a two-slot shared-memory ring filled by TMA bulk copies, a lane
-per object row; pass B's stack dot walks each row's kept models only.
+and the glue that sorts, boxes and cuts is ``ops/screen.py``.  The seed
+stage runs one CTA per object block: its bounds, block minima and home
+tile, then the anchors' and the home tile's pairs.  Passes A and B
+compact each object block's admitted subtiles first, then stream them in
+chunks of models (pass A 128 to 8 warps, pass B up to 256 to 16) through
+a two-slot shared-memory ring filled by TMA bulk copies, a lane per
+object row; pass B's stack dot walks each row's kept models only.
 
 Every input is float32 (int32 for the index tables), contiguous, and on
 one device; objects and models are already in the glue's sorted order:
@@ -19,8 +22,9 @@ one device; objects and models are already in the glue's sorted order:
   consecutive rows (`TB` on the card, the kernels' block);
 * ``mT``, ``meT``: (F, M) model photometry and errors, pre-transposed;
   models come in subtiles of ``sm``, S = ceil(M / sm), the last ragged;
+* ``blo``, ``bhi``, ``memax``: (F, S) each subtile's photometric box and
+  largest model error (the seed stage);
 * ``bounds``: (S, B) lower bounds of each subtile's chi^2 per object;
-* ``start``: (nb,) int32 first model of each block's home tile (seed);
 * ``visit``: (nb, S) int32, each block's subtiles in visit order (pass B);
 * ``cut_uf``, ``cut_dot``, ``cut_abs``: (B,) chi^2 cuts, ``ph``: (B,)
   int32 visit positions (pass B; ``ph`` / ``cut_abs`` only with
@@ -28,16 +32,19 @@ one device; objects and models are already in the glue's sorted order:
 
 On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises: there is no fallback.  Each
-wrapper counts its launches in ``<wrapper>.launches``.  Passes A and B
-stage model chunks with 16-byte bulk copies (TMA): on the card they take
-`sm` a multiple of 4, and when M is not a multiple of 4 the wrapper
-hands the kernel zero-padded (F, ceil4(M)) copies of ``mT`` and ``meT``
-(`_bulk_rows`; the plain versions never see them).
+wrapper counts its launches in ``<wrapper>.launches``.  The kernels
+stage model chunks with 16-byte bulk copies (TMA): on the card passes A
+and B take `sm`, the seed stage `tm`, a multiple of 4, and when M is not
+a multiple of 4 the wrapper hands the kernel zero-padded (F, ceil4(M))
+copies of ``mT`` and ``meT`` (`_bulk_rows`; the plain versions never see
+them).
 
-The plain versions run the kernels' gates, block grouping and visit order,
+The seed stage's plain version is the glue's torch composition itself,
+and the kernel computes each of its outputs bit for bit.  The other
+plain versions run the kernels' gates, block grouping and visit order,
 vectorised across blocks (pass B: one step per visit position, each
 block's subtile gathered), and the kernels' per-pair arithmetic order, so
-on the card chi^2, the brackets and the seed agree bit for bit.  Their
+on the card chi^2 and the brackets agree bit for bit.  Their
 subtile sums and stack products are torch reductions and matmuls, whose
 order differs from the kernels'.  A skipped subtile is one whose
 partials are not added, as in the kernels: so the plain screened call
@@ -55,13 +62,16 @@ from . import build as _build
 from .fullmask import _bulk_rows, _check, _check_pair_inputs, _weights_plain
 from .general import _check_rc, _load_checked, _stream
 
-__all__ = ["screen_seed", "screen_seed_plain", "chi2_brackets_screened",
-           "chi2_brackets_screened_plain", "chi2_stack_screened",
-           "chi2_stack_screened_plain", "expf_probe", "TB",
-           "reset_launch_counts", "launch_counts"]
+__all__ = ["screen_bound_seed", "screen_bound_seed_plain",
+           "subtile_bounds_plain", "anchor_seed_plain",
+           "chi2_brackets_screened", "chi2_brackets_screened_plain",
+           "chi2_stack_screened", "chi2_stack_screened_plain", "expf_probe",
+           "TB", "N_ANCHOR", "reset_launch_counts", "launch_counts"]
 
 # Objects per object block of the kernels (csrc/chi2_screened.cu kTB).
 TB = 32
+# Anchor models of the seed, spread evenly through the sorted order.
+N_ANCHOR = 256
 
 
 def nblocks(B, tb):
@@ -114,11 +124,54 @@ def _gather_models(mT, meT, idx):
     return mT[:, safe], meT[:, safe]
 
 
-def screen_seed_plain(d, de, mT, meT, start, *, width, c0, tb=TB,
-                      ignore_model_err=False):
-    """Plain version of `screen_seed`: per object, min{chi2 >= c0} over
-    the `width` models from start[block] (clipped at M), times
-    (1 + 1e-6); (B,)."""
+def subtile_bounds_plain(d, de, blo, bhi, memax, ignore_model_err):
+    """(S, B) lower bounds of every chi^2 of each object in each model
+    subtile: the distance to the subtile's box (blo, bhi) over its largest
+    variance, filter by filter, deflated by 1e-4 (`_screen_prep`,
+    ops/fused.py:1153-1168)."""
+    bound = None
+    for k in range(blo.shape[0]):
+        dk = d[None, :, k]                                       # (1, B)
+        gap = torch.clamp_min(torch.maximum(blo[k][:, None] - dk,
+                                            dk - bhi[k][:, None]), 0.0)
+        v = de[None, :, k] * de[None, :, k]
+        if not ignore_model_err:
+            v = v + memax[k][:, None] * memax[k][:, None]
+        t = gap * gap / v
+        bound = t if bound is None else bound + t
+    if bound is None:
+        return torch.zeros((blo.shape[1], d.shape[0]), dtype=d.dtype,
+                           device=d.device)
+    return bound * (1.0 - 1e-4)
+
+
+def anchor_seed_plain(d, de, mT, meT, c0, ignore_model_err,
+                      n_anchor=N_ANCHOR):
+    """(B,) the least chi^2 >= c0 (1 + 1e-3) over min(n_anchor, M) anchor
+    models spread evenly through the (sorted) models, inflated by 1e-4;
+    +inf where none qualifies (`anchor_min`, ops/fused.py:1182-1203)."""
+    M = mT.shape[1]
+    A = min(int(n_anchor), int(M))
+    if A == 0:
+        return torch.full_like(d[:, 0], torch.inf)
+    aidx = torch.arange(A, device=d.device) * (M // A)
+    am, ame = mT[:, aidx], meT[:, aidx]
+    chi2a = None
+    for k in range(d.shape[1]):
+        va = de[:, k:k + 1] * de[:, k:k + 1]
+        if not ignore_model_err:
+            va = va + ame[k][None, :] * ame[k][None, :]
+        r = d[:, k:k + 1] - am[k][None, :]
+        t = r * r / va
+        chi2a = t if chi2a is None else chi2a + t
+    qual = chi2a >= c0 * (1.0 + 1e-3)
+    return torch.where(qual, chi2a, torch.inf).amin(dim=1) * (1.0 + 1e-4)
+
+
+def _home_seed_plain(d, de, mT, meT, start, *, width, c0, tb,
+                     ignore_model_err):
+    """Per object, min{chi2 >= c0} over the `width` models from
+    start[block] (clipped at M), times (1 + 1e-6); (B,)."""
     B = d.shape[0]
     M = mT.shape[1]
     idx = (start.long()[:, None]
@@ -129,6 +182,27 @@ def screen_seed_plain(d, de, mT, meT, start, *, width, c0, tb=TB,
     keep = (idx < M)[:, None, :] & (chi2 >= c0)
     hi = torch.where(keep, chi2, torch.inf).amin(dim=2).reshape(-1)[:B]
     return hi * (1.0 + 1e-6)
+
+
+def screen_bound_seed_plain(d, de, mT, meT, blo, bhi, memax, *, sm, tm, c0,
+                            tb=TB, ignore_model_err=False,
+                            n_anchor=N_ANCHOR):
+    """Plain version of `screen_bound_seed`: (bounds (S, B), bmin (S, nb),
+    start (nb,) int32, seed (B,)), the glue's torch composition."""
+    B = d.shape[0]
+    bounds = subtile_bounds_plain(d, de, blo, bhi, memax, ignore_model_err)
+    S = bounds.shape[0]
+    nb = nblocks(B, tb)
+    bmin = torch.nn.functional.pad(bounds, (0, nb * tb - B),
+                                   value=torch.inf)
+    bmin = bmin.reshape(S, nb, tb).amin(dim=2)                    # (S, nb)
+    start = ((torch.argmin(bmin, dim=0) // (int(tm) // int(sm)))
+             * int(tm)).to(torch.int32).contiguous()
+    home = _home_seed_plain(d, de, mT, meT, start, width=tm, c0=c0, tb=tb,
+                            ignore_model_err=ignore_model_err)
+    anchor = anchor_seed_plain(d, de, mT, meT, c0, ignore_model_err,
+                               n_anchor)
+    return bounds, bmin, start, torch.minimum(anchor, home)
 
 
 def chi2_brackets_screened_plain(d, de, mT, meT, bounds, seed, *, c0, sm,
@@ -241,30 +315,59 @@ def _lib(name, *sizes):
     return lib
 
 
-def screen_seed(d, de, mT, meT, start, *, width, c0, tb=TB,
-                ignore_model_err=False):
-    """Seed refinement: per object, min{chi2 >= c0} over the `width`
-    models of its block's home tile (from start[block]), times (1 +
-    1e-6); +inf where no chi^2 there reaches c0.  (B,) float32."""
+def screen_bound_seed(d, de, mT, meT, blo, bhi, memax, *, sm, tm, c0,
+                      tb=TB, ignore_model_err=False, n_anchor=N_ANCHOR):
+    """The screened route's seed stage on sorted objects and models, from
+    the subtile boxes: the (S, B) chi^2 lower bounds, each object block's
+    least bound per subtile bmin (S, nb), its home tile's first model
+    start (nb,) int32 (the tm models around its first least-bound
+    subtile) and the seed (B,) float32: the least of the anchor seed
+    (chi^2 >= c0 (1 + 1e-3) over min(n_anchor, M) anchors, times 1 +
+    1e-4) and the home-tile seed (chi^2 >= c0 over the home tile, times 1
+    + 1e-6), +inf where neither finds one.  `tm` is a multiple of `sm`."""
     B, F, M = _check_pair_inputs(d, de, mT, meT)
-    _check_blocks(tb, 1, M, d.device)
-    _check_index("start", start, (nblocks(B, tb),), d.device)
-    if int(width) < 1:
-        raise ValueError(f"width={width} must be positive")
+    S = _check_blocks(tb, sm, M, d.device)
+    for name, t in (("blo", blo), ("bhi", bhi), ("memax", memax)):
+        _check(name, t, (F, S), d.device)
+    sm, tm = int(sm), int(tm)
+    if tm < 1 or tm % sm:
+        raise ValueError(f"tm={tm} must be a positive multiple of sm={sm}")
+    if M == 0:
+        raise ValueError("no models to bound")
+    if int(n_anchor) < 1:
+        raise ValueError(f"n_anchor={n_anchor} must be positive")
     if d.device.type == "cpu":
-        return screen_seed_plain(d, de, mT, meT, start, width=width, c0=c0,
-                                 tb=tb, ignore_model_err=ignore_model_err)
-    seed = torch.empty(B, dtype=torch.float32, device=d.device)
-    if B == 0 or M == 0:
-        return seed.fill_(torch.inf)
-    lib = _lib("screen_seed", F)
-    with torch.cuda.device(d.device):
-        _check_rc("screen_seed", lib.fz_screen_seed(
+        return screen_bound_seed_plain(
+            d, de, mT, meT, blo, bhi, memax, sm=sm, tm=tm, c0=c0, tb=tb,
+            ignore_model_err=ignore_model_err, n_anchor=n_anchor)
+    if tm % 4:
+        raise ValueError(f"the seed stage takes home tiles of a multiple of "
+                         f"4 models on the card, got tm={tm}")
+    nb = nblocks(B, tb)
+    dev = d.device
+    bounds = torch.empty((S, B), dtype=torch.float32, device=dev)
+    bmin = torch.empty((S, nb), dtype=torch.float32, device=dev)
+    start = torch.empty(nb, dtype=torch.int32, device=dev)
+    seed = torch.empty(B, dtype=torch.float32, device=dev)
+    if B == 0:
+        return bounds, bmin, start, seed
+    A = min(int(n_anchor), M)
+    lib = _lib("screen_bound_seed", F)
+    mT, meT, ld = _bulk_rows(mT, meT)
+    # The float32 constants torch multiplies and compares by.
+    f32 = np.float32
+    consts = (f32(c0), f32(c0 * (1.0 + 1e-3)), f32(1.0 - 1e-4),
+              f32(1.0 + 1e-4), f32(1.0 + 1e-6))
+    with torch.cuda.device(dev):
+        _check_rc("screen_bound_seed", lib.fz_screen_bound_seed(
             d.data_ptr(), de.data_ptr(), mT.data_ptr(), meT.data_ptr(),
-            start.data_ptr(), seed.data_ptr(), B, M, F, int(width),
-            float(c0), int(bool(ignore_model_err)), _stream(d.device)))
-    screen_seed.launches += 1
-    return seed
+            blo.data_ptr(), bhi.data_ptr(), memax.data_ptr(),
+            bounds.data_ptr(), bmin.data_ptr(), start.data_ptr(),
+            seed.data_ptr(), B, M, ld, F, S, sm, tm, A, M // A,
+            *(float(x) for x in consts), int(bool(ignore_model_err)),
+            _stream(dev)))
+    screen_bound_seed.launches += 1
+    return bounds, bmin, start, seed
 
 
 def chi2_brackets_screened(d, de, mT, meT, bounds, seed, *, c0, sm, tb=TB,
@@ -369,11 +472,11 @@ def expf_probe(x):
     return y
 
 
-screen_seed.launches = 0
+screen_bound_seed.launches = 0
 chi2_brackets_screened.launches = 0
 chi2_stack_screened.launches = 0
 
-_WRAPPERS = (screen_seed, chi2_brackets_screened, chi2_stack_screened)
+_WRAPPERS = (screen_bound_seed, chi2_brackets_screened, chi2_stack_screened)
 
 
 def reset_launch_counts():

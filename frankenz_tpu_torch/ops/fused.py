@@ -9,8 +9,9 @@ serve every configuration of it:
   both thresholds None), the default there as in JAX: the screened trio
   of `frankenz_tpu/ops/fused.py:1400`
   (`_fused_call_fullmask_dimprior_screened`), glued in `ops.screen`:
-  objects and models sorted by a photometric key, `screen_seed`,
-  `chi2_brackets_screened` and `chi2_stack_screened` skipping the model
+  objects and models sorted by a photometric key, `screen_bound_seed`
+  (the subtile bounds and the seed), `chi2_brackets_screened` and
+  `chi2_stack_screened` skipping the model
   subtiles that a chi^2 lower bound proves inert, bit-equal to the same
   kernels with no skip.
 

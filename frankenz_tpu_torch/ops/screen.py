@@ -2,8 +2,10 @@
 The screened full-mask route: the glue of
 `frankenz_tpu.ops.fused._fused_call_fullmask_dimprior_screened`
 (frankenz_tpu/ops/fused.py:1400-1680) around the three screened kernels
-(`kernels.screened`: `screen_seed`, `chi2_brackets_screened`,
-`chi2_stack_screened`).  Plain torch, as it was XLA in JAX.
+(`kernels.screened`: `screen_bound_seed`, `chi2_brackets_screened`,
+`chi2_stack_screened`).  Plain torch, as it was XLA in JAX, but for the
+subtile bounds, the home tiles and the anchor seed, which the seed
+stage's kernel computes with the home-tile seed.
 
 Both passes of the full-mask pair mostly compute nothing: pass A needs
 only the chi^2 values bracketing c0 = F - 2, pass B's stack only pairs
@@ -41,12 +43,13 @@ from scipy.special import gammaln as _sp_gammaln
 from ..kernels import fullmask as _fm
 from ..kernels import screened as _sk
 
-__all__ = ["interleave2", "chi2_upper_root", "screen_prep", "Sorted",
-           "sort_and_bound", "Gates", "stack_gates", "run_fractions",
-           "screened", "lmap_and_shift", "LN_W_UNDERFLOW", "N_ANCHOR"]
+__all__ = ["interleave2", "chi2_upper_root", "locality_sort",
+           "subtile_boxes", "screen_prep", "Sorted", "sort_and_bound",
+           "Gates", "stack_gates", "run_fractions", "screened",
+           "lmap_and_shift", "LN_W_UNDERFLOW", "N_ANCHOR"]
 
 _LOG_2 = 0.6931471805599453
-N_ANCHOR = 256
+N_ANCHOR = _sk.N_ANCHOR
 # ln w at or below which every pass-B weight is exactly 0.0 in float32.
 # float32 exp(x) is 0 once x < ln(2^-150) = -103.972 when rounded
 # correctly; -104.2 (JAX's constant, ops/fused.py:1504-1506) keeps 0.23
@@ -119,21 +122,10 @@ def chi2_upper_root(a1, K, c0):
     return c * (1.0 + 1e-5) + 1e-3
 
 
-def screen_prep(d, de, mT, meT, sm, c0, ignore_model_err,
-                n_anchor=N_ANCHOR):
-    """Locality sort, subtile boxes, chi^2 lower bounds and anchor seeds
-    (`_screen_prep`, ops/fused.py:1105-1205), over real models only.
-
-    Returns (operm, mperm, bounds, seed): the object and model
-    permutations (stable argsorts of the Morton keys); `bounds` (S, B),
-    S = ceil(M / sm), a lower bound of every chi^2 of each sorted object
-    in each subtile of sorted models, deflated by 1e-4; `seed` (B,) the
-    least anchor chi^2 >= c0 (1 + 1e-3) over `n_anchor` models spread
-    evenly through the sorted order, inflated by 1e-4 (+inf where none
-    qualifies): an upper bound of pass A's final `above`.
-    """
-    F, M = mT.shape
-    B = d.shape[0]
+def locality_sort(d, mT):
+    """(operm, mperm): stable argsorts of the objects' and the models'
+    Morton keys over the models' two highest-variance filters
+    (`_screen_prep`, ops/fused.py:1125-1148)."""
     var = mT.var(dim=1, correction=0)           # jnp.var: ddof 0
     # The two highest-variance filters, ties to the lower index as
     # jax.lax.top_k (F = 1: the one filter twice).
@@ -148,47 +140,45 @@ def screen_prep(d, de, mT, meT, sm, c0, ignore_model_err,
         qi = (q2 * 32767.0).to(torch.int32)     # truncates, as astype
         return interleave2(qi[:, 0], qi[:, -1])
 
-    mperm = torch.argsort(key_of(mT.T), stable=True)
-    operm = torch.argsort(key_of(d), stable=True)
-    mT, meT = mT[:, mperm], meT[:, mperm]
-    d, de = d[operm], de[operm]
+    return (torch.argsort(key_of(d), stable=True),
+            torch.argsort(key_of(mT.T), stable=True))
 
-    # Subtile boxes over real models: the ragged last subtile's missing
-    # slots take the neutral element of each reduction.
+
+def subtile_boxes(mT, meT, sm):
+    """(blo, bhi, memax), each (F, S), S = ceil(M / sm): the photometric
+    box and the largest model error of each subtile of `sm` consecutive
+    (sorted) models, over real models only: the ragged last subtile's
+    missing slots take the neutral element of each reduction."""
+    F, M = mT.shape
     S = -(-M // sm)
     pad = S * sm - M
     pad_with = lambda x, v: torch.nn.functional.pad(x, (0, pad), value=v)  # noqa: E731
-    blo = pad_with(mT, torch.inf).reshape(F, S, sm).amin(dim=2)   # (F, S)
-    bhi = pad_with(mT, -torch.inf).reshape(F, S, sm).amax(dim=2)
-    memax = pad_with(meT, -torch.inf).reshape(F, S, sm).amax(dim=2)
-    bound = None
-    for k in range(F):
-        dk = d[None, :, k]                                       # (1, B)
-        gap = torch.clamp_min(torch.maximum(blo[k][:, None] - dk,
-                                            dk - bhi[k][:, None]), 0.0)
-        v = de[None, :, k] * de[None, :, k]
-        if not ignore_model_err:
-            v = v + memax[k][:, None] * memax[k][:, None]
-        t = gap * gap / v
-        bound = t if bound is None else bound + t
-    bound = (bound * (1.0 - 1e-4) if bound is not None
-             else torch.zeros((S, B), dtype=d.dtype, device=d.device))
+    return (pad_with(mT, torch.inf).reshape(F, S, sm).amin(dim=2),
+            pad_with(mT, -torch.inf).reshape(F, S, sm).amax(dim=2),
+            pad_with(meT, -torch.inf).reshape(F, S, sm).amax(dim=2))
 
-    A = min(int(n_anchor), int(M))
-    if A == 0:
-        return operm, mperm, bound, torch.full_like(d[:, 0], torch.inf)
-    aidx = torch.arange(A, device=d.device) * (M // A)
-    am, ame = mT[:, aidx], meT[:, aidx]
-    chi2a = None
-    for k in range(F):
-        va = de[:, k:k + 1] * de[:, k:k + 1]
-        if not ignore_model_err:
-            va = va + ame[k][None, :] * ame[k][None, :]
-        r = d[:, k:k + 1] - am[k][None, :]
-        t = r * r / va
-        chi2a = t if chi2a is None else chi2a + t
-    qual = chi2a >= c0 * (1.0 + 1e-3)
-    seed = torch.where(qual, chi2a, torch.inf).amin(dim=1) * (1.0 + 1e-4)
+
+def screen_prep(d, de, mT, meT, sm, c0, ignore_model_err,
+                n_anchor=N_ANCHOR):
+    """Locality sort, subtile boxes, chi^2 lower bounds and anchor seeds
+    (`_screen_prep`, ops/fused.py:1105-1205), over real models only, in
+    plain torch (the seed stage's plain pieces).
+
+    Returns (operm, mperm, bounds, seed): the object and model
+    permutations (stable argsorts of the Morton keys); `bounds` (S, B),
+    S = ceil(M / sm), a lower bound of every chi^2 of each sorted object
+    in each subtile of sorted models, deflated by 1e-4; `seed` (B,) the
+    least anchor chi^2 >= c0 (1 + 1e-3) over `n_anchor` models spread
+    evenly through the sorted order, inflated by 1e-4 (+inf where none
+    qualifies): an upper bound of pass A's final `above`.
+    """
+    operm, mperm = locality_sort(d, mT)
+    mT, meT = mT[:, mperm], meT[:, mperm]
+    d, de = d[operm], de[operm]
+    bound = _sk.subtile_bounds_plain(d, de, *subtile_boxes(mT, meT, sm),
+                                     ignore_model_err)
+    seed = _sk.anchor_seed_plain(d, de, mT, meT, c0, ignore_model_err,
+                                 n_anchor)
     return operm, mperm, bound, seed
 
 
@@ -216,9 +206,10 @@ def _visit_table(bmin, tm_sub, home_first):
 class Sorted:
     """A batch sorted and bounded for the kernels (`sort_and_bound`):
     objects (d, de) and models (mT, meT, rows of G) in key order, the
-    object permutation, bounds (S, B), the anchor seed (B,), each
-    block's least bound bmin (S, nb) and home-tile start (nb,) int32,
-    and the sizes: subtile sm, home tile tm, object block tb."""
+    object permutation, bounds (S, B), the seed (B,) (the anchor and
+    home-tile seeds' min), each block's least bound bmin (S, nb) and
+    home-tile start (nb,) int32, the subtile boxes (blo, bhi, memax), and
+    the sizes: subtile sm, home tile tm, object block tb."""
     d: torch.Tensor
     de: torch.Tensor
     mT: torch.Tensor
@@ -229,28 +220,26 @@ class Sorted:
     seed: torch.Tensor
     bmin: torch.Tensor
     start: torch.Tensor
+    boxes: tuple
     sm: int
     tm: int
     tb: int
 
 
 def sort_and_bound(d, de, mT, meT, G, *, sm, tm, tb, ignore_model_err):
-    """`screen_prep`, the sorted copies and each block's home tile
-    (ops/fused.py:1424-1454).  `tm` is a multiple of `sm`."""
-    F = d.shape[1]
-    B = d.shape[0]
-    operm, mperm, bounds, seed = screen_prep(d, de, mT, meT, sm,
-                                             float(F - 2), ignore_model_err)
-    S = bounds.shape[0]
-    nb = _sk.nblocks(B, tb)
-    bmin = torch.nn.functional.pad(bounds, (0, nb * tb - B),
-                                   value=torch.inf)
-    bmin = bmin.reshape(S, nb, tb).amin(dim=2)                    # (S, nb)
-    start = ((torch.argmin(bmin, dim=0) // (tm // sm)) * tm).to(torch.int32)
-    return Sorted(d[operm].contiguous(), de[operm].contiguous(),
-                  mT[:, mperm].contiguous(), meT[:, mperm].contiguous(),
-                  G[mperm].contiguous(), operm, bounds.contiguous(), seed,
-                  bmin, start.contiguous(), int(sm), int(tm), int(tb))
+    """The locality sort, the sorted copies, the subtile boxes and the
+    seed stage (`kernels.screened.screen_bound_seed`: bounds, block
+    minima, home tiles, seed; ops/fused.py:1424-1469).  `tm` is a
+    multiple of `sm`."""
+    operm, mperm = locality_sort(d, mT)
+    d, de = d[operm].contiguous(), de[operm].contiguous()
+    mT, meT = mT[:, mperm].contiguous(), meT[:, mperm].contiguous()
+    boxes = subtile_boxes(mT, meT, sm)
+    bounds, bmin, start, seed = _sk.screen_bound_seed(
+        d, de, mT, meT, *boxes, sm=sm, tm=tm, c0=float(d.shape[1] - 2),
+        tb=tb, ignore_model_err=ignore_model_err)
+    return Sorted(d, de, mT, meT, G[mperm].contiguous(), operm, bounds,
+                  seed, bmin, start, boxes, int(sm), int(tm), int(tb))
 
 
 @dataclass
@@ -374,10 +363,8 @@ def screened(d, de, mT, meT, G, *, ignore_model_err, wt_thresh, sm, tm,
                 else srt.bounds)
     kw = dict(tb=tb, ignore_model_err=ignore_model_err)
     args = (srt.d, srt.de, srt.mT, srt.meT)
-    seed = torch.minimum(srt.seed, _sk.screen_seed(
-        *args, srt.start, width=tm, c0=c0, **kw))
-    below, above = _sk.chi2_brackets_screened(*args, bounds_k, seed, c0=c0,
-                                              sm=sm, **kw)
+    below, above = _sk.chi2_brackets_screened(*args, bounds_k, srt.seed,
+                                              c0=c0, sm=sm, **kw)
     gates = stack_gates(srt, below, above, wt_thresh=wt_thresh,
                         absorb=absorb, home_first=home_first)
     wthr = (None if wt_thresh is None
@@ -400,4 +387,4 @@ def screened(d, de, mT, meT, G, *, ignore_model_err, wt_thresh, sm, tm,
     out = (pdf[inv], lmap[inv], levid[inv])
     if not with_stats:
         return out
-    return (*out, run_fractions(srt, seed, gates))
+    return (*out, run_fractions(srt, srt.seed, gates))

@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with a CUDA card and
 `PDFDict` grid, chip_smoke.py's generator and its masked data: each band
 missing with probability 0.15) it times `BruteForce.fit_predict` over
 131,072 fully observed objects (the default screened route:
-`screen_seed` + `chi2_brackets_screened` + `chi2_stack_screened`), the
+`screen_bound_seed` + `chi2_brackets_screened` + `chi2_stack_screened`), the
 same two 65,536-object batches through `fused_fit_pdf` on the screened
 route and on the K1 pair (``screen=False``; BruteForce takes no
 `screen`), each batch normalised and read back as `fit_predict` does,

@@ -201,7 +201,8 @@ def test_cpu_general_wrappers_run_plain_versions_without_launching(name):
         assert torch.equal(g, w)
     assert all(n == 0 for n in K.launch_counts().values())
     assert set(K.launch_counts()) == {"chi2_brackets", "chi2_stack",
-                                      "screen_seed", "chi2_brackets_screened",
+                                      "screen_bound_seed",
+                                      "chi2_brackets_screened",
                                       "chi2_stack_screened", *GENERAL,
                                       "lnl_onepass", "scale_sweeps",
                                       "lnl_stack_band",
@@ -425,6 +426,33 @@ def test_kernels_match_plain_on_card(cuda_device, nfilt, B, M, Ngrid):
     lmap, shift = TF.lmap_and_shift(*want, nfilt)
     got = FM.chi2_stack(*t, shift, a1=a1, wthr=1e-3)
     want = FM.chi2_stack_plain(*t, shift, a1=a1, wthr=1e-3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    scale = want[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    torch.testing.assert_close(got[0] / scale, want[0] / scale, rtol=0,
+                               atol=1e-5)
+    assert FM.launch_counts() == {"chi2_brackets": 1, "chi2_stack": 1}
+
+
+@pytest.mark.gpu
+def test_kernels_with_rows_off_the_fast_path_on_card(cuda_device):
+    """The F = 5 instantiations with rows outside the divide's fast range
+    (a zero error in one filter, a datum past 2^29, an error past 2^29)
+    among rows inside it, in blocks that hold both: their warps take the
+    IEEE chains, against the plain versions as above."""
+    t = [x.to(cuda_device) for x in _problem(5, B=70, M=3000, Ngrid=77)]
+    t[1][3, 2] = 0.0
+    t[0][40, 1] = 1e9
+    t[1][65] = 2.0 ** 30
+    FM.reset_launch_counts()
+    got = FM.chi2_brackets(*t[:4], c0=3.0)
+    want = FM.chi2_brackets_plain(*t[:4], c0=3.0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-7, atol=0)
+    lmap, shift = TF.lmap_and_shift(*want, 5)
+    got = FM.chi2_stack(*t, shift, a1=1.5, wthr=1e-3)
+    want = FM.chi2_stack_plain(*t, shift, a1=1.5, wthr=1e-3)
     torch.cuda.synchronize()
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
     scale = want[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
@@ -2409,7 +2437,8 @@ def test_samplers_on_card_match_cpu_and_count_launches(cuda_device):
 # The screened full-mask trio (K2).
 # ---------------------------------------------------------------------
 
-SCREENED = ["screen_seed", "chi2_brackets_screened", "chi2_stack_screened"]
+SCREENED = ["screen_bound_seed", "chi2_brackets_screened",
+            "chi2_stack_screened"]
 
 
 def _screened_problem(F=5, B=70, M=700, Ngrid=77, sm=128, tm=256,
@@ -2441,10 +2470,10 @@ def _screened_calls(srt, plain=False, ignore_model_err=False,
     kw = dict(ignore_model_err=ignore_model_err)
     pick = (lambda fn: getattr(SCK, fn.__name__ + "_plain")) if plain else (
         lambda fn: fn)
-    out = {"screen_seed": (pick(SCK.screen_seed)(
-        *args, srt.start, width=srt.tm, c0=2 * a1, **kw),)}
-    seed = torch.minimum(srt.seed, SCK.screen_seed_plain(
-        *args, srt.start, width=srt.tm, c0=2 * a1, **kw))
+    seed_kw = dict(sm=srt.sm, tm=srt.tm, c0=2 * a1, **kw)
+    out = {"screen_bound_seed": pick(SCK.screen_bound_seed)(
+        *args, *srt.boxes, **seed_kw)}
+    seed = SCK.screen_bound_seed_plain(*args, *srt.boxes, **seed_kw)[3]
     out["chi2_brackets_screened"] = pick(SCK.chi2_brackets_screened)(
         *args, srt.bounds, seed, c0=2 * a1, sm=srt.sm, **kw)
     below, above = SCK.chi2_brackets_screened_plain(
@@ -2480,9 +2509,7 @@ def test_screened_brackets_equal_the_pair_and_seed_bounds_above(
     srt = _screened_problem(nfilt, ignore_model_err=ignore_model_err)
     args = (srt.d, srt.de, srt.mT, srt.meT)
     c0 = nfilt - 2.0
-    seed = torch.minimum(srt.seed, SCK.screen_seed(
-        *args, srt.start, width=srt.tm, c0=c0,
-        ignore_model_err=ignore_model_err))
+    seed = srt.seed
     got = SCK.chi2_brackets_screened(*args, srt.bounds, seed, c0=c0,
                                      sm=srt.sm,
                                      ignore_model_err=ignore_model_err)
@@ -2515,17 +2542,18 @@ def test_screened_wrappers_check_their_inputs(name, bad):
         args[2], err = args[2].T.contiguous().T, ValueError
     elif bad == "index_dtype":
         visit, ph, err = visit.long(), ph.long(), TypeError
-        srt.start = srt.start.long()
     elif bad == "absorb_pair":
         ph, err = None, ValueError
     else:
         kw, err = dict(sm=0), ValueError
-    if name == "screen_seed":
-        if bad in ("absorb_pair", "sm"):
-            err, kw = ValueError, dict(width=0)
-        else:
-            kw = dict(width=srt.tm)
-        call = lambda: SCK.screen_seed(*args, srt.start, c0=3.0, **kw)  # noqa: E731
+    if name == "screen_bound_seed":
+        boxes = list(srt.boxes)
+        if bad == "index_dtype":
+            boxes[1] = boxes[1].double()
+        elif bad == "absorb_pair":
+            kw = dict(sm=srt.sm, tm=srt.sm + 1)  # tm not a multiple of sm
+        call = lambda: SCK.screen_bound_seed(  # noqa: E731
+            *args, *boxes, c0=3.0, **dict(dict(tm=srt.tm), **kw))
     elif name == "chi2_brackets_screened":
         if bad in ("index_dtype", "absorb_pair"):
             f, err = f.double(), TypeError
@@ -2564,16 +2592,26 @@ def test_screened_passes_pad_model_rows_for_bulk_copies():
         SCK._check_blocks(SCK.TB, 6, 701, cuda, bulk=True)
 
 
+def _same_bits(got, want):
+    """NaN in the same places and every other entry equal bit for bit."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
 def _screened_card_check(srt, **kw):
     """The three wrappers on the card against their plain versions on
-    the same inputs: seed and brackets within 1 ulp, s 1e-5 relative,
-    PDFs 1e-5 of each row's largest value."""
+    the same inputs: the seed stage's four outputs bit for bit, brackets
+    within 1 ulp, s 1e-5 relative, PDFs 1e-5 of each row's largest
+    value."""
     K.reset_launch_counts()
     got = _screened_calls(srt, **kw)
     want = _screened_calls(srt, plain=True, **kw)
     torch.cuda.synchronize()
     assert SCK.launch_counts() == {n: 1 for n in SCREENED}
-    _assert_within_ulp(got["screen_seed"][0], want["screen_seed"][0])
+    for g, w in zip(got["screen_bound_seed"], want["screen_bound_seed"]):
+        _same_bits(g, w)
     for g, w in zip(got["chi2_brackets_screened"],
                     want["chi2_brackets_screened"]):
         _assert_within_ulp(g, w)
@@ -2609,6 +2647,52 @@ def test_screened_kernels_match_plain_on_card(cuda_device, F, B, M, Ngrid,
     for wt_thresh, absorb in ((1e-3, True), (None, False)):
         _screened_card_check(srt, ignore_model_err=ignore_model_err,
                              wt_thresh=wt_thresh, absorb=absorb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ignore_model_err", [False, True])
+@pytest.mark.parametrize("F,B,M,sm,tm,edge", [
+    (5, 2048, 100_000, 512, 512, None),
+    (5, 70, 700, 128, 256, "zero_error"),
+    # Ragged M (M % 4 != 0: padded rows), a home tile of 4 chunks, ties.
+    (5, 77, 1003, 128, 1024, "ties"),
+    (1, 45, 99, 128, 128, None),
+    (2, 31, 4099, 512, 1024, "zero_error"),
+    # F = 20: chunks of 128 (two anchor chunks), the run-time instance.
+    (20, 100, 2001, 512, 512, "zero_error"),
+    (8, 33, 130, 4, 8, "ties"),
+])
+def test_screen_bound_seed_matches_plain_on_card(cuda_device, F, B, M, sm,
+                                                 tm, edge, ignore_model_err):
+    """The seed stage's kernel against its plain version bit for bit
+    (bounds, bmin, start, seed): a zero error in one filter of a row
+    (0/0 bounds under ignore_model_err: NaN, which bmin and the home tile
+    follow), a block whose least bound ties on every subtile (the first
+    argmin), a ragged last block."""
+    srt = _screened_problem(F, B=B, M=M, Ngrid=1, sm=sm, tm=tm,
+                            ignore_model_err=ignore_model_err,
+                            device=cuda_device)
+    d, de = srt.d.clone(), srt.de.clone()
+    if edge == "zero_error":
+        de[B - 2, F - 1] = 0.0
+        d[B - 2, F - 1] = srt.mT[F - 1, 0]
+    elif edge == "ties":
+        # Infinite errors: every bound of rows 0-2 is 0, so block 0's least
+        # bound ties on every subtile (the first wins).
+        de[:3] = torch.inf
+    args = (d, de, srt.mT, srt.meT, *srt.boxes)
+    kw = dict(sm=sm, tm=tm, c0=F - 2.0, ignore_model_err=ignore_model_err)
+    K.reset_launch_counts()
+    got = SCK.screen_bound_seed(*args, **kw)
+    want = SCK.screen_bound_seed_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert SCK.launch_counts()["screen_bound_seed"] == 1
+    for g, w in zip(got, want):
+        _same_bits(g, w)
+    if edge == "zero_error" and ignore_model_err:
+        assert bool(torch.isnan(want[0][:, B - 2]).any())
+    if edge == "ties":
+        assert not want[1][:, 0].any() and int(want[2][0]) == 0
 
 
 @pytest.mark.gpu

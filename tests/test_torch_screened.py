@@ -35,7 +35,9 @@ from frankenz_tpu.ops import fused as JF
 from frankenz_tpu.ops.fused import fused_fit_pdf as jax_fused_fit_pdf
 
 from _torch_port import fullmask_problem, run_both, to_numpy
+from frankenz_tpu_torch import kernels as K
 from frankenz_tpu_torch.kernels import fullmask as FM
+from frankenz_tpu_torch.kernels import screened as SCK
 from frankenz_tpu_torch.ops import fused as TF
 from frankenz_tpu_torch.ops import screen as SC
 
@@ -286,3 +288,187 @@ def test_each_bound_is_below_every_chi2_of_its_subtile(case,
     assert bool((bounds <= sub_min).all())
     # ... and not vacuous: most bounds are positive.
     assert float((bounds > 0).float().mean()) > 0.5
+
+
+# ---------------------------------------------------------------------
+# The seed stage (`kernels.screened.screen_bound_seed`): its plain
+# version against JAX's `_screen_prep` and against the earlier glue.
+# ---------------------------------------------------------------------
+
+def _same_bits(got, want, what=""):
+    """NaN in the same places, every other entry equal bit for bit."""
+    got, want = to_numpy(got), to_numpy(want)
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    nan = np.isnan(want) if want.dtype.kind == "f" else np.zeros(
+        want.shape, bool)
+    np.testing.assert_array_equal(np.isnan(got) if got.dtype.kind == "f"
+                                  else nan, nan, err_msg=what)
+    np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                  want[~nan].view(np.int32), err_msg=what)
+
+
+@pytest.mark.parametrize("ignore_model_err", [False, True])
+@pytest.mark.parametrize("nfilt", [2, 5, 20])
+def test_screen_bound_seed_plain_matches_jax(nfilt, ignore_model_err):
+    """Bounds and anchor seed against `_screen_prep` with B = 70 ragged
+    against 32-row blocks and M = 300 against 64-model subtiles: JAX's
+    models are padded to whole subtiles with copies of the last sorted
+    model, so its last subtile's box is the port's (real models only),
+    and its anchors stride over the real models as the port's do."""
+    import jax.numpy as jnp
+
+    B, M, sm, tm = 70, 300, 64, 128
+    d, de, _, m, me, _, G = fullmask_problem(nfilt, B=B, M=M)
+    c0 = nfilt - 2.0
+    srt = SC.sort_and_bound(_t(d), _t(de), _t(m.T), _t(me.T), _t(G), sm=sm,
+                            tm=tm, tb=SCK.TB,
+                            ignore_model_err=ignore_model_err)
+    sa = (srt.d, srt.de, srt.mT, srt.meT)
+    kw = dict(sm=sm, tm=tm, c0=c0, ignore_model_err=ignore_model_err)
+    bounds, bmin, start, seed = SCK.screen_bound_seed_plain(
+        *sa, *srt.boxes, **kw)
+    anchor = SCK.anchor_seed_plain(*sa, c0, ignore_model_err)
+    last = int(SC.locality_sort(_t(d), _t(m.T))[1][-1])
+    npad = -(-M // sm) * sm - M
+    pad = lambda x: np.concatenate([x, np.repeat(x[last:last + 1], npad,  # noqa: E731
+                                                 axis=0)])
+    jd, _, _, _, _, jb, js, _ = JF._screen_prep(
+        *(jnp.asarray(x) for x in (d, de, pad(m).T, pad(me).T, pad(G))), M,
+        sm, SCK.N_ANCHOR, c0, ignore_model_err)
+    np.testing.assert_array_equal(to_numpy(srt.d), np.asarray(jd))
+    assert bounds.shape == (-(-M // sm), B) == np.asarray(jb).shape
+    np.testing.assert_allclose(to_numpy(bounds), np.asarray(jb), rtol=1e-6,
+                               atol=0)
+    np.testing.assert_allclose(to_numpy(anchor), np.asarray(js)[0],
+                               rtol=1e-6, atol=0)
+    # The seed is the anchor seed's min with the home tile's.
+    home = SCK._home_seed_plain(*sa, start, width=tm, c0=c0, tb=SCK.TB,
+                                ignore_model_err=ignore_model_err)
+    _same_bits(seed, torch.minimum(anchor, home))
+    assert bool((seed <= anchor).all())
+    for x, y in ((bounds, srt.bounds), (bmin, srt.bmin), (start, srt.start),
+                 (seed, srt.seed)):
+        _same_bits(x, y)
+
+
+def _earlier_seed_stage(d, de, mT, meT, sm, tm, tb, c0, ignore_model_err):
+    """The glue's seed stage before it became one kernel, on sorted
+    objects and models: `screen_prep`'s bounds and anchor seed,
+    `sort_and_bound`'s bmin and start, the home-tile seed of the one-warp
+    kernel's plain version and their torch.minimum, as written there."""
+    F, M = mT.shape
+    B = d.shape[0]
+    S = -(-M // sm)
+    pad = S * sm - M
+    pad_with = lambda x, v: torch.nn.functional.pad(x, (0, pad), value=v)  # noqa: E731
+    blo = pad_with(mT, torch.inf).reshape(F, S, sm).amin(dim=2)
+    bhi = pad_with(mT, -torch.inf).reshape(F, S, sm).amax(dim=2)
+    memax = pad_with(meT, -torch.inf).reshape(F, S, sm).amax(dim=2)
+    bound = None
+    for k in range(F):
+        dk = d[None, :, k]
+        gap = torch.clamp_min(torch.maximum(blo[k][:, None] - dk,
+                                            dk - bhi[k][:, None]), 0.0)
+        v = de[None, :, k] * de[None, :, k]
+        if not ignore_model_err:
+            v = v + memax[k][:, None] * memax[k][:, None]
+        t = gap * gap / v
+        bound = t if bound is None else bound + t
+    bound = bound * (1.0 - 1e-4)
+    A = min(256, M)
+    aidx = torch.arange(A) * (M // A)
+    am, ame = mT[:, aidx], meT[:, aidx]
+    chi2a = None
+    for k in range(F):
+        va = de[:, k:k + 1] * de[:, k:k + 1]
+        if not ignore_model_err:
+            va = va + ame[k][None, :] * ame[k][None, :]
+        r = d[:, k:k + 1] - am[k][None, :]
+        t = r * r / va
+        chi2a = t if chi2a is None else chi2a + t
+    qual = chi2a >= c0 * (1.0 + 1e-3)
+    anchor = torch.where(qual, chi2a, torch.inf).amin(dim=1) * (1.0 + 1e-4)
+    nb = -(-B // tb)
+    bmin = torch.nn.functional.pad(bound, (0, nb * tb - B), value=torch.inf)
+    bmin = bmin.reshape(S, nb, tb).amin(dim=2)
+    start = ((torch.argmin(bmin, dim=0) // (tm // sm)) * tm).to(torch.int32)
+    idx = start.long()[:, None] + torch.arange(tm)[None, :]
+    safe = idx.clamp_max(M - 1)
+    mg, meg = mT[:, safe], meT[:, safe]
+    rows = lambda x, fill: torch.cat(  # noqa: E731
+        [x, x.new_full((nb * tb - B, F), fill)]).reshape(nb, tb, F)
+    d3, de3 = rows(d, 0.0), rows(de, 1.0)
+    de2 = de3 * de3
+    chi2 = torch.zeros((nb, tb, tm))
+    for k in range(F):
+        var = de2[..., k:k + 1]
+        if not ignore_model_err:
+            var = var + meg[k][:, None, :] * meg[k][:, None, :]
+        r = d3[..., k:k + 1] - mg[k][:, None, :]
+        chi2 = chi2 + (r * r) / var
+    keep = (idx < M)[:, None, :] & (chi2 >= c0)
+    hi = torch.where(keep, chi2, torch.inf).amin(dim=2).reshape(-1)[:B]
+    return bound, bmin, start, torch.minimum(anchor, hi * (1.0 + 1e-6))
+
+
+@pytest.mark.parametrize("ignore_model_err", [False, True])
+@pytest.mark.parametrize("case", ["f1", "f2", "f5_ragged", "f5_edges",
+                                  "f20", "locality"])
+def test_seed_stage_equals_the_earlier_glue(case, ignore_model_err):
+    """`sort_and_bound` (the seed stage's plain version on CPU tensors)
+    gives the earlier glue's bounds, bmin, start and seed bit for bit;
+    "f5_edges" holds a zero error (0/0 bounds under ignore_model_err:
+    NaN), infinite errors (every bound 0: block 0's least bounds tie) and
+    an all-clamped row."""
+    F, B, M, sm, tm = {"f1": (1, 45, 99, 32, 64),
+                       "f2": (2, 31, 700, 128, 256),
+                       "f5_ragged": (5, 77, 1003, 128, 512),
+                       "f5_edges": (5, 70, 700, 64, 128),
+                       "f20": (20, 40, 500, 64, 128),
+                       "locality": (5, 64, 4096, 256, 512)}[case]
+    if case == "locality":
+        d, de, _, m, me, _, G = locality_problem()
+    else:
+        d, de, _, m, me, _, G = fullmask_problem(F, B=B, M=M)
+    if case == "f5_edges":
+        d, de = d.copy(), de.copy()
+        de[3, 2], d[3, 2] = 0.0, m[0, 2]
+        de[0:2] = np.inf
+    srt = SC.sort_and_bound(_t(d), _t(de), _t(m.T), _t(me.T), _t(G), sm=sm,
+                            tm=tm, tb=SCK.TB,
+                            ignore_model_err=ignore_model_err)
+    want = _earlier_seed_stage(srt.d, srt.de, srt.mT, srt.meT, sm, tm,
+                               SCK.TB, F - 2.0, ignore_model_err)
+    for got, w, name in zip((srt.bounds, srt.bmin, srt.start, srt.seed),
+                            want, ("bounds", "bmin", "start", "seed")):
+        _same_bits(got, w, name)
+    if case == "f5_edges" and ignore_model_err:
+        assert bool(torch.isnan(srt.bounds).any())
+
+
+def test_screen_bound_seed_checks_inputs_and_launches_nothing_on_cpu():
+    d, de, _, m, me, _, G = fullmask_problem(5, B=40, M=300)
+    srt = SC.sort_and_bound(_t(d), _t(de), _t(m.T), _t(me.T), _t(G), sm=64,
+                            tm=128, tb=SCK.TB, ignore_model_err=False)
+    sa = (srt.d, srt.de, srt.mT, srt.meT)
+    kw = dict(sm=64, tm=128, c0=3.0)
+    K.reset_launch_counts()
+    got = SCK.screen_bound_seed(*sa, *srt.boxes, **kw)
+    want = SCK.screen_bound_seed_plain(*sa, *srt.boxes, **kw)
+    for g, w in zip(got, want):
+        _same_bits(g, w)
+    assert got[2].dtype == torch.int32 and got[1].shape == (5, 2)
+    assert all(n == 0 for n in K.launch_counts().values())
+    blo, bhi, memax = srt.boxes
+    for bad, err in (
+            (dict(args=(*sa, blo[:, :-1], bhi, memax)), ValueError),
+            (dict(args=(*sa, blo, bhi.double(), memax)), TypeError),
+            (dict(args=(*sa, blo, bhi, memax.T)), ValueError),
+            (dict(kw=dict(kw, tm=96)), ValueError),
+            (dict(kw=dict(kw, sm=0)), ValueError),
+            (dict(kw=dict(kw, n_anchor=0)), ValueError),
+            (dict(args=(sa[0], sa[1], sa[2][:, :0], sa[3][:, :0],
+                        blo[:, :0], bhi[:, :0], memax[:, :0])), ValueError)):
+        with pytest.raises(err):
+            SCK.screen_bound_seed(*bad.get("args", (*sa, *srt.boxes)),
+                                  **bad.get("kw", kw))
