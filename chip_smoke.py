@@ -194,7 +194,24 @@ port, numpy and scipy, and:
    printed statistic, the rows each device's own inputs move; `fit_summarize` against `pdfs_summarize`
    of the PDFs; the tie case (64 models x 4 copies, zero errors: the
    lowest index first);
-12. prints one JSON line of kernel results (fixed-scale entry points by
+12. checkpoint / resume, tracing and plotting on phases 4, 8, 9 and 11's
+   data (checkpoints in ``build/chip_smoke_ckpt``, removed after; the
+   save and restore seconds of each run printed): config 3's SOM run
+   with ``checkpoint_every=10,000`` (10 `som_train_cluster` launches)
+   and its GNG run with ``checkpoint_every=50,000`` (5
+   `gng_train_cluster` launches), each bit for bit phase 8's or 9's one
+   launch, then killed after segment 3 (a stand-in for the kernel module
+   whose wrapper raises) and resumed, bit for bit again with the launches
+   summing to the same; `BruteForce.fit` over 256 objects x 100,000
+   models in batches of 128, `NearestNeighbors.fit` at config 2 over its
+   10,000 objects in batches of 4,096 and phase 8's SOM
+   ``fit(nodes_only=True)``, each killed after one batch and resumed, bit
+   for bit one uninterrupted call; `utils.tracing.profile_device_busy`
+   around one warm 131,072-object full-mask `fit_predict` (busy ms a
+   call, busy share) and `device_memory()`; the four PDF diagnostics of
+   `plotting` (``plot=False``) on phase 4's first 32,768 PDFs on the card
+   against the same calls on CPU tensors (rtol 1e-10, atol 1e-12);
+13. prints one JSON line of kernel results (fixed-scale entry points by
    their wrapper's name, the screened trio with its run fractions,
    free-scale ones with the suffix ``_fs``; `lnl_reduce`,
    `lnl_stack_band`, `lnl_stack_fs` and `scale_sweeps` with their table
@@ -312,6 +329,13 @@ NITER_H, THIN_H = 200, 5
 # CPU, objects of fit_predict held against the CPU.
 N2_MOCK, N2_TRAIN, N2_TEST, N2_GRID = 113_000, 100_000, 10_000, 701
 N2_K, N2_KNN, N2_SYNTH, N2_CHECK = 25, 20, 4_096, 512
+# Phase 12: the SOM's and the GNG's segments (config 3's runs in 10 and 5
+# launches), BruteForce.fit's and NearestNeighbors.fit's batches, the PDF
+# rows and Monte-Carlo draws of the plotting check and its tolerance (the
+# CPU tests', tests/test_torch_plotting.py: float64 roundoff).
+SEG3, SEG_G, BATCH_BF, BATCH_KNN = 10_000, 50_000, 128, 4_096
+N_PLOT, NMC_PLOT = 32_768, 20
+TOL_PLOT_RTOL, TOL_PLOT_ATOL = 1e-10, 1e-12
 # The card's peaks for the bounds (H100 SXM datasheet: dense float32
 # outside the tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -1248,8 +1272,9 @@ def check_vs_plain(np, bf, got, sub, fp_kw, what, cdf=False,
 
 def som_phase(torch, np, KS, tens, card):
     """Config 3's SOM half (bench.py:164-215, without the GNG) on the
-    card; returns the `som_train` entry of the kernels line and the
-    model set and fit objects, which phase 9 reuses."""
+    card; returns the `som_train` entries of the kernels line, the model
+    set and fit objects, which phase 9 reuses, and the trained, populated
+    SelfOrganizingMap (phase 12 holds its segmented runs to it)."""
     from frankenz_tpu_torch.kernels import build as kbuild
     from frankenz_tpu_torch.kernels import probe as PRB
     from frankenz_tpu_torch.kernels import som as SK
@@ -1504,13 +1529,14 @@ def som_phase(torch, np, KS, tens, card):
                          probe_barrier_ns=prb["barrier_ns"],
                          probe_dsmem_load_ns=prb["dsmem_load_ns"])
     del cluster_entry["launches_by_route"]
-    return [entry, cluster_entry], (m3, me3, ones3, fit, grid3)
+    return [entry, cluster_entry], (m3, me3, ones3, fit, grid3), som
 
 
 def gng_phase(torch, np, KS, tens, card, m3, me3, ones3, fit, grid3):
     """Config 3's GNG half (bench.py:164-172, :201-209) on the card, over
     phase 8's model set and objects; returns the `gng_train` entry of the
-    kernels line."""
+    kernels line and the trained GrowingNeuralGas (phase 12 holds its
+    segmented runs to it)."""
     from frankenz_tpu_torch.kernels import gng as GG
     from frankenz_tpu_torch.models import GrowingNeuralGas
     from frankenz_tpu_torch.models import networks as TN
@@ -1676,7 +1702,7 @@ def gng_phase(torch, np, KS, tens, card, m3, me3, ones3, fit, grid3):
           f"{', '.join(f'{w:.4f}' for w in walls)}); {BATCH3} rows equal "
           f"fit + predict | card {card}", flush=True)
     torch.cuda.empty_cache()
-    return {"name": "gng_train", "route": "cuda",
+    return gng, {"name": "gng_train", "route": "cuda",
             "source": "frankenz_tpu_torch/csrc/gng_train.cu",
             "replaces": "frankenz_tpu/models/networks.py:2017",
             "launches": launches["gng_train"] + launches[
@@ -2492,8 +2518,9 @@ def neighbor_check(np, what, got, want, ties, cands):
 def knn_phase(torch, np, card):
     """Phase 11: config 2 (bench.py:112-160) at full width on the port:
     the mock catalog, the NearestNeighbors fitter and its calls, each
-    held against the port on the CPU; returns nothing (no kernel of its
-    own: the search, union, posterior and KDE are torch)."""
+    held against the port on the CPU (no kernel of its own: the search,
+    union, posterior and KDE are torch); returns the fitter and its
+    10,000 objects, which phase 12 fits again."""
     from frankenz_tpu_torch.models import NearestNeighbors
     from frankenz_tpu_torch.models import knn as TKNN
     from frankenz_tpu_torch.ops import summarize as TS
@@ -2690,6 +2717,374 @@ def knn_phase(torch, np, card):
           f"across K=3: lowest index first on every row; phase 11 "
           f"{time.perf_counter() - t_phase:.1f} s | card {card}",
           flush=True)
+    return nn, (d, de, dmask)
+
+
+def crash_after(target, name, ncalls):
+    """A stand-in that raises after `ncalls` calls: for a function
+    (`name` None) a wrapper of it; for a module, a copy of its namespace
+    whose `name` is so wrapped.  The kernel wrappers keep their launch
+    counters on their own function objects, so a kernel module itself is
+    never patched."""
+    import types
+
+    orig = target if name is None else getattr(target, name)
+    calls = [0]
+
+    def fn(*a, **k):
+        calls[0] += 1
+        if calls[0] > ncalls:
+            raise RuntimeError("simulated crash")
+        return orig(*a, **k)
+
+    if name is None:
+        return fn
+    proxy = types.SimpleNamespace(**{k: getattr(target, k)
+                                     for k in dir(target)
+                                     if not k.startswith("__")})
+    setattr(proxy, name, fn)
+    return proxy
+
+
+class CheckpointClock:
+    """Times every `utils.checkpoint.save` / `restore` call made inside
+    the block (the fitters look both up on the module at each call)."""
+
+    def __init__(self, CK):
+        self.CK, self.s = CK, {"save": [], "restore": []}
+
+    def _wrap(self, name, orig):
+        def fn(*a, **k):
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            self.s[name].append(time.perf_counter() - t0)
+            return out
+        return fn
+
+    def __enter__(self):
+        self.orig = {k: getattr(self.CK, k) for k in self.s}
+        for k, fn in self.orig.items():
+            setattr(self.CK, k, self._wrap(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.CK, k, fn)
+
+    def line(self):
+        return ", ".join(
+            f"{len(v)} {k}s, {statistics.mean(v):.4f} s each"
+            if v else f"no {k}" for k, v in self.s.items())
+
+
+def killed_and_resumed(run, holder, attr, target, name, ncalls, what):
+    """Run `run(resume=False)` with `holder.attr` replaced by
+    `crash_after(target, name, ncalls)` (the run must raise), put
+    `target` back, then return `run(resume=True)`."""
+    setattr(holder, attr, crash_after(target, name, ncalls))
+    try:
+        run(resume=False)
+    except RuntimeError as exc:
+        check("simulated crash" in str(exc), f"{what}: {exc}")
+    else:
+        fail(f"{what}: the run did not crash")
+    finally:
+        setattr(holder, attr, target)
+    return run(resume=True)
+
+
+def resume_phase(torch, np, KS, card, som3, gng3, data3, nn2, data2, c4):
+    """Phase 12: every fitter's checkpoint / resume on the card, the
+    tracing helpers and the plotting preparation, on phases 4, 8, 9 and
+    11's data.  Checkpoints go to build/chip_smoke_ckpt (removed after)."""
+    import shutil
+
+    from frankenz_tpu_torch import plotting as TP
+    from frankenz_tpu_torch.kernels import gng as GG
+    from frankenz_tpu_torch.kernels import som as SK
+    from frankenz_tpu_torch.models import (BruteForce, GrowingNeuralGas,
+                                           SelfOrganizingMap)
+    from frankenz_tpu_torch.models import bruteforce as TBF
+    from frankenz_tpu_torch.models import knn as TKNN
+    from frankenz_tpu_torch.models import networks as TN
+    from frankenz_tpu_torch.utils import checkpoint as CK
+    from frankenz_tpu_torch.utils import tracing as TT
+
+    t_phase = time.perf_counter()
+    ckdir = HERE / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckdir.mkdir(parents=True)
+    m3, me3, ones3, fit, _ = data3
+    (models, models_err, data, data_err, ones_d, zlabels, zerrs, pdict,
+     grid, pdfs4) = c4
+
+    # SOM: config 3's run in 10 segments, one som_train_cluster launch
+    # each, then killed after segment 3 and resumed: phase 8's nodes.
+    ck = str(ckdir / "som")
+    train_kw = dict(nside=NSIDE3, nproj=2, niter=NITER3, nbatch=NBATCH3,
+                    seed=1, verbose=False, checkpoint_every=SEG3,
+                    checkpoint_file=ck)
+    nseg = NITER3 * NBATCH3 // SEG3
+
+    def som_run(resume):
+        net = SelfOrganizingMap(m3, me3, ones3, device="cuda")
+        net.train_network(resume=resume, **train_kw)
+        torch.cuda.synchronize()
+        return net
+
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    with CheckpointClock(CK) as clk:
+        seg = som_run(False)
+    seg_s = time.perf_counter() - t0
+    l_seg = {k: v for k, v in KS.launch_counts().items() if v}
+    check(l_seg == {"som_train_cluster": nseg},
+          f"segmented SOM training launched {l_seg}, not {nseg} "
+          f"som_train_cluster")
+    check(np.array_equal(seg.nodes, som3.nodes), f"SOM training in {nseg} "
+          f"segments differs from phase 8's one launch")
+    KS.reset_launch_counts()
+    with CheckpointClock(CK) as clk_r:
+        res = killed_and_resumed(som_run, TN, "_som", SK, "som_train", 3,
+                                 "SOM training")
+    l_res = {k: v for k, v in KS.launch_counts().items() if v}
+    check(l_res == {"som_train_cluster": nseg},
+          f"killed + resumed SOM training launched {l_res}: 3 + "
+          f"{nseg - 3} som_train_cluster expected")
+    check(np.array_equal(res.nodes, som3.nodes), "SOM training killed "
+          "after segment 3 and resumed differs from phase 8's one launch")
+    print(f"resume SOM train_network: config 3 ({NITER3 * NBATCH3} steps, "
+          f"checkpoint_every={SEG3}): {nseg} som_train_cluster launches "
+          f"{seg_s:.4f} s (phase 8's one launch: nodes bit-equal), "
+          f"checkpoints: {clk.line()}; killed after segment 3, resumed: "
+          f"launches {l_res}, nodes bit-equal, checkpoints of both runs: "
+          f"{clk_r.line()} | card {card}",
+          flush=True)
+    del seg, res
+
+    # GNG: config 3's 250,000 steps in 5 segments, then killed after
+    # segment 3 and resumed: phase 9's graph.
+    ck = str(ckdir / "gng")
+    gkw = dict(niter=NITER_G, nbatch=NBATCH3, max_nodes=NMAX_G,
+               seed=SEED_G, verbose=False, checkpoint_every=SEG_G,
+               checkpoint_file=ck)
+    nseg = NITER_G * NBATCH3 // SEG_G
+
+    def gng_run(resume):
+        net = GrowingNeuralGas(m3, me3, ones3, device="cuda")
+        net.train_network(resume=resume, **gkw)
+        torch.cuda.synchronize()
+        return net
+
+    def same_graph(a, b):
+        return (np.array_equal(a.nodes, b.nodes)
+                and np.array_equal(a.nodes_err, b.nodes_err)
+                and np.array_equal(a.edge_ages, b.edge_ages)
+                and a.edge_overflow == b.edge_overflow)
+
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    with CheckpointClock(CK) as clk:
+        seg = gng_run(False)
+    seg_s = time.perf_counter() - t0
+    l_seg = {k: v for k, v in KS.launch_counts().items() if v}
+    check(l_seg == {"gng_train_cluster": nseg},
+          f"segmented GNG training launched {l_seg}")
+    check(same_graph(seg, gng3), f"GNG training in {nseg} segments differs "
+          f"from phase 9's one launch")
+    KS.reset_launch_counts()
+    with CheckpointClock(CK) as clk_r:
+        res = killed_and_resumed(gng_run, TN, "_gng", GG, "gng_train", 3,
+                                 "GNG training")
+    l_res = {k: v for k, v in KS.launch_counts().items() if v}
+    check(l_res == {"gng_train_cluster": nseg},
+          f"killed + resumed GNG training launched {l_res}")
+    check(same_graph(res, gng3), "GNG training killed after segment 3 and "
+          "resumed differs from phase 9's one launch")
+    print(f"resume GNG train_network: config 3 ({NITER_G * NBATCH3} steps, "
+          f"checkpoint_every={SEG_G}): {nseg} gng_train_cluster launches "
+          f"{seg_s:.4f} s (phase 9's one launch: nodes, nodes_err, "
+          f"edge_ages bit-equal), checkpoints: {clk.line()}; killed after "
+          f"segment 3, resumed: launches {l_res}, bit-equal, checkpoints of "
+          f"both runs: {clk_r.line()} | card {card}", flush=True)
+    del seg, res
+
+    def fits_equal(a, b, names=("fit_lnprior", "fit_lnlike", "fit_lnprob",
+                                "fit_Ndim", "fit_chi2", "neighbors",
+                                "Nneighbors")):
+        return all(getattr(a, n) is None and getattr(b, n) is None
+                   or np.array_equal(getattr(a, n), getattr(b, n))
+                   for n in names)
+
+    # BruteForce.fit: 256 objects x 100,000 models, batches of 128, killed
+    # after batch 1.
+    ck = str(ckdir / "bf")
+    n_bf = 2 * BATCH_BF
+    bkw = dict(batch_size=BATCH_BF, verbose=False)
+    bf_args = (data[:n_bf], data_err[:n_bf], ones_d[:n_bf])
+    ref = BruteForce(models, models_err, np.ones_like(models),
+                     device="cuda")
+    t0 = time.perf_counter()
+    ref.fit(*bf_args, **bkw)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+
+    def bf_run(resume):
+        bf = BruteForce(models, models_err, np.ones_like(models),
+                        device="cuda")
+        bf.fit(*bf_args, checkpoint_every=1, checkpoint_file=ck,
+               resume=resume, **bkw)
+        return bf
+
+    with CheckpointClock(CK) as clk:
+        res = killed_and_resumed(bf_run, TBF, "_bf_lprob", TBF._bf_lprob,
+                                 None, 1, "BruteForce.fit")
+    check(fits_equal(res, ref, names=("fit_lnprior", "fit_lnlike",
+                                      "fit_lnprob", "fit_Ndim", "fit_chi2"))
+          and res._fit_rows_done == n_bf,
+          "BruteForce.fit killed after batch 1 and resumed differs from one "
+          "uninterrupted call")
+    print(f"resume BruteForce.fit: {n_bf} objects x {NMODEL} models, batch "
+          f"{BATCH_BF}: uninterrupted {ref_s:.4f} s; killed after batch 1, "
+          f"resumed: grids bit-equal, checkpoints of both runs: {clk.line()} "
+          f"| card {card}",
+          flush=True)
+    del ref, res
+
+    # NearestNeighbors.fit: config 2 (K=25, k=20) over its 10,000 objects
+    # in batches of 4,096, killed after batch 1.
+    ck = str(ckdir / "knn")
+    d2, de2, dm2 = data2
+    kkw = dict(k=N2_KNN, batch_size=BATCH_KNN, verbose=False)
+    t0 = time.perf_counter()
+    nn2.fit(d2, de2, dm2, rng=np.random.default_rng(7), **kkw)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    want = {n: getattr(nn2, n).copy() for n in (
+        "fit_lnprior", "fit_lnlike", "fit_lnprob", "fit_Ndim", "fit_chi2",
+        "neighbors", "Nneighbors")}
+
+    def knn_run(resume):
+        nn2.fit(d2, de2, dm2, rng=np.random.default_rng(7),
+                checkpoint_every=1, checkpoint_file=ck, resume=resume,
+                **kkw)
+        return nn2
+
+    with CheckpointClock(CK) as clk:
+        res = killed_and_resumed(knn_run, TKNN, "_search", TKNN._search,
+                                 None, 1, "NearestNeighbors.fit")
+    check(all(np.array_equal(getattr(res, n), v) for n, v in want.items())
+          and res._fit_rows_done == len(d2),
+          "NearestNeighbors.fit killed after batch 1 and resumed differs "
+          "from one uninterrupted call")
+    print(f"resume NearestNeighbors.fit: config 2, {len(d2)} objects, "
+          f"K={N2_K}, k={N2_KNN}, batch {BATCH_KNN}: uninterrupted "
+          f"{ref_s:.4f} s; killed after batch 1, resumed (the skipped "
+          f"batch's jitter drawn): neighbours and grids bit-equal, "
+          f"checkpoints of both runs: {clk.line()} | card {card}", flush=True)
+    del want, res
+
+    # Phase 8's SOM: fit(nodes_only=True) over its 10,000 objects, killed
+    # after one batch.
+    ck = str(ckdir / "som_fit")
+    fkw = dict(nodes_only=True, batch_size=BATCH3, verbose=False)
+    t0 = time.perf_counter()
+    som3.fit(*fit[:3], **fkw)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    want = {n: getattr(som3, n).copy() for n in (
+        "fit_lnprior", "fit_lnlike", "fit_lnprob", "fit_Ndim", "fit_chi2",
+        "neighbors", "Nneighbors")}
+
+    def net_run(resume):
+        som3.fit(*fit[:3], checkpoint_every=1, checkpoint_file=ck,
+                 resume=resume, **fkw)
+        return som3
+
+    with CheckpointClock(CK) as clk:
+        res = killed_and_resumed(net_run, TN, "_node_fit", TN._node_fit,
+                                 None, 1, "SOM fit")
+    check(all(np.array_equal(getattr(res, n), v) for n, v in want.items()),
+          "SOM fit(nodes_only=True) killed after one batch and resumed "
+          "differs from one uninterrupted call")
+    print(f"resume SOM fit(nodes_only=True): config 3, {N3_FIT} objects, "
+          f"batch {BATCH3}: uninterrupted {ref_s:.4f} s; killed after one "
+          f"batch, resumed: grids bit-equal, checkpoints of both runs: "
+          f"{clk.line()} | card {card}",
+          flush=True)
+    del want, res
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    # Tracing: the device busy time of one warm full-mask fit_predict over
+    # 131,072 objects, and the allocator's figures.
+    bf = BruteForce(models, models_err, np.ones_like(models), device="cuda")
+    fp_kw = dict(label_dict=pdict, verbose=False, return_gof=True)
+    bf.fit_predict(data, data_err, ones_d, zlabels, zerrs, **fp_kw)
+    torch.cuda.synchronize()
+    walls = []
+
+    def timed_call():
+        t0 = time.perf_counter()
+        bf.fit_predict(data, data_err, ones_d, zlabels, zerrs, **fp_kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    busy, events = TT.profile_device_busy(timed_call, [()])
+    prof_s = time.perf_counter() - t0
+    mem = TT.device_memory()
+    check(busy is not None and busy > 0 and events,
+          f"profile_device_busy found no device time ({busy})")
+    check(mem.get("bytes_in_use", 0) > 0 and mem.get("peak_bytes_in_use", 0)
+          > 0 and mem.get("bytes_limit", 0) > 0,
+          f"device_memory() reports {mem}")
+    top = sorted(events.items(), key=lambda kv: -kv[1])[:3]
+    print(f"tracing profile_device_busy: full-mask fit_predict over "
+          f"{len(data)} objects (warm): busy {1e3 * busy:.3f} ms a call, "
+          f"wall under the profiler {1e3 * walls[0]:.3f} ms, busy share "
+          f"{busy / walls[0]:.4f}; {len(events)} device event names, "
+          f"heaviest " + ", ".join(f"{k[:40]} {1e3 * v:.3f} ms"
+                                   for k, v in top)
+          + f"; trace + parse {prof_s:.2f} s; device_memory {mem} | card "
+          f"{card}", flush=True)
+    del bf
+
+    # Plotting: the four PDF diagnostics on phase 4's PDFs (the first
+    # N_PLOT rows) on the card, against the same calls on CPU tensors.
+    P = pdfs4[:N_PLOT].astype(np.float64)
+    zhat = grid[np.argmax(P, axis=1)]
+    vals = zhat + np.random.default_rng(12).normal(0.0, 0.05, N_PLOT)
+    errs = np.full(N_PLOT, 0.05)
+    dgrid = np.linspace(-1.0, 1.0, 201)
+    t0 = time.perf_counter()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        Pt = torch.tensor(P, device=dev)
+        outs[dev] = (
+            TP.input_vs_pdf(vals, errs, pdict, Pt, grid, plot=False),
+            TP.input_vs_pdf(vals, errs, pdict, Pt, grid, plot=False,
+                            pdf_wt_thresh=None, wt_thresh=None),
+            TP.input_vs_dpdf(vals, errs, pdict, Pt, grid, zhat, dgrid,
+                             plot=False),
+            TP.cdf_vs_epdf(vals, errs, Pt, grid, Nmc=NMC_PLOT, seed=3,
+                           plot=False),
+            *TP.cdf_vs_ecdf(vals, errs, Pt, grid, Nmc=NMC_PLOT, seed=4,
+                            plot=False))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+    worst = max(float(np.max(np.abs(a - b) / (TOL_PLOT_ATOL
+                                              + TOL_PLOT_RTOL * np.abs(b))))
+                for a, b in zip(outs["cuda"], outs["cpu"]))
+    check(all(np.isfinite(a).all() for a in outs["cuda"]) and worst <= 1.0,
+          f"plotting on the card differs from the CPU ({worst} x tol)")
+    print(f"plotting: input_vs_pdf (two threshold settings), input_vs_dpdf, "
+          f"cdf_vs_epdf, cdf_vs_ecdf (Nmc {NMC_PLOT}) with plot=False on "
+          f"phase 4's first {N_PLOT} PDFs: card {card_s:.4f} s, equal to "
+          f"the CPU's within rtol {TOL_PLOT_RTOL:g} / atol "
+          f"{TOL_PLOT_ATOL:g} (worst {worst:.3g} x tol); phase 12 "
+          f"{time.perf_counter() - t_phase:.1f} s | card {card}", flush=True)
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -3776,10 +4171,10 @@ def main():
     del args8, lm8, lv8, sw8, bs8
 
     # 8. SOM (config 3 without GNG)
-    som_entries, data3 = som_phase(torch, np, KS, tens, card)
+    som_entries, data3, som3 = som_phase(torch, np, KS, tens, card)
 
     # 9. GNG (config 3's other half)
-    gng_entry = gng_phase(torch, np, KS, tens, card, *data3)
+    gng3, gng_entry = gng_phase(torch, np, KS, tens, card, *data3)
 
     # 10. the samplers (config 5)
     pop_entry = sampler_phase(torch, np, KS, tens, card)
@@ -3787,11 +4182,17 @@ def main():
     # 11. config 2: the mock catalog and NearestNeighbors (torch only:
     # no kernel of the table may launch)
     KS.reset_launch_counts()
-    knn_phase(torch, np, card)
+    nn2, data2 = knn_phase(torch, np, card)
     launches11 = {k: v for k, v in KS.launch_counts().items() if v}
     check(not launches11, f"config 2 launched kernels: {launches11}")
 
-    # 12. results
+    # 12. checkpoint / resume, tracing, plotting
+    resume_phase(torch, np, KS, card, som3, gng3, data3, nn2, data2,
+                 (models, models_err, data, data_err, ones_d, zlabels,
+                  zerrs, pdict, grid, pdfs))
+    del som3, gng3, nn2, data2
+
+    # 13. results
     replaces = {"chi2_brackets": "frankenz_tpu/ops/fused.py:918",
                 "chi2_stack": "frankenz_tpu/ops/fused.py:980",
                 "lnl_reduce": "frankenz_tpu/ops/fused.py:599",

@@ -13,7 +13,11 @@ find:
   kernels/  ctypes wrappers of the hand-written CUDA kernels, their plain
             PyTorch versions and launch counters;
   csrc/     the CUDA C++ sources (built with nvcc at first use);
-  utils/    metrics, progress, and state conversion from the JAX package.
+  utils/    checkpoints (npz), metrics, progress, torch.profiler tracing,
+            and state conversion from the JAX package;
+  config    dataclasses of the reference's defaults;
+  plotting  diagnostics (the preparation in torch, matplotlib only to
+            draw).
 
 The package imports torch, numpy and scipy only; it never imports JAX or
 `frankenz_tpu` (the simulator reads the JAX package's filter and SED
@@ -22,12 +26,14 @@ files by path).
 
 __version__ = "0.1.0"
 
+from . import config  # noqa: F401
 from . import ops  # noqa: F401
 from . import models  # noqa: F401
 from . import fitting  # noqa: F401
 from . import samplers  # noqa: F401
 from . import sim  # noqa: F401
 from . import utils  # noqa: F401
+from . import plotting  # noqa: F401
 from .models import (BruteForce, GrowingNeuralGas,  # noqa: F401
                      NearestNeighbors, SelfOrganizingMap)
 from .ops.fused import FusedCdfFallback  # noqa: F401

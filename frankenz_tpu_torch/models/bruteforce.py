@@ -16,9 +16,10 @@ composition, which stores the grids.
 `BruteForce` is a plain class holding the model set on one device; it
 has nothing to train, so it is not an `nn.Module`.
 
-Not ported yet: ``mesh=`` sharding and ``checkpoint_every`` / ``resume``
-(they raise `NotImplementedError`), and the TPU-specific dispatch
-crossovers of the JAX fitter.
+``fit`` checkpoints its saved-fit prefix every ``checkpoint_every``
+batches and resumes from it (`resume_fit_rows`, `utils.checkpoint`).
+Not ported yet: ``mesh=`` sharding (it raises `NotImplementedError`),
+and the TPU-specific dispatch crossovers of the JAX fitter.
 """
 
 from __future__ import annotations
@@ -30,10 +31,36 @@ from ..ops import fused as _fused
 from ..ops import kde as _kde
 from ..ops import likelihood as _like
 from ..ops import summarize as _summ
+from ..utils import checkpoint as _ckpt
 from ..utils.metrics import metrics as _metrics
 from ..utils.progress import progress_iter
 
-__all__ = ["BruteForce", "default_batch_size", "default_fused_batch_size"]
+__all__ = ["BruteForce", "default_batch_size", "default_fused_batch_size",
+           "resume_fit_rows"]
+
+
+def resume_fit_rows(obj, resume, checkpoint_file, ndata,
+                    checkpoint_every=None):
+    """Restore a mid-fit checkpoint onto `obj`; returns the rows done.
+
+    Shared by every fitter's batch-checkpointing fit loop.  It also
+    validates the save plan first: `checkpoint_every` without a file
+    fails before the first batch, not at the first save.
+    """
+    _ckpt.validate_plan(checkpoint_every, checkpoint_file)
+    if not resume:
+        return 0
+    if not checkpoint_file:
+        raise ValueError("resume=True requires checkpoint_file")
+    if not _ckpt.exists(checkpoint_file):
+        return 0
+    _ckpt.restore(checkpoint_file, obj)
+    done = int(getattr(obj, "_fit_rows_done", 0) or 0)
+    if obj.NDATA != ndata:
+        raise ValueError(
+            f"checkpoint was taken for NDATA={obj.NDATA}, resuming "
+            f"fit has ndata={ndata}")
+    return done
 
 
 def default_batch_size(nmodel, budget_elems=1 << 26):
@@ -58,6 +85,15 @@ def default_fused_batch_size(ndata, ngrid, budget_elems=1 << 25):
 def _batch_slices(n, batch_size):
     for start in range(0, n, batch_size):
         yield start, min(batch_size, n - start)
+
+
+def _bf_lprob(d, de, dm, models, models_err, models_mask, lprob_func=None,
+              lprob_args=None, lprob_kwargs=None):
+    """One batch's log-posterior grids: `fit`'s per-batch step and the
+    plain route's (the counterpart of `_bf_lprob_jit`)."""
+    func = lprob_func or _like.logprob
+    return func(d, de, dm, models, models_err, models_mask,
+                *(lprob_args or ()), **(lprob_kwargs or {}))
 
 
 class BruteForce:
@@ -113,10 +149,9 @@ class BruteForce:
         return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
 
     def _lprob(self, lprob_func, lprob_args, lprob_kwargs, d, de, dm):
-        func = lprob_func or _like.logprob
-        return func(d, de, dm, self.models, self.models_err,
-                    self.models_mask, *(lprob_args or ()),
-                    **(lprob_kwargs or {}))
+        return _bf_lprob(d, de, dm, self.models, self.models_err,
+                         self.models_mask, lprob_func, lprob_args,
+                         lprob_kwargs)
 
     def _fp_metrics(self, ndata):
         """fit_predict telemetry: phase timer + pair-eval / stack counts."""
@@ -170,30 +205,45 @@ class BruteForce:
         host NumPy arrays (reference `bruteforce.py:66-125`).  With
         `track_scale`, `fit_scale` / `fit_scale_err` start at ones /
         zeros and hold the lprob's scales where it returns them
-        (``lprob_kwargs={"free_scale": True, "return_scale": True}``)."""
-        if checkpoint_every or resume:
-            raise NotImplementedError(
-                "checkpoint_every / resume are not ported yet "
-                "(utils/checkpoint, ROADMAP queue 1)")
+        (``lprob_kwargs={"free_scale": True, "return_scale": True}``).
+
+        With ``checkpoint_every=N`` the saved fits (a consistent prefix)
+        are written to `checkpoint_file` every N batches
+        (`utils.checkpoint`); ``resume=True`` restores an existing
+        checkpoint and continues from the first incomplete batch, giving
+        the uninterrupted results bit for bit.
+        """
         data = np.atleast_2d(np.asarray(data))
         data_err = np.atleast_2d(np.asarray(data_err))
         data_mask = np.atleast_2d(np.asarray(data_mask))
         ndata = data.shape[0]
         if batch_size is None:
             batch_size = default_batch_size(self.NMODEL)
-        self._alloc_fits(ndata, track_scale, fit_dtype)
-        with _metrics.timer("bruteforce.fit", items=ndata * self.NMODEL,
+        done = resume_fit_rows(self, resume, checkpoint_file, ndata,
+                               checkpoint_every)
+        if not done:
+            self._alloc_fits(ndata, track_scale, fit_dtype)
+        self._fit_rows_done = done
+        nb = 0
+        with _metrics.timer("bruteforce.fit",
+                            items=(ndata - done) * self.NMODEL,
                             item_counter="chi2_pair_evals",
                             cuda=self.device.type == "cuda"):
             for i0, n in progress_iter(_batch_slices(ndata, batch_size),
                                        total=ndata, label="Fitting object",
                                        sizes=True, verbose=verbose):
+                if i0 + n <= done:
+                    continue
                 sl = slice(i0, i0 + n)
                 res = self._lprob(lprob_func, lprob_args, lprob_kwargs,
                                   self._tensor(data[sl]),
                                   self._tensor(data_err[sl]),
                                   self._tensor(data_mask[sl]))
                 self._store_fits(sl, res)
+                self._fit_rows_done = i0 + n
+                nb += 1
+                if checkpoint_every and nb % checkpoint_every == 0:
+                    _ckpt.save(checkpoint_file, self)
         return self
 
     def _alloc_fits(self, ndata, track_scale=False, fit_dtype=np.float32):

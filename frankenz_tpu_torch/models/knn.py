@@ -41,8 +41,10 @@ Also here: the pieces the network fitters share, `_gathered_lprob`
 (knn.py:76), `_gof_weights` (:115) and `stack_batches` (the body of
 `NearestNeighbors._stack_batches`, :553).
 
-Not ported yet: ``mesh=`` sharding and ``checkpoint_every`` / ``resume``
-(they raise `NotImplementedError`).
+``fit`` checkpoints its fit prefix every ``checkpoint_every`` batches
+and resumes from it; skipped batches still draw their query jitter, so
+the remaining draws line up.  Not ported yet: ``mesh=`` sharding (it
+raises `NotImplementedError`).
 """
 
 from __future__ import annotations
@@ -54,8 +56,10 @@ from ..ops import kde as _kde
 from ..ops import likelihood as _like
 from ..ops import summarize as _summ
 from ..ops import transforms as _tf
+from ..utils import checkpoint as _ckpt
 from ..utils.metrics import metrics as _metrics
 from ..utils.progress import progress_iter
+from .bruteforce import resume_fit_rows
 
 __all__ = ["NearestNeighbors", "stack_batches"]
 
@@ -528,28 +532,39 @@ class NearestNeighbors:
             checkpoint_every=None, checkpoint_file=None, resume=False):
         """KMCkNN fit: neighbour union + exact posteriors on the union
         (knn.py:190-388).  Stores `neighbors` / `Nneighbors` and the
-        (Ndata, K*k) padded fit grids on the host."""
-        if checkpoint_every or resume:
-            raise NotImplementedError(
-                "checkpoint_every / resume are not ported yet "
-                "(utils/checkpoint, ROADMAP queue 1)")
+        (Ndata, K*k) padded fit grids on the host.
+
+        ``checkpoint_every=N`` saves the fit prefix every N batches;
+        ``resume=True`` (with the same seeded `rng`) continues from the
+        checkpoint bit for bit: skipped batches still draw their query
+        jitter, so the remaining draws line up.
+        """
         del eps, approx  # exact search
         data, data_err, data_mask = self._host_data(data, data_err,
                                                     data_mask)
         rng = rng or self.rng
         ndata = data.shape[0]
         batch_size = min(batch_size, max(256, ndata))
-        self._alloc_fits(ndata, k, track_scale)
-        self._fit_rows_done = 0
+        done = resume_fit_rows(self, resume, checkpoint_file, ndata,
+                               checkpoint_every)
+        if not done:
+            self._alloc_fits(ndata, k, track_scale)
+        self._fit_rows_done = done
         lprob_spec = _like.static_spec(lprob_func, lprob_args, lprob_kwargs)
+        nb = 0
         for i0, n, jq, d, de, dm in self._data_batches(
                 data, data_err, data_mask, batch_size, rng, verbose,
                 "Fitting object"):
+            if i0 + n <= done:
+                continue  # its jitter is drawn: the stream stays aligned
             idx, _, nidx, res = self._fit_batch(
                 jq, d, de, dm, k, lp_norm, float(distance_upper_bound),
                 lprob_spec)
             self._store(i0, n, idx, nidx, res)
             self._fit_rows_done = i0 + n
+            nb += 1
+            if checkpoint_every and nb % checkpoint_every == 0:
+                _ckpt.save(checkpoint_file, self)
         return self
 
     def predict(self, model_labels, model_label_errs, label_dict=None,

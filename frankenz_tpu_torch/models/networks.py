@@ -22,8 +22,11 @@ else as a plain step loop over the port's `logprob` (the counterpart of
 launch of `kernels.gng.gng_train` (K9) or as a step loop, the
 counterpart of `_gng_train_jit`.
 
-Not ported: ``mesh=`` sharding and ``checkpoint_every`` / ``resume``
-(they raise `NotImplementedError`).  The JAX argument ``use_pallas`` is
+Both training runs and `_Network.fit` checkpoint and resume
+(``checkpoint_every`` / ``resume``, `utils.checkpoint`): the training in
+segments, one kernel launch a segment on the kernel routes, bit for bit
+one uninterrupted call.  Not ported: ``mesh=`` sharding (it raises
+`NotImplementedError`).  The JAX argument ``use_pallas`` is
 ``use_kernel`` here, with the same three-way meaning.
 """
 
@@ -40,9 +43,10 @@ from ..kernels import som as _som
 from ..ops import kde as _kde
 from ..ops import likelihood as _like
 from ..ops import summarize as _summ
+from ..utils import checkpoint as _ckpt
 from ..utils.progress import progress_iter, train_note
 from . import knn as _knn
-from .bruteforce import _batch_slices
+from .bruteforce import _batch_slices, resume_fit_rows
 
 __all__ = ["SelfOrganizingMap", "GrowingNeuralGas", "_Network", "learn_linear",
            "learn_geometric", "learn_harmonic", "neighbor_gauss",
@@ -603,43 +607,58 @@ class _Network:
         object, the union of the members of its strongest `max_sel_nodes`
         selected nodes (at most `max_neighbors`, else ValueError),
         evaluated exactly with `lprob_func`, in kNN-style padded grids.
+
+        ``checkpoint_every=N`` saves the fit prefix every N batches
+        (`utils.checkpoint`); ``resume=True`` continues from an existing
+        checkpoint bit for bit.
         """
-        if checkpoint_every or resume:
-            raise NotImplementedError(
-                "checkpoint_every / resume are not ported yet "
-                "(utils/checkpoint, ROADMAP queue 1)")
         (data, _, _), (x_all, xe_all, xm_all) = self._data(data, data_err,
                                                             data_mask)
         ndata = data.shape[0]
+        done = resume_fit_rows(self, resume, checkpoint_file, ndata,
+                               checkpoint_every)
         self.NDATA = ndata
-        self._fit_rows_done = 0
+        self._fit_rows_done = done
         self.nodes_only = nodes_only
         occ = self._occupied()
         nocc = len(occ)
         nodes_occ = self._nodes_tensor()[self._tensor(occ)]
         lpnet_spec = self._lpnet_spec()
+        nb = 0
 
         def batches(label):
             for i0, n in progress_iter(
                     _batch_slices(ndata, batch_size), total=ndata,
                     label=label, verbose=verbose, sizes=True):
+                if i0 + n <= done:
+                    continue
                 yield i0, n, tuple(_pad_rows(t[i0:i0 + n], batch_size)
                                    for t in (x_all, xe_all, xm_all))
+
+        def batch_done(i0, n):
+            nonlocal nb
+            self._fit_rows_done = i0 + n
+            nb += 1
+            if checkpoint_every and nb % checkpoint_every == 0:
+                _ckpt.save(checkpoint_file, self)
 
         def host(t, n, dt=np.float32):
             return t[:n].cpu().numpy().astype(dt)
 
         if nodes_only:
-            self.neighbors = occ.astype(np.int32)
-            self.Nneighbors = np.full(ndata, nocc, np.int32)
-            self.fit_lnprior = np.zeros((ndata, nocc), np.float32)
-            self.fit_lnlike = np.zeros((ndata, nocc), np.float32)
-            self.fit_lnprob = np.full((ndata, nocc), -np.inf, np.float32)
-            self.fit_Ndim = np.zeros((ndata, nocc), np.int32)
-            self.fit_chi2 = np.full((ndata, nocc), np.inf, np.float32)
-            if track_scale:
-                self.fit_scale = np.ones((ndata, nocc), np.float32)
-                self.fit_scale_err = np.zeros((ndata, nocc), np.float32)
+            if not done:
+                self.neighbors = occ.astype(np.int32)
+                self.Nneighbors = np.full(ndata, nocc, np.int32)
+                self.fit_lnprior = np.zeros((ndata, nocc), np.float32)
+                self.fit_lnlike = np.zeros((ndata, nocc), np.float32)
+                self.fit_lnprob = np.full((ndata, nocc), -np.inf,
+                                          np.float32)
+                self.fit_Ndim = np.zeros((ndata, nocc), np.int32)
+                self.fit_chi2 = np.full((ndata, nocc), np.inf, np.float32)
+                if track_scale:
+                    self.fit_scale = np.ones((ndata, nocc), np.float32)
+                    self.fit_scale_err = np.zeros((ndata, nocc),
+                                                  np.float32)
             for i0, n, (x, xe, xm) in batches("Fitting object"):
                 res, sel = _node_fit(x, xe, xm, nodes_occ,
                                      lpnet_spec=lpnet_spec,
@@ -655,7 +674,7 @@ class _Network:
                 if track_scale and len(res) > 5 and res[5] is not None:
                     self.fit_scale[sl] = host(res[5], n)
                     self.fit_scale_err[sl] = host(res[6], n)
-                self._fit_rows_done = i0 + n
+                batch_done(i0, n)
             return self
 
         # --- exact-union path ---
@@ -663,16 +682,18 @@ class _Network:
         members = self._tensor(member_tab[occ].astype(np.int64))
         cap_sel = min(max_sel_nodes, nocc)
         shape = (ndata, max_neighbors)
-        self.neighbors = np.full(shape, -99, np.int32)
-        self.Nneighbors = np.zeros(ndata, np.int32)
-        self.fit_lnprior = np.full(shape, -np.inf, np.float32)
-        self.fit_lnlike = np.full(shape, -np.inf, np.float32)
-        self.fit_lnprob = np.full(shape, -np.inf, np.float32)
-        self.fit_Ndim = np.zeros(shape, np.int32)
-        self.fit_chi2 = np.full(shape, np.inf, np.float32)
-        self.fit_scale = np.ones(shape, np.float32) if track_scale else None
-        self.fit_scale_err = (np.zeros(shape, np.float32) if track_scale
+        if not done:
+            self.neighbors = np.full(shape, -99, np.int32)
+            self.Nneighbors = np.zeros(ndata, np.int32)
+            self.fit_lnprior = np.full(shape, -np.inf, np.float32)
+            self.fit_lnlike = np.full(shape, -np.inf, np.float32)
+            self.fit_lnprob = np.full(shape, -np.inf, np.float32)
+            self.fit_Ndim = np.zeros(shape, np.int32)
+            self.fit_chi2 = np.full(shape, np.inf, np.float32)
+            self.fit_scale = (np.ones(shape, np.float32) if track_scale
                               else None)
+            self.fit_scale_err = (np.zeros(shape, np.float32)
+                                  if track_scale else None)
         lprob_spec = _like.static_spec(lprob_func, lprob_args, lprob_kwargs)
         for i0, n, (x, xe, xm) in batches("Fitting object"):
             idx, nuniq = _gather_union(
@@ -701,7 +722,7 @@ class _Network:
             if track_scale and res[5] is not None:
                 self.fit_scale[sl, :w] = host(res[5][:, :w], n)
                 self.fit_scale_err[sl, :w] = host(res[6][:, :w], n)
-            self._fit_rows_done = i0 + n
+            batch_done(i0, n)
         return self
 
     def predict(self, model_labels, model_label_errs, label_dict=None,
@@ -960,6 +981,35 @@ def _som_step_general(nodes, x, xe, xm, t, positions, nside, *, lprob_spec,
     return nodes + torch.where(keep[:, None], update, 0.0)
 
 
+def _som_train_general(nodes, draws, times, mods, errs, mask, positions,
+                       nside, **kw):
+    """The general route over one segment of the run: a step loop over
+    `_som_step_general` (the counterpart of `_som_train_jit`)."""
+    for idx, t in zip(draws.tolist(), times):
+        nodes = _som_step_general(nodes, mods[idx], errs[idx], mask[idx], t,
+                                  positions, nside, **kw)
+    return nodes
+
+
+def _training_start(checkpoint_every, checkpoint_file, resume, nsteps):
+    """(restored state or None, steps done) of a training run cut into
+    segments (networks.py:1538-1552, :2428-2447): validates the save plan,
+    and with `resume` restores an existing checkpoint of the same run."""
+    _ckpt.validate_plan(checkpoint_every, checkpoint_file)
+    if not resume:
+        return None, 0
+    if not checkpoint_file:
+        raise ValueError("resume=True requires checkpoint_file")
+    if not _ckpt.exists(checkpoint_file):
+        return None, 0
+    st = _ckpt.restore(checkpoint_file)
+    if int(st["nsteps_total"]) != nsteps:
+        raise ValueError("checkpoint was taken for a "
+                         f"{int(st['nsteps_total'])}-step run, "
+                         f"resuming one of {nsteps}")
+    return st, int(st["steps_done"])
+
+
 class SelfOrganizingMap(_Network):
     """Classic SOM trained with log-posterior BMU matching (reference
     networks.py:1490-1867).  Defaults: 50x50 lattice (nside=50, nproj=2),
@@ -994,11 +1044,16 @@ class SelfOrganizingMap(_Network):
         the general route, a step loop over `lprob_func`.
         ``use_kernel=True`` raises ValueError on an ineligible
         configuration; ``use_kernel=False`` takes the general route.
+
+        ``checkpoint_every=S`` runs the training in S-step segments and
+        saves the node table (`nodes`, `steps_done`, `nsteps_total`, the
+        JAX package's keys) to `checkpoint_file` after each; the kernel
+        route launches `som_train` once a segment with ``off`` the
+        segment's first step, so the schedules run as in one launch.
+        ``resume=True`` (the same seed, so the same draws) continues from
+        the saved state.  Either way the nodes equal one uninterrupted
+        call bit for bit.
         """
-        if checkpoint_every or resume:
-            raise NotImplementedError(
-                "checkpoint_every / resume are not ported yet "
-                "(utils/checkpoint, ROADMAP queue 1)")
         if models is None:
             models = self._models_np
             models_err = self._models_err_np
@@ -1044,6 +1099,22 @@ class SelfOrganizingMap(_Network):
         nsteps = niter * nbatch
         t0 = time.time()
         draws = rng.integers(0, nmodel, size=nsteps)
+        st, start = _training_start(checkpoint_every, checkpoint_file,
+                                    resume, nsteps)
+        if st is not None:
+            init = np.asarray(st["nodes"], float)
+        seg = int(checkpoint_every) if checkpoint_every else nsteps
+
+        def segments():
+            for s0 in range(start, nsteps, seg):
+                yield s0, min(s0 + seg, nsteps)
+
+        def saved(nodes, steps_done):
+            if checkpoint_every:
+                _ckpt.save(checkpoint_file, {
+                    "nodes": nodes.cpu().numpy().astype(float),
+                    "steps_done": int(steps_done),
+                    "nsteps_total": int(nsteps)})
 
         lprob_spec = _like.static_spec(lprob_func, lprob_args, lprob_kwargs)
         kw = dict(lprob_spec[2])
@@ -1077,9 +1148,9 @@ class SelfOrganizingMap(_Network):
         if use_kernel:
             xc, iv, xr = (self._tensor(a) for a in som_kernel_draws(
                 models, models_err, models_mask, draws))
-            nodes, _ = _som.som_train(
-                self._tensor(init.astype(np.float32)),
-                self._tensor(pos.astype(np.float32)), xc, iv, xr,
+            positions = self._tensor(pos.astype(np.float32))
+            nodes = self._tensor(init.astype(np.float32))
+            skw = dict(
                 nside=nside, wt_thresh=wt_thresh,
                 dim_prior=bool(kw.get("dim_prior", True)),
                 lr=_som.schedule(_LEARN_NAMES[learn_fn],
@@ -1089,6 +1160,11 @@ class SelfOrganizingMap(_Network):
                                  neighbor_kwargs.get("end", 0.02)),
                 lorentz=neighbor_fn is neighbor_lorentz,
                 nsteps_total=nsteps)
+            for s0, s1 in segments():
+                nodes, _ = _som.som_train(nodes, positions, xc[s0:s1],
+                                          iv[s0:s1], xr[s0:s1], off=s0,
+                                          **skw)
+                saved(nodes, s1)
             self.nodes = nodes.cpu().numpy().astype(float)
             train_note(verbose, "SOM training (kernel)", nsteps, t0)
             return self
@@ -1099,14 +1175,17 @@ class SelfOrganizingMap(_Network):
                             for a in (models, models_err, models_mask))
         positions = self._tensor(pos, f32)
         times = self._tensor(np.linspace(0.0, 1.0, nsteps), f32)
-        learn = (learn_fn, tuple(learn_args), dict(learn_kwargs))
-        neighbor = (neighbor_fn, tuple(neighbor_args), dict(neighbor_kwargs))
-        for s, idx in enumerate(draws.tolist()):
-            nodes = _som_step_general(
-                nodes, mods[idx], errs[idx], mask[idx], times[s], positions,
-                nside, lprob_spec=lprob_spec, learn=learn, neighbor=neighbor,
-                wt_thresh=wt_thresh, cdf_thresh=cdf_thresh,
-                track_scale=bool(track_scale))
+        gkw = dict(lprob_spec=lprob_spec,
+                   learn=(learn_fn, tuple(learn_args), dict(learn_kwargs)),
+                   neighbor=(neighbor_fn, tuple(neighbor_args),
+                             dict(neighbor_kwargs)),
+                   wt_thresh=wt_thresh, cdf_thresh=cdf_thresh,
+                   track_scale=bool(track_scale))
+        for s0, s1 in segments():
+            nodes = _som_train_general(nodes, draws[s0:s1], times[s0:s1],
+                                       mods, errs, mask, positions, nside,
+                                       **gkw)
+            saved(nodes, s1)
         self.nodes = nodes.cpu().numpy().astype(float)
         train_note(verbose, "SOM training", nsteps, t0)
         return self
@@ -1197,6 +1276,12 @@ def _gng_seed_state(graph_init, max_nodes, nfilt, K=32):
             sref0[a, deg[a]] = -age
             deg[a] += 1
     return pos0, err0, alive0, ids0, sref0, c0
+
+
+# A GNG run's carried state under the JAX package's checkpoint keys, with
+# the dtypes the training routes take (networks.py:2440-2446).
+_GNG_STATE = (("pos", np.float32), ("err", np.float32), ("alive", bool),
+              ("ids", np.int32), ("sref", np.int32), ("c", np.int32))
 
 
 def _edges_of_ages(edge_ages):
@@ -1360,11 +1445,17 @@ class GrowingNeuralGas(_Network):
         else the general route, a step loop over `lprob_func`.
         ``use_kernel=True`` raises ValueError on an ineligible
         configuration; ``use_kernel=False`` takes the general route.
+
+        ``checkpoint_every=S`` runs the training in segments of S steps
+        rounded up to whole `nbatch` blocks (the insert / prune block
+        fires on a call's first step) and saves the whole state (`pos`,
+        `err`, `alive`, `ids`, `sref`, `c`, `overflow`, `steps_done`,
+        `nsteps_total`, the JAX package's keys) to `checkpoint_file`
+        after each; the kernel route launches `gng_train` once a
+        segment.  ``resume=True`` (the same seed, so the same draws)
+        continues from the saved state.  Either way the graph equals one
+        uninterrupted call bit for bit.
         """
-        if checkpoint_every or resume:
-            raise NotImplementedError(
-                "checkpoint_every / resume are not ported yet "
-                "(utils/checkpoint, ROADMAP queue 1)")
         if models is None:
             models = self._models_np
             models_err = self._models_err_np
@@ -1403,6 +1494,18 @@ class GrowingNeuralGas(_Network):
             state = (pos0, np.zeros(N, np.float32), alive0, ids0,
                      np.zeros((N, K), np.int32), np.zeros(N, np.int32))
 
+        ov = 0
+        st, start = _training_start(checkpoint_every, checkpoint_file,
+                                    resume, nsteps)
+        if st is not None:
+            state = tuple(np.asarray(st[k], dt) for k, dt in _GNG_STATE)
+            ov = int(st["overflow"])
+        if checkpoint_every:
+            seg = max(int(nbatch), -(-int(checkpoint_every) // int(nbatch))
+                      * int(nbatch))
+        else:
+            seg = nsteps
+
         lprob_spec = _like.static_spec(lprob_func, lprob_args, lprob_kwargs)
         kw = dict(lprob_spec[2])
         kernel_ok = (
@@ -1426,22 +1529,35 @@ class GrowingNeuralGas(_Network):
                       new_err_dec=float(new_err_dec),
                       all_err_dec=float(all_err_dec))
 
-        tens = [self._tensor(a) for a in state]
+        out = tuple(self._tensor(a) for a in state) + (ov,)
         if use_kernel:
             xc, iv, xr = (self._tensor(a) for a in som_kernel_draws(
                 models, models_err, models_mask, draws))
-            out = _gng.gng_train(*tens, 0, xc, iv, xr,
-                                 dim_prior=bool(kw.get("dim_prior", True)),
-                                 **consts)
+
+            def run(state, s0, s1):
+                return _gng.gng_train(
+                    *state, xc[s0:s1], iv[s0:s1], xr[s0:s1],
+                    dim_prior=bool(kw.get("dim_prior", True)), **consts)
             label = "GNG training (kernel)"
         else:
             f32 = torch.float32
-            out = _gng_train_general(
-                *tens, 0, draws, *(self._tensor(a, f32) for a in (
-                    models, models_err, models_mask)),
-                lprob_spec=lprob_spec, track_scale=bool(track_scale),
-                **consts)
+            arrays = tuple(self._tensor(a, f32) for a in (
+                models, models_err, models_mask))
+
+            def run(state, s0, s1):
+                return _gng_train_general(
+                    *state, draws[s0:s1], *arrays, lprob_spec=lprob_spec,
+                    track_scale=bool(track_scale), **consts)
             label = "GNG training"
+        for s0 in range(start, nsteps, seg):
+            s1 = min(s0 + seg, nsteps)
+            out = run(out, s0, s1)
+            if checkpoint_every:
+                _ckpt.save(checkpoint_file, dict(
+                    {k: t.cpu().numpy() for (k, _), t in zip(_GNG_STATE,
+                                                             out)},
+                    overflow=int(out[6]), steps_done=int(s1),
+                    nsteps_total=int(nsteps)))
         self._set_graph(*(o.cpu().numpy() if isinstance(o, torch.Tensor)
                           else o for o in out))
         train_note(verbose, label, nsteps, t0)

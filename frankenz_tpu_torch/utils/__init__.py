@@ -1,5 +1,7 @@
-"""Runtime utilities: metrics, progress, and state conversion."""
+"""Runtime utilities: checkpointing, metrics, progress, tracing, and state
+conversion from the JAX package."""
 
+from .checkpoint import load_state_dict, restore, save, state_dict  # noqa: F401
 from .convert import (  # noqa: F401
     bruteforce_from_arrays,
     from_jax_bruteforce,
@@ -10,3 +12,4 @@ from .convert import (  # noqa: F401
 )
 from .metrics import Metrics, metrics, timed  # noqa: F401
 from .progress import progress_iter, train_note  # noqa: F401
+from .tracing import annotate, device_memory, trace  # noqa: F401

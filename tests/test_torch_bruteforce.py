@@ -125,7 +125,8 @@ def test_unported_options_raise(slice_problem):
     bf = p["torch"]
     with pytest.raises(NotImplementedError, match="mesh"):
         bf.fit_predict(*p["args"], mesh=object(), **p["kw"])
-    with pytest.raises(NotImplementedError, match="resume"):
+    # Checkpoints are ported: resuming without a file fails fast.
+    with pytest.raises(ValueError, match="checkpoint_file"):
         bf.fit(*p["args"][:3], resume=True, verbose=False)
     with pytest.raises(ValueError):
         bf.fit_predict(*p["args"], use_fused=True, save_fits=True,

@@ -340,9 +340,10 @@ def test_use_kernel_true_refuses_an_ineligible_configuration(blob_problem):
                 dict(max_nodes=GG.MAX_NODES + 1)):
         with pytest.raises(ValueError, match="use_kernel"):
             gng.train_network(**kw, **bad)
-    with pytest.raises(NotImplementedError):
+    # Checkpoints are ported: a plan without a file fails fast.
+    with pytest.raises(ValueError, match="checkpoint_file"):
         gng.train_network(niter=1, nbatch=5, checkpoint_every=5,
-                          checkpoint_file="x", verbose=False)
+                          verbose=False)
 
 
 def test_cuda_device_raises_without_a_card(blob_problem):

@@ -364,7 +364,8 @@ def test_unported_options_raise(problem):
     args = _data(problem) + (problem["zlab"], problem["zerr"])
     with pytest.raises(NotImplementedError):
         b.fit_predict(*args, label_grid=np.linspace(0, 3, 11), mesh=object())
-    with pytest.raises(NotImplementedError):
+    # Checkpoints are ported: a plan without a file fails fast.
+    with pytest.raises(ValueError, match="checkpoint_file"):
         b.fit(*_data(problem), checkpoint_every=1)
 
 

@@ -123,9 +123,9 @@ def test_use_kernel_true_refuses_an_ineligible_configuration(blob_problem):
         som.train_network(use_kernel=True, track_scale=True, **BLOB_KW)
     with pytest.raises(ValueError, match="use_kernel"):
         som.train_network(use_kernel=True, wt_thresh=None, **BLOB_KW)
-    with pytest.raises(NotImplementedError):
-        som.train_network(checkpoint_every=5, checkpoint_file="x",
-                          **BLOB_KW)
+    # Checkpoints are ported: a plan without a file fails fast.
+    with pytest.raises(ValueError, match="checkpoint_file"):
+        som.train_network(checkpoint_every=5, **BLOB_KW)
 
 
 def test_lattice_cap_is_the_kernels_own():
@@ -366,8 +366,9 @@ def test_unported_options_raise(trained, catalog):
         port.fit_predict(*catalog, np.zeros(400), np.full(400, 0.05),
                          label_grid=np.linspace(0, 3, 31), mesh=object(),
                          save_fits=False)
-    with pytest.raises(NotImplementedError):
-        port.fit(*catalog, checkpoint_every=1, checkpoint_file="x")
+    # Checkpoints are ported: a plan without a file fails fast.
+    with pytest.raises(ValueError, match="checkpoint_file"):
+        port.fit(*catalog, checkpoint_every=1)
 
 
 def test_schedules_and_kernels_match_jax():
