@@ -211,7 +211,22 @@ port, numpy and scipy, and:
    call, busy share) and `device_memory()`; the four PDF diagnostics of
    `plotting` (``plot=False``) on phase 4's first 32,768 PDFs on the card
    against the same calls on CPU tensors (rtol 1e-10, atol 1e-12);
-13. prints one JSON line of kernel results (fixed-scale entry points by
+13. `parallel/` and every `mesh=` on four shards of `cuda:0`
+   (``make_mesh(devices=[cuda:0] * 4)``): `initialize_distributed` over
+   NCCL with one process and `stacked_nz` through its all-reduce (the
+   group destroyed after); config 4's 131,072 objects through
+   `BruteForce.fit_predict(mesh=)` full (rows 3-5), masked (rows 6-7)
+   and masked without a threshold (row 8), and `fit_summarize(mesh=)`,
+   each against the single-device call (bitwise or the largest
+   difference, at tests/test_parallel.py's tolerances; both walls; the
+   kernels each shard call launched); a 1,001-object catalog whose pad
+   rows reach the kernels; the ring (both branches) and the 2 x 2
+   model-sharded step at 16,384 x 100,000 against the plain route;
+   config 5's population step loop (float64) and hierarchical chain on
+   the mesh; phase 8's SOM nodes-only and phase 11's kNN `fit_predict`
+   on the mesh; the six `demos/torch_demo*.py` at tests/test_demos.py's
+   sizes on the card;
+14. prints one JSON line of kernel results (fixed-scale entry points by
    their wrapper's name, the screened trio with its run fractions,
    free-scale ones with the suffix ``_fs``; `lnl_reduce`,
    `lnl_stack_band`, `lnl_stack_fs` and `scale_sweeps` with their table
@@ -239,7 +254,8 @@ port, numpy and scipy, and:
    and then each sweep's live list (the -DFZ_REST build's counts on the
    same inputs), and every pair on every sweep of its (object, group) as
    ``dense_bound_ms``), the
-   card line again, and last ``{"ok": true, "device": {...}}``.
+   card line again, and last ``{"ok": true, "device": {...}}``.  Rows
+   3-8 carry ``mesh_launches``, their launches in phase 13's runs.
 
 Matmul precision: TF32 is switched off and float32 matmul precision set
 to "highest", so every plain product and summary dot is full float32.
@@ -335,6 +351,19 @@ N2_K, N2_KNN, N2_SYNTH, N2_CHECK = 25, 20, 4_096, 512
 # CPU tests', tests/test_torch_plotting.py: float64 roundoff).
 SEG3, SEG_G, BATCH_BF, BATCH_KNN = 10_000, 50_000, 128, 4_096
 N_PLOT, NMC_PLOT = 32_768, 20
+# Phase 13: shards of the one card, the ragged catalog's objects, the
+# ring and model-sharded steps' objects, the mesh cdf call's objects.
+N_SHARD, N_RAGGED, N_RING, N_CDF = 4, 1_001, 16_384, 16_384
+# A mesh against one device (tests/test_parallel.py): the plain
+# composition and the torch fitters rtol 1e-5 / atol 1e-7 (:237-238),
+# a route on the kernels 1e-3 / 1e-5 (:241: K2's 32-row blocks regroup
+# when shards cut a batch, so its sums reassociate).
+TOL_MESH = dict(rtol=1e-5, atol=1e-7)
+TOL_MESH_KERNEL = dict(rtol=1e-3, atol=1e-5)
+# lmap / levid on the kernels: tests/test_fused.py's GOF tolerance (levid
+# = lmap + log(sum) cancels to near 0 on some rows, where a few ulps of
+# lmap are no longer small against levid).
+TOL_MESH_GOF = dict(rtol=2e-5, atol=2e-5)
 TOL_PLOT_RTOL, TOL_PLOT_ATOL = 1e-10, 1e-12
 # The card's peaks for the bounds (H100 SXM datasheet: dense float32
 # outside the tensor cores, HBM3).
@@ -1807,6 +1836,19 @@ def zero_overlap_case(torch, np, tens):
             tens(pdfs.T.astype(np.float32)), tens(pos.astype(np.float32)))
 
 
+def config5_pdfs(np):
+    """Config 5's (bench.py:218-254) 20,000 Gaussian PDFs over 50 bins
+    around redshifts drawn from a bump at bin 18, and the true N(z)."""
+    rng = np.random.default_rng(0)
+    grid = np.arange(NBINS5)
+    nz = np.exp(-0.5 * ((grid - 18) / 5.0) ** 2)
+    nz /= nz.sum()
+    zt = rng.choice(NBINS5, NOBS5, p=nz)
+    c = zt + rng.normal(0, 1.5, NOBS5)
+    pdfs = np.exp(-0.5 * ((grid[None] - c[:, None]) / 1.5) ** 2)
+    return pdfs / pdfs.sum(1, keepdims=True), nz
+
+
 def sampler_phase(torch, np, KS, tens, card):
     """Config 5 (bench.py:218-254) on the card: the population sampler on
     the `pop_chain` kernel, its general route, and the hierarchical
@@ -1816,14 +1858,7 @@ def sampler_phase(torch, np, KS, tens, card):
                                              population_sampler)
     from frankenz_tpu_torch.samplers import population as TP
 
-    rng = np.random.default_rng(0)
-    grid = np.arange(NBINS5)
-    nz = np.exp(-0.5 * ((grid - 18) / 5.0) ** 2)
-    nz /= nz.sum()
-    zt = rng.choice(NBINS5, NOBS5, p=nz)
-    c = zt + rng.normal(0, 1.5, NOBS5)
-    pdfs = np.exp(-0.5 * ((grid[None] - c[:, None]) / 1.5) ** 2)
-    pdfs /= pdfs.sum(1, keepdims=True)
+    pdfs, nz = config5_pdfs(np)
     T = NITER_P * THIN_P
     run_kw = dict(thin=THIN_P, mh_steps=MH_P, seed=SEED_P, verbose=False)
 
@@ -2181,6 +2216,434 @@ def sampler_phase(torch, np, KS, tens, card):
             "hierarchical_s": hier_s,
             "hierarchical_sweeps_per_s": sweeps / hier_s,
             "hierarchical_obj_draws_per_s": sweeps * NOBS5 / hier_s}
+
+
+def pdf_envelope_ok(np, got, want, plain_at=None):
+    """PDFs within end-to-end tolerance of the plain composition (rtol
+    2e-3, atol 2e-5), or, where not and `plain_at` is given, inside its
+    threshold-flip envelope (`plain_at(wt_thresh)` at the cut moved by
+    FLIP each way); returns (ok, cells outside the tolerance)."""
+    close = np.isclose(got, want, rtol=2e-3, atol=2e-5)
+    if close.all():
+        return True, 0
+    if plain_at is None:
+        return False, int((~close).sum())
+    lo, hi = plain_at(WT_THRESH * FLIP), plain_at(WT_THRESH / FLIP)
+    tol = 2e-5 + 2e-3 * np.abs(want)
+    inside = ((got >= np.minimum(lo, hi) - tol)
+              & (got <= np.maximum(lo, hi) + tol))
+    return bool(inside.all()), int((~close).sum())
+
+
+def mesh_diffs(np, got, want):
+    """(bitwise, max abs difference) of two tuples of host arrays (equal
+    entries, -inf and NaN among them, differ by 0)."""
+    same = all(np.array_equal(g, w, equal_nan=True)
+               for g, w in zip(got, want))
+    diffs = []
+    for g, w in zip(got, want):
+        g, w = np.asarray(g, float), np.asarray(w, float)
+        eq = (g == w) | (np.isnan(g) & np.isnan(w))
+        diffs.append(float(np.max(np.where(eq, 0.0, np.abs(g - w)),
+                                  initial=0.0)))
+    return same, max(diffs)
+
+
+def host_cols(np, summ):
+    """A PDFSummary of host arrays as its (Nobj, 21) packed columns."""
+    return np.stack([np.asarray(c) for est in summ[:4] for c in est]
+                    + [np.asarray(c) for c in summ[4:]], axis=1)
+
+
+def mesh_phase(torch, np, KS, card, c4, som3, data3, nn2, data2, labels2):
+    """Phase 13: `parallel/` and every `mesh=` on `cuda:0`, four shards of
+    the one card (``make_mesh(devices=[cuda:0] * 4)``): NCCL with one
+    process and `stacked_nz` through its all-reduce; config 4 at full
+    width through `BruteForce.fit_predict` / `fit_summarize(mesh=)`, full,
+    15% masked and masked without a weight threshold (the screened route
+    takes full masks either way), each against the
+    single-device call (bitwise or not, the largest differences, the
+    kernels each shard launched, both walls), and a ragged catalog whose
+    pad rows reach the kernels; the ring and model-sharded steps at
+    16,384 x 100,000 against the plain route; config 5's samplers; phase
+    8's SOM and phase 11's kNN under the mesh; the six port demos.
+    Returns the mesh launches of the kernels line's rows 3-8."""
+    import shutil
+
+    from frankenz_tpu_torch import parallel as PL
+    from frankenz_tpu_torch.models import BruteForce
+    from frankenz_tpu_torch.ops import fused as TF
+    from frankenz_tpu_torch.ops import summarize as TS
+    from frankenz_tpu_torch.parallel import distributed as PD
+    from frankenz_tpu_torch.samplers import (hierarchical_sampler,
+                                             population_sampler)
+
+    (models, models_err, data, data_err, ones_d, dmask, zlabels, zerrs,
+     pdict, G) = c4
+    t_phase = time.perf_counter()
+    dev0 = torch.device("cuda", 0)
+    bf = BruteForce(models, models_err, np.ones_like(models), device="cuda")
+    mesh = PL.make_mesh(devices=[dev0] * N_SHARD)
+    one = PL.make_mesh(devices=[dev0])
+
+    # NCCL, one process: stacked_nz through the group's all-reduce.
+    PL.initialize_distributed(f"127.0.0.1:{PD._free_port()}", 1, 0,
+                              backend="nccl", timeout=120)
+    try:
+        gen = torch.Generator(device=dev0)
+        gen.manual_seed(0)
+        p_nz = torch.rand((N_E2E, NGRID), generator=gen, device=dev0)
+        nz_s = []
+        for _ in range(2):  # the first all-reduce builds the communicator
+            t0 = time.perf_counter()
+            nz = PL.stacked_nz(mesh, PL.shard_objects(mesh, p_nz))
+            torch.cuda.synchronize()
+            nz_s.append(time.perf_counter() - t0)
+        want = p_nz.double().sum(dim=0)
+        nz_err = float(((nz.double() - want).abs() / want).max())
+        check(nz.device == dev0 and nz_err <= 1e-5,
+              f"stacked_nz over NCCL: relative error {nz_err}")
+        backend = torch.distributed.get_backend()
+    finally:
+        PL.shutdown_distributed()
+    check(not torch.distributed.is_initialized(),
+          "the NCCL group was not destroyed")
+    print(f"mesh nccl: initialize_distributed(world 1, backend {backend}), "
+          f"stacked_nz of {N_E2E} x {NGRID} over {N_SHARD} shards and the "
+          f"all-reduce {nz_s[0]:.4f} s (the communicator's build in it), "
+          f"again {nz_s[1]:.4f} s, max relative error against a float64 "
+          f"sum {nz_err:.3g} (tol 1e-5); group destroyed | card {card}",
+          flush=True)
+
+    # Config 4 at full width: single device against 4 shards.  Every
+    # `fused_fit_pdf` call of a mesh run records the kernels it launched,
+    # so each shard's launches show.
+    orig = TF.fused_fit_pdf
+    per_call = []
+
+    def counted(*a, **k):
+        before = KS.launch_counts()
+        out = orig(*a, **k)
+        after = KS.launch_counts()
+        per_call.append({n: after[n] - before[n] for n in after
+                         if after[n] != before[n]})
+        return out
+
+    fp_kw = dict(label_dict=pdict, verbose=False, return_gof=True)
+    bf.fit_predict(data[:4_096], data_err[:4_096], ones_d[:4_096], zlabels,
+                   zerrs, mesh=mesh, **fp_kw)  # warm-up of the shard shape
+    fp_kw["batch_size"] = BATCH
+    mesh_launches = {}
+    u = np.random.default_rng(0).random(N_E2E)
+    for label, mask, extra, want_k in (
+            ("full", ones_d, {}, SCREENED),
+            ("masked", dmask, {}, ("lnl_reduce", "lnl_stack_band")),
+            ("masked, wt_thresh=None", dmask,
+             dict(wt_thresh=None, cdf_thresh=None), ("lnl_onepass",))):
+        args = (data, data_err, mask, zlabels, zerrs)
+        torch.cuda.synchronize()
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        single = bf.fit_predict(*args, **fp_kw, **extra)
+        single_s = time.perf_counter() - t0
+        single_l = {k: v for k, v in KS.launch_counts().items() if v}
+        per_call.clear()
+        TF.fused_fit_pdf = counted
+        try:
+            torch.cuda.synchronize()
+            KS.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = bf.fit_predict(*args, mesh=mesh, **fp_kw, **extra)
+            mesh_s = time.perf_counter() - t0
+        finally:
+            TF.fused_fit_pdf = orig
+        mesh_l = {k: v for k, v in KS.launch_counts().items() if v}
+        calls = -(-N_E2E // BATCH) * N_SHARD
+        check(len(per_call) == calls
+              and all(c.get(k, 0) > 0 for c in per_call for k in want_k),
+              f"mesh {label}: {len(per_call)} shard calls (want {calls}), "
+              f"not each launching {want_k}: {per_call}")
+        for k in want_k:
+            mesh_launches.setdefault(k, {})[label] = mesh_l[k]
+        got_t, want_t = (got[0],) + got[1], (single[0],) + single[1]
+        bitwise, dmax = mesh_diffs(np, got_t, want_t)
+        gof_max = mesh_diffs(np, got[1], single[1])[1]
+        check(np.allclose(got[0], single[0], **TOL_MESH_KERNEL)
+              and np.allclose(got[1][0], single[1][0], **TOL_MESH_GOF)
+              and np.allclose(got[1][1], single[1][1], **TOL_MESH_GOF),
+              f"mesh {label}: fit_predict differs from the single-device "
+              f"call (max abs {dmax}, lmap / levid {gof_max})")
+        print(f"mesh {label} fit_predict: {N_E2E} x {NMODEL} x {NGRID} on "
+              f"{N_SHARD} shards of cuda:0, {calls} shard calls of "
+              f"{BATCH // N_SHARD} rows: wall {mesh_s:.4f} s, single "
+              f"device {single_s:.4f} s; bitwise {bitwise}, max abs "
+              f"difference {dmax:.3g} (lmap / levid {gof_max:.3g}); "
+              f"launches a shard call "
+              f"{per_call[0]}, mesh total {mesh_l}, single-device total "
+              f"{single_l} | card {card}", flush=True)
+        if extra:
+            continue
+        t0 = time.perf_counter()
+        summ, gof = bf.fit_summarize(*args, label_dict=pdict, verbose=False,
+                                     batch_size=BATCH, mesh=mesh)
+        summ_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        summ1, _ = bf.fit_summarize(*args, label_dict=pdict, verbose=False,
+                                    batch_size=BATCH)
+        summ1_s = time.perf_counter() - t0
+        cols = host_cols(np, summ)
+        own = TS._pack_summary(TS.pdfs_summarize(
+            torch.tensor(got[0], device=dev0), pdict.grid, u=u)).cpu().numpy()
+        # Rows whose bands are all masked have no PDF: their summaries
+        # are NaN on both sides.
+        fin = np.isfinite(own)
+        s_err = float(np.max(np.abs(cols - own)[fin]
+                             / (2e-6 + 2e-5 * np.abs(own[fin]))))
+        check(s_err <= 1.0 and np.array_equal(np.isfinite(cols), fin)
+              and np.array_equal(gof[0], got[1][0]),
+              f"mesh {label}: fit_summarize differs from pdfs_summarize "
+              f"of its fit_predict (x tol {s_err})")
+        s_same, s_max = mesh_diffs(np, (cols,), (host_cols(np, summ1),))
+        print(f"mesh {label} fit_summarize: wall {summ_s:.4f} s, single "
+              f"device {summ1_s:.4f} s; 21 columns match pdfs_summarize of "
+              f"the mesh PDFs (worst {s_err:.3g} x tol); against the "
+              f"single device bitwise {s_same}, max abs {s_max:.3g} | card "
+              f"{card}", flush=True)
+
+    # A catalog neither the batch nor the mesh divides: the last batch's
+    # pad rows (data 0, errors 1, mask 0) go through the kernels.
+    for label, mask in (("full", ones_d), ("masked", dmask)):
+        args = (data[:N_RAGGED], data_err[:N_RAGGED], mask[:N_RAGGED],
+                zlabels, zerrs)
+        rkw = dict(fp_kw, batch_size=256)
+        single = bf.fit_predict(*args, **rkw)
+        got = bf.fit_predict(*args, mesh=mesh, **rkw)
+        lone = bf.fit_predict(*args, mesh=one, **rkw)
+        bitwise, dmax = mesh_diffs(np, (got[0],) + got[1],
+                                   (single[0],) + single[1])
+        check(np.allclose(got[0], single[0], **TOL_MESH_KERNEL)
+              and np.allclose(got[1][1], single[1][1], **TOL_MESH_GOF)
+              and mesh_diffs(np, (lone[0],) + lone[1],
+                             (single[0],) + single[1])[0],
+              f"mesh ragged {label}: differs (max abs {dmax})")
+        print(f"mesh ragged {label}: {N_RAGGED} objects in batches of 256 "
+              f"(the last padded to {-(-(N_RAGGED % 256) // N_SHARD) * N_SHARD} "
+              f"rows): 4 shards bitwise {bitwise}, max abs {dmax:.3g}; one "
+              f"shard bit for bit the single device | card {card}",
+              flush=True)
+
+    # The cdf mode under the mesh runs the plain composition on every
+    # shard (the JAX fitter's rule): its cost beside the single device's
+    # fused cdf kernels and its plain composition, on masked photometry.
+    cdf = dict(fp_kw, wt_thresh=None, cdf_thresh=2e-4)
+    cdf.pop("batch_size")
+    args = (data[:N_CDF], data_err[:N_CDF], dmask[:N_CDF], zlabels, zerrs)
+    walls = {}
+    for name, extra in (("mesh", dict(mesh=mesh)),
+                        ("plain", dict(use_fused=False)), ("fused", {})):
+        torch.cuda.synchronize()
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        walls[name] = (bf.fit_predict(*args, **cdf, **extra),
+                       time.perf_counter() - t0,
+                       sum(KS.launch_counts().values()))
+    (got, mesh_s, mesh_n), (plain, plain_s, _), (fz, fused_s, fused_n) = (
+        walls[k] for k in ("mesh", "plain", "fused"))
+    bitwise, dmax = mesh_diffs(np, (got[0],) + got[1],
+                               (plain[0],) + plain[1])
+    check(mesh_n == 0 and fused_n > 0
+          and np.allclose(got[0], plain[0], **TOL_MESH_KERNEL)
+          and np.allclose(got[1][1], plain[1][1], **TOL_MESH_GOF),
+          f"mesh cdf: differs from the single device's plain composition "
+          f"(max abs {dmax}) or launched a kernel ({mesh_n})")
+    print(f"mesh cdf (wt_thresh=None, cdf_thresh=2e-4, masked) "
+          f"fit_predict over {N_CDF} x {NMODEL}: {N_SHARD} shards of the "
+          f"plain composition {mesh_s:.4f} s (no kernel launched), one "
+          f"device plain {plain_s:.4f} s, one device fused cdf kernels "
+          f"{fused_s:.4f} s ({fused_n} launches); mesh against one device "
+          f"plain bitwise {bitwise}, max abs {dmax:.3g} | card {card}",
+          flush=True)
+    del walls, got, plain, fz
+
+    # The ring (both branches) and the model-sharded step on a 2 x 2 mesh
+    # at 16,384 objects x 100,000 models, against the plain route.
+    sl = slice(0, N_RING)
+    d16 = (data[sl], data_err[sl], ones_d[sl])
+    m_all = (models, models_err, np.ones_like(models))
+    mesh2 = PL.make_mesh_2d(2, 2, devices=[dev0] * 4)
+    for wt_thr in (WT_THRESH, None):
+        kw = dict(wt_thresh=wt_thr, cdf_thresh=None)
+        plain = bf.fit_predict(*d16, zlabels, zerrs, use_fused=False,
+                               **fp_kw, **kw)
+        steps = [("ring", lambda: PL.ring_fit_predict_step(
+            mesh, wt_thresh=wt_thr)(*d16, *m_all, G))]
+        if wt_thr is not None:
+            steps.append(("model-sharded 2x2", lambda: (
+                PL.model_sharded_fit_predict_step(mesh2, wt_thresh=wt_thr)(
+                    *PL.shard_objects(mesh2, *d16),
+                    *PL.shard_models(mesh2, *m_all, G)))))
+        for name, run in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pdf, lmap, levid = (x.numpy() for x in run())
+            step_s = time.perf_counter() - t0
+            lm_ok = np.allclose(lmap, plain[1][0], **TOL_MESH_GOF)
+            lv_ok = np.allclose(levid, plain[1][1], **TOL_MESH_GOF)
+            # With no threshold there is no cut to flip: the PDFs must be
+            # within the tolerance everywhere.
+            ok, off = pdf_envelope_ok(np, pdf, plain[0], None if (
+                wt_thr is None) else lambda t: bf.fit_predict(
+                    *d16, zlabels, zerrs, use_fused=False, wt_thresh=t,
+                    cdf_thresh=None, label_dict=pdict, verbose=False))
+            check(lm_ok and lv_ok and ok,
+                  f"{name} step (wt_thresh={wt_thr}) differs from the plain "
+                  f"route (lmap {lm_ok}, levid {lv_ok}, PDFs {ok})")
+            print(f"mesh {name} step, wt_thresh={wt_thr}: {N_RING} x "
+                  f"{NMODEL} in {step_s:.4f} s; lmap max abs "
+                  f"{float(np.abs(lmap - plain[1][0]).max()):.3g}, levid "
+                  f"{float(np.abs(levid - plain[1][1]).max()):.3g}, PDF "
+                  f"{float(np.abs(pdf - plain[0]).max()):.3g} ({off} cells "
+                  f"outside rtol 2e-3"
+                  f"{'' if wt_thr is None else ', inside the flip envelope'}"
+                  f") against the plain route | card {card}", flush=True)
+        del plain
+    torch.cuda.empty_cache()
+
+    # Config 5's samplers: the population step loop in float64 (float32
+    # sums of 20,000 logs in another order flip accepts) over the first
+    # 200 of its steps, the hierarchical chain whole.
+    pdfs5, nz5 = config5_pdfs(np)
+    pkw = dict(thin=100, mh_steps=MH_P, seed=SEED_P, verbose=False)
+    pops = {}
+    for name, dt, extra in (
+            ("single", torch.float64, dict(use_kernel=False)),
+            ("mesh", torch.float64, dict(mesh=mesh)),
+            ("single32", torch.float32, dict(use_kernel=False)),
+            ("one32", torch.float32, dict(mesh=one))):
+        ps = population_sampler(pdfs5, device="cuda", dtype=dt)
+        KS.reset_launch_counts()
+        t0 = time.perf_counter()
+        ps.run_mcmc(2 if "32" not in name else 1, **pkw, **extra)
+        pops[name] = (ps.results, time.perf_counter() - t0)
+        check(sum(KS.launch_counts().values()) == 0,
+              f"population {name}: a kernel launched under the step loop")
+    (s_m, l_m), (s_s, l_s) = pops["mesh"][0], pops["single"][0]
+    check(np.allclose(s_m, s_s, **TOL_MESH)
+          and np.allclose(l_m, l_s, rtol=1e-6)
+          and mesh_diffs(np, pops["one32"][0], pops["single32"][0])[0],
+          "population sampler under the mesh differs from one device")
+    hs = {}
+    for name, m_ in (("single", None), ("mesh", mesh), ("one", one)):
+        h = hierarchical_sampler(pdfs5, device="cuda")
+        t0 = time.perf_counter()
+        h.run_mcmc(NITER_H if name != "one" else 20, thin=THIN_H,
+                   seed=SEED_P, verbose=False, mesh=m_)
+        hs[name] = (h.results, time.perf_counter() - t0)
+    herr, hstack = check_chain(np, "config 5 hierarchical on the mesh",
+                               *hs["mesh"][0], pdfs5, nz5, check_lnp=False)
+    h1 = hierarchical_sampler(pdfs5, device="cuda")
+    h1.run_mcmc(20, thin=THIN_H, seed=SEED_P, verbose=False)
+    check(mesh_diffs(np, hs["one"][0], h1.results)[0],
+          "hierarchical: a one-shard mesh differs from one device")
+    print(f"mesh config 5 population run_mcmc(2, thin=100) float64 step "
+          f"loop: {N_SHARD} shards {pops['mesh'][1]:.4f} s, one device "
+          f"{pops['single'][1]:.4f} s, max abs sample difference "
+          f"{float(np.abs(s_m - s_s).max()):.3g}, lnpost "
+          f"{float(np.abs(l_m - l_s).max()):.3g}; float32 one shard bit for "
+          f"bit one device; hierarchical run_mcmc({NITER_H}, thin={THIN_H}) "
+          f"{N_SHARD} shards {hs['mesh'][1]:.4f} s, one device "
+          f"{hs['single'][1]:.4f} s, smoothed posterior-mean error "
+          f"{herr:.5f} (stack {hstack:.5f}); one shard bit for bit | card "
+          f"{card}", flush=True)
+
+    # Phase 8's SOM (nodes-only) and phase 11's kNN under the mesh.
+    fit = data3[3]
+    fkw = dict(label_grid=data3[4], nodes_only=True, verbose=False,
+               batch_size=BATCH3, save_fits=False, return_gof=True)
+    t0 = time.perf_counter()
+    s_single = som3.fit_predict(*fit, **fkw)
+    t1 = time.perf_counter()
+    s_mesh = som3.fit_predict(*fit, mesh=mesh, **fkw)
+    t2 = time.perf_counter()
+    som_bit, som_max = mesh_diffs(np, (s_mesh[0],) + s_mesh[1],
+                                  (s_single[0],) + s_single[1])
+    check(np.allclose(s_mesh[0], s_single[0], **TOL_MESH)
+          and np.allclose(s_mesh[1][1], s_single[1][1], **TOL_MESH_GOF),
+          f"SOM nodes-only under the mesh differs (max abs {som_max})")
+    z2, zerr2, grid2 = labels2
+    kkw = dict(label_grid=grid2, k=N2_KNN, verbose=False, return_gof=True)
+    t3 = time.perf_counter()
+    k_single = nn2.fit_predict(*data2, z2, zerr2,
+                               rng=np.random.default_rng(7), **kkw)
+    t4 = time.perf_counter()
+    k_mesh = nn2.fit_predict(*data2, z2, zerr2, mesh=mesh,
+                             rng=np.random.default_rng(7), **kkw)
+    t5 = time.perf_counter()
+    knn_bit, knn_max = mesh_diffs(np, (k_mesh[0],) + k_mesh[1],
+                                  (k_single[0],) + k_single[1])
+    check(np.allclose(k_mesh[0], k_single[0], **TOL_MESH)
+          and np.allclose(k_mesh[1][1], k_single[1][1], **TOL_MESH_GOF),
+          f"kNN under the mesh differs (max abs {knn_max})")
+    print(f"mesh SOM nodes-only fit_predict over {N3_FIT}: {N_SHARD} shards "
+          f"{t2 - t1:.4f} s, one device {t1 - t0:.4f} s, bitwise {som_bit} "
+          f"(max abs {som_max:.3g}); kNN fit_predict over {N2_TEST}: "
+          f"{N_SHARD} shards {t5 - t4:.4f} s, one device {t4 - t3:.4f} s, "
+          f"bitwise {knn_bit} (max abs {knn_max:.3g}) | card {card}",
+          flush=True)
+
+    # The six port demos at tests/test_demos.py's sizes, on the card.
+    out = HERE / "build" / "chip_smoke_demos"
+    shutil.rmtree(out, ignore_errors=True)
+    sys.path.insert(0, str(HERE / "demos"))
+    try:
+        import torch_demo1_mock_data as D1
+        import torch_demo2_photometric_inference as D2
+        import torch_demo3_photometric_pdfs as D3
+        import torch_demo4_posterior_approximations as D4
+        import torch_demo5_population_inference as D5
+        import torch_demo6_hierarchical_inference as D6
+
+        walls = {}
+        t0 = time.perf_counter()
+        D1.main(nobj=400, out=str(out), plot=False, nz=100, device="cuda")
+        walls[1] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r2 = D2.main(out=str(out), nfit=150, plot=False, device="cuda")
+        walls[2] = time.perf_counter() - t0
+        check(set(r2) == {"mag", "color", "color+bpz"} and all(
+            p.shape == (150, 701) and np.allclose(p.sum(1), 1.0, atol=1e-3)
+            for p in r2.values()), "torch demo 2 results")
+        t0 = time.perf_counter()
+        p3, s3 = D3.main(out=str(out), nfit=200, plot=False, device="cuda")
+        walls[3] = time.perf_counter() - t0
+        check(p3.shape[0] == 200
+              and bool(torch.isfinite(s3.median.point).all()),
+              "torch demo 3 results")
+        t0 = time.perf_counter()
+        r4 = D4.main(out=str(out), nfit=100, plot=False, device="cuda")
+        walls[4] = time.perf_counter() - t0
+        check(set(r4) == {"bruteforce", "kmcknn", "som nodes"},
+              "torch demo 4 results")
+        t0 = time.perf_counter()
+        s5 = D5.main(out=str(out), nobs=200, niter=10, thin=50, nchains=1,
+                     plot=False, device="cuda")
+        walls[5] = time.perf_counter() - t0
+        check(s5.results[0].shape == (10, 60), "torch demo 5 results")
+        t0 = time.perf_counter()
+        s6 = D6.main(out=str(out), nobs=200, niter=20, plot=False,
+                     device="cuda")
+        walls[6] = time.perf_counter() - t0
+        check(len(s6.results[0]) == 40, "torch demo 6 results")
+    finally:
+        sys.path.remove(str(HERE / "demos"))
+        shutil.rmtree(out, ignore_errors=True)
+    print("mesh demos: torch_demo1-6 on the card at tests/test_demos.py's "
+          "sizes, walls " + ", ".join(f"{k}: {v:.3f} s" for k, v in
+                                      walls.items())
+          + f"; phase 13 {time.perf_counter() - t_phase:.1f} s | card "
+          f"{card}", flush=True)
+    torch.cuda.empty_cache()
+    return mesh_launches
 
 
 def expf_underflow(torch, np, SC, SCK, card):
@@ -2717,7 +3180,7 @@ def knn_phase(torch, np, card):
           f"across K=3: lowest index first on every row; phase 11 "
           f"{time.perf_counter() - t_phase:.1f} s | card {card}",
           flush=True)
-    return nn, (d, de, dmask)
+    return nn, (d, de, dmask), (z, zerr, grid)
 
 
 def crash_after(target, name, ncalls):
@@ -4182,7 +4645,7 @@ def main():
     # 11. config 2: the mock catalog and NearestNeighbors (torch only:
     # no kernel of the table may launch)
     KS.reset_launch_counts()
-    nn2, data2 = knn_phase(torch, np, card)
+    nn2, data2, labels2 = knn_phase(torch, np, card)
     launches11 = {k: v for k, v in KS.launch_counts().items() if v}
     check(not launches11, f"config 2 launched kernels: {launches11}")
 
@@ -4190,9 +4653,15 @@ def main():
     resume_phase(torch, np, KS, card, som3, gng3, data3, nn2, data2,
                  (models, models_err, data, data_err, ones_d, zlabels,
                   zerrs, pdict, grid, pdfs))
+
+    # 13. parallel/ and mesh= on four shards of the card
+    mesh_launches = mesh_phase(
+        torch, np, KS, card, (models, models_err, data, data_err, ones_d,
+                              dmask, zlabels, zerrs, pdict, G),
+        som3, data3, nn2, data2, labels2)
     del som3, gng3, nn2, data2
 
-    # 13. results
+    # 14. results
     replaces = {"chi2_brackets": "frankenz_tpu/ops/fused.py:918",
                 "chi2_stack": "frankenz_tpu/ops/fused.py:980",
                 "lnl_reduce": "frankenz_tpu/ops/fused.py:599",
@@ -4359,6 +4828,9 @@ def main():
                             for k in ("dense_bound_ms", "dense_bound_by")})
         if kname in ptxas:
             entry["ptxas"] = ptxas[kname]
+        if kname in mesh_launches:
+            # Phase 13: the launches of the 4-shard mesh runs, by run.
+            entry["mesh_launches"] = mesh_launches[kname]
         kernels.append(entry)
     kernels.extend(som_entries)
     kernels.append(gng_entry)

@@ -8,6 +8,10 @@ find:
   models/   fitters: BruteForce, NearestNeighbors, SelfOrganizingMap,
             GrowingNeuralGas;
   samplers/ population and hierarchical N(z) MCMC over the fitters' PDFs;
+  parallel/ device meshes (`Mesh`, `Sharded`), the object-sharded,
+            model-sharded and ring fit steps, the stacked N(z), and the
+            multi-process runtime (`torch.distributed`, NCCL or gloo) with
+            its catalog input; every fitter's and sampler's `mesh=`;
   sim/      mock-survey simulator: priors, IGM attenuation, flux synthesis
             on the card, the SDSS-like mock catalog and model grid;
   kernels/  ctypes wrappers of the hand-written CUDA kernels, their plain
@@ -31,6 +35,7 @@ from . import ops  # noqa: F401
 from . import models  # noqa: F401
 from . import fitting  # noqa: F401
 from . import samplers  # noqa: F401
+from . import parallel  # noqa: F401
 from . import sim  # noqa: F401
 from . import utils  # noqa: F401
 from . import plotting  # noqa: F401

@@ -18,8 +18,10 @@ has nothing to train, so it is not an `nn.Module`.
 
 ``fit`` checkpoints its saved-fit prefix every ``checkpoint_every``
 batches and resumes from it (`resume_fit_rows`, `utils.checkpoint`).
-Not ported yet: ``mesh=`` sharding (it raises `NotImplementedError`),
-and the TPU-specific dispatch crossovers of the JAX fitter.
+``fit_predict(mesh=)`` splits every batch over the devices of a
+`parallel.Mesh`, each shard running the single-device route on its
+device.  Not ported: the TPU-specific dispatch crossovers of the JAX
+fitter.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..ops import fused as _fused
 from ..ops import kde as _kde
 from ..ops import likelihood as _like
 from ..ops import summarize as _summ
+from ..parallel import mesh as _mesh
 from ..utils import checkpoint as _ckpt
 from ..utils.metrics import metrics as _metrics
 from ..utils.progress import progress_iter
@@ -298,11 +301,9 @@ class BruteForce:
                                    total=ndata, label="Generating PDF",
                                    sizes=True, verbose=verbose):
             sl = slice(i0, i0 + n)
-            lwt = self._tensor(logwt[sl].astype(np.float32))
-            lm = lwt.amax(dim=1)
-            lv = torch.logsumexp(lwt, dim=1)
-            pdf = _kde.kde_stack(torch.exp(lwt - lv[:, None]), G, wt_thresh,
-                                 cdf_thresh)
+            pdf, lm, lv = _kde.lnprob_pdf(
+                self._tensor(logwt[sl].astype(np.float32)), G, wt_thresh,
+                cdf_thresh)
             pdfs[sl] = _kde.norm_rows(pdf).cpu().numpy()
             lmap[sl] = lm.cpu().numpy()
             levid[sl] = lv.cpu().numpy()
@@ -334,10 +335,22 @@ class BruteForce:
         threshold, kde_stack) on the fitter's device.  `_post_setup`
         (internal, see `fit_summarize`) maps each normalized PDF batch
         on device before it is copied back.
+
+        With `mesh` (a `parallel.Mesh`) each batch, its size rounded up
+        to a multiple of ``mesh.size``, splits into equal row blocks, one
+        a shard, and each shard runs the route above on its device.  The
+        last rows pad to a multiple of ``mesh.size`` with data 0, errors
+        1 and mask 0; ``full_mask`` is read from the unpadded mask.  Every
+        shard of a batch is launched from this thread before any is read
+        back, and the fused routes read nothing back inside a call (the
+        models' band order is sorted once a device), so shards on
+        distinct cards can overlap.  In the cdf mode the shards run the
+        plain composition, as the JAX fitter does under a mesh: each
+        builds its (rows, Nmodel) grids, where one device's call runs the
+        fused cdf kernels.  `save_fits` and `track_scale` raise under
+        `mesh`, and so does ``use_fused=True`` in the cdf mode.  A
+        one-shard mesh gives the single-device result bit for bit.
         """
-        if mesh is not None:
-            raise NotImplementedError("mesh= sharding is not ported yet "
-                                      "(parallel/, ROADMAP queue 1)")
         data = np.atleast_2d(np.asarray(data))
         data_err = np.atleast_2d(np.asarray(data_err))
         data_mask = np.atleast_2d(np.asarray(data_mask))
@@ -349,134 +362,192 @@ class BruteForce:
         eligible = self._fused_eligible(lprob_func, lprob_args,
                                         lprob_kwargs, track_scale,
                                         save_fits)
+        explicit_fused = use_fused is True
         if use_fused is None:
             use_fused = eligible
         elif use_fused and not eligible:
             raise ValueError("use_fused=True requires the default lprob "
                              "pipeline (no custom lprob_func/args, no "
                              "save_fits/track_scale/return_scale)")
+        devices = (self.device,)
+        if mesh is not None:
+            _mesh.check_mesh(mesh)
+            cdf_mode = wt_thresh is None and cdf_thresh is not None
+            if explicit_fused and cdf_mode:
+                raise ValueError(
+                    "use_fused=True with cdf_thresh selection is not "
+                    "supported under mesh=; the sharded cdf path runs the "
+                    "plain composition (pass use_fused=None/False)")
+            if save_fits or track_scale:
+                raise ValueError("mesh-sharded fit_predict streams PDFs "
+                                 "only; save_fits/track_scale are "
+                                 "unsupported (run fit() for stored "
+                                 "grids)")
+            use_fused = bool(use_fused) and not cdf_mode
+            devices = mesh.devices
         with self._fp_metrics(ndata):
+            if batch_size is None:
+                batch_size = (default_fused_batch_size(ndata, len(grid))
+                              if use_fused else
+                              default_batch_size(self.NMODEL))
             if use_fused:
-                if batch_size is None:
-                    batch_size = default_fused_batch_size(ndata, len(grid))
                 out = self._fit_predict_fused(
                     data, data_err, data_mask, G, lprob_kwargs or {},
-                    wt_thresh, cdf_thresh, batch_size, verbose, _post_setup)
+                    wt_thresh, cdf_thresh, batch_size, devices, verbose,
+                    _post_setup)
             else:
-                if batch_size is None:
-                    batch_size = default_batch_size(self.NMODEL)
                 out = self._fit_predict_plain(
                     data, data_err, data_mask, G, lprob_func, lprob_args,
                     lprob_kwargs, wt_thresh, cdf_thresh, batch_size,
-                    save_fits, track_scale, verbose, _post_setup)
+                    devices, save_fits, track_scale, verbose, _post_setup)
         pdfs, lmap, levid = out
         if return_gof:
             return pdfs, (lmap, levid)
         return pdfs
 
-    def _stream(self, ndata, batch_size, post, step, verbose):
-        """Run `step(i0, n) -> (pdf, lmap, levid)` per batch, apply the
-        post transform, and gather host arrays."""
-        parts = []
-        for i0, n in progress_iter(_batch_slices(ndata, batch_size),
-                                   total=ndata, label="Fitting object",
-                                   sizes=True, verbose=verbose):
-            parts.append(self._finish_batch(step(i0, n), post, i0))
-        return tuple(np.concatenate([p[k] for p in parts]).astype(
-            np.float32, copy=False) for k in range(3))
+    def _stream(self, data, data_err, data_mask, G, dtype, devices,
+                batch_size, post_setup, step, verbose):
+        """Run every batch over `devices`, one equal row block a shard,
+        and gather host arrays (JAX's `_fit_predict_sharded` on a mesh).
+
+        The batch size rounds up to a multiple of ``len(devices)`` and
+        the catalog pads to one, with data 0, errors 1 and mask 0 (as the
+        JAX fitter pads, frankenz_tpu/models/bruteforce.py:747-754); on
+        one device neither changes anything.  The catalog (as `dtype`;
+        None keeps it), the models and G go once to each distinct device.
+        `step(rep, sl) -> (pdf, lmap, levid)` runs one shard's rows `sl`
+        of its device's copies `rep`.  A batch's shards are all launched,
+        then normalized, mapped by the `post_setup` hook and read back
+        into the host arrays.  Returns the host arrays and the hook."""
+        ndata, ndev = data.shape[0], len(devices)
+        batch_size = -(-batch_size // ndev) * ndev
+        npad = (-ndata) % ndev
+        cat = [np.pad(a, ((0, npad), (0, 0)), constant_values=v)
+               for a, v in ((data, 0.0), (data_err, 1.0), (data_mask, 0.0))]
+
+        def stage(dev):
+            return dict(cat=[torch.as_tensor(a, dtype=dtype, device=dev)
+                             for a in cat],
+                        models=[t.to(dev) for t in (
+                            self.models, self.models_err, self.models_mask)],
+                        G=G.to(dev))
+
+        reps = _mesh.per_device(devices, stage)
+        post, width = ((None, G.shape[1]) if post_setup is None
+                       else post_setup(ndata, batch_size))
+        host = (np.zeros((ndata, width), np.float32),
+                np.zeros(ndata, np.float32), np.zeros(ndata, np.float32))
+        for i0, n in progress_iter(_batch_slices(ndata + npad, batch_size),
+                                   total=ndata + npad,
+                                   label="Fitting object", sizes=True,
+                                   verbose=verbose):
+            per = n // ndev
+            outs = [(i0 + k * per, step(rep, slice(i0 + k * per,
+                                                   i0 + (k + 1) * per)))
+                    for k, rep in enumerate(reps)]
+            for j0, out in outs:
+                self._finish_shard(host, j0, out, post)
+        return host, post
 
     @staticmethod
-    def _finish_batch(out, post, i0):
-        """Normalize a batch's PDFs, apply `post`, copy to the host."""
-        pdf_b, lmap_b, levid_b = out
-        pdf_b = _kde.norm_rows(pdf_b)
+    def _finish_shard(host, j0, out, post):
+        """Normalize a shard's PDFs, apply `post`, and copy its rows
+        that are not padding into the host arrays at row `j0`."""
+        pdf, lmap, levid = out
+        m = min(pdf.shape[0], host[1].shape[0] - j0)
+        if m <= 0:
+            return
+        pdf = _kde.norm_rows(pdf)
         if post is not None:
-            pdf_b = post(pdf_b, i0)
-        return tuple(t.cpu().numpy() for t in (pdf_b, lmap_b, levid_b))
+            pdf = post(pdf, j0)
+        for h, t in zip(host, (pdf, lmap, levid)):
+            h[j0:j0 + m] = t[:m].cpu().numpy()
+
+    @staticmethod
+    def _fused_kw(lprob_kwargs, wt_thresh, cdf_thresh, full_mask):
+        """`fused_fit_pdf`'s keywords for the lprob keywords given."""
+        return dict(dim_prior=lprob_kwargs.get("dim_prior", True),
+                    ignore_model_err=lprob_kwargs.get("ignore_model_err",
+                                                      False),
+                    free_scale=lprob_kwargs.get("free_scale", False),
+                    wt_thresh=wt_thresh,
+                    cdf_thresh=cdf_thresh if wt_thresh is None else None,
+                    full_mask=full_mask,
+                    # As the JAX fitter (frankenz_tpu/models/
+                    # bruteforce.py:837-838): the lprob's own keywords,
+                    # its defaults.
+                    scale_ltol=float(lprob_kwargs.get("ltol", 1e-4)),
+                    scale_max_iter=int(lprob_kwargs.get("max_iter", 100)))
 
     def _fit_predict_fused(self, data, data_err, data_mask, G, lprob_kwargs,
-                           wt_thresh, cdf_thresh, batch_size, verbose,
-                           post_setup=None):
-        """Stream object batches through `ops.fused_fit_pdf`; the catalog
-        is uploaded once and sliced on the device.  In the cdf mode each
-        batch's validity flag is read with its results, and flagged
-        batches run again afterwards with ``cdf_exact=True``: their
-        undetermined cuts are found by bisection on the same kernels
-        (where the JAX fitter reruns them through the XLA sort,
-        frankenz_tpu/models/bruteforce.py:852-880)."""
-        ndata = data.shape[0]
-        full_mask = self._full_mask and bool(np.all(data_mask == 1))
-        d_all = self._tensor(data, torch.float32)
-        de_all = self._tensor(data_err, torch.float32)
-        dm_all = self._tensor(data_mask, torch.float32)
-        G = G.to(torch.float32).contiguous()
-        cdf_thresh = cdf_thresh if wt_thresh is None else None
-        kw = dict(dim_prior=lprob_kwargs.get("dim_prior", True),
-                  ignore_model_err=lprob_kwargs.get("ignore_model_err",
-                                                    False),
-                  free_scale=lprob_kwargs.get("free_scale", False),
-                  wt_thresh=wt_thresh, cdf_thresh=cdf_thresh,
-                  full_mask=full_mask, defer_cdf_check=True,
-                  # As the JAX fitter (frankenz_tpu/models/bruteforce.py:
-                  # 837-838): the lprob's own keywords, its defaults.
-                  scale_ltol=float(lprob_kwargs.get("ltol", 1e-4)),
-                  scale_max_iter=int(lprob_kwargs.get("max_iter", 100)))
+                           wt_thresh, cdf_thresh, batch_size, devices,
+                           verbose, post_setup=None):
+        """Stream object batches through `ops.fused_fit_pdf`, each shard
+        on its device (`_stream`); the catalog is uploaded once and
+        sliced on the device.  ``full_mask`` is read from the unpadded
+        mask.  In the cdf mode each shard's validity flag is read with
+        its results, and flagged shards run again afterwards with
+        ``cdf_exact=True``: their undetermined cuts are found by
+        bisection on the same kernels (where the JAX fitter reruns them
+        through the XLA sort, frankenz_tpu/models/bruteforce.py:852-880)."""
+        kw = self._fused_kw(lprob_kwargs, wt_thresh, cdf_thresh,
+                            self._full_mask and bool(np.all(data_mask == 1)))
+        kw["defer_cdf_check"] = True
+        # The routes past the screened one read the models in band order:
+        # sorted once a device (`model_bands`), not in every batch's call.
+        banded = _fused.fused_route(**{k: kw[k] for k in (
+            "full_mask", "dim_prior", "free_scale", "wt_thresh",
+            "cdf_thresh")}) != "screened"
         flagged = []
 
-        def step(i0, n):
-            sl = slice(i0, i0 + n)
-            pdf, lmap, levid, ok = _fused.fused_fit_pdf(
-                d_all[sl], de_all[sl], dm_all[sl], self.models,
-                self.models_err, self.models_mask, G, **kw)
-            flagged.append((i0, n, ok))
+        def run(rep, sl, **extra):
+            if banded and "band" not in rep:
+                rep["band"] = _fused.model_bands(*rep["models"], rep["G"])
+            d, de, dm = (t[sl] for t in rep["cat"])
+            return _fused.fused_fit_pdf(d, de, dm, *rep["models"], rep["G"],
+                                        band=rep.get("band"),
+                                        **{**kw, **extra})
+
+        def step(rep, sl):
+            pdf, lmap, levid, ok = run(rep, sl)
+            flagged.append((rep, sl, ok))
             return pdf, lmap, levid
 
-        post = (None if post_setup is None
-                else post_setup(ndata, batch_size)[0])
-        pdfs, lmap, levid = self._stream(ndata, batch_size, post, step,
-                                         verbose)
+        host, post = self._stream(data, data_err, data_mask,
+                                  G.to(torch.float32).contiguous(),
+                                  torch.float32, devices, batch_size,
+                                  post_setup, step, verbose)
         self.cdf_reruns = 0
-        kw.update(defer_cdf_check=False, cdf_exact=True)
-        for i0, n, ok in flagged:
+        for rep, sl, ok in flagged:
             if bool(ok):
                 continue
             self.cdf_reruns += 1
             _metrics.count("cdf_reruns")
-            sl = slice(i0, i0 + n)
-            out = _fused.fused_fit_pdf(
-                d_all[sl], de_all[sl], dm_all[sl], self.models,
-                self.models_err, self.models_mask, G, **kw)
-            pdfs[sl], lmap[sl], levid[sl] = self._finish_batch(out, post, i0)
-        return pdfs, lmap, levid
+            self._finish_shard(host, sl.start, run(
+                rep, sl, defer_cdf_check=False, cdf_exact=True), post)
+        return host
 
     def _fit_predict_plain(self, data, data_err, data_mask, G, lprob_func,
                            lprob_args, lprob_kwargs, wt_thresh, cdf_thresh,
-                           batch_size, save_fits, track_scale, verbose,
-                           post_setup=None):
-        """The plain composition, batch by batch, on the fitter's device
-        (the counterpart of the JAX XLA path)."""
-        ndata = data.shape[0]
+                           batch_size, devices, save_fits, track_scale,
+                           verbose, post_setup=None):
+        """The plain composition (`ops.kde.lnprob_pdf`), each shard on
+        its device (`_stream`; the counterpart of the JAX XLA path).
+        `save_fits` runs on one device only (`fit_predict` refuses it
+        under a mesh)."""
         if save_fits:
-            self._alloc_fits(ndata, track_scale)
+            self._alloc_fits(data.shape[0], track_scale)
 
-        def step(i0, n):
-            sl = slice(i0, i0 + n)
-            res = self._lprob(lprob_func, lprob_args, lprob_kwargs,
-                              self._tensor(data[sl]),
-                              self._tensor(data_err[sl]),
-                              self._tensor(data_mask[sl]))
+        def step(rep, sl):
+            d, de, dm = (t[sl] for t in rep["cat"])
+            res = _bf_lprob(d, de, dm, *rep["models"], lprob_func,
+                            lprob_args, lprob_kwargs)
             if save_fits:
                 self._store_fits(sl, res)
-            lnp = res[2]
-            lmap = lnp.amax(dim=1)
-            levid = torch.logsumexp(lnp, dim=1)
-            pdf = _kde.kde_stack(torch.exp(lnp - levid[:, None]),
-                                 G.to(lnp.dtype), wt_thresh, cdf_thresh)
-            return pdf, lmap, levid
+            return _kde.lnprob_pdf(res[2], rep["G"], wt_thresh, cdf_thresh)
 
-        post = (None if post_setup is None
-                else post_setup(ndata, batch_size)[0])
-        return self._stream(ndata, batch_size, post, step, verbose)
+        return self._stream(data, data_err, data_mask, G, None, devices,
+                            batch_size, post_setup, step, verbose)[0]
 
     def fit_summarize(self, data, data_err, data_mask, model_labels,
                       model_label_errs, label_dict=None, label_grid=None,

@@ -43,8 +43,9 @@ Also here: the pieces the network fitters share, `_gathered_lprob`
 
 ``fit`` checkpoints its fit prefix every ``checkpoint_every`` batches
 and resumes from it; skipped batches still draw their query jitter, so
-the remaining draws line up.  Not ported yet: ``mesh=`` sharding (it
-raises `NotImplementedError`).
+the remaining draws line up.  ``fit_predict(mesh=)`` splits each batch,
+its jitter drawn as in one device's call, over the devices of a
+`parallel.Mesh`.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from ..ops import kde as _kde
 from ..ops import likelihood as _like
 from ..ops import summarize as _summ
 from ..ops import transforms as _tf
+from ..parallel import mesh as _mesh
 from ..utils import checkpoint as _ckpt
 from ..utils.metrics import metrics as _metrics
 from ..utils.progress import progress_iter
@@ -447,16 +449,25 @@ class NearestNeighbors:
                                 self._tensor(de, torch.float32))
         return q.to(torch.float32)
 
-    def _fit_batch(self, jq, d, de, dm, k, lp_norm, dbound, lprob_spec):
+    def _replica(self, device):
+        """The fitter's device tensors on `device`: (features, their
+        squared norms, models, errors, mask)."""
+        return tuple(t.to(device) for t in (
+            self.features, self.features_sqnorm, self.models,
+            self.models_err, self.models_mask))
+
+    def _fit_batch(self, jq, d, de, dm, k, lp_norm, dbound, lprob_spec,
+                   rep=None):
         """One batch's search, union and exact posterior
-        (`_knn_fit_batch_jit`): (idx, valid, nidx, res) on the device."""
-        q = self._query_features(jq, de)
-        idx, valid, nidx = _search(q, self.features, self.features_sqnorm,
-                                   K=self.K, k=k, lp_norm=lp_norm,
-                                   dbound=dbound)
-        x, xe, xm = (self._tensor(a, self._dtype) for a in (d, de, dm))
-        res = _gathered_lprob(x, xe, xm, idx, valid, self.models,
-                              self.models_err, self.models_mask,
+        (`_knn_fit_batch_jit`): (idx, valid, nidx, res) on the device of
+        `rep` (a `_replica`; the fitter's own tensors by default)."""
+        feats, feats_sq, m, me, mm = rep or self._replica(self.device)
+        q = self._query_features(jq, de).to(feats.device)
+        idx, valid, nidx = _search(q, feats, feats_sq, K=self.K, k=k,
+                                   lp_norm=lp_norm, dbound=dbound)
+        x, xe, xm = (_kde._as(a, feats.device, self._dtype)
+                     for a in (d, de, dm))
+        res = _gathered_lprob(x, xe, xm, idx, valid, m, me, mm,
                               lprob_spec=lprob_spec)
         return idx, valid, nidx, res
 
@@ -604,16 +615,28 @@ class NearestNeighbors:
         """Fit + PDF prediction per batch on the device (knn.py:560-874):
         jittered query features -> ensemble search -> union posterior ->
         thresholded gathered KDE; only (pdf, lmap, levid) come back, and
-        the fit grids too with ``save_fits=True``."""
-        if mesh is not None:
-            raise NotImplementedError("mesh= sharding is not ported yet "
-                                      "(parallel/, ROADMAP queue 1)")
+        the fit grids too with ``save_fits=True``.
+
+        With `mesh` (a `parallel.Mesh`; not with `save_fits`) the batch
+        size rounds up to a multiple of ``mesh.size``, each padded batch
+        draws its query jitter on the host exactly as one device's call
+        does, and splits into one row block a shard, each run on its
+        device with the ensembles, models and labels copied there; a
+        one-shard mesh gives the single-device result bit for bit."""
         del eps, approx  # exact search
+        if mesh is not None:
+            _mesh.check_mesh(mesh)
+            if save_fits:
+                raise ValueError("mesh-sharded fit_predict streams PDFs "
+                                 "only; save_fits is unsupported")
         data, data_err, data_mask = self._host_data(data, data_err,
                                                     data_mask)
         rng = rng or self.rng
         ndata = data.shape[0]
         batch_size = min(batch_size, max(256, ndata))
+        devices = (self.device,) if mesh is None else mesh.devices
+        batch_size = -(-batch_size // len(devices)) * len(devices)
+        per = batch_size // len(devices)
         dx, sig_thresh, wt_thresh, cdf_thresh = _kde.resolve_kde_opts(
             kde_args, kde_kwargs, wt_thresh, cdf_thresh)
         if save_fits:
@@ -634,31 +657,42 @@ class NearestNeighbors:
         _metrics.count("knn_search_pairs", ndata * self.K * self.NMODEL)
         _metrics.count("chi2_pair_evals", ndata * self.K * k)
         _metrics.count("pdf_stacks", ndata)
+        reps = _mesh.per_device(devices, lambda dev: (
+            self._replica(dev), _mesh.to_device(lab, dev)))
+
+        def shard(jq, d, de, dm, rep, lab):
+            idx, _, nidx, res = self._fit_batch(
+                jq, d, de, dm, k, lp_norm, float(distance_upper_bound),
+                lprob_spec, rep)
+            lm, lv, wt = _gof_weights(res[2])
+            # The union is compacted to the front: the KDE runs on the
+            # columns up to the shard's widest union (rounded up to 128);
+            # the columns past it carry zero weight.
+            w = min(idx.shape[1], -(-max(int(nidx.max()), 1) // 128) * 128)
+            wt = _kde.threshold_weights(wt[:, :w], wt_thresh, cdf_thresh)
+            pdf = _kde.norm_rows(_gathered_pdf(use_dict, lab, ngrid,
+                                               idx[:, :w], wt))
+            return pdf, lm, lv, idx, nidx, res
+
         with _metrics.timer("knn.fit_predict"):
-            for i0, n, jq, d, de, dm in self._data_batches(
+            for i0, n, *batch in self._data_batches(
                     data, data_err, data_mask, batch_size, rng, verbose,
                     "Fitting object"):
-                idx, _, nidx, res = self._fit_batch(
-                    jq, d, de, dm, k, lp_norm, float(distance_upper_bound),
-                    lprob_spec)
-                lm, lv, wt = _gof_weights(res[2])
-                # The union is compacted to the front: the KDE runs on the
-                # columns up to the batch's widest union (rounded up to
-                # 128); the columns past it carry zero weight.
-                w = min(idx.shape[1],
-                        -(-max(int(nidx.max()), 1) // 128) * 128)
-                wt = _kde.threshold_weights(wt[:, :w], wt_thresh,
-                                            cdf_thresh)
-                pdf = _kde.norm_rows(_gathered_pdf(use_dict, lab, ngrid,
-                                                   idx[:, :w], wt))
-                if post is not None:
-                    pdf = post(pdf, i0)
-                sl = slice(i0, i0 + n)
-                pdfs[sl] = pdf[:n].cpu().numpy()
-                lmap[sl] = lm[:n].cpu().numpy()
-                levid[sl] = lv[:n].cpu().numpy()
-                if save_fits:
-                    self._store(i0, n, idx, nidx, res)
+                outs = [shard(*(a[r * per:(r + 1) * per] for a in batch),
+                              *rep) for r, rep in enumerate(reps)]
+                for r, (pdf, lm, lv, idx, nidx, res) in enumerate(outs):
+                    j0 = i0 + r * per
+                    m = min(per, i0 + n - j0)
+                    if m <= 0:
+                        continue
+                    if post is not None:
+                        pdf = post(pdf, j0)
+                    sl = slice(j0, j0 + m)
+                    pdfs[sl] = pdf[:m].cpu().numpy()
+                    lmap[sl] = lm[:m].cpu().numpy()
+                    levid[sl] = lv[:m].cpu().numpy()
+                    if save_fits:
+                        self._store(j0, m, idx, nidx, res)
         if return_gof:
             return pdfs, (lmap, levid)
         return pdfs

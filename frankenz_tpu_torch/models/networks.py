@@ -25,9 +25,9 @@ counterpart of `_gng_train_jit`.
 Both training runs and `_Network.fit` checkpoint and resume
 (``checkpoint_every`` / ``resume``, `utils.checkpoint`): the training in
 segments, one kernel launch a segment on the kernel routes, bit for bit
-one uninterrupted call.  Not ported: ``mesh=`` sharding (it raises
-`NotImplementedError`).  The JAX argument ``use_pallas`` is
-``use_kernel`` here, with the same three-way meaning.
+one uninterrupted call.  ``fit_predict(save_fits=False, mesh=)`` splits
+each batch over the devices of a `parallel.Mesh`.  The JAX argument
+``use_pallas`` is ``use_kernel`` here, with the same three-way meaning.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from ..kernels import som as _som
 from ..ops import kde as _kde
 from ..ops import likelihood as _like
 from ..ops import summarize as _summ
+from ..parallel import mesh as _mesh
 from ..utils import checkpoint as _ckpt
 from ..utils.progress import progress_iter, train_note
 from . import knn as _knn
@@ -797,10 +798,18 @@ class _Network:
         reference default) is fit() then predict(), with the padded fit
         grids on the host; ``save_fits=False`` streams each batch through
         node fit -> (member union -> exact posterior ->) PDFs on the
-        device, and only (pdf, lmap, levid) come back."""
+        device, and only (pdf, lmap, levid) come back.
+
+        With `mesh` (a `parallel.Mesh`; needs ``save_fits=False``) each
+        batch, its size rounded up to a multiple of ``mesh.size``, splits
+        into one row block a shard, each run on its device with the
+        nodes, node PDFs, member tables, models and labels copied there;
+        a one-shard mesh gives the single-device result bit for bit."""
         if mesh is not None:
-            raise NotImplementedError("mesh= sharding is not ported yet "
-                                      "(parallel/, ROADMAP queue 1)")
+            _mesh.check_mesh(mesh)
+            if save_fits:
+                raise ValueError("mesh-sharded fit_predict streams PDFs "
+                                 "only; pass save_fits=False")
         if _post_setup is not None and save_fits:
             raise ValueError("streaming summaries require the fused "
                              "save_fits=False path")
@@ -826,7 +835,7 @@ class _Network:
             return_gof=return_gof, discrete=discrete, nodes_only=nodes_only,
             batch_size=batch_size, wt_thresh=wt_thresh,
             cdf_thresh=cdf_thresh, max_sel_nodes=max_sel_nodes,
-            max_neighbors=max_neighbors, verbose=verbose,
+            max_neighbors=max_neighbors, mesh=mesh, verbose=verbose,
             post_setup=_post_setup)
 
     def _fit_predict_fused(self, data, data_err, data_mask, model_labels,
@@ -834,12 +843,14 @@ class _Network:
                            label_grid, kde_args, kde_kwargs, lprob_args,
                            lprob_kwargs, return_gof, discrete, nodes_only,
                            batch_size, wt_thresh, cdf_thresh,
-                           max_sel_nodes, max_neighbors, verbose=True,
-                           post_setup=None):
+                           max_sel_nodes, max_neighbors, mesh=None,
+                           verbose=True, post_setup=None):
         """save_fits=False streaming fit_predict (see fit_predict)."""
         (data, _, _), (x_all, xe_all, xm_all) = self._data(data, data_err,
                                                             data_mask)
         ndata = data.shape[0]
+        devices = (self.models.device,) if mesh is None else mesh.devices
+        batch_size = -(-batch_size // len(devices)) * len(devices)
         occ = self._occupied()
         nocc = len(occ)
         nodes_occ = self._nodes_tensor()[self._tensor(occ)]
@@ -856,12 +867,12 @@ class _Network:
                                       discrete=discrete, verbose=False)
             node_pdfs_occ = self._tensor(node_pdfs[occ])
             ngrid = node_pdfs.shape[1]
+            shared = (nodes_occ, node_pdfs_occ)
 
-            def run(x, xe, xm):
+            def run(x, xe, xm, rep):
                 return _nodes_only_fp(
-                    x, xe, xm, nodes_occ, node_pdfs_occ,
-                    lpnet_spec=lpnet_spec, wt_thresh=wt_thresh,
-                    cdf_thresh=cdf_thresh) + (None,)
+                    x, xe, xm, *rep, lpnet_spec=lpnet_spec,
+                    wt_thresh=wt_thresh, cdf_thresh=cdf_thresh) + (None,)
         else:
             member_tab = self.nodes_bmus if discrete else self.nodes_idxs
             members = self._tensor(member_tab[occ].astype(np.int64))
@@ -873,37 +884,50 @@ class _Network:
                 dx=dx, sig_thresh=sig_thresh, device=self.device,
                 dtype=self._dtype)
 
-            def run(x, xe, xm):
-                return _union_fp(
-                    x, xe, xm, nodes_occ, members, self.models,
-                    self.models_err, self.models_mask, lab,
-                    lpnet_spec=lpnet_spec, lprob_spec=lprob_spec,
-                    wt_thresh=wt_thresh, cdf_thresh=cdf_thresh,
-                    cap_sel=cap_sel, max_neighbors=max_neighbors,
-                    kde_wt_thresh=kde_wt, kde_cdf_thresh=kde_cdf,
-                    use_dict=use_dict, ngrid=ngrid)
+            shared = (nodes_occ, members, self.models, self.models_err,
+                      self.models_mask, lab)
 
+            def run(x, xe, xm, rep):
+                return _union_fp(
+                    x, xe, xm, *rep, lpnet_spec=lpnet_spec,
+                    lprob_spec=lprob_spec, wt_thresh=wt_thresh,
+                    cdf_thresh=cdf_thresh, cap_sel=cap_sel,
+                    max_neighbors=max_neighbors, kde_wt_thresh=kde_wt,
+                    kde_cdf_thresh=kde_cdf, use_dict=use_dict, ngrid=ngrid)
+
+        reps = _mesh.per_device(devices,
+                                lambda dev: _mesh.to_device(shared, dev))
         post, out_width = ((None, ngrid) if post_setup is None
                            else post_setup(ndata, batch_size))
         pdfs = np.zeros((ndata, out_width), np.float32)
         lmap = np.zeros(ndata, np.float32)
         levid = np.zeros(ndata, np.float32)
+        per = batch_size // len(devices)
         for i0, n in progress_iter(
                 _batch_slices(ndata, batch_size), total=ndata,
                 label="Generating PDF", verbose=verbose, sizes=True):
-            x, xe, xm = (_pad_rows(t[i0:i0 + n], batch_size)
-                         for t in (x_all, xe_all, xm_all))
-            pdf_b, lmap_b, levid_b, nuniq = run(x, xe, xm)
-            if nuniq is not None:
-                nu = nuniq[:n].cpu().numpy()
-                if (nu > max_neighbors).any():
-                    raise _union_error(nu, max_neighbors)
-            if post is not None:
-                pdf_b = post(pdf_b, i0)
-            sl = slice(i0, i0 + n)
-            pdfs[sl] = pdf_b[:n].cpu().numpy()
-            lmap[sl] = lmap_b[:n].cpu().numpy()
-            levid[sl] = levid_b[:n].cpu().numpy()
+            batch = [_pad_rows(t[i0:i0 + n], batch_size)
+                     for t in (x_all, xe_all, xm_all)]
+            outs = []
+            for k, (dev, rep) in enumerate(zip(devices, reps)):
+                x, xe, xm = (t[k * per:(k + 1) * per].to(dev)
+                             for t in batch)
+                outs.append(run(x, xe, xm, rep))
+            for k, (pdf_b, lmap_b, levid_b, nuniq) in enumerate(outs):
+                j0 = i0 + k * per
+                m = min(per, i0 + n - j0)
+                if m <= 0:
+                    continue
+                if nuniq is not None:
+                    nu = nuniq[:m].cpu().numpy()
+                    if (nu > max_neighbors).any():
+                        raise _union_error(nu, max_neighbors)
+                if post is not None:
+                    pdf_b = post(pdf_b, j0)
+                sl = slice(j0, j0 + m)
+                pdfs[sl] = pdf_b[:m].cpu().numpy()
+                lmap[sl] = lmap_b[:m].cpu().numpy()
+                levid[sl] = levid_b[:m].cpu().numpy()
         if return_gof:
             return pdfs, (lmap, levid)
         return pdfs

@@ -117,6 +117,7 @@ from .screen import lmap_and_shift
 
 __all__ = ["fused_fit_pdf", "fused_route", "group_width",
            "kernels_available", "cdf_cut", "cdf_cut_exact", "band_sort",
+           "model_bands",
            "BandSort", "FusedCdfFallback", "TABLE_MARGIN"]
 
 _NEG_INF = float(np.finfo(np.float32).min)
@@ -160,13 +161,16 @@ def group_width(nmodel, tm):
     return min(int(tm), -(-int(nmodel) // 128) * 128)
 
 
-def _fullmask_dimprior(d, de, mT, meT, G, *, ignore_model_err, wt_thresh):
+def _fullmask_dimprior(d, de, mT, meT, G, *, ignore_model_err, wt_thresh,
+                       bs=None):
     """Glue of `_fused_call_fullmask_dimprior` (ops/fused.py:1742-1815)
-    around the two kernels, over the models in band order; returns (pdf,
-    lmap, levid), pdf in the exp(lnl - levid) scale."""
+    around the two kernels, over the models in band order (`bs`, sorted
+    here when None); returns (pdf, lmap, levid), pdf in the
+    exp(lnl - levid) scale."""
     F, M = d.shape[1], mT.shape[1]
     a1 = 0.5 * F - 1.0
-    bs = band_sort(G, mT, meT)
+    if bs is None:
+        bs = band_sort(G, mT, meT)
     mT, meT = bs.mT, bs.meT
     below, above = _fm.chi2_brackets(d, de, mT, meT, c0=2.0 * a1,
                                      ignore_model_err=ignore_model_err)
@@ -304,22 +308,25 @@ def _free_table_bytes(device):
     return free + unused - TABLE_MARGIN
 
 
-def _table_route(d, de, dm, mT, meT, mmT, G, *, flags, log_thr, sweep_kw):
+def _table_route(d, de, dm, mT, meT, mmT, G, *, flags, log_thr, sweep_kw,
+                 bs=None):
     """The two-pass threshold route on the lnl table: per row chunk of at
     most `TABLE_BYTES_MAX` bytes of table and at most the memory free
     (`table_rows`, `_free_table_bytes`), the producer (`lnl_reduce`, or
     `scale_sweeps` under free scale with model errors, `sweep_kw` its
     keywords), `lnl_reduce` and the stack, in one buffer.  The models go
-    in band order (`band_sort`, once per call) and the stack is
+    in band order (`bs`, or `band_sort` once per call) and the stack is
     `lnl_stack_band`, except under free scale with model errors, whose
     sweeps converge the caller's model groups: there the table stays in
     the caller's order and `lnl_stack` reads it.  Rows are independent,
     so chunking changes no bit.  Returns (pdf, lmap, levid), pdf in the
     exp(lnl - levid) scale.  Raises MemoryError when one row of the table
     does not fit: there is no recompute fallback."""
-    bs = None
-    if sweep_kw is None:
-        bs = band_sort(G, mT, meT, mmT)
+    if sweep_kw is not None:
+        bs = None
+    else:
+        if bs is None:
+            bs = band_sort(G, mT, meT, mmT)
         mT, meT, mmT = bs.mT, bs.meT, bs.mmT
     B, M = d.shape[0], mT.shape[1]
     rows = _gen.table_rows(B, M, budget=_free_table_bytes(d.device))
@@ -395,6 +402,19 @@ def _is_full(mask):
     return bool((torch.as_tensor(mask) == 1).all())
 
 
+def model_bands(models, models_err, models_mask, G):
+    """The models and `G` in band order (`band_sort`), made as
+    `fused_fit_pdf` makes them: what its ``band=`` takes.  A caller that
+    streams many batches over one model set sorts it once per device, so
+    no batch reads the device for it."""
+    m = torch.as_tensor(models)
+    f32 = dict(dtype=torch.float32, device=m.device)
+    return band_sort(torch.as_tensor(G, **f32).contiguous(),
+                     m.to(torch.float32).T.contiguous(),
+                     torch.as_tensor(models_err, **f32).T.contiguous(),
+                     torch.as_tensor(models_mask, **f32).T.contiguous())
+
+
 def fused_fit_pdf(data, data_err, data_mask, models, models_err,
                   models_mask, G, *, dim_prior=True, ignore_model_err=False,
                   free_scale=False, wt_thresh=1e-3, cdf_thresh=None,
@@ -402,7 +422,7 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
                   scale_max_iter=100, cdf_topk=8, defer_cdf_check=False,
                   cdf_exact=False, screen=None, screen_sub=512,
                   screen_run_all=False, screen_stats=False,
-                  screen_absorb=True, screen_home_first=True):
+                  screen_absorb=True, screen_home_first=True, band=None):
     """Fused fit -> PDF for one object batch.
 
     Takes the `ops.logprob` inputs plus a row-normalized kernel matrix
@@ -446,6 +466,10 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
     the general kernels instead (`cdf_cut_exact`: 34 more passes over
     the models for those rows, and one read of the device); the flag is
     then always True.
+
+    ``band`` (`model_bands` of these models and G) gives the models in
+    band order, which the routes other than the screened one otherwise
+    sort in the call (`band_sort`, one read of the device).
     """
     m = torch.as_tensor(models)
     dev = m.device
@@ -477,7 +501,7 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
     elif route == "fullmask":
         pdf, lmap, levid = _fullmask_dimprior(
             d, de, mT, meT, G, ignore_model_err=ignore_model_err,
-            wt_thresh=wt_thresh)
+            wt_thresh=wt_thresh, bs=band)
     else:
         dm = torch.as_tensor(data_mask, **f32).contiguous()
         mmT = torch.as_tensor(models_mask, **f32).T.contiguous()
@@ -493,12 +517,13 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
         if route == "general" and wt_thresh is not None:
             pdf, lmap, levid = _table_route(
                 d, de, dm, mT, meT, mmT, G, flags=flags,
-                log_thr=float(np.log(wt_thresh)), sweep_kw=sweep_kw)
+                log_thr=float(np.log(wt_thresh)), sweep_kw=sweep_kw,
+                bs=band)
         else:
             if sweep_kw is not None:
                 flags["sweeps"] = _gen.scale_sweeps(d, de, dm, mT, meT, mmT,
                                                     **sweep_kw)
-            bs = band_sort(G, mT, meT, mmT)
+            bs = band_sort(G, mT, meT, mmT) if band is None else band
             if route == "onepass":
                 pdf, lmap, levid = _onepass(d, de, dm, bs, flags=flags)
             else:

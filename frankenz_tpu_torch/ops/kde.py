@@ -278,6 +278,18 @@ def kde_stack(weights, G, wt_thresh=1e-3, cdf_thresh=2e-4):
     return fp32_matmul(wts, G.to(wts.dtype))
 
 
+def lnprob_pdf(lnprob, G, wt_thresh=1e-3, cdf_thresh=2e-4):
+    """(Nobj, Nmodel) log-posteriors -> (pdf, lmap, levid): the max, the
+    logsumexp, and the weights exp(lnprob - levid) thresholded and
+    stacked through `G`.  The PDFs are not normalized.  The fitters'
+    plain composition, on one device or one shard."""
+    lmap = lnprob.amax(dim=1)
+    levid = torch.logsumexp(lnprob, dim=1)
+    pdf = kde_stack(torch.exp(lnprob - levid[:, None]), G, wt_thresh,
+                    cdf_thresh)
+    return pdf, lmap, levid
+
+
 
 def _as(x, device=None, dtype=None):
     """`x` as a tensor (host arrays copied: they may be read-only)."""

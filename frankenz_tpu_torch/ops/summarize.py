@@ -234,8 +234,15 @@ def stream_summary_setup(grid, pkern="lorentz", pkern_grid=None,
             np.random.default_rng(summary_seed).random(npad),
             dtype=torch.float32, device=device)
 
+        # A sharded fit (`mesh=`) sums batches on several devices: each
+        # takes its own copy of the grid, kernel and uniforms.
+        copies = {u_dev.device: (grid_dev, kern_c, u_dev)}
+
         def post(pdf_b, i0):
-            return summary_stream_step(pdf_b, grid_dev, kern_c, u_dev, i0)
+            dev = pdf_b.device
+            if dev not in copies:
+                copies[dev] = tuple(t.to(dev) for t in copies[u_dev.device])
+            return summary_stream_step(pdf_b, *copies[dev], i0)
 
         return post, SUMMARY_NCOLS
 

@@ -14,6 +14,16 @@ log-pmf/pdf evaluations; `nchains` is a batch dimension.  There is no
 hand-written kernel here, as the JAX package has none: a sweep's cost is
 the categorical draw over every object, not a chain of small steps.  Every
 draw takes the run's explicit `torch.Generator`.
+
+Under ``mesh=`` (a `parallel.Mesh`) the PDF rows split over the mesh's
+devices, padded to a multiple of ``mesh.size`` with uniform rows that the
+counts leave out, and the chain state lives on the mesh's first device.
+Each shard draws its objects' categories on its device and counts them
+(`bincount`); the counts are summed in shard order.  Shard 0 draws from
+the run's generator and shard k > 0 from its own, seeded from the run's
+seed and k, so a one-shard mesh gives the single-device chain bit for
+bit.  (JAX folds the shard index into its draw key instead, so its mesh
+chain differs from its single-device chain too.)
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from ..parallel import mesh as _mesh
 from ..utils.progress import train_note
 from .base import ChainSampler
 
@@ -58,28 +69,48 @@ def _bin_counts(idx, nbins, dtype):
                               nchains, nbins).to(dtype)
 
 
+def _shard_generator(seed, k, device):
+    """Shard k's (> 0) generator of the category draws under a mesh,
+    seeded with 63 bits of ``numpy.random.SeedSequence([seed, k])``."""
+    state = np.random.SeedSequence([int(seed), int(k)]).generate_state(
+        1, np.uint64)[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state) >> 1)
+    return gen
+
+
 def _hier_run(gen, pos, log_pdfs, alpha, beta, ref, ref_norm, ref_counts, *,
-              nref, nobs, niter, thin, has_ref):
+              nref, nobs, niter, thin, has_ref, zgens=None, nvalid=None):
     """`niter` thinned samples of every chain, `thin` sweeps each.
 
     pos, ref_counts: (nchains, Nbins), the Gibbs carry; log_pdfs:
     (Nobs, Nbins), hoisted (only the log of the population vector changes
-    per sweep).  Returns (samples (nchains, niter, Nbins), lnps (nchains,
-    niter), ref_counts): the final carry lets block-streaming callers
-    resume exactly.
+    per sweep), or a list of object shards, each on its device, drawn
+    with `zgens` (one generator a shard) and counted over its first
+    `nvalid` rows.  Returns (samples (nchains, niter, Nbins), lnps
+    (nchains, niter), ref_counts): the final carry lets block-streaming
+    callers resume exactly.
     """
+    if not isinstance(log_pdfs, list):
+        log_pdfs, zgens, nvalid = [log_pdfs], [gen], [log_pdfs.shape[0]]
     nchains, nbins = pos.shape
     samples = pos.new_empty((nchains, niter, nbins))
     lnps = pos.new_empty((nchains, niter))
     lnp = pos.new_zeros(nchains)
     for it in range(niter):
         for _ in range(thin):
-            # Per-object categorical draw ~ p_g * rho via Gumbel-max.
-            logits = log_pdfs[None] + torch.log(pos)[:, None, :]
-            g = -torch.log(torch.empty_like(logits).exponential_(
-                generator=gen))
-            zdraw = torch.argmax(logits + g, dim=2)
-            counts = _bin_counts(zdraw, nbins, pos.dtype)
+            # Per-object categorical draw ~ p_g * rho via Gumbel-max,
+            # shard by shard; the counts add in shard order.
+            logpos = torch.log(pos)
+            counts = None
+            for lp, zgen, nv in zip(log_pdfs, zgens, nvalid):
+                logits = lp[None] + logpos.to(lp.device)[:, None, :]
+                g = -torch.log(torch.empty_like(logits).exponential_(
+                    generator=zgen))
+                zdraw = torch.argmax(logits + g, dim=2)
+                c = _bin_counts(zdraw[:, :nv], nbins, pos.dtype).to(
+                    pos.device)
+                counts = c if counts is None else counts + c
             # Population draw.
             gam = torch._standard_gamma(alpha + counts + ref_counts,
                                         generator=gen)
@@ -127,29 +158,43 @@ class hierarchical_sampler(ChainSampler):
 
     def _make_runner(self, mesh, hyper, thin, seed):
         """`run(niter, pos, ref0) -> (samples, lnps, ref_final)` closure
-        with the log-PDF matrix and hyper arrays staged once, and the
-        run's generator seeded from `seed`."""
-        if mesh is not None:
-            raise NotImplementedError("mesh= sharding is not ported yet "
-                                      "(hierarchical_sampler)")
+        with the log-PDF matrix (split over `mesh`'s devices when given)
+        and hyper arrays staged once, and the run's generator seeded from
+        `seed`."""
         alpha, beta, ref_sample, ref_norm, nref, has_ref = hyper
-        nobs = self.pdfs.shape[0]
-        if getattr(self, "_log_pdfs_dev", None) is None:
-            self._log_pdfs_dev = torch.log(self._tensor(self.pdfs))
-        log_pdfs = self._log_pdfs_dev
+        nobs, nbins = self.pdfs.shape
+        home, zgens, nvalid = self.device, None, None
+        if mesh is None:
+            if getattr(self, "_log_pdfs_dev", None) is None:
+                self._log_pdfs_dev = torch.log(self._tensor(self.pdfs))
+            log_pdfs = self._log_pdfs_dev
+        else:
+            _mesh.check_mesh(mesh)
+            home = mesh.devices[0]
+            pad = np.full(((-nobs) % mesh.size, nbins), 1.0 / nbins)
+            per = (nobs + len(pad)) // mesh.size
+            logs = torch.log(self._tensor(np.concatenate([self.pdfs, pad])))
+            log_pdfs = [logs[k * per:(k + 1) * per].to(dev)
+                        for k, dev in enumerate(mesh.devices)]
+            nvalid = [min(per, max(nobs - k * per, 0))
+                      for k in range(mesh.size)]
         alpha_t, beta_t, ref_t, ref_norm_t = (
-            self._tensor(x) for x in (alpha, beta, ref_sample, ref_norm))
-        gen = torch.Generator(device=self.device)
+            self._tensor(x).to(home)
+            for x in (alpha, beta, ref_sample, ref_norm))
+        gen = torch.Generator(device=home)
         gen.manual_seed(seed)
+        if mesh is not None:
+            zgens = [gen] + [_shard_generator(seed, k, dev) for k, dev in
+                             enumerate(mesh.devices) if k > 0]
 
         def run(niter, pos, ref0):
-            pos = self._tensor(pos)
+            pos = self._tensor(pos).to(home)
             if ref0 is None:
                 ref0 = ref_t.expand_as(pos).clone()
             return _hier_run(gen, pos, log_pdfs, alpha_t, beta_t, ref_t,
                              ref_norm_t, ref0, nref=int(round(nref)),
                              nobs=nobs, niter=niter, thin=int(thin),
-                             has_ref=has_ref)
+                             has_ref=has_ref, zgens=zgens, nvalid=nvalid)
 
         return run
 
@@ -158,8 +203,8 @@ class hierarchical_sampler(ChainSampler):
                  verbose=True, nchains=1, mesh=None):
         """Draw `Niter` (thinned) samples and append them to the stored
         chain: flat alpha/beta defaults, resume from the last stored
-        sample, default init = stacked PDFs.  `mesh` is not ported and
-        raises."""
+        sample, default init = stacked PDFs.  `mesh` (a `parallel.Mesh`)
+        splits the objects over its devices (see the module docstring)."""
         t0 = time.time()
         hyper = self._resolve_hyper(alpha, beta, ref_sample)
         pos0 = self._resolve_pos0(pos_init, nchains)

@@ -27,6 +27,15 @@ per Gibbs step, and carry (position, overlap, lnpost) across blocks, so a
 seeded `sample` streams the chain that `run_mcmc` stores.  Neither
 recomputes ``pdfs @ pos`` along the way.
 
+Under ``mesh=`` (a `parallel.Mesh`) the general route runs with the PDF
+rows split over the mesh's devices and the chain state on its first
+device: each overlap lives with its rows, and every log-likelihood sum is
+the shards' partial sums added in shard order.  The objects pad to a
+multiple of ``mesh.size`` with uniform rows, whose constant term in
+lnpost (pair moves keep sum(pos)) is taken off the stored values, as in
+JAX.  The kernel route never runs under a mesh (JAX's rule,
+frankenz_tpu/samplers/population.py:655).
+
 `logprior_nz`, if given, takes a torch tensor: ``logprior_nz(pos,
 *prior_args, **prior_kwargs) -> scalar``.
 """
@@ -40,6 +49,7 @@ import torch
 
 from ..kernels import pop as _kpop
 from ..kernels.pop import _log1p_f32, _pair_dlnl_terms  # noqa: F401
+from ..parallel import mesh as _mesh
 from ..utils.progress import train_note
 from .base import ChainSampler
 
@@ -113,25 +123,42 @@ def _prior_values(prior, pos):
                         for p in pos])
 
 
+def _shard_sum(parts, device):
+    """Per-shard partial sums added in shard order on `device` (one part
+    comes back as it is)."""
+    total = parts[0].to(device)
+    for p in parts[1:]:
+        total = total + p.to(device)
+    return total
+
+
 def _pop_run(draws, pdfsT, pos, ov, lnp, *, prior, thin, mh_steps):
     """The general route: T Gibbs steps of every chain as a step loop in
     torch, one row of `draws` (nchains, T, 2 + 2 * mh_steps) per step.
 
-    Returns (samples (nchains, T / thin, Nbins), lnps (nchains, T / thin),
-    pos, ov, lnp); the final (pos, ov, lnp) is the exact MH carry, so
-    block-streaming callers resume as one uninterrupted run.
+    `pdfsT` (Nbins, Nobs) and `ov` (nchains, Nobs) may be lists, the
+    object shards of a mesh, each on its device: then each likelihood sum
+    is the shards' partial sums added in shard order on pos's device (one
+    shard is the single-device loop, bit for bit).  Returns (samples
+    (nchains, T / thin, Nbins), lnps (nchains, T / thin), pos, ov, lnp);
+    the final (pos, ov, lnp) is the exact MH carry, so block-streaming
+    callers resume as one uninterrupted run.
     """
+    sharded = isinstance(pdfsT, list)
+    if not sharded:
+        pdfsT, ov = [pdfsT], [ov]
     nchains, T, _ = draws.shape
-    nbins = pdfsT.shape[0]
-    c = _kpop.consts(pos.dtype, pos.device)
+    nbins = pdfsT[0].shape[0]
+    dev = pos.device
+    c = _kpop.consts(pos.dtype, dev)
     samples = pos.new_empty((nchains, T // thin, nbins))
     lnps = pos.new_empty((nchains, T // thin))
-    bins = torch.arange(nbins, device=pos.device)
+    bins = torch.arange(nbins, device=dev)
     for s in range(T):
         row = draws[:, s]
         i = row[:, 0].long()
         j = row[:, 1].long()
-        dcol = pdfsT[i] - pdfsT[j]
+        dcol = [P[i.to(P.device)] - P[j.to(P.device)] for P in pdfsT]
         t = ((bins == i[:, None]).to(pos.dtype)
              - (bins == j[:, None]).to(pos.dtype))
         pi = pos.gather(1, i[:, None])[:, 0]
@@ -142,7 +169,8 @@ def _pop_run(draws, pdfsT, pos, ov, lnp, *, prior, thin, mh_steps):
             torch.minimum(pi, pj),
             torch.minimum(c["one"] - pi, c["one"] - pj))
         hs = (scale / c["two"])[:, None]
-        dlnl = _pair_dlnl_terms(ov, hs * dcol).sum(dim=1)
+        dlnl = _shard_sum([_pair_dlnl_terms(o, hs.to(o.device) * d).sum(
+            dim=1) for o, d in zip(ov, dcol)], dev)
         grad = (dlnl + _prior_values(prior, pos + t * hs)
                 - _prior_values(prior, pos - t * hs)) / scale
         gscale = torch.where(
@@ -154,19 +182,21 @@ def _pop_run(draws, pdfsT, pos, ov, lnp, *, prior, thin, mh_steps):
             z = (row[:, 2 + k] * gscale)[:, None]
             e = row[:, 2 + mh_steps + k]
             pos_n = pos + t * z
-            ov_n = ov + z * dcol
+            ov_n = [o + z.to(o.device) * d for o, d in zip(ov, dcol)]
             bad = (pos_n < c["zero"]).any(dim=1)
             lnp_n = torch.where(
                 bad, -torch.inf,
-                torch.log(ov_n).sum(dim=1) + _prior_values(prior, pos_n))
+                _shard_sum([torch.log(o).sum(dim=1) for o in ov_n], dev)
+                + _prior_values(prior, pos_n))
             accept = -e < (lnp_n - lnp)
             pos = torch.where(accept[:, None], pos_n, pos)
-            ov = torch.where(accept[:, None], ov_n, ov)
+            ov = [torch.where(accept.to(o.device)[:, None], on, o)
+                  for o, on in zip(ov, ov_n)]
             lnp = torch.where(accept, lnp_n, lnp)
         if s % thin == thin - 1:
             samples[:, s // thin] = pos
             lnps[:, s // thin] = lnp
-    return samples, lnps, pos, ov, lnp
+    return samples, lnps, pos, (ov if sharded else ov[0]), lnp
 
 
 class population_sampler(ChainSampler):
@@ -201,8 +231,11 @@ class population_sampler(ChainSampler):
 
     def _pick_route(self, use_kernel, prior, nbins, mh_steps, mesh):
         if mesh is not None:
-            raise NotImplementedError("mesh= sharding is not ported yet "
-                                      "(population_sampler)")
+            _mesh.check_mesh(mesh)
+            if use_kernel:
+                raise ValueError("use_kernel=True: the kernel route does "
+                                 "not run under mesh=")
+            return False
         reason = self._kernel_reason(prior, nbins, mh_steps)
         if use_kernel and reason is not None:
             raise ValueError(f"use_kernel=True: {reason}")
@@ -228,23 +261,48 @@ class population_sampler(ChainSampler):
             self._draws_key = key
         return self._draws
 
-    def _start(self, pos0, prior, kernel):
-        """The (pos, overlap, lnpost) carry of a run's first block."""
-        pdfsT = self._pdfsT()
-        pos = self._tensor(pos0)
-        # pdfs @ pos bin by bin, each product and sum rounded: the same
-        # overlaps whatever the number of chains or the device (a matmul
-        # picks its order by shape).
-        ov = pos[:, :1] * pdfsT[0]
-        for b in range(1, pdfsT.shape[0]):
-            ov = ov + pos[:, b:b + 1] * pdfsT[b]
+    def _mesh_pdfsT(self, mesh, pos0):
+        """The (Nbins, Nobs) transposed PDFs split over `mesh`'s devices,
+        the objects padded to a multiple of ``mesh.size`` with uniform
+        rows, and the per-chain lnpost shift (nchains,) of those rows."""
+        nobs, nbins = self.pdfs.shape
+        npad = (-nobs) % mesh.size
+        pdfs = np.concatenate([self.pdfs, np.full((npad, nbins),
+                                                  1.0 / nbins)])
+        per = pdfs.shape[0] // mesh.size
+        shards = [torch.from_numpy(np.ascontiguousarray(
+            pdfs[k * per:(k + 1) * per].T)).to(device=dev, dtype=self.dtype)
+            for k, dev in enumerate(mesh.devices)]
+        shift = npad * np.log(np.asarray(pos0).sum(axis=1) / nbins)
+        return shards, shift
+
+    def _start(self, pos0, prior, kernel, pdfsT=None, device=None):
+        """The (pos, overlap, lnpost) carry of a run's first block, over
+        `pdfsT` (the sampler's own by default, or a list of shards whose
+        overlaps stay on their devices; pos and lnpost go to `device`)."""
+        shards = pdfsT if isinstance(pdfsT, list) else [
+            self._pdfsT() if pdfsT is None else pdfsT]
+        pos = self._tensor(pos0).to(device or self.device)
+        ovs = []
+        for P in shards:
+            # pdfs @ pos bin by bin, each product and sum rounded: the
+            # same overlaps whatever the number of chains or the device
+            # (a matmul picks its order by shape).
+            p = pos.to(P.device)
+            ov = p[:, :1] * P[0]
+            for b in range(1, P.shape[0]):
+                ov = ov + p[:, b:b + 1] * P[b]
+            ovs.append(ov)
         if kernel:
+            ov = ovs[0]
             tiny = _kpop.consts(ov.dtype, ov.device)["tiny"]
             lnp = _kpop.tree_sum(torch.log(torch.maximum(ov, tiny)),
                                  _kpop.chain_threads(ov.shape[1]))
         else:
-            lnp = torch.log(ov).sum(dim=1) + _prior_values(prior, pos)
-        return pos, ov, lnp
+            lnp = (_shard_sum([torch.log(ov).sum(dim=1) for ov in ovs],
+                              pos.device)
+                   + _prior_values(prior, pos))
+        return pos, (ovs if isinstance(pdfsT, list) else ovs[0]), lnp
 
     def _blocks(self, Niter, logprior_nz, pos_init, thin, mh_steps, rng,
                 seed, nchains, prior_args, prior_kwargs, mesh, use_kernel,
@@ -259,23 +317,30 @@ class population_sampler(ChainSampler):
         kernel = self._pick_route(use_kernel, prior, nbins, mh_steps, mesh)
         seed = self._resolve_seed(seed, rng)
         thin, mh_steps = int(thin), int(mh_steps)
+        home, shift = self.device, 0.0
+        if mesh is None:
+            pdfsT = self._pdfsT()
+        else:
+            pdfsT, shift = self._mesh_pdfsT(mesh, pos0)
+            home, shift = mesh.devices[0], shift[:, None]
         carry = None
         for i0 in range(0, Niter, block):
             nb = min(block, Niter - i0)
             draws = self._tables(seed, nchains, Niter * thin, nbins,
                                  mh_steps)[:, i0 * thin:(i0 + nb) * thin]
             if carry is None:
-                carry = self._start(pos0, prior, kernel)
+                carry = self._start(pos0, prior, kernel, pdfsT, home)
             if kernel:
                 out = _kpop.pop_chain(
-                    draws.to(torch.float32).contiguous(), self._pdfsT(),
+                    draws.to(torch.float32).contiguous(), pdfsT,
                     *carry, thin=thin, mh_steps=mh_steps)
             else:
-                out = _pop_run(draws.to(self.dtype), self._pdfsT(), *carry,
-                               prior=prior, thin=thin, mh_steps=mh_steps)
+                out = _pop_run(draws.to(device=home, dtype=self.dtype),
+                               pdfsT, *carry, prior=prior, thin=thin,
+                               mh_steps=mh_steps)
             carry = out[2:]
             yield (out[0].cpu().numpy().astype(float),
-                   out[1].cpu().numpy().astype(float))
+                   out[1].cpu().numpy().astype(float) - shift)
 
     def run_mcmc(self, Niter, logprior_nz=None, pos_init=None, thin=400,
                  mh_steps=3, rng=None, seed=None, verbose=True,
@@ -289,8 +354,10 @@ class population_sampler(ChainSampler):
         `pop_chain` launch) when the configuration is eligible: the flat
         prior, float32, within the kernel's limits.  ``use_kernel=True``
         raises ValueError on an ineligible configuration;
-        ``use_kernel=False`` takes the general route.  `mesh` is not
-        ported and raises.
+        ``use_kernel=False`` takes the general route, which `mesh` (a
+        `parallel.Mesh`) splits over its devices (see the module
+        docstring; ``use_kernel=True`` with `mesh` raises).  A one-shard
+        mesh gives the general route's single-device chain bit for bit.
         """
         t0 = time.time()
         for samples, lnps in self._blocks(

@@ -121,10 +121,21 @@ def test_fit_then_predict_matches_jax(slice_problem):
 
 
 def test_unported_options_raise(slice_problem):
+    """The mesh= refusals of the JAX fitter (bruteforce.py:589-602) and a
+    mesh that is not a `parallel.Mesh`."""
+    from frankenz_tpu_torch.parallel import make_mesh
+
     p = slice_problem
     bf = p["torch"]
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         bf.fit_predict(*p["args"], mesh=object(), **p["kw"])
+    mesh = make_mesh(devices=["cpu"] * 2)
+    for bad in (dict(save_fits=True), dict(track_scale=True)):
+        with pytest.raises(ValueError, match="mesh"):
+            bf.fit_predict(*p["args"], mesh=mesh, **bad, **p["kw"])
+    with pytest.raises(ValueError, match="cdf_thresh selection"):
+        bf.fit_predict(*p["args"], mesh=mesh, use_fused=True,
+                       wt_thresh=None, **p["kw"])
     # Checkpoints are ported: resuming without a file fails fast.
     with pytest.raises(ValueError, match="checkpoint_file"):
         bf.fit(*p["args"][:3], resume=True, verbose=False)

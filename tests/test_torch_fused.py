@@ -145,3 +145,35 @@ def test_cpu_masked_and_free_scale_configurations(monkeypatch):
     assert all(np.isfinite(x.numpy()[1:]).all() for x in out)
     assert TL.logprob(*(torch.from_numpy(x) for x in prob[:6]),
                       free_scale=True).lnprob.shape == (19, 251)
+
+
+@pytest.mark.parametrize("route", [
+    dict(screen=False),
+    dict(masked=True),
+    dict(masked=True, wt_thresh=None, cdf_thresh=None),
+    dict(masked=True, wt_thresh=None, cdf_thresh=2e-4, cdf_exact=True),
+    dict(masked=True, free_scale=True, ignore_model_err=True)],
+    ids=["fullmask", "table", "onepass", "cdf", "free_table"])
+def test_band_argument_matches_the_sort_in_the_call(route, monkeypatch):
+    """``band=model_bands(...)`` (what the fitters sort once a device)
+    gives the results of the sort made in the call bit for bit, and the
+    call then sorts nothing."""
+    from frankenz_tpu_torch.kernels import general as GK
+
+    kw = dict(route)
+    prob = [torch.from_numpy(x) for x in fullmask_problem(
+        5, outlier_row=False)]
+    if kw.pop("masked", False):
+        prob[2] = prob[2].clone()
+        prob[2][::3, 1] = 0.0
+        kw["full_mask"] = False
+    want = TF.fused_fit_pdf(*prob, **kw)
+    band = TF.model_bands(*prob[3:])
+    sorts = []
+    monkeypatch.setattr(TF, "band_sort",
+                        lambda *a, **k: sorts.append(1) or GK.band_sort(
+                            *a, **k))
+    got = TF.fused_fit_pdf(*prob, band=band, **kw)
+    assert not sorts
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())

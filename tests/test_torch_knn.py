@@ -360,10 +360,18 @@ def test_knn_from_jax_carries_the_fits(problem):
 
 
 def test_unported_options_raise(problem):
+    """The mesh= refusals of the JAX fitter (knn.py:623-625) and a mesh
+    that is not a `parallel.Mesh`."""
+    from frankenz_tpu_torch.parallel import make_mesh
+
     _, b = _pair(problem, K=2, seed=0)
     args = _data(problem) + (problem["zlab"], problem["zerr"])
-    with pytest.raises(NotImplementedError):
-        b.fit_predict(*args, label_grid=np.linspace(0, 3, 11), mesh=object())
+    grid = np.linspace(0, 3, 11)
+    with pytest.raises(TypeError, match="Mesh"):
+        b.fit_predict(*args, label_grid=grid, mesh=object())
+    with pytest.raises(ValueError, match="save_fits"):
+        b.fit_predict(*args, label_grid=grid, save_fits=True,
+                      mesh=make_mesh(devices=["cpu"] * 2))
     # Checkpoints are ported: a plan without a file fails fast.
     with pytest.raises(ValueError, match="checkpoint_file"):
         b.fit(*_data(problem), checkpoint_every=1)

@@ -361,11 +361,19 @@ def test_union_cap_raises(trained, catalog):
 
 
 def test_unported_options_raise(trained, catalog):
+    """The mesh= refusal of the JAX fitter (networks.py:1011-1013) and a
+    mesh that is not a `parallel.Mesh`."""
+    from frankenz_tpu_torch.parallel import make_mesh
+
     _, port = trained
-    with pytest.raises(NotImplementedError):
-        port.fit_predict(*catalog, np.zeros(400), np.full(400, 0.05),
-                         label_grid=np.linspace(0, 3, 31), mesh=object(),
+    labels = (np.zeros(400), np.full(400, 0.05))
+    grid = np.linspace(0, 3, 31)
+    with pytest.raises(TypeError, match="Mesh"):
+        port.fit_predict(*catalog, *labels, label_grid=grid, mesh=object(),
                          save_fits=False)
+    with pytest.raises(ValueError, match="save_fits=False"):
+        port.fit_predict(*catalog, *labels, label_grid=grid,
+                         mesh=make_mesh(devices=["cpu"] * 2))
     # Checkpoints are ported: a plan without a file fails fast.
     with pytest.raises(ValueError, match="checkpoint_file"):
         port.fit(*catalog, checkpoint_every=1)

@@ -787,11 +787,20 @@ def test_samplers_default_to_the_card_and_raise_without_one(mock_pdfs, cls,
 
 @pytest.mark.parametrize("cls", [population_sampler, hierarchical_sampler])
 def test_mesh_raises(mock_pdfs, cls):
+    """mesh= takes a `parallel.Mesh`; the population sampler's kernel
+    route does not run under one (JAX population.py:655)."""
+    from frankenz_tpu_torch.parallel import make_mesh
+
     samp = cls(mock_pdfs[0], device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         samp.run_mcmc(2, mesh=object(), verbose=False)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         next(samp.sample(2, mesh=object()))
+    if cls is population_sampler:
+        with pytest.raises(ValueError, match="kernel route"):
+            samp.run_mcmc(2, mesh=make_mesh(devices=["cpu"] * 2),
+                          use_kernel=True, verbose=False)
+    assert samp.samples == []
 
 
 def test_use_kernel_true_raises_where_the_kernel_cannot_run(mock_pdfs):
