@@ -37,6 +37,7 @@ from ..parallel import mesh as _mesh
 from ..utils import checkpoint as _ckpt
 from ..utils.metrics import metrics as _metrics
 from ..utils.progress import progress_iter
+from ..utils.tracing import span, spanned
 
 __all__ = ["BruteForce", "default_batch_size", "default_fused_batch_size",
            "resume_fit_rows"]
@@ -156,14 +157,7 @@ class BruteForce:
                          self.models_mask, lprob_func, lprob_args,
                          lprob_kwargs)
 
-    def _fp_metrics(self, ndata):
-        """fit_predict telemetry: phase timer + pair-eval / stack counts."""
-        _metrics.count("pdf_stacks", ndata)
-        return _metrics.timer("bruteforce.fit_predict",
-                              items=ndata * self.NMODEL,
-                              item_counter="chi2_pair_evals",
-                              cuda=self.device.type == "cuda")
-
+    @spanned("fitter.kernel_G")
     def _kernel_G(self, model_labels, model_label_errs, label_dict,
                   label_grid, dx=None, sig_thresh=5.0):
         """(Nmodel, Ngrid) row-normalized kernel matrix + the grid, on
@@ -311,6 +305,7 @@ class BruteForce:
             return pdfs, (lmap, levid)
         return pdfs
 
+    @spanned("fitter.fit_predict")
     def fit_predict(self, data, data_err, data_mask, model_labels,
                     model_label_errs, lprob_func=None, label_dict=None,
                     label_grid=None, kde_args=None, kde_kwargs=None,
@@ -350,7 +345,12 @@ class BruteForce:
         fused cdf kernels.  `save_fits` and `track_scale` raise under
         `mesh`, and so does ``use_fused=True`` in the cdf mode.  A
         one-shard mesh gives the single-device result bit for bit.
+
+        The call runs in the span ``fitter.fit_predict`` and counts
+        ``fitter.calls`` (`utils.tracing`, `utils.metrics`; `_stream`
+        names the rest).
         """
+        _metrics.count("fitter.calls")
         data = np.atleast_2d(np.asarray(data))
         data_err = np.atleast_2d(np.asarray(data_err))
         data_mask = np.atleast_2d(np.asarray(data_mask))
@@ -385,26 +385,26 @@ class BruteForce:
                                  "grids)")
             use_fused = bool(use_fused) and not cdf_mode
             devices = mesh.devices
-        with self._fp_metrics(ndata):
-            if batch_size is None:
-                batch_size = (default_fused_batch_size(ndata, len(grid))
-                              if use_fused else
-                              default_batch_size(self.NMODEL))
-            if use_fused:
-                out = self._fit_predict_fused(
-                    data, data_err, data_mask, G, lprob_kwargs or {},
-                    wt_thresh, cdf_thresh, batch_size, devices, verbose,
-                    _post_setup)
-            else:
-                out = self._fit_predict_plain(
-                    data, data_err, data_mask, G, lprob_func, lprob_args,
-                    lprob_kwargs, wt_thresh, cdf_thresh, batch_size,
-                    devices, save_fits, track_scale, verbose, _post_setup)
+        _metrics.count("pdf_stacks", ndata)
+        if batch_size is None:
+            batch_size = (default_fused_batch_size(ndata, len(grid))
+                          if use_fused else default_batch_size(self.NMODEL))
+        if use_fused:
+            out = self._fit_predict_fused(
+                data, data_err, data_mask, G, lprob_kwargs or {},
+                wt_thresh, cdf_thresh, batch_size, devices, verbose,
+                _post_setup)
+        else:
+            out = self._fit_predict_plain(
+                data, data_err, data_mask, G, lprob_func, lprob_args,
+                lprob_kwargs, wt_thresh, cdf_thresh, batch_size, devices,
+                save_fits, track_scale, verbose, _post_setup)
         pdfs, lmap, levid = out
         if return_gof:
             return pdfs, (lmap, levid)
         return pdfs
 
+    @spanned("fitter.stream")
     def _stream(self, data, data_err, data_mask, G, dtype, devices,
                 batch_size, post_setup, step, verbose):
         """Run every batch over `devices`, one equal row block a shard,
@@ -418,10 +418,16 @@ class BruteForce:
         `step(rep, sl) -> (pdf, lmap, levid)` runs one shard's rows `sl`
         of its device's copies `rep`.  A batch's shards are all launched,
         then normalized, mapped by the `post_setup` hook and read back
-        into the host arrays.  Returns the host arrays and the hook."""
+        into the host arrays.  Returns the host arrays and the hook.
+
+        Spans: ``fitter.stage`` (the upload), ``fitter.batch`` (each
+        batch), ``fitter.launch`` (each shard's `step`) and
+        `_finish_shard`'s; counters ``fitter.batches``, ``fitter.shards``
+        and ``fitter.pad_rows``."""
         ndata, ndev = data.shape[0], len(devices)
         batch_size = -(-batch_size // ndev) * ndev
         npad = (-ndata) % ndev
+        _metrics.count("fitter.pad_rows", npad)
         cat = [np.pad(a, ((0, npad), (0, 0)), constant_values=v)
                for a, v in ((data, 0.0), (data_err, 1.0), (data_mask, 0.0))]
 
@@ -432,7 +438,8 @@ class BruteForce:
                             self.models, self.models_err, self.models_mask)],
                         G=G.to(dev))
 
-        reps = _mesh.per_device(devices, stage)
+        with span("fitter.stage"):
+            reps = _mesh.per_device(devices, stage)
         post, width = ((None, G.shape[1]) if post_setup is None
                        else post_setup(ndata, batch_size))
         host = (np.zeros((ndata, width), np.float32),
@@ -442,26 +449,41 @@ class BruteForce:
                                    label="Fitting object", sizes=True,
                                    verbose=verbose):
             per = n // ndev
-            outs = [(i0 + k * per, step(rep, slice(i0 + k * per,
-                                                   i0 + (k + 1) * per)))
-                    for k, rep in enumerate(reps)]
-            for j0, out in outs:
-                self._finish_shard(host, j0, out, post)
+            _metrics.count("fitter.batches")
+            _metrics.count("fitter.shards", ndev)
+            with span("fitter.batch"):
+                outs = []
+                for k, rep in enumerate(reps):
+                    with span("fitter.launch"):
+                        outs.append((i0 + k * per, step(rep, slice(
+                            i0 + k * per, i0 + (k + 1) * per))))
+                for j0, out in outs:
+                    self._finish_shard(host, j0, out, post)
         return host, post
 
     @staticmethod
+    @spanned("fitter.finish_shard")
     def _finish_shard(host, j0, out, post):
         """Normalize a shard's PDFs, apply `post`, and copy its rows
-        that are not padding into the host arrays at row `j0`."""
+        that are not padding into the host arrays at row `j0`: spans
+        ``readback.normalize``, ``readback.copy`` (device to host
+        tensors) and ``readback.store`` (into the host arrays); the
+        bytes copied count in ``readback.bytes``."""
         pdf, lmap, levid = out
         m = min(pdf.shape[0], host[1].shape[0] - j0)
         if m <= 0:
             return
-        pdf = _kde.norm_rows(pdf)
-        if post is not None:
-            pdf = post(pdf, j0)
-        for h, t in zip(host, (pdf, lmap, levid)):
-            h[j0:j0 + m] = t[:m].cpu().numpy()
+        with span("readback.normalize"):
+            pdf = _kde.norm_rows(pdf)
+            if post is not None:
+                pdf = post(pdf, j0)
+        with span("readback.copy"):
+            got = [t[:m].cpu() for t in (pdf, lmap, levid)]
+        _metrics.count("readback.bytes",
+                       sum(t.numel() * t.element_size() for t in got))
+        with span("readback.store"):
+            for h, t in zip(host, got):
+                h[j0:j0 + m] = t.numpy()
 
     @staticmethod
     def _fused_kw(lprob_kwargs, wt_thresh, cdf_thresh, full_mask):
@@ -523,8 +545,9 @@ class BruteForce:
                 continue
             self.cdf_reruns += 1
             _metrics.count("cdf_reruns")
-            self._finish_shard(host, sl.start, run(
-                rep, sl, defer_cdf_check=False, cdf_exact=True), post)
+            with span("fitter.cdf_rerun"):
+                self._finish_shard(host, sl.start, run(
+                    rep, sl, defer_cdf_check=False, cdf_exact=True), post)
         return host
 
     def _fit_predict_plain(self, data, data_err, data_mask, G, lprob_func,

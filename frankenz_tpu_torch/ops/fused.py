@@ -86,6 +86,12 @@ On CUDA tensors the routes launch their kernels; on CPU tensors the same
 glue runs the kernels' plain versions.  Nothing catches a failed build
 or launch.
 
+Spans (`utils.tracing.span`): ``fused.fit_pdf`` (the call),
+``fused.band_sort`` (each band sort, counted in ``fused.band_sorts``),
+``fused.table_route``, ``fused.table_budget`` (`_free_table_bytes`) and
+``fused.table_chunk`` (each chunk, counted in ``fused.table_chunks``);
+`ops.screen` names its own.
+
 The free-scale fixed point with model errors converges per (object,
 group of ``tm`` models), as the JAX tile does (ops/fused.py:529-539): the
 group's max |delta lnl| decides, and the models of a ragged last group
@@ -112,6 +118,8 @@ from ..kernels import build as _build
 from ..kernels import fullmask as _fm
 from ..kernels import general as _gen
 from ..kernels.general import BandSort, band_sort
+from ..utils.metrics import metrics as _metrics
+from ..utils.tracing import span, spanned
 from . import screen as _screen
 from .screen import lmap_and_shift
 
@@ -161,6 +169,13 @@ def group_width(nmodel, tm):
     return min(int(tm), -(-int(nmodel) // 128) * 128)
 
 
+@spanned("fused.band_sort")
+def _sorted_bands(G, mT, meT, mmT=None):
+    """`band_sort`, counted in ``fused.band_sorts``."""
+    _metrics.count("fused.band_sorts")
+    return band_sort(G, mT, meT, mmT)
+
+
 def _fullmask_dimprior(d, de, mT, meT, G, *, ignore_model_err, wt_thresh,
                        bs=None):
     """Glue of `_fused_call_fullmask_dimprior` (ops/fused.py:1742-1815)
@@ -170,7 +185,7 @@ def _fullmask_dimprior(d, de, mT, meT, G, *, ignore_model_err, wt_thresh,
     F, M = d.shape[1], mT.shape[1]
     a1 = 0.5 * F - 1.0
     if bs is None:
-        bs = band_sort(G, mT, meT)
+        bs = _sorted_bands(G, mT, meT)
     mT, meT = bs.mT, bs.meT
     below, above = _fm.chi2_brackets(d, de, mT, meT, c0=2.0 * a1,
                                      ignore_model_err=ignore_model_err)
@@ -296,6 +311,7 @@ def cdf_cut_exact(d, de, dm, mT, meT, mmT, levid, cdf_thresh, **flags):
             torch.where(split_group, nkeep, 0.0))
 
 
+@spanned("fused.table_budget")
 def _free_table_bytes(device):
     """Bytes the lnl table may take on `device`: on the card its free
     memory and the blocks PyTorch's allocator holds unused, less
@@ -308,6 +324,7 @@ def _free_table_bytes(device):
     return free + unused - TABLE_MARGIN
 
 
+@spanned("fused.table_route")
 def _table_route(d, de, dm, mT, meT, mmT, G, *, flags, log_thr, sweep_kw,
                  bs=None):
     """The two-pass threshold route on the lnl table: per row chunk of at
@@ -326,7 +343,7 @@ def _table_route(d, de, dm, mT, meT, mmT, G, *, flags, log_thr, sweep_kw,
         bs = None
     else:
         if bs is None:
-            bs = band_sort(G, mT, meT, mmT)
+            bs = _sorted_bands(G, mT, meT, mmT)
         mT, meT, mmT = bs.mT, bs.meT, bs.mmT
     B, M = d.shape[0], mT.shape[1]
     rows = _gen.table_rows(B, M, budget=_free_table_bytes(d.device))
@@ -334,20 +351,23 @@ def _table_route(d, de, dm, mT, meT, mmT, G, *, flags, log_thr, sweep_kw,
                       dtype=torch.float32, device=d.device)
     outs = []
     for r0 in range(0, max(B, 1), rows):
-        part = [x[r0:r0 + rows] for x in (d, de, dm)]
-        table = buf[:part[0].shape[0]]
-        fl = dict(flags)
-        if sweep_kw is not None:
-            fl["sweeps"] = _gen.scale_sweeps(
-                *part, mT, meT, mmT, table=table,
-                dim_prior=flags["dim_prior"], **sweep_kw)
-        lmap, levid = _gen.lnl_reduce(*part, mT, meT, mmT, table=table, **fl)
-        if bs is None:
-            pdf = _gen.lnl_stack(*part, mT, meT, mmT, G, lmap, levid,
-                                 log_thr=log_thr, table=table, **fl)
-        else:
-            pdf = _gen.lnl_stack_band(table, bs, lmap, levid,
-                                      log_thr=log_thr)
+        _metrics.count("fused.table_chunks")
+        with span("fused.table_chunk"):
+            part = [x[r0:r0 + rows] for x in (d, de, dm)]
+            table = buf[:part[0].shape[0]]
+            fl = dict(flags)
+            if sweep_kw is not None:
+                fl["sweeps"] = _gen.scale_sweeps(
+                    *part, mT, meT, mmT, table=table,
+                    dim_prior=flags["dim_prior"], **sweep_kw)
+            lmap, levid = _gen.lnl_reduce(*part, mT, meT, mmT, table=table,
+                                          **fl)
+            if bs is None:
+                pdf = _gen.lnl_stack(*part, mT, meT, mmT, G, lmap, levid,
+                                     log_thr=log_thr, table=table, **fl)
+            else:
+                pdf = _gen.lnl_stack_band(table, bs, lmap, levid,
+                                          log_thr=log_thr)
         outs.append((pdf, lmap, levid))
     if len(outs) == 1:
         return outs[0]
@@ -409,12 +429,13 @@ def model_bands(models, models_err, models_mask, G):
     no batch reads the device for it."""
     m = torch.as_tensor(models)
     f32 = dict(dtype=torch.float32, device=m.device)
-    return band_sort(torch.as_tensor(G, **f32).contiguous(),
-                     m.to(torch.float32).T.contiguous(),
-                     torch.as_tensor(models_err, **f32).T.contiguous(),
-                     torch.as_tensor(models_mask, **f32).T.contiguous())
+    return _sorted_bands(torch.as_tensor(G, **f32).contiguous(),
+                         m.to(torch.float32).T.contiguous(),
+                         torch.as_tensor(models_err, **f32).T.contiguous(),
+                         torch.as_tensor(models_mask, **f32).T.contiguous())
 
 
+@spanned("fused.fit_pdf")
 def fused_fit_pdf(data, data_err, data_mask, models, models_err,
                   models_mask, G, *, dim_prior=True, ignore_model_err=False,
                   free_scale=False, wt_thresh=1e-3, cdf_thresh=None,
@@ -523,7 +544,7 @@ def fused_fit_pdf(data, data_err, data_mask, models, models_err,
             if sweep_kw is not None:
                 flags["sweeps"] = _gen.scale_sweeps(d, de, dm, mT, meT, mmT,
                                                     **sweep_kw)
-            bs = band_sort(G, mT, meT, mmT) if band is None else band
+            bs = _sorted_bands(G, mT, meT, mmT) if band is None else band
             if route == "onepass":
                 pdf, lmap, levid = _onepass(d, de, dm, bs, flags=flags)
             else:

@@ -30,6 +30,9 @@ float32 reassociation:
 * the sorted visit table at every size: JAX's zig-zag order (`_zig_tile_of`,
   switched on past `_VISIT_SMEM_MAX`, ops/fused.py:1549) exists only for
   Mosaic's SMEM ceiling; the two orders differ only by reassociation.
+
+Spans (`utils.tracing.span`): ``screen.screened`` (a batch),
+``screen.seed`` (`sort_and_bound`) and ``screen.gates`` (`stack_gates`).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from scipy.special import gammaln as _sp_gammaln
 
 from ..kernels import fullmask as _fm
 from ..kernels import screened as _sk
+from ..utils.tracing import spanned
 
 __all__ = ["interleave2", "chi2_upper_root", "locality_sort",
            "subtile_boxes", "screen_prep", "Sorted", "sort_and_bound",
@@ -226,6 +230,7 @@ class Sorted:
     tb: int
 
 
+@spanned("screen.seed")
 def sort_and_bound(d, de, mT, meT, G, *, sm, tm, tb, ignore_model_err):
     """The locality sort, the sorted copies, the subtile boxes and the
     seed stage (`kernels.screened.screen_bound_seed`: bounds, block
@@ -258,6 +263,7 @@ class Gates:
     cut_abs: torch.Tensor | None
 
 
+@spanned("screen.gates")
 def stack_gates(srt, below, above, *, wt_thresh, absorb=True,
                 home_first=True):
     """lmap, the shift and every pass-B cut (ops/fused.py:1485-1585),
@@ -334,6 +340,7 @@ def run_fractions(srt, seed, gates):
                         frac(gates.cut_dot[None, :])])
 
 
+@spanned("screen.screened")
 def screened(d, de, mT, meT, G, *, ignore_model_err, wt_thresh, sm, tm,
              tb=_sk.TB, run_all=False, with_stats=False, absorb=True,
              home_first=True):

@@ -1,0 +1,166 @@
+"""The port's own spans and counters on the fitter path (`utils.tracing.span`,
+`utils.metrics.metrics`), on the CPU.
+
+A profiled `BruteForce.fit_predict` gives every span of its route, each
+inside its parent, on the fused route with full masks (the screened
+glue) and masked (the table route), and on a 3-shard mesh; the counters
+equal the counts the call's shape gives; the results are the same bit
+for bit traced or not; and with no profiler recording `span` hands out
+one shared no-op context.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_port  # noqa: F401  (one torch thread per test worker)
+from frankenz_tpu_torch.models import BruteForce
+from frankenz_tpu_torch.parallel import make_mesh
+from frankenz_tpu_torch.utils import tracing as TT
+from frankenz_tpu_torch.utils.metrics import metrics
+
+M, F, NGRID = 600, 5, 33
+
+# Every span's parent on the fitter path; the route-specific spans below.
+PARENT = {
+    "fitter.kernel_G": "fitter.fit_predict",
+    "fitter.stream": "fitter.fit_predict",
+    "fitter.stage": "fitter.stream",
+    "fitter.batch": "fitter.stream",
+    "fitter.launch": "fitter.batch",
+    "fused.fit_pdf": "fitter.launch",
+    "fitter.finish_shard": "fitter.batch",
+    "readback.normalize": "fitter.finish_shard",
+    "readback.copy": "fitter.finish_shard",
+    "readback.store": "fitter.finish_shard",
+}
+SCREENED = {
+    "screen.screened": "fused.fit_pdf",
+    "screen.seed": "screen.screened",
+    "screen.gates": "screen.screened",
+}
+TABLE = {
+    "fused.band_sort": "fitter.launch",
+    "fused.table_route": "fused.fit_pdf",
+    "fused.table_budget": "fused.table_route",
+    "fused.table_chunk": "fused.table_route",
+}
+
+
+def _problem(n, masked, seed=0):
+    rng = np.random.default_rng(seed)
+    models = rng.uniform(1, 10, (M, F)).astype(np.float32)
+    labels = rng.uniform(0, 3, M)
+    data = (models[rng.integers(0, M, n)]
+            + rng.normal(0, 0.2, (n, F))).astype(np.float32)
+    mask = np.ones_like(data)
+    if masked:
+        mask[::3, 1] = 0.0
+    return models, labels, (data, np.full_like(data, 0.2), mask)
+
+
+def _fit(models, labels, cat, **kw):
+    bf = BruteForce(models, 0.05 * models, np.ones_like(models),
+                    device="cpu")
+    pdf, (lmap, levid) = bf.fit_predict(
+        *cat, labels, np.full(M, 0.05), label_grid=np.linspace(0, 3.2, NGRID),
+        verbose=False, return_gof=True, **kw)
+    return pdf, lmap, levid
+
+
+def _traced(fn, logdir):
+    """fn()'s result and the user spans of its Chrome trace, as
+    {name: [(start, end), ...]} in microseconds."""
+    with TT.trace(str(logdir)):
+        out = fn()
+    (path,) = logdir.glob("*.json")
+    spans = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            spans.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    return out, spans
+
+
+def _counted(fn):
+    """fn()'s result and the registry's counters it added."""
+    before = dict(metrics.counters)
+    out = fn()
+    return out, {k: v - before.get(k, 0) for k, v in metrics.counters.items()
+                 if v != before.get(k, 0)}
+
+
+def _assert_nested(spans, parents):
+    # Chrome-trace times are microseconds rounded to the nanosecond.
+    eps = 1e-2
+    for child, parent in parents.items():
+        assert child in spans, f"no span {child}"
+        for s, e in spans[child]:
+            assert any(ps - eps <= s and e <= pe + eps
+                       for ps, pe in spans[parent]), (child, parent)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+def test_fused_fit_predict_spans_and_counters(tmp_path, masked):
+    n, batch = 300, 128
+    models, labels, cat = _problem(n, masked)
+    want = _fit(models, labels, cat, batch_size=batch)
+    (got, spans), counts = _counted(lambda: _traced(
+        lambda: _fit(models, labels, cat, batch_size=batch), tmp_path))
+    route = TABLE if masked else SCREENED
+    _assert_nested(spans, {**PARENT, **route})
+    off_route = SCREENED if masked else TABLE
+    assert not set(off_route) & set(spans)
+    assert "fitter.cdf_rerun" not in spans
+    nbatch = -(-n // batch)
+    assert len(spans["fitter.fit_predict"]) == 1
+    for name in ("fitter.batch", "fitter.launch", "fitter.finish_shard",
+                 "readback.copy", "readback.store", "fused.fit_pdf"):
+        assert len(spans[name]) == nbatch, name
+    assert counts == {
+        "fitter.calls": 1, "pdf_stacks": n, "fitter.batches": nbatch,
+        "fitter.shards": nbatch, "readback.bytes": n * (NGRID + 2) * 4,
+        **({"fused.band_sorts": 1, "fused.table_chunks": nbatch}
+           if masked else {})}
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_mesh_fit_predict_spans_and_counters(tmp_path):
+    """3 shards of the CPU: 301 rows pad to 303, batches of 128 round up
+    to 129 (129, 129, 45 rows), 3 shards a batch; the pad rows never
+    reach the host arrays or the bytes read back."""
+    n, batch, ndev = 301, 128, 3
+    models, labels, cat = _problem(n, masked=False)
+    mesh = make_mesh(devices=["cpu"] * ndev)
+    want = _fit(models, labels, cat, batch_size=batch)
+    (got, spans), counts = _counted(lambda: _traced(
+        lambda: _fit(models, labels, cat, batch_size=batch, mesh=mesh),
+        tmp_path))
+    _assert_nested(spans, {**PARENT, **SCREENED})
+    assert len(spans["fitter.stage"]) == 1
+    assert len(spans["fitter.batch"]) == 3
+    assert len(spans["fitter.launch"]) == len(spans["fused.fit_pdf"]) == 9
+    assert len(spans["fitter.finish_shard"]) == 9
+    assert counts == {"fitter.calls": 1, "pdf_stacks": n,
+                      "fitter.batches": 3, "fitter.shards": 9,
+                      "fitter.pad_rows": 2,
+                      "readback.bytes": n * (NGRID + 2) * 4}
+    # Traced on the mesh, the untraced single-device result bit for bit.
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_span_is_a_shared_no_op_unless_a_profiler_records():
+    off = TT.span("fitter.batch")
+    assert off is TT.span("readback.copy") is TT.annotate("x")
+    with off:
+        pass
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        on = TT.span("fitter.batch")
+        assert on is not off
+        assert isinstance(on, torch.profiler.record_function)
+    assert TT.span("fitter.batch") is off

@@ -201,6 +201,38 @@ def test_profile_device_busy_sums_kernels_and_copies(tmp_path, monkeypatch):
                                   prefix="nothing")[0] is None
 
 
+def test_profile_device_busy_counts_overlap_once(monkeypatch):
+    """Kernels on two streams overlap on [50, 100]: busy is the union of
+    the kept events, not their sum; the events by name stay sums."""
+    from contextlib import contextmanager
+    from pathlib import Path
+
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "k_a", "ts": 0, "dur": 100.0},
+        {"ph": "X", "cat": "kernel", "name": "k_b", "ts": 50, "dur": 100.0},
+        {"ph": "X", "cat": "kernel", "name": "k_a", "ts": 60, "dur": 10.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH",
+         "ts": 150, "dur": 20.0},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0,
+         "dur": 500.0},
+    ]
+
+    @contextmanager
+    def fake_trace(logdir, create_perfetto_link=False):
+        yield
+        Path(logdir).mkdir(parents=True, exist_ok=True)
+        (Path(logdir) / "trace_1.json").write_text(json.dumps(
+            {"traceEvents": events}))
+
+    monkeypatch.setattr(TT, "trace", fake_trace)
+    busy, by_name = TT.profile_device_busy(lambda: None, [(), ()])
+    assert by_name == {"k_a": 110.0 / 1e6, "k_b": 100.0 / 1e6,
+                       "Memcpy DtoH": 20.0 / 1e6}
+    assert busy == pytest.approx(170.0 / 1e6 / 2, rel=1e-12)
+    busy, _ = TT.profile_device_busy(lambda: None, [()], prefix="k_")
+    assert busy == pytest.approx(150.0 / 1e6, rel=1e-12)
+
+
 def _public(module):
     return {n for n in dir(module) if not n.startswith("_")}
 
