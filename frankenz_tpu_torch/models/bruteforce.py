@@ -26,6 +26,8 @@ fitter.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -89,6 +91,29 @@ def default_fused_batch_size(ndata, ngrid, budget_elems=1 << 25):
 def _batch_slices(n, batch_size):
     for start in range(0, n, batch_size):
         yield start, min(batch_size, n - start)
+
+
+class _Readback(NamedTuple):
+    """A shard's outputs on their way to the host arrays: `slot` the
+    pdf, lmap and levid host tensors (pinned staging on CUDA, its copies
+    done once `event` has; the outputs themselves on the CPU, `event`
+    None) and the first `m` of their rows go to row `j0`."""
+    slot: list
+    event: object
+    j0: int
+    m: int
+
+
+class _HostArrays(tuple):
+    """A `_stream` call's host arrays ``(pdf, lmap, levid)`` and the
+    shard copies on their way to them: `pending`, the `_Readback`s that
+    `_finish_shard` started and `_drain_shard` has not stored yet, and
+    `free`, the staging slots already stored, to be filled again."""
+
+    def __new__(cls, arrays):
+        self = super().__new__(cls, arrays)
+        self.pending, self.free = [], []
+        return self
 
 
 def _bf_lprob(d, de, dm, models, models_err, models_mask, lprob_func=None,
@@ -417,13 +442,19 @@ class BruteForce:
         None keeps it), the models and G go once to each distinct device.
         `step(rep, sl) -> (pdf, lmap, levid)` runs one shard's rows `sl`
         of its device's copies `rep`.  A batch's shards are all launched,
-        then normalized, mapped by the `post_setup` hook and read back
-        into the host arrays.  Returns the host arrays and the hook.
+        then normalized, mapped by the `post_setup` hook and their copies
+        to the host started (`_finish_shard`); only then are the previous
+        batch's shards stored into the host arrays (`_drain_shard`), so
+        the host's store of one batch overlaps the card's work on the
+        next.  A batch's copies go into the staging slots that the batch
+        before the previous one filled, which are stored by then.  Every
+        shard is stored before the call returns.  Returns the host arrays
+        and the hook.
 
         Spans: ``fitter.stage`` (the upload), ``fitter.batch`` (each
-        batch), ``fitter.launch`` (each shard's `step`) and
-        `_finish_shard`'s; counters ``fitter.batches``, ``fitter.shards``
-        and ``fitter.pad_rows``."""
+        batch), ``fitter.launch`` (each shard's `step`), `_finish_shard`'s
+        and `_drain_shard`'s; counters ``fitter.batches``,
+        ``fitter.shards`` and ``fitter.pad_rows``."""
         ndata, ndev = data.shape[0], len(devices)
         batch_size = -(-batch_size // ndev) * ndev
         npad = (-ndata) % ndev
@@ -442,8 +473,9 @@ class BruteForce:
             reps = _mesh.per_device(devices, stage)
         post, width = ((None, G.shape[1]) if post_setup is None
                        else post_setup(ndata, batch_size))
-        host = (np.zeros((ndata, width), np.float32),
-                np.zeros(ndata, np.float32), np.zeros(ndata, np.float32))
+        host = _HostArrays((np.zeros((ndata, width), np.float32),
+                            np.zeros(ndata, np.float32),
+                            np.zeros(ndata, np.float32)))
         for i0, n in progress_iter(_batch_slices(ndata + npad, batch_size),
                                    total=ndata + npad,
                                    label="Fitting object", sizes=True,
@@ -457,18 +489,27 @@ class BruteForce:
                     with span("fitter.launch"):
                         outs.append((i0 + k * per, step(rep, slice(
                             i0 + k * per, i0 + (k + 1) * per))))
+                done, host.pending = host.pending, []
                 for j0, out in outs:
                     self._finish_shard(host, j0, out, post)
+                for rec in done:
+                    self._drain_shard(host, rec)
+        self._drain_pending(host)
         return host, post
 
     @staticmethod
     @spanned("fitter.finish_shard")
     def _finish_shard(host, j0, out, post):
-        """Normalize a shard's PDFs, apply `post`, and copy its rows
-        that are not padding into the host arrays at row `j0`: spans
-        ``readback.normalize``, ``readback.copy`` (device to host
-        tensors) and ``readback.store`` (into the host arrays); the
-        bytes copied count in ``readback.bytes``."""
+        """Normalize a shard's PDFs, apply `post`, and start the copy of
+        its rows that are not padding to the host: appends to
+        ``host.pending`` (`_HostArrays`) the `_Readback` that
+        `_drain_shard` stores at row `j0` of the host arrays.  On CUDA
+        the copies go, on the current stream of the shard's device and
+        without waiting, into a slot of ``host.free`` that holds them or
+        else into new pinned tensors, and an event marks their end; on
+        the CPU the record holds the outputs themselves.  Spans
+        ``readback.normalize`` and ``readback.copy``; the bytes copied
+        count in ``readback.bytes``."""
         pdf, lmap, levid = out
         m = min(pdf.shape[0], host[1].shape[0] - j0)
         if m <= 0:
@@ -477,13 +518,48 @@ class BruteForce:
             pdf = _kde.norm_rows(pdf)
             if post is not None:
                 pdf = post(pdf, j0)
+        got = [t[:m] for t in (pdf, lmap, levid)]
+        event = None
         with span("readback.copy"):
-            got = [t[:m].cpu() for t in (pdf, lmap, levid)]
+            if pdf.device.type == "cuda":
+                k = next((i for i, s in enumerate(host.free)
+                          if s[0].shape[0] >= m), None)
+                slot = (host.free.pop(k) if k is not None else
+                        [torch.empty((pdf.shape[0], *t.shape[1:]),
+                                     dtype=t.dtype, pin_memory=True)
+                         for t in got])
+                for s, t in zip(slot, got):
+                    s[:m].copy_(t, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(pdf.device))
+            else:
+                slot = got
         _metrics.count("readback.bytes",
                        sum(t.numel() * t.element_size() for t in got))
+        host.pending.append(_Readback(slot, event, j0, m))
+
+    @staticmethod
+    @spanned("fitter.drain_shard")
+    def _drain_shard(host, rec):
+        """Store a `_finish_shard` record into the host arrays: spans
+        ``readback.wait`` (for its copies, on CUDA) and
+        ``readback.store`` (its rows, at row ``rec.j0``); a staging slot
+        then goes to ``host.free``."""
+        with span("readback.wait"):
+            if rec.event is not None:
+                rec.event.synchronize()
         with span("readback.store"):
-            for h, t in zip(host, got):
-                h[j0:j0 + m] = t.numpy()
+            for h, t in zip(host, rec.slot):
+                h[rec.j0:rec.j0 + rec.m] = t[:rec.m].numpy()
+        if rec.event is not None:
+            host.free.append(rec.slot)
+
+    @classmethod
+    def _drain_pending(cls, host):
+        """Store every record of ``host.pending`` (`_drain_shard`)."""
+        done, host.pending = host.pending, []
+        for rec in done:
+            cls._drain_shard(host, rec)
 
     @staticmethod
     def _fused_kw(lprob_kwargs, wt_thresh, cdf_thresh, full_mask):
@@ -548,6 +624,7 @@ class BruteForce:
             with span("fitter.cdf_rerun"):
                 self._finish_shard(host, sl.start, run(
                     rep, sl, defer_cdf_check=False, cdf_exact=True), post)
+                self._drain_pending(host)
         return host
 
     def _fit_predict_plain(self, data, data_err, data_mask, G, lprob_func,

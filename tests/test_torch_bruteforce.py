@@ -18,9 +18,11 @@ import torch
 from _torch_port import to_numpy
 from frankenz_tpu.models import BruteForce as JaxBruteForce
 from frankenz_tpu.ops import summarize as JS
+from frankenz_tpu_torch.models import bruteforce as TBF
 from frankenz_tpu_torch.ops import pdfs_summarize
 from frankenz_tpu_torch.ops import summarize as TS
 from frankenz_tpu_torch.utils import from_jax_bruteforce
+from frankenz_tpu_torch.utils.metrics import metrics
 
 GOF_TOL = dict(rtol=2e-5, atol=2e-5)
 PDF_TOL = dict(rtol=2e-3, atol=2e-5)
@@ -152,3 +154,188 @@ def test_cuda_device_without_a_card_raises(slice_problem):
     p = slice_problem
     with pytest.raises(RuntimeError, match="CUDA"):
         BruteForce(p["models"], p["models_err"], p["models_mask"])
+
+
+# ---------------------------------------------------------------------
+# The overlapped readback: each batch's shards are stored into the host
+# arrays while the next batch runs (`BruteForce._stream`).
+# ---------------------------------------------------------------------
+
+RB_M, RB_F, RB_NGRID = 600, 5, 33
+
+
+def _rb_problem(n, masked=False, seed=0):
+    rng = np.random.default_rng(seed)
+    models = rng.uniform(1, 10, (RB_M, RB_F)).astype(np.float32)
+    data = (models[rng.integers(0, RB_M, n)]
+            + rng.normal(0, 0.2, (n, RB_F))).astype(np.float32)
+    mask = np.ones_like(data)
+    if masked:
+        mask[::3, 1] = 0.0
+    bf = TBF.BruteForce(models, 0.05 * models, np.ones_like(models),
+                        device="cpu")
+    args = (data, np.full_like(data, 0.2), mask, rng.uniform(0, 3, RB_M),
+            np.full(RB_M, 0.05))
+    return bf, args
+
+
+def _rb_call(bf, args, route, **kw):
+    """One call of `route`: its host arrays, flattened."""
+    kw = dict(label_grid=np.linspace(0, 3.2, RB_NGRID), verbose=False,
+              **kw)
+    if route == "summarize":
+        summary, gof = bf.fit_summarize(*args, **kw)
+        return [np.asarray(a) for a in _leaves(summary)] + list(gof)
+    extra = dict(free=dict(lprob_kwargs={"free_scale": True}),
+                 plain=dict(use_fused=False)).get(route, {})
+    pdf, gof = bf.fit_predict(*args, return_gof=True, **kw, **extra)
+    return [pdf, *gof]
+
+
+def _leaves(x):
+    if isinstance(x, tuple):
+        return [leaf for v in x for leaf in _leaves(v)]
+    return [x]
+
+
+def _store_at_once(monkeypatch):
+    """Store every shard as soon as its copy starts, before the next
+    batch is launched: the fitter's per-batch order without the
+    lookahead (no record is left pending for `_stream`)."""
+    finish = TBF.BruteForce._finish_shard
+
+    def at_once(host, j0, out, post):
+        finish(host, j0, out, post)
+        TBF.BruteForce._drain_pending(host)
+
+    monkeypatch.setattr(TBF.BruteForce, "_finish_shard",
+                        staticmethod(at_once))
+
+
+def _counted(fn):
+    before = dict(metrics.counters)
+    out = fn()
+    return out, {k: v - before.get(k, 0) for k, v in metrics.counters.items()
+                 if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("route,n,masked,ndev", [
+    ("full", 300, False, 1), ("masked", 300, True, 1), ("free", 300, True, 1),
+    ("plain", 300, True, 1), ("summarize", 300, True, 1),
+    ("mesh", 301, False, 3)])
+def test_overlapped_readback_matches_per_batch_order(monkeypatch, route, n,
+                                                     masked, ndev):
+    """Batches of 128 rows (129 on 3 shards, the last ragged; the mesh
+    pads 301 rows to 303): the lookahead's host arrays equal, bit for
+    bit, those of the same call storing each shard before the next
+    batch is launched."""
+    from frankenz_tpu_torch.parallel import make_mesh
+
+    bf, args = _rb_problem(n, masked)
+    kw = dict(batch_size=128)
+    if ndev > 1:
+        kw["mesh"] = make_mesh(devices=["cpu"] * ndev)
+    got, counts = _counted(lambda: _rb_call(bf, args, route, **kw))
+    with monkeypatch.context() as mp:
+        _store_at_once(mp)
+        want, at_once = _counted(lambda: _rb_call(bf, args, route, **kw))
+    assert counts["readback.bytes"] == at_once["readback.bytes"]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_overlapped_readback_cdf_reruns_land_last(monkeypatch):
+    """The cdf mode with the first and last of three batches flagged:
+    their streamed results (PDFs flipped, lmap and levid + 1) are
+    stored, then their reruns overwrite them, the last batch's too,
+    whose streamed store lands after the stream's loop.  The unflagged
+    batch keeps its streamed rows."""
+    bf, args = _rb_problem(300, masked=True)
+    kw = dict(batch_size=128, wt_thresh=None, cdf_thresh=2e-4)
+    true = _rb_call(bf, args, "masked", **kw)
+    orig = TBF._fused.fused_fit_pdf
+    deferred = []
+
+    def streamed_off(flag):
+        def fit(*a, **k):
+            if not k["defer_cdf_check"]:
+                return orig(*a, **k)
+            pdf, lmap, levid, ok = orig(*a, **k)
+            deferred.append(bool(ok))
+            bad = flag and len(deferred) in (1, 3)
+            return (torch.flip(pdf, [1]), lmap + 1, levid + 1,
+                    torch.tensor(not bad))
+        return fit
+
+    monkeypatch.setattr(TBF._fused, "fused_fit_pdf", streamed_off(False))
+    streamed = _rb_call(bf, args, "masked", **kw)
+    assert bf.cdf_reruns == 0
+    deferred.clear()
+    monkeypatch.setattr(TBF._fused, "fused_fit_pdf", streamed_off(True))
+    got = _rb_call(bf, args, "masked", **kw)
+    assert bf.cdf_reruns == 2
+    rerun = np.r_[0:128, 256:300]
+    for g, t, s in zip(got, true, streamed):
+        np.testing.assert_array_equal(g[rerun], t[rerun])
+        np.testing.assert_array_equal(g[128:256], s[128:256])
+        assert not np.array_equal(t[128:256], s[128:256])
+
+
+@pytest.mark.parametrize("route", ["full", "masked"])
+def test_overlapped_readback_outputs_own_their_memory(route):
+    """Two calls back to back on different chunks: the second leaves the
+    first's arrays as they were, and no array of one call shares memory
+    with the other's."""
+    bf, args = _rb_problem(300, masked=route == "masked")
+    chunks = [tuple(a[i:i + 150] for a in args[:3]) + args[3:]
+              for i in (0, 150)]
+    first = _rb_call(bf, chunks[0], route, batch_size=64)
+    kept = [a.copy() for a in first]
+    second = _rb_call(bf, chunks[1], route, batch_size=64)
+    for a, k, b in zip(first, kept, second):
+        np.testing.assert_array_equal(a, k)
+        assert not np.shares_memory(a, b)
+        assert not np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("n,batch,ndev,nbatch", [
+    (300, 128, 1, 3), (300, 512, 1, 1), (301, 128, 3, 3), (64, 16, 3, 4)])
+def test_overlapped_readback_counts(monkeypatch, n, batch, ndev, nbatch):
+    """Each batch's shards start their copies, then the previous batch's
+    are stored, and the last batch's after the loop: (batches - 1) x
+    shards stores a call run while a later batch is enqueued (0 for one
+    batch); ``readback.bytes`` counts the rows that are not padding, as
+    before the lookahead."""
+    from frankenz_tpu_torch.parallel import make_mesh
+
+    bf, args = _rb_problem(n)
+    kw = dict(batch_size=batch)
+    if ndev > 1:
+        kw["mesh"] = make_mesh(devices=["cpu"] * ndev)
+    rows = -(-batch // ndev) * ndev
+    finish, drain, log = (TBF.BruteForce._finish_shard,
+                          TBF.BruteForce._drain_shard, [])
+
+    def logged_finish(host, j0, out, post):
+        log.append(("finish", j0 // rows))
+        finish(host, j0, out, post)
+
+    def logged_drain(host, rec):
+        log.append(("drain", rec.j0 // rows))
+        drain(host, rec)
+
+    monkeypatch.setattr(TBF.BruteForce, "_finish_shard",
+                        staticmethod(logged_finish))
+    monkeypatch.setattr(TBF.BruteForce, "_drain_shard",
+                        staticmethod(logged_drain))
+    _, counts = _counted(lambda: _rb_call(bf, args, "full", **kw))
+    assert counts["fitter.batches"] == nbatch
+    # Every shard holds rows that are not padding here.
+    assert log == [(op, b) for k in range(nbatch + 1)
+                   for op, b in [("finish", k)] * ndev * (k < nbatch)
+                   + [("drain", k - 1)] * ndev * (k > 0)]
+    later = [b for k, (op, b) in enumerate(log) if op == "drain"
+             and ("finish", b + 1) in log[:k]]
+    assert len(later) == (nbatch - 1) * ndev
+    assert counts["readback.bytes"] == n * (RB_NGRID + 2) * 4

@@ -531,6 +531,78 @@ def test_bruteforce_on_card_matches_cpu_and_counts_launches(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ndev", [1, 3])
+def test_bruteforce_overlapped_readback_on_card(cuda_device, monkeypatch,
+                                                ndev):
+    """Masked `fit_predict` in four batches on the card, on one shard or
+    on three shards of a mesh over the one card: each shard's copies
+    land in pinned staging slots, 2 x shards of them reused in turn, the
+    three earlier batches are stored while a later one is enqueued, and
+    the host arrays equal bit for bit, on one shard, the call in one
+    batch (the table route's rows are independent) and, on three, the
+    same call storing each shard as soon as its copies start; the second
+    call leaves the first's arrays as they were."""
+    from frankenz_tpu_torch.models import BruteForce
+    from frankenz_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(9)
+    M, B, F = 1500, 1024, 5
+    m = rng.uniform(1, 10, (M, F)).astype(np.float32)
+    mask = np.ones((B, F), np.float32)
+    mask[::3, 0] = 0.0
+    args = ((m[rng.integers(0, M, B)] + rng.normal(0, 0.25, (B, F))).astype(
+        np.float32), np.full((B, F), 0.25, np.float32), mask,
+        rng.uniform(0, 3, M), np.full(M, 0.1))
+    kw = dict(label_grid=np.linspace(0, 3, 301), verbose=False,
+              return_gof=True)
+    mesh = (dict(mesh=make_mesh(devices=[cuda_device] * ndev))
+            if ndev > 1 else {})
+    rows = -(-B // 4 // ndev) * ndev
+    bf = BruteForce(m, (0.05 * m).astype(np.float32), np.ones_like(m),
+                    device="cuda")
+    finish, drain, log, slots = (BruteForce._finish_shard,
+                                 BruteForce._drain_shard, [], [])
+
+    def logged_finish(host, j0, out, post):
+        log.append(j0)
+        finish(host, j0, out, post)
+
+    def spy(host, rec):
+        slots.append(tuple(t.data_ptr() for t in rec.slot))
+        assert all(t.is_pinned() for t in rec.slot)
+        # A later batch's copies are enqueued before this one is stored.
+        later = max(log) // rows > rec.j0 // rows
+        slots[-1] += (later,)
+        drain(host, rec)
+
+    monkeypatch.setattr(BruteForce, "_finish_shard",
+                        staticmethod(logged_finish))
+    monkeypatch.setattr(BruteForce, "_drain_shard", staticmethod(spy))
+    four = bf.fit_predict(*args, batch_size=B // 4, **kw, **mesh)
+    assert len(slots) == 4 * ndev
+    assert sum(s[-1] for s in slots) == 3 * ndev
+    assert len({s[:-1] for s in slots}) == 2 * ndev
+    if ndev == 1:
+        assert slots[0][:-1] == slots[2][:-1] != slots[1][:-1]
+    kept = [four[0].copy(), four[1][0].copy(), four[1][1].copy()]
+    monkeypatch.undo()
+    if ndev == 1:
+        want = bf.fit_predict(*args, batch_size=B, **kw)
+    else:
+        def at_once(host, j0, out, post):
+            finish(host, j0, out, post)
+            BruteForce._drain_pending(host)
+
+        monkeypatch.setattr(BruteForce, "_finish_shard",
+                            staticmethod(at_once))
+        want = bf.fit_predict(*args, batch_size=B // 4, **kw, **mesh)
+    for k, a, b in zip(kept, (four[0], *four[1]), (want[0], *want[1])):
+        np.testing.assert_array_equal(a, k)
+        np.testing.assert_array_equal(a, b)
+        assert not np.shares_memory(a, b)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("flags,F,B,M,Ngrid", [
     (dict(), 5, 19, 251, 77),
     (dict(ignore_model_err=True), 5, 40, 1000, 513),

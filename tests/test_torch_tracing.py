@@ -34,7 +34,11 @@ PARENT = {
     "fitter.finish_shard": "fitter.batch",
     "readback.normalize": "fitter.finish_shard",
     "readback.copy": "fitter.finish_shard",
-    "readback.store": "fitter.finish_shard",
+    # A batch's shards are stored while the next batch runs, the last
+    # batch's after the loop: inside the stream, not inside a batch.
+    "fitter.drain_shard": "fitter.stream",
+    "readback.wait": "fitter.drain_shard",
+    "readback.store": "fitter.drain_shard",
 }
 SCREENED = {
     "screen.screened": "fused.fit_pdf",
@@ -117,7 +121,8 @@ def test_fused_fit_predict_spans_and_counters(tmp_path, masked):
     nbatch = -(-n // batch)
     assert len(spans["fitter.fit_predict"]) == 1
     for name in ("fitter.batch", "fitter.launch", "fitter.finish_shard",
-                 "readback.copy", "readback.store", "fused.fit_pdf"):
+                 "readback.copy", "fitter.drain_shard", "readback.wait",
+                 "readback.store", "fused.fit_pdf"):
         assert len(spans[name]) == nbatch, name
     assert counts == {
         "fitter.calls": 1, "pdf_stacks": n, "fitter.batches": nbatch,
@@ -144,6 +149,7 @@ def test_mesh_fit_predict_spans_and_counters(tmp_path):
     assert len(spans["fitter.batch"]) == 3
     assert len(spans["fitter.launch"]) == len(spans["fused.fit_pdf"]) == 9
     assert len(spans["fitter.finish_shard"]) == 9
+    assert len(spans["fitter.drain_shard"]) == 9
     assert counts == {"fitter.calls": 1, "pdf_stacks": n,
                       "fitter.batches": 3, "fitter.shards": 9,
                       "fitter.pad_rows": 2,
