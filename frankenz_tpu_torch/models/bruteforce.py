@@ -116,6 +116,15 @@ class _HostArrays(tuple):
         return self
 
 
+def _copied_bytes(src, dst):
+    """Bytes of `dst`, made from `src` (a host array or a tensor) by
+    `torch.as_tensor` or `.to`, where that copied it onto a card: 0 on
+    the CPU, and 0 where `.to` handed `src` back (it was there already)."""
+    if dst.device.type == "cpu" or dst is src:
+        return 0
+    return dst.numel() * dst.element_size()
+
+
 def _bf_lprob(d, de, dm, models, models_err, models_mask, lprob_func=None,
               lprob_args=None, lprob_kwargs=None):
     """One batch's log-posterior grids: `fit`'s per-batch step and the
@@ -451,10 +460,14 @@ class BruteForce:
         shard is stored before the call returns.  Returns the host arrays
         and the hook.
 
-        Spans: ``fitter.stage`` (the upload), ``fitter.batch`` (each
-        batch), ``fitter.launch`` (each shard's `step`), `_finish_shard`'s
-        and `_drain_shard`'s; counters ``fitter.batches``,
-        ``fitter.shards`` and ``fitter.pad_rows``."""
+        Spans: ``fitter.stage`` (the upload) and in it ``stage.card``
+        (one a distinct device), ``fitter.batch`` (each batch),
+        ``fitter.launch`` (each shard's `step`), `_finish_shard`'s and
+        `_drain_shard`'s; counters ``fitter.batches``, ``fitter.shards``,
+        ``fitter.pad_rows``, ``stage.cards`` (on a mesh: the distinct
+        devices staged) and ``stage.bytes`` (what the stage copies onto a
+        card: the catalog from the host, the models and G where that card
+        did not hold them; nothing on the CPU)."""
         ndata, ndev = data.shape[0], len(devices)
         batch_size = -(-batch_size // ndev) * ndev
         npad = (-ndata) % ndev
@@ -462,15 +475,23 @@ class BruteForce:
         cat = [np.pad(a, ((0, npad), (0, 0)), constant_values=v)
                for a, v in ((data, 0.0), (data_err, 1.0), (data_mask, 0.0))]
 
+        models = (self.models, self.models_err, self.models_mask)
+
         def stage(dev):
-            return dict(cat=[torch.as_tensor(a, dtype=dtype, device=dev)
-                             for a in cat],
-                        models=[t.to(dev) for t in (
-                            self.models, self.models_err, self.models_mask)],
-                        G=G.to(dev))
+            with span("stage.card"):
+                rep = dict(cat=[torch.as_tensor(a, dtype=dtype, device=dev)
+                                for a in cat],
+                           models=[t.to(dev) for t in models], G=G.to(dev))
+                _metrics.count("stage.bytes", sum(
+                    _copied_bytes(s, t) for s, t in zip(
+                        (*cat, *models, G),
+                        (*rep["cat"], *rep["models"], rep["G"]))))
+            return rep
 
         with span("fitter.stage"):
             reps = _mesh.per_device(devices, stage)
+        if ndev > 1:
+            _metrics.count("stage.cards", len(dict.fromkeys(devices)))
         post, width = ((None, G.shape[1]) if post_setup is None
                        else post_setup(ndata, batch_size))
         host = _HostArrays((np.zeros((ndata, width), np.float32),

@@ -531,32 +531,46 @@ def test_bruteforce_on_card_matches_cpu_and_counts_launches(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ndev", [1, 3])
+@pytest.mark.parametrize("ndev,cards,masked", [
+    pytest.param(1, 1, True, id="1"), pytest.param(3, 1, True, id="3"),
+    pytest.param(4, 4, False, id="4cards-full"),
+    pytest.param(4, 4, True, id="4cards-masked")])
 def test_bruteforce_overlapped_readback_on_card(cuda_device, monkeypatch,
-                                                ndev):
-    """Masked `fit_predict` in four batches on the card, on one shard or
-    on three shards of a mesh over the one card: each shard's copies
-    land in pinned staging slots, 2 x shards of them reused in turn, the
-    three earlier batches are stored while a later one is enqueued, and
-    the host arrays equal bit for bit, on one shard, the call in one
-    batch (the table route's rows are independent) and, on three, the
-    same call storing each shard as soon as its copies start; the second
-    call leaves the first's arrays as they were."""
+                                                ndev, cards, masked):
+    """`fit_predict` in four batches on the card, on one shard, on three
+    shards of a mesh over the one card, or on a mesh of four distinct
+    cards (skipped below four): each shard's copies land in pinned
+    staging slots, 2 x shards of them reused in turn, the three earlier
+    batches are stored while a later one is enqueued, and the host arrays
+    equal bit for bit, on one shard, the call in one batch (the table
+    route's rows are independent), on three, the same call storing each
+    shard as soon as its copies start, and on four cards, full and
+    masked, the one-device call in batches of a shard's rows (the
+    screened route's sums over a 64-row batch are not those over a
+    256-row one: some PDF cells differ in the last bit on one card too);
+    the second call leaves the first's arrays as they were.  The stage copies the catalog onto each card
+    and the models and G onto each card but the fitter's own
+    (``stage.bytes``, ``stage.cards``)."""
     from frankenz_tpu_torch.models import BruteForce
     from frankenz_tpu_torch.parallel import make_mesh
+    from frankenz_tpu_torch.utils.metrics import metrics
 
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
     rng = np.random.default_rng(9)
-    M, B, F = 1500, 1024, 5
+    M, B, F, NG = 1500, 1024, 5, 301
     m = rng.uniform(1, 10, (M, F)).astype(np.float32)
     mask = np.ones((B, F), np.float32)
-    mask[::3, 0] = 0.0
+    if masked:
+        mask[::3, 0] = 0.0
     args = ((m[rng.integers(0, M, B)] + rng.normal(0, 0.25, (B, F))).astype(
         np.float32), np.full((B, F), 0.25, np.float32), mask,
         rng.uniform(0, 3, M), np.full(M, 0.1))
-    kw = dict(label_grid=np.linspace(0, 3, 301), verbose=False,
+    kw = dict(label_grid=np.linspace(0, 3, NG), verbose=False,
               return_gof=True)
-    mesh = (dict(mesh=make_mesh(devices=[cuda_device] * ndev))
-            if ndev > 1 else {})
+    devices = ([torch.device("cuda", i) for i in range(cards)]
+               if cards > 1 else [cuda_device] * ndev)
+    mesh = dict(mesh=make_mesh(devices=devices)) if ndev > 1 else {}
     rows = -(-B // 4 // ndev) * ndev
     bf = BruteForce(m, (0.05 * m).astype(np.float32), np.ones_like(m),
                     device="cuda")
@@ -578,7 +592,15 @@ def test_bruteforce_overlapped_readback_on_card(cuda_device, monkeypatch,
     monkeypatch.setattr(BruteForce, "_finish_shard",
                         staticmethod(logged_finish))
     monkeypatch.setattr(BruteForce, "_drain_shard", staticmethod(spy))
+    before = dict(metrics.counters)
     four = bf.fit_predict(*args, batch_size=B // 4, **kw, **mesh)
+    moved = {k: metrics.counters.get(k, 0) - before.get(k, 0)
+             for k in ("stage.bytes", "stage.cards")}
+    padded = -(-B // ndev) * ndev
+    assert moved == {
+        "stage.bytes": cards * padded * F * 4 * 3
+        + (cards - 1) * (3 * M * F + M * NG) * 4,
+        "stage.cards": cards if ndev > 1 else 0}
     assert len(slots) == 4 * ndev
     assert sum(s[-1] for s in slots) == 3 * ndev
     assert len({s[:-1] for s in slots}) == 2 * ndev
@@ -588,6 +610,8 @@ def test_bruteforce_overlapped_readback_on_card(cuda_device, monkeypatch,
     monkeypatch.undo()
     if ndev == 1:
         want = bf.fit_predict(*args, batch_size=B, **kw)
+    elif cards > 1:
+        want = bf.fit_predict(*args, batch_size=rows // ndev, **kw)
     else:
         def at_once(host, j0, out, post):
             finish(host, j0, out, post)

@@ -28,6 +28,7 @@ PARENT = {
     "fitter.kernel_G": "fitter.fit_predict",
     "fitter.stream": "fitter.fit_predict",
     "fitter.stage": "fitter.stream",
+    "stage.card": "fitter.stage",
     "fitter.batch": "fitter.stream",
     "fitter.launch": "fitter.batch",
     "fused.fit_pdf": "fitter.launch",
@@ -145,18 +146,38 @@ def test_mesh_fit_predict_spans_and_counters(tmp_path):
         lambda: _fit(models, labels, cat, batch_size=batch, mesh=mesh),
         tmp_path))
     _assert_nested(spans, {**PARENT, **SCREENED})
-    assert len(spans["fitter.stage"]) == 1
+    assert len(spans["fitter.stage"]) == len(spans["stage.card"]) == 1
     assert len(spans["fitter.batch"]) == 3
     assert len(spans["fitter.launch"]) == len(spans["fused.fit_pdf"]) == 9
     assert len(spans["fitter.finish_shard"]) == 9
     assert len(spans["fitter.drain_shard"]) == 9
     assert counts == {"fitter.calls": 1, "pdf_stacks": n,
                       "fitter.batches": 3, "fitter.shards": 9,
-                      "fitter.pad_rows": 2,
+                      "fitter.pad_rows": 2, "stage.cards": 1,
                       "readback.bytes": n * (NGRID + 2) * 4}
     # Traced on the mesh, the untraced single-device result bit for bit.
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("ndev", [1, 2])
+def test_stage_counts_cards_and_no_copy_on_the_cpu(ndev):
+    """The stage on the CPU copies nothing onto a card: ``stage.bytes``
+    stays 0; a mesh counts the distinct devices it staged (2 shards of
+    the CPU: 1 a call) and one device counts as it did before."""
+    n, batch = 64, 32
+    models, labels, cat = _problem(n, masked=True)
+    kw = dict(mesh=make_mesh(devices=["cpu"] * ndev)) if ndev > 1 else {}
+    _, counts = _counted(lambda: [_fit(models, labels, cat,
+                                       batch_size=batch, **kw)
+                                  for _ in range(2)])
+    assert "stage.bytes" in metrics.counters
+    assert "stage.bytes" not in counts
+    assert counts == {
+        "fitter.calls": 2, "pdf_stacks": 2 * n, "fitter.batches": 4,
+        "fitter.shards": 4 * ndev, "readback.bytes": 2 * n * (NGRID + 2) * 4,
+        "fused.band_sorts": 2, "fused.table_chunks": 4 * ndev,
+        **({"stage.cards": 2} if ndev > 1 else {})}
 
 
 def test_span_is_a_shared_no_op_unless_a_profiler_records():
