@@ -26,6 +26,9 @@ fitter.
 
 from __future__ import annotations
 
+import functools
+import os
+from concurrent import futures
 from typing import NamedTuple
 
 import numpy as np
@@ -104,16 +107,77 @@ class _Readback(NamedTuple):
     m: int
 
 
+# A store task copies at least this many bytes: a smaller record is one
+# task, a larger one splits into a task a worker.
+_STORE_LEAST_BYTES = 4 << 20
+
+
+@functools.cache
+def _store_pool():
+    """The store workers and their number, made on the first pooled store:
+    a thread for each CPU this process may use but the launching thread's,
+    at most 8."""
+    n = min(8, max(1, len(os.sched_getaffinity(0)) - 1))
+    return futures.ThreadPoolExecutor(n, thread_name_prefix="fz-store"), n
+
+
+def _row_ranges(m, row_bytes, workers):
+    """`m` rows in at most `workers` contiguous ranges of at least
+    `_STORE_LEAST_BYTES` each (one range where the rows hold less)."""
+    n = max(1, min(workers, m * row_bytes // _STORE_LEAST_BYTES))
+    step = -(-m // n)
+    return [(a, min(a + step, m)) for a in range(0, m, step)]
+
+
+def _store_rows(host, rec, src, a, b):
+    """A store worker's task: rows `a:b` of a record's slot (`src`, its
+    NumPy views) into the host arrays at row ``rec.j0 + a``, once the
+    record's copies are done."""
+    with span("readback.wait"):
+        rec.event.synchronize()
+    with span("readback.store"):
+        for h, t in zip(host, src):
+            h[rec.j0 + a:rec.j0 + b] = t[a:b]
+
+
+def _join(tasks):
+    """Wait for every store task of `tasks` (span ``readback.join``), then
+    raise the first exception a worker met."""
+    if not tasks:
+        return
+    with span("readback.join"):
+        futures.wait(tasks)
+        for t in tasks:
+            t.result()
+
+
 class _HostArrays(tuple):
     """A `_stream` call's host arrays ``(pdf, lmap, levid)`` and the
     shard copies on their way to them: `pending`, the `_Readback`s that
-    `_finish_shard` started and `_drain_shard` has not stored yet, and
-    `free`, the staging slots already stored, to be filled again."""
+    `_finish_shard` started and `_drain_shard` has not handed on yet,
+    and `free`, the staging slots handed to the store workers, each with
+    its store tasks, to be filled again once those have finished."""
 
     def __new__(cls, arrays):
         self = super().__new__(cls, arrays)
         self.pending, self.free = [], []
         return self
+
+    def take(self, m):
+        """The first free slot of at least `m` rows, once its stores have
+        finished; None where no slot holds `m` rows."""
+        k = next((i for i, (s, _) in enumerate(self.free)
+                  if s[0].shape[0] >= m), None)
+        if k is None:
+            return None
+        slot, tasks = self.free.pop(k)
+        _join(tasks)
+        return slot
+
+    def join(self):
+        """Wait for every store still running: the arrays are whole."""
+        _join([t for _, tasks in self.free for t in tasks])
+        self.free = [(s, []) for s, _ in self.free]
 
 
 def _copied_bytes(src, dst):
@@ -453,12 +517,13 @@ class BruteForce:
         of its device's copies `rep`.  A batch's shards are all launched,
         then normalized, mapped by the `post_setup` hook and their copies
         to the host started (`_finish_shard`); only then are the previous
-        batch's shards stored into the host arrays (`_drain_shard`), so
+        batch's shards handed to the store workers (`_drain_shard`), so
         the host's store of one batch overlaps the card's work on the
-        next.  A batch's copies go into the staging slots that the batch
-        before the previous one filled, which are stored by then.  Every
-        shard is stored before the call returns.  Returns the host arrays
-        and the hook.
+        next and this thread's launches.  A batch's copies go into the
+        staging slots that the batch before the previous one filled, once
+        their stores have finished.  Every shard is stored before the
+        call returns (`_drain_pending`).  Returns the host arrays and the
+        hook.
 
         Spans: ``fitter.stage`` (the upload) and in it ``stage.card``
         (one a distinct device), ``fitter.batch`` (each batch),
@@ -526,9 +591,10 @@ class BruteForce:
         ``host.pending`` (`_HostArrays`) the `_Readback` that
         `_drain_shard` stores at row `j0` of the host arrays.  On CUDA
         the copies go, on the current stream of the shard's device and
-        without waiting, into a slot of ``host.free`` that holds them or
-        else into new pinned tensors, and an event marks their end; on
-        the CPU the record holds the outputs themselves.  Spans
+        without waiting, into a slot of ``host.free`` that holds them,
+        once its stores have finished (span ``readback.join``), or else
+        into new pinned tensors, and an event marks their end; on the
+        CPU the record holds the outputs themselves.  Spans
         ``readback.normalize`` and ``readback.copy``; the bytes copied
         count in ``readback.bytes``."""
         pdf, lmap, levid = out
@@ -543,12 +609,10 @@ class BruteForce:
         event = None
         with span("readback.copy"):
             if pdf.device.type == "cuda":
-                k = next((i for i, s in enumerate(host.free)
-                          if s[0].shape[0] >= m), None)
-                slot = (host.free.pop(k) if k is not None else
-                        [torch.empty((pdf.shape[0], *t.shape[1:]),
-                                     dtype=t.dtype, pin_memory=True)
-                         for t in got])
+                slot = host.take(m) or [
+                    torch.empty((pdf.shape[0], *t.shape[1:]),
+                                dtype=t.dtype, pin_memory=True)
+                    for t in got]
                 for s, t in zip(slot, got):
                     s[:m].copy_(t, non_blocking=True)
                 event = torch.cuda.Event()
@@ -562,25 +626,38 @@ class BruteForce:
     @staticmethod
     @spanned("fitter.drain_shard")
     def _drain_shard(host, rec):
-        """Store a `_finish_shard` record into the host arrays: spans
-        ``readback.wait`` (for its copies, on CUDA) and
-        ``readback.store`` (its rows, at row ``rec.j0``); a staging slot
-        then goes to ``host.free``."""
-        with span("readback.wait"):
-            if rec.event is not None:
-                rec.event.synchronize()
-        with span("readback.store"):
-            for h, t in zip(host, rec.slot):
-                h[rec.j0:rec.j0 + rec.m] = t[:rec.m].numpy()
-        if rec.event is not None:
-            host.free.append(rec.slot)
+        """Store a `_finish_shard` record into the host arrays, its rows
+        at row ``rec.j0``.  A record with pinned staging (an `event`, on
+        CUDA) goes to the store workers (`_store_pool`) and its slot at
+        once to ``host.free`` with their tasks: each waits for the
+        copies (span ``readback.wait``) and stores one row range of the
+        slot (``readback.store``), the ranges split so that the workers
+        fault the fresh pages of a large record in parallel; counted in
+        ``readback.pooled``.  On the CPU the rows are stored here, in the
+        same spans."""
+        if rec.event is None:
+            with span("readback.wait"):
+                pass
+            with span("readback.store"):
+                for h, t in zip(host, rec.slot):
+                    h[rec.j0:rec.j0 + rec.m] = t[:rec.m].numpy()
+            return
+        pool, workers = _store_pool()
+        src = [t.numpy() for t in rec.slot]
+        row_bytes = sum(t[0].nbytes for t in src)
+        tasks = [pool.submit(_store_rows, host, rec, src, a, b)
+                 for a, b in _row_ranges(rec.m, row_bytes, workers)]
+        host.free.append((rec.slot, tasks))
+        _metrics.count("readback.pooled")
 
     @classmethod
     def _drain_pending(cls, host):
-        """Store every record of ``host.pending`` (`_drain_shard`)."""
+        """Store every record of ``host.pending`` (`_drain_shard`) and wait
+        for the store workers (`_HostArrays.join`)."""
         done, host.pending = host.pending, []
         for rec in done:
             cls._drain_shard(host, rec)
+        host.join()
 
     @staticmethod
     def _fused_kw(lprob_kwargs, wt_thresh, cdf_thresh, full_mask):

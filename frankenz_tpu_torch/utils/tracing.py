@@ -59,17 +59,20 @@ _OFF = nullcontext()
 @contextmanager
 def trace(logdir, create_perfetto_link=False):
     """Capture a `torch.profiler` trace of the enclosed block into `logdir`
-    as one Chrome trace (``trace_<pid>_<ns>.json``): CPU activity, and
-    the card's when CUDA is available.  `create_perfetto_link` is kept
-    for the JAX signature and ignored (the file opens in Perfetto)."""
+    as one Chrome trace (``trace_<pid>_<ns>.json``): CPU activity on every
+    thread (the fitter's store workers' spans too), and the card's when
+    CUDA is available.  `create_perfetto_link` is kept for the JAX
+    signature and ignored (the file opens in Perfetto)."""
     del create_perfetto_link
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(logdir, exist_ok=True)
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, experimental_config=_ExperimentalConfig(
+            profile_all_threads=True)) as prof:
         yield
     prof.export_chrome_trace(os.path.join(
         logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

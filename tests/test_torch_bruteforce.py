@@ -11,6 +11,9 @@ atol 2e-4 across routes (PDF differences move quantiles), and exact-
 route comparisons at 2e-5 / 2e-6.
 """
 
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -339,3 +342,177 @@ def test_overlapped_readback_counts(monkeypatch, n, batch, ndev, nbatch):
              and ("finish", b + 1) in log[:k]]
     assert len(later) == (nbatch - 1) * ndev
     assert counts["readback.bytes"] == n * (RB_NGRID + 2) * 4
+
+
+# ---------------------------------------------------------------------
+# The store pool: on the card a record with pinned staging goes to the
+# store workers (`_drain_shard`).  Hand-built records carry an event
+# stand-in, so the pool engages on the CPU.
+# ---------------------------------------------------------------------
+
+class _Gate:
+    """An event stand-in: `synchronize` waits until `open` (bounded),
+    or raises `error`."""
+
+    def __init__(self, opened=True, error=None):
+        self.gate, self.error = threading.Event(), error
+        if opened:
+            self.gate.set()
+
+    def open(self):
+        self.gate.set()
+
+    def synchronize(self):
+        assert self.gate.wait(30), "gate never opened"
+        if self.error is not None:
+            raise self.error
+
+
+def _pool_host(ndata, width):
+    return TBF._HostArrays((np.zeros((ndata, width), np.float32),
+                            np.zeros(ndata, np.float32),
+                            np.zeros(ndata, np.float32)))
+
+
+def _pool_record(rows, width, j0, m, event, seed=0):
+    rng = np.random.default_rng(seed)
+    slot = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for shape in ((rows, width), (rows,), (rows,))]
+    return TBF._Readback(slot, event, j0, m)
+
+
+@pytest.mark.parametrize("rows,width,j0,m", [
+    (30_001, RB_NGRID * 9 + 4, 0, 30_001),
+    (30_001, RB_NGRID * 9 + 4, 7, 29_990),
+    (1, RB_NGRID, 5, 1),
+    (20_000, TS.SUMMARY_NCOLS, 3, 19_999),
+    (2_048, 301, 0, 2_048)])
+def test_pooled_store_matches_one_thread_store(rows, width, j0, m):
+    """A record with an event goes to the store workers and equals, bit
+    for bit, the one-thread store of the same record (its event None):
+    split into ranges where it holds 4 MB a worker or more (30,001 rows
+    divide by no pool size but 1), one task where it holds less (1 row,
+    a 2,048-row call), and at `fit_summarize`'s width.  The first `m`
+    rows land at `j0`; the rest of the arrays stay 0."""
+    ndata = j0 + m + 2
+    pooled, plain = _pool_host(ndata, width), _pool_host(ndata, width)
+    rec = _pool_record(rows, width, j0, m, _Gate())
+    _, workers = TBF._store_pool()
+    ranges = TBF._row_ranges(m, width * 4 + 8, workers)
+    assert ranges[0][0] == 0 and ranges[-1][1] == m
+    assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
+    big = m * (width * 4 + 8) >= 2 * TBF._STORE_LEAST_BYTES
+    assert len(ranges) == (min(workers, m * (width * 4 + 8)
+                               // TBF._STORE_LEAST_BYTES) if big else 1)
+    _, counts = _counted(lambda: TBF.BruteForce._drain_shard(pooled, rec))
+    TBF.BruteForce._drain_pending(pooled)
+    TBF.BruteForce._drain_shard(plain, rec._replace(event=None))
+    assert counts == {"readback.pooled": 1}
+    assert [s for s, _ in pooled.free] == [rec.slot] and not plain.free
+    for got, want, src in zip(pooled, plain, rec.slot):
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got[j0:j0 + m], src[:m].numpy())
+        assert not got[:j0].any() and not got[j0 + m:].any()
+
+
+def test_pooled_slot_is_not_reused_before_its_stores():
+    """`_drain_shard` returns before a gated record is stored; taking its
+    slot for the next copies (`_HostArrays.take`, as `_finish_shard`
+    does) and the end of the stream (`_drain_pending`) both wait until
+    the stores have run, and then find the rows in the host arrays."""
+    host = _pool_host(40_000, 301)
+    first, second = _Gate(opened=False), _Gate(opened=False)
+    rec = _pool_record(20_000, 301, 0, 20_000, first, seed=1)
+    TBF.BruteForce._drain_shard(host, rec)
+    assert not host[0].any() and not host[1].any()
+    taken = []
+    taker = threading.Thread(target=lambda: taken.append(host.take(20_000)))
+    taker.start()
+    taker.join(0.3)
+    assert taker.is_alive() and not taken
+    assert host.take(20_001) is None
+    first.open()
+    taker.join(30)
+    assert not taker.is_alive()
+    assert taken == [rec.slot] and not host.free
+    np.testing.assert_array_equal(host[0][:20_000], rec.slot[0].numpy())
+    later = _pool_record(20_000, 301, 20_000, 20_000, second, seed=2)
+    host.pending.append(later)
+    drainer = threading.Thread(
+        target=lambda: TBF.BruteForce._drain_pending(host))
+    drainer.start()
+    drainer.join(0.3)
+    assert drainer.is_alive()
+    second.open()
+    drainer.join(30)
+    assert not drainer.is_alive() and not host.pending
+    np.testing.assert_array_equal(host[0][20_000:], later.slot[0].numpy())
+    np.testing.assert_array_equal(host[2][20_000:], later.slot[2].numpy())
+
+
+@pytest.mark.parametrize("at", ["take", "drain_pending"])
+def test_pooled_store_error_is_raised_at_the_join(at):
+    """A worker's exception does not escape `_drain_shard`; it is raised
+    on the launching thread where that waits on the pool: taking the
+    slot again, or the end of the stream."""
+    host = _pool_host(100, RB_NGRID)
+    bad = _Gate(error=RuntimeError("copy failed"))
+    TBF.BruteForce._drain_shard(
+        host, _pool_record(100, RB_NGRID, 0, 100, bad))
+    with pytest.raises(RuntimeError, match="copy failed"):
+        if at == "take":
+            host.take(100)
+        else:
+            TBF.BruteForce._drain_pending(host)
+
+
+def test_pooled_counter_counts_pooled_records_only():
+    """``readback.pooled`` counts each record stored by the pool, one per
+    record whatever its split, and a call on the CPU, whose records hold
+    the outputs themselves, counts none."""
+    host = _pool_host(40_000, 301)
+    recs = [_pool_record(20_000, 301, 0, 20_000, _Gate()),
+            _pool_record(10, 301, 20_000, 10, _Gate()),
+            _pool_record(10, 301, 20_010, 10, None)]
+
+    def drain():
+        for rec in recs:
+            TBF.BruteForce._drain_shard(host, rec)
+        TBF.BruteForce._drain_pending(host)
+
+    _, counts = _counted(drain)
+    assert counts == {"readback.pooled": 2}
+    assert len(host.free) == 2
+    bf, args = _rb_problem(300)
+    _, counts = _counted(lambda: _rb_call(bf, args, "full", batch_size=128))
+    assert counts["fitter.shards"] == 3 and "readback.pooled" not in counts
+
+
+def test_pooled_stores_under_contention(monkeypatch):
+    """Stress: 48 records of 5 to 400 rows, split into 1-row-minimum
+    ranges, on a pool of 32 workers (more than the cores) with a thread
+    switch every microsecond: every row of the host arrays holds its own
+    record's values."""
+    pool = TBF.futures.ThreadPoolExecutor(32)
+    monkeypatch.setattr(TBF, "_store_pool", lambda: (pool, 32))
+    monkeypatch.setattr(TBF, "_STORE_LEAST_BYTES", 1)
+    rng = np.random.default_rng(3)
+    sizes = rng.integers(5, 400, 48)
+    starts = np.r_[0, np.cumsum(sizes)[:-1]]
+    host = _pool_host(int(sizes.sum()), RB_NGRID)
+    recs = [_pool_record(int(n) + 3, RB_NGRID, int(j0), int(n), _Gate(),
+                         seed=k) for k, (n, j0) in enumerate(zip(sizes,
+                                                                 starts))]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for rec in recs:
+            TBF.BruteForce._drain_shard(host, rec)
+        TBF.BruteForce._drain_pending(host)
+    finally:
+        sys.setswitchinterval(switch)
+        pool.shutdown(wait=True)
+    for rec in recs:
+        for h, t in zip(host, rec.slot):
+            np.testing.assert_array_equal(h[rec.j0:rec.j0 + rec.m],
+                                          t[:rec.m].numpy())

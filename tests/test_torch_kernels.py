@@ -550,7 +550,8 @@ def test_bruteforce_overlapped_readback_on_card(cuda_device, monkeypatch,
     256-row one: some PDF cells differ in the last bit on one card too);
     the second call leaves the first's arrays as they were.  The stage copies the catalog onto each card
     and the models and G onto each card but the fitter's own
-    (``stage.bytes``, ``stage.cards``)."""
+    (``stage.bytes``, ``stage.cards``).  Every shard's record is stored
+    by the store workers (``readback.pooled``: batches x shards)."""
     from frankenz_tpu_torch.models import BruteForce
     from frankenz_tpu_torch.parallel import make_mesh
     from frankenz_tpu_torch.utils.metrics import metrics
@@ -595,12 +596,13 @@ def test_bruteforce_overlapped_readback_on_card(cuda_device, monkeypatch,
     before = dict(metrics.counters)
     four = bf.fit_predict(*args, batch_size=B // 4, **kw, **mesh)
     moved = {k: metrics.counters.get(k, 0) - before.get(k, 0)
-             for k in ("stage.bytes", "stage.cards")}
+             for k in ("stage.bytes", "stage.cards", "readback.pooled")}
     padded = -(-B // ndev) * ndev
     assert moved == {
         "stage.bytes": cards * padded * F * 4 * 3
         + (cards - 1) * (3 * M * F + M * NG) * 4,
-        "stage.cards": cards if ndev > 1 else 0}
+        "stage.cards": cards if ndev > 1 else 0,
+        "readback.pooled": 4 * ndev}
     assert len(slots) == 4 * ndev
     assert sum(s[-1] for s in slots) == 3 * ndev
     assert len({s[:-1] for s in slots}) == 2 * ndev
@@ -624,6 +626,64 @@ def test_bruteforce_overlapped_readback_on_card(cuda_device, monkeypatch,
         np.testing.assert_array_equal(a, k)
         np.testing.assert_array_equal(a, b)
         assert not np.shares_memory(a, b)
+
+
+@pytest.mark.gpu
+def test_bruteforce_pooled_cdf_reruns_on_card(cuda_device, monkeypatch):
+    """The cdf mode in four batches on the card, the first and the last
+    flagged: their streamed results (PDFs flipped, lmap and levid + 1)
+    go to the store workers, the last batch's after the loop, and their
+    reruns' stores land after them, so those rows equal the same call's
+    with the streamed results left as they were; the unflagged batches
+    keep their streamed rows.  Six records are pooled: four streamed,
+    two reruns."""
+    from frankenz_tpu_torch.models import bruteforce as TBF
+    from frankenz_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(11)
+    M, B, F, NG = 1500, 1024, 5, 301
+    m = rng.uniform(1, 10, (M, F)).astype(np.float32)
+    mask = np.ones((B, F), np.float32)
+    mask[::3, 0] = 0.0
+    args = ((m[rng.integers(0, M, B)] + rng.normal(0, 0.25, (B, F))).astype(
+        np.float32), np.full((B, F), 0.25, np.float32), mask,
+        rng.uniform(0, 3, M), np.full(M, 0.1))
+    kw = dict(label_grid=np.linspace(0, 3, NG), verbose=False,
+              return_gof=True, batch_size=B // 4, wt_thresh=None,
+              cdf_thresh=2e-4)
+    bf = TBF.BruteForce(m, (0.05 * m).astype(np.float32), np.ones_like(m),
+                        device="cuda")
+    orig = TBF._fused.fused_fit_pdf
+
+    def call(alter, flag):
+        streamed = []
+
+        def fit(*a, **k):
+            if not k["defer_cdf_check"]:
+                return orig(*a, **k)
+            pdf, lmap, levid, _ = orig(*a, **k)
+            streamed.append(pdf.shape[0])
+            if alter:
+                pdf, lmap, levid = torch.flip(pdf, [1]), lmap + 1, levid + 1
+            bad = flag and len(streamed) in (1, 4)
+            return pdf, lmap, levid, torch.tensor(not bad)
+
+        monkeypatch.setattr(TBF._fused, "fused_fit_pdf", fit)
+        before = metrics.counters.get("readback.pooled", 0)
+        pdf, (lmap, levid) = bf.fit_predict(*args, **kw)
+        assert streamed == [B // 4] * 4
+        assert bf.cdf_reruns == 2 * flag
+        assert metrics.counters["readback.pooled"] - before == 4 + 2 * flag
+        return pdf, lmap, levid
+
+    streamed = call(alter=True, flag=False)
+    want = call(alter=False, flag=True)
+    got = call(alter=True, flag=True)
+    rerun, kept = np.r_[0:B // 4, 3 * B // 4:B], np.r_[B // 4:3 * B // 4]
+    for g, w, s in zip(got, want, streamed):
+        np.testing.assert_array_equal(g[rerun], w[rerun])
+        np.testing.assert_array_equal(g[kept], s[kept])
+        assert not np.array_equal(s[rerun], w[rerun])
 
 
 @pytest.mark.gpu

@@ -15,11 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_port  # noqa: F401  (one torch thread per test worker)
 from frankenz_tpu_torch.models import BruteForce
 from frankenz_tpu_torch.parallel import make_mesh
 from frankenz_tpu_torch.utils import tracing as TT
 from frankenz_tpu_torch.utils.metrics import metrics
+
+# One torch thread per test worker (as tests/_torch_port.py sets it;
+# that module imports JAX, and the card tests here run without JAX).
+torch.set_num_threads(1)
 
 M, F, NGRID = 600, 5, 33
 
@@ -66,18 +69,19 @@ def _problem(n, masked, seed=0):
     return models, labels, (data, np.full_like(data, 0.2), mask)
 
 
-def _fit(models, labels, cat, **kw):
+def _fit(models, labels, cat, device="cpu", **kw):
     bf = BruteForce(models, 0.05 * models, np.ones_like(models),
-                    device="cpu")
+                    device=device)
     pdf, (lmap, levid) = bf.fit_predict(
         *cat, labels, np.full(M, 0.05), label_grid=np.linspace(0, 3.2, NGRID),
         verbose=False, return_gof=True, **kw)
     return pdf, lmap, levid
 
 
-def _traced(fn, logdir):
+def _traced(fn, logdir, threads=False):
     """fn()'s result and the user spans of its Chrome trace, as
-    {name: [(start, end), ...]} in microseconds."""
+    {name: [(start, end), ...]} in microseconds; with `threads`, each
+    span also carries its thread, (start, end, tid)."""
     with TT.trace(str(logdir)):
         out = fn()
     (path,) = logdir.glob("*.json")
@@ -85,7 +89,8 @@ def _traced(fn, logdir):
     for e in json.loads(path.read_text())["traceEvents"]:
         if e.get("ph") == "X" and e.get("cat") == "user_annotation":
             spans.setdefault(e["name"], []).append(
-                (e["ts"], e["ts"] + e["dur"]))
+                (e["ts"], e["ts"] + e["dur"])
+                + ((e.get("tid"),) if threads else ()))
     return out, spans
 
 
@@ -156,6 +161,45 @@ def test_mesh_fit_predict_spans_and_counters(tmp_path):
                       "fitter.pad_rows": 2, "stage.cards": 1,
                       "readback.bytes": n * (NGRID + 2) * 4}
     # Traced on the mesh, the untraced single-device result bit for bit.
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_card_fit_predict_stores_on_worker_threads(tmp_path):
+    """On the card, masked in four batches: the launching thread's spans
+    nest as on the CPU but for the store, which runs on the store
+    workers (``readback.wait`` and ``readback.store``, one each a record
+    of this size, none on the launching thread); the launching thread
+    waits on the pool in ``readback.join``, inside the stream: before
+    it reuses a slot (batches 3 and 4, inside ``readback.copy``) and
+    once at its end.  ``readback.pooled`` counts every shard; the
+    results are the untraced call's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, batch = 1024, 256
+    models, labels, cat = _problem(n, masked=True)
+    want = _fit(models, labels, cat, device="cuda", batch_size=batch)
+    (got, spans), counts = _counted(lambda: _traced(
+        lambda: _fit(models, labels, cat, device="cuda", batch_size=batch),
+        tmp_path, threads=True))
+    (main,) = {tid for *_, tid in spans["fitter.fit_predict"]}
+    store = {"readback.wait", "readback.store"}
+    on_main = {k: [(s, e) for s, e, tid in v if tid == main]
+               for k, v in spans.items()}
+    workers = {k: [tid for *_, tid in v if tid != main]
+               for k, v in spans.items() if k in store}
+    _assert_nested(on_main, {**{k: v for k, v in PARENT.items()
+                                if k not in store},
+                             "readback.join": "fitter.stream", **TABLE})
+    assert not on_main["readback.wait"] and not on_main["readback.store"]
+    assert len(workers["readback.wait"]) == len(workers["readback.store"])
+    assert len(workers["readback.store"]) == 4
+    assert len(on_main["readback.join"]) == 3
+    copies = on_main["readback.copy"]
+    assert sum(any(cs <= s and e <= ce for cs, ce in copies)
+               for s, e in on_main["readback.join"]) == 2
+    assert counts["readback.pooled"] == counts["fitter.shards"] == 4
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
 
